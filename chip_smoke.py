@@ -27,13 +27,35 @@ Phases, each of which raises on failure:
    on the same pool, and a free-running gather run whose streams are
    compared;
 5. numbers (printed, nothing gated on them): kernel, plain-version and
-   library-call times at the main-path shapes (RMSNorm's on the device,
-   from a CUDA graph), the full-width decode tick, the chunked-prefill
-   step and end-to-end tokens/s.
+   library-call times at the main-path shapes (device time per call from
+   CUDA graphs: K1 and SDPA of flush + call pairs less the flushes alone,
+   RMSNorm of back-to-back calls), the full-width decode tick, the
+   chunked-prefill step and end-to-end tokens/s;
+6. the Sedov stencil kernel against its plain version on the card: grids
+   8, 13, 16, 24, 32, 64 and 256, each on a developed blast state and on
+   a rough state (every zone different, so that every tile seam sees
+   varied data), one step and ten, every zone of every field held to
+   rtol 1e-6 (the kernel rounds as the plain version does); ten kernel
+   steps also against ten oracle steps (n = 16 and 256);
+7. the LULESH path at full size: ``run_easey`` deploys ``lulesh-dash``
+   (``lulesh -i 1000 -s 256``) with the paper's Listing 1.5 job to
+   ``nvidia:h100`` twice (the first run is warm-up); each run must end
+   ``finished`` with exactly 1000 stencil launches, a batch file and a
+   package that passes its integrity check, and a final state that
+   passes the reference's blast-wave checks and equals 1000 plain fused
+   steps zone by zone; one more kernel step on that state, where the
+   wave has crossed many tiles on every axis, is held against the plain
+   version;
+8. LULESH numbers (printed, nothing gated on them): stencil, plain-step
+   and CFL-reduction times at n = 256 against their bounds, the time per
+   step of ``run``, the FOM of ``lulesh.run`` called directly and through
+   ``run_easey`` (the same window: the state built before the clock
+   starts), and how far the 1000-step kernel state is from 1000 oracle
+   steps.
 
 The second-to-last line of output is the card's ``name, power.limit``;
-before it a JSON line lists every kernel with its launches on the
-full-width run, error, times and bound; the last line is the ok JSON.
+before it a JSON line lists every kernel with its launches on its path's
+full-size run, error, times and bound; the last line is the ok JSON.
 Without a CUDA device, or outside a checkout of the repository, the
 script exits non-zero and prints no result.
 """
@@ -44,6 +66,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -66,6 +89,21 @@ LOGITS_VS_CONTROL = 2.0
 # tensor cores (the kernels here run on CUDA cores in f32)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# the stencil kernel (f32, built with -fmad=false) against its plain
+# version: each zone of every field within this rtol, with no absolute
+# slack, after any number of steps (each operation rounds once in both,
+# in the same order).  Against the oracle step, whose order differs:
+# scale-relative error per field after one step and after ten
+# (tests/test_kernels_stencil.py)
+STENCIL_ELEM_RTOL = 1e-6
+STENCIL_TOL_1, STENCIL_TOL_10 = 1e-5, 1e-4
+STENCIL_FIELDS = ("rho", "e", "v", "t")
+# the LULESH run: the paper's Listing 1.5 at a single-GPU grid
+LULESH_ITERS, LULESH_GRID = 1000, 256
+# f32 operations of one fused step per zone (sedov_stencil.cu, counted
+# once per zone: EOS 2, div 8, q 4, pq 1, 1/rho 2, momentum 15, div 8,
+# energy 5, mass 4)
+STENCIL_FLOPS_PER_ZONE = 49
 
 
 def _smi() -> str:
@@ -123,6 +161,14 @@ def _graph_ms(torch, fn, n: int) -> float:
         for _ in range(n):
             fn()
     return _events_ms(torch, graph.replay, 10) / n
+
+
+def _graph_pairs_ms(torch, fn, flush, n: int) -> float:
+    """Device ms per call of ``fn`` run on a cold L2: ``n`` (flush, fn)
+    pairs in one CUDA graph, less ``n`` flushes alone in another, so
+    neither the host's launch delay nor the flush is in the time."""
+    return _graph_ms(torch, lambda: (flush(), fn()), n) - \
+        _graph_ms(torch, flush, n)
 
 
 def _profile_ticks(torch, card: str, tick, n: int) -> None:
@@ -227,6 +273,90 @@ def _check_close(name, got, want, atol, rtol) -> float:
     return float(err.max().item())
 
 
+def _rel_err(got, want) -> dict:
+    """Scale-relative error per field: max |got - want| / max |want|."""
+    return {f: float((got[f] - want[f]).abs().max()
+                     / (want[f].abs().max() + 1e-12)) for f in STENCIL_FIELDS}
+
+
+def _hold_zones(name, got, want) -> float:
+    """Every zone of every field of a stencil state within
+    STENCIL_ELEM_RTOL of the plain version's; the max abs error."""
+    return max(_check_close(f"{name}: {f}", got[f], want[f], 0.0,
+                            STENCIL_ELEM_RTOL) for f in STENCIL_FIELDS)
+
+
+def _fused_run(ref, st, iters):
+    """``iters`` plain fused steps: the CFL reduction, then the plain
+    version of the stencil kernel (what ``ops.sedov_step_kernel`` does
+    with the kernel)."""
+    for _ in range(iters):
+        st = ref.sedov_step_ref(st, ref.cfl_dt(st))
+    return st
+
+
+def _rough_state(np, lulesh, n, seed, device):
+    """A state with every zone different (rho, e and v drawn from a seed),
+    so that each tile seam sees varied data: a wrong neighbour there gives
+    wrong numbers, where on the early blast's uniform gas it would give
+    the same ones."""
+    rng = np.random.default_rng(seed)
+    return lulesh.state_from_numpy({
+        "rho": rng.uniform(0.5, 2.0, (n, n, n)).astype(np.float32),
+        "e": rng.uniform(5e3, 2e4, (n, n, n)).astype(np.float32),
+        "v": rng.normal(0.0, 10.0, (3, n, n, n)).astype(np.float32),
+        "t": np.float32(0.0)}, device)
+
+
+def _stencil_checks(np, lulesh, ref, step_fn, grids, ten_grids,
+                    device="cuda"):
+    """The stencil kernel ``step_fn(state, dt)`` against its plain version
+    on developed blast states and rough states: one step at each of
+    ``grids``, ten at each of ``ten_grids``.  Raises on a difference;
+    returns (max abs error, max scale-relative error, ten-step
+    scale-relative error against the oracle per grid)."""
+    def developed(n, warm):
+        """A state after ``warm`` plain steps, taken through numpy as the
+        tests take the reference's."""
+        cfg = lulesh.LuleshConfig(grid=n)
+        st = lulesh.run(lulesh.init_state(cfg, device), cfg, warm)
+        return lulesh.state_from_numpy(lulesh.state_to_numpy(st), device)
+
+    def kernel_run(st, iters):
+        for _ in range(iters):
+            st = step_fn(st, ref.cfl_dt(st))
+        return st
+
+    err, rel, ten = 0.0, 0.0, {}
+    for i, n in enumerate(grids):
+        for kind, st in (("developed", developed(n, i % 5)),
+                         ("rough", _rough_state(np, lulesh, n, n, device))):
+            dt = ref.cfl_dt(st)
+            got, want = step_fn(st, dt), ref.sedov_step_ref(st, dt)
+            err = max(err, _hold_zones(f"sedov_stencil n={n} {kind}, one "
+                                       f"step", got, want))
+            e1 = _rel_err(got, want)
+            if max(e1.values()) > STENCIL_TOL_1:
+                raise AssertionError(f"sedov_stencil n={n} {kind}, one step:"
+                                     f" scale-relative error {e1} > "
+                                     f"{STENCIL_TOL_1}")
+            rel = max(rel, *e1.values())
+    for n in ten_grids:
+        cfg = lulesh.LuleshConfig(grid=n)
+        for kind, st in (("developed", developed(n, 0)),
+                         ("rough", _rough_state(np, lulesh, n, n, device))):
+            got = kernel_run(st, 10)
+            err = max(err, _hold_zones(f"sedov_stencil n={n} {kind}, ten "
+                                       f"steps", got, _fused_run(ref, st, 10)))
+            if kind == "developed":
+                ten[n] = _rel_err(got, lulesh.run(st, cfg, 10))
+                if max(ten[n].values()) > STENCIL_TOL_10:
+                    raise AssertionError(f"sedov_stencil n={n}, ten steps "
+                                         f"vs the oracle step: {ten[n]} > "
+                                         f"{STENCIL_TOL_10}")
+    return err, rel, ten
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -235,15 +365,32 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.core.appspec import AppSpec
+    from repro_torch.core.jobs import JobState
+    from repro_torch.core.jobspec import lulesh_example, parse_jobspec
+    from repro_torch.core.package import extract_package
     from repro_torch.core.target import TargetSpec, get_target, register
     from repro_torch.core.tuning import (kv_bytes_per_token,
                                          param_count_estimate, tune)
     from repro_torch.configs.base import SHAPES
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.core.workflow import run_easey
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.sedov_stencil import sedov_step_cuda
+    from repro_torch.models import lulesh
     from repro_torch.serving import Request, ServeEngine, zipf_trace
     from repro_torch.training.steps import build_decode_step_slots_paged
+
+    wrappers = {"paged_attention": paged_attention_cuda,
+                "rmsnorm": rmsnorm_cuda, "sedov_stencil": sedov_step_cuda}
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -395,14 +542,13 @@ def main() -> int:
     print(f"[full] deepseek-7b on {card}: {eng_k.num_slots} slots, "
           f"{eng_k.num_pages} pages x {eng_k.page_size}, chunk "
           f"{eng_k.prefill_chunk}, engine built in {init_s:.1f} s")
-    paged_attention_cuda.launches = 0
-    rmsnorm_cuda.launches = 0
+    reset_counts()
     st_k = eng_k.run(reqs)
-    launches = {"paged_attention": paged_attention_cuda.launches,
-                "rmsnorm": rmsnorm_cuda.launches}
+    launches = counts()
     ticks, chunks = st_k.decode_steps, st_k.prefill_chunks
     want = {"paged_attention": full.num_layers * ticks,
-            "rmsnorm": (2 * full.num_layers + 1) * (ticks + chunks)}
+            "rmsnorm": (2 * full.num_layers + 1) * (ticks + chunks),
+            "sedov_stencil": 0}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
     for r, q_ in zip(st_k.results, reqs):
@@ -531,7 +677,8 @@ def main() -> int:
         2 * toks * Kh * dh * 2
     k1_flops = 4 * H * dh * toks
     k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_flops / F32_FLOPS) * 1e3
-    k1_ms = _events_ms(torch, lambda: paged_attention_cuda(*k1_main), 50, flush)
+    k1_ms = _graph_pairs_ms(torch, lambda: paged_attention_cuda(*k1_main),
+                            flush, 50)
     # the plain version is the engine's gather path
     k1_plain = _events_ms(torch, lambda: ref.paged_attention_ref(*k1_main),
                           20, flush)
@@ -539,12 +686,14 @@ def main() -> int:
     kg = kp[table.long()].reshape(slots, T, Kh, dh).transpose(1, 2)
     vg = vp[table.long()].reshape(slots, T, Kh, dh).transpose(1, 2)
     mask = (torch.arange(T, device="cuda")[None] < kv_len[:, None])[:, None, None]
-    k1_lib = _events_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None], kg, vg, attn_mask=mask), 50, flush)
+    k1_lib = _graph_pairs_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kg, vg, attn_mask=mask), flush, 50)
     print(f"[numbers] {card} paged_attention {slots} slots x {H} heads x "
-          f"{dh}, {toks} held tokens, L2 flushed: kernel {k1_ms:.4f} ms, "
-          f"plain (the gather path) {k1_plain:.4f} ms, SDPA over "
-          f"pre-gathered KV {k1_lib:.4f} ms, bound {k1_bound:.4f} ms "
+          f"{dh}, {toks} held tokens, L2 flushed: kernel {k1_ms:.4f} ms and "
+          f"SDPA over pre-gathered KV {k1_lib:.4f} ms (device, CUDA graph "
+          f"of flush + call pairs less the flushes), plain (the gather "
+          f"path, CUDA events) {k1_plain:.4f} ms, bound {k1_bound:.4f} ms "
           f"({k1_bytes / 1e6:.2f} MB)")
 
     # K2 is far shorter than its host call: device time per call from a
@@ -601,6 +750,152 @@ def main() -> int:
           f"{st_warm.prefill_chunks} chunks); peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 
+    # ---- 6. the stencil against its plain version ------------------------
+    grids = (8, 13, 16, 24, 32, 64, LULESH_GRID)
+    k4_err, k4_rel, ten = _stencil_checks(np, lulesh, ref, sedov_step_cuda,
+                                          grids, (16, LULESH_GRID))
+    print(f"[kernels] sedov_stencil vs plain, developed and rough states, one "
+          f"step at n = {grids} and ten at n = {tuple(ten)}: every zone of "
+          f"every field within rtol {STENCIL_ELEM_RTOL} (max abs "
+          f"{k4_err:.4g}); one step max scale-relative error {k4_rel:.4g} "
+          f"(limit {STENCIL_TOL_1}); ten kernel steps vs ten oracle steps: "
+          f"{ {n: round(max(e.values()), 10) for n, e in ten.items()} } "
+          f"(limit {STENCIL_TOL_10})")
+
+    # ---- 7. the LULESH path at full size ---------------------------------
+    iters, n = LULESH_ITERS, LULESH_GRID
+    cmd = (f"ch-run -b ./data:/data lulesh.dash -- /built/lulesh.dash "
+           f"-i {iters} -s {n}")
+    app = AppSpec(arch="lulesh-dash", shape="train_4k",
+                  run=f"lulesh -i {iters} -s {n}")
+    easey = []
+    with tempfile.TemporaryDirectory(prefix="easey_") as storage:
+        for run_i in range(2):                 # the first run is warm-up
+            job = lulesh_example()
+            job["execution"][0]["mpi"]["command"] = cmd
+            spec = parse_jobspec(job)
+            root = Path(storage) / f"run{run_i}"
+            reset_counts()
+            (mw, jid, res), wall_s = _timed(run_easey, app, "nvidia:h100",
+                                            spec, storage=root)
+            got_counts = counts()
+            state = mw.status(jid)
+            if state is not JobState.FINISHED:
+                raise AssertionError(f"EASEY run {run_i}: job {state.value}"
+                                     f":\n{mw.logs(jid)[1]}")
+            want = {"paged_attention": 0, "rmsnorm": 0,
+                    "sedov_stencil": iters}
+            if got_counts != want:
+                raise AssertionError(f"EASEY run {run_i}: kernel launches "
+                                     f"{got_counts} != {want}")
+            workdir = root / "cluster" / spec.job_id
+            if f"srun --ntasks=2197 {cmd}" not in \
+                    (workdir / "batch.sh").read_text():
+                raise AssertionError("batch.sh lacks the job's command")
+            pkgs = list((root / "packages").glob("*.easey.tar"))
+            if len(pkgs) != 1:
+                raise AssertionError(f"packages written: {pkgs}")
+            manifest = extract_package(pkgs[0], workdir / "check")
+            if (res.plan.kernels, set(res.built), manifest["step"]) != \
+                    ("cuda", {"sedov_stencil"}, "sedov_step"):
+                raise AssertionError(f"build: kernels {res.plan.kernels}, "
+                                     f"built {res.built}, step "
+                                     f"{manifest['step']}")
+            out = mw.scheduler.result(jid)[0]
+            if (out["device"], out["kernels"]) != ("cuda", "cuda"):
+                raise AssertionError(f"ran on {out['device']} with "
+                                     f"{out['kernels']}")
+            easey.append(out)
+            print(f"[lulesh] {card} run_easey {run_i} "
+                  f"({'warm-up' if run_i == 0 else 'measured'}): "
+                  f"{state.value}, {got_counts['sedov_stencil']} stencil "
+                  f"launches, build {res.timings.get('build_s', 0.0):.2f} s, "
+                  f"run {out['seconds']:.4f} s, FOM {out['fom']:.1f} "
+                  f"zone-iterations/s, whole deployment {wall_s:.2f} s")
+    launches["sedov_stencil"] = got_counts["sedov_stencil"]
+    fin = easey[-1]["state"]
+    del easey[0]["state"]
+    # the reference's blast-wave checks (tests/test_models_smoke.py)
+    if not all(bool(torch.isfinite(fin[f]).all()) for f in ("rho", "e", "v")):
+        raise AssertionError("non-finite LULESH state")
+    if not (float(fin["e"][1, 0, 0]) > 1e3 and
+            float((fin["rho"] - 1.0).abs().max()) > 1e-3 and
+            float(fin["t"]) > 0):
+        raise AssertionError(f"blast wave: e[1,0,0] {float(fin['e'][1, 0, 0])}"
+                             f", max |rho - 1| "
+                             f"{float((fin['rho'] - 1.0).abs().max())}, t "
+                             f"{float(fin['t'])}")
+    # how far the wave has gone along each axis: the last plane with v != 0
+    moving = (fin["v"] != 0).any(0)
+    reach = [int(m.nonzero().max()) for m in (
+        moving.any(2).any(1), moving.any(2).any(0), moving.any(1).any(0))]
+    # the kernel on the developed full-size state, and the whole run
+    # against as many plain fused steps, zone by zone
+    dt = ref.cfl_dt(fin)
+    k4_err = max(k4_err, _hold_zones(
+        f"sedov_stencil n={n} after {iters} steps, one step",
+        sedov_step_cuda(fin, dt), ref.sedov_step_ref(fin, dt)))
+    fused_fin = _fused_run(ref, lulesh.init_state(lulesh.LuleshConfig(
+        grid=n), "cuda"), iters)
+    k4_err = max(k4_err, _hold_zones(
+        f"{iters} kernel steps vs {iters} plain fused steps", fin, fused_fin))
+    del fused_fin
+    print(f"[lulesh] {card} final state after {iters} steps on {n}^3: "
+          f"finite, e[1,0,0] {float(fin['e'][1, 0, 0]):.6g}, max |rho - 1| "
+          f"{float((fin['rho'] - 1.0).abs().max()):.6g}, t "
+          f"{float(fin['t']):.6g}, v != 0 up to index {reach} along axes "
+          f"0/1/2 (tiles 8 x 8 x 32); equal to {iters} plain fused steps "
+          f"and one more kernel step equal to the plain one, every zone "
+          f"within rtol {STENCIL_ELEM_RTOL}")
+
+    # ---- 8. LULESH numbers -----------------------------------------------
+    cfg = lulesh.LuleshConfig(grid=n)
+    zones = n ** 3
+    dt = ref.cfl_dt(fin)
+    k4_ms = _events_ms(torch, lambda: sedov_step_cuda(fin, dt), 50)
+    k4_plain = _events_ms(torch, lambda: ref.sedov_step_ref(fin, dt), 10)
+    cfl_ms = _events_ms(torch, lambda: ref.cfl_dt(fin), 50)
+    # five fields read and five written (dt, t in and t out beside them)
+    k4_bytes = 10 * 4 * zones + 3 * 4
+    k4_flops = STENCIL_FLOPS_PER_ZONE * zones
+    k4_bound = max(k4_bytes / HBM_BYTES_PER_S, k4_flops / F32_FLOPS) * 1e3
+    # rho, e and v read once; p 2, 1/rho-clamp 2, GAMMA p 1, sqrt 1,
+    # |v|^2 5, sqrt 1, sums 2, max 1 operations per zone
+    cfl_bytes = 5 * 4 * zones + 4
+    cfl_bound = max(cfl_bytes / HBM_BYTES_PER_S,
+                    15 * zones / F32_FLOPS) * 1e3
+    print(f"[numbers] {card} sedov_stencil at {n}^3 (CUDA events, back to "
+          f"back): kernel {k4_ms:.4f} ms, bound {k4_bound:.4f} ms "
+          f"({k4_bytes / 1e6:.1f} MB), {k4_bound / k4_ms:.3f} of the bound; "
+          f"plain fused step {k4_plain:.4f} ms; cfl_dt {cfl_ms:.4f} ms, "
+          f"bound {cfl_bound:.4f} ms")
+
+    def direct(state):
+        out = lulesh.run(state, cfg, iters, use_kernel=True)
+        torch.cuda.synchronize()
+        return out
+    fom_direct = []
+    for _ in range(2):
+        # the state is built before the clock starts, as run_command does
+        state = lulesh.init_state(cfg, "cuda")
+        torch.cuda.synchronize()
+        _, secs = _timed(direct, state)
+        fom_direct.append(lulesh.fom(zones, iters, secs))
+    del state
+    fom_easey = easey[-1]["fom"]
+    step_ms = zones / fom_direct[0] * 1e3
+    delta = fom_easey / fom_direct[0] - 1.0
+    print(f"[numbers] {card} LULESH {n}^3 x {iters} steps: run "
+          f"{step_ms:.4f} ms per step; FOM direct (lulesh.run) "
+          f"{fom_direct[0]:.1f}, again {fom_direct[1]:.1f}; through "
+          f"run_easey {fom_easey:.1f}; EASEY vs direct {delta:+.4%}")
+    plain_fin = lulesh.run(lulesh.init_state(cfg, "cuda"), cfg, iters)
+    drift = _rel_err(fin, plain_fin)
+    print(f"[numbers] {card} {iters}-step kernel state vs {iters}-step plain "
+          f"state, scale-relative: "
+          f"{ {f: float(f'{e:.4g}') for f, e in drift.items()} }")
+    del fin, plain_fin
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -617,6 +912,15 @@ def main() -> int:
          "ms": k2[8]["ms"], "plain_ms": k2[8]["plain"],
          "bound_ms": k2[8]["bound"], "bound_by": "bytes",
          "library_ms": k2[8]["lib"]},
+        # no one PyTorch call computes the fused step: library_ms is null
+        {"name": "sedov_stencil", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sedov_stencil.cu",
+         "replaces": "src/repro/kernels/sedov_stencil.py:143",
+         "launches": launches["sedov_stencil"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound,
+         "bound_by": "bytes" if k4_bytes / HBM_BYTES_PER_S >=
+         k4_flops / F32_FLOPS else "operations",
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,4 +5,4 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 # import for registration side effects
-from repro_torch.configs import deepseek_7b  # noqa: F401, E402
+from repro_torch.configs import deepseek_7b, lulesh_dash  # noqa: F401, E402

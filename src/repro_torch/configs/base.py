@@ -18,7 +18,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense|moe|ssm_xlstm|hybrid_mamba|encdec|vlm
+    family: str                      # dense|moe|ssm_xlstm|hybrid_mamba|encdec|vlm|stencil
     num_layers: int
     d_model: int
     num_heads: int
@@ -85,14 +85,16 @@ SHAPES: dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
-ARCHS: dict[str, ModelConfig] = {}
+ARCHS: dict[str, dict] = {}
 
 
-def register(cfg: ModelConfig, smoke: ModelConfig) -> ModelConfig:
+def register(cfg: ModelConfig, smoke: ModelConfig,
+             skip_shapes: tuple[str, ...] = ()) -> ModelConfig:
     """Register a full config and its smoke config (smoke configs are
-    addressable archs too)."""
-    ARCHS[cfg.name] = cfg
-    ARCHS[smoke.name] = smoke
+    addressable archs too); ``skip_shapes`` names the shapes the arch has
+    no dry-run cell for."""
+    ARCHS[cfg.name] = {"full": cfg, "skip_shapes": skip_shapes}
+    ARCHS[smoke.name] = {"full": smoke, "skip_shapes": skip_shapes}
     return cfg
 
 
@@ -100,4 +102,4 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in ARCHS:
         raise KeyError(f"arch {arch!r} is not ported yet; ported: "
                        f"{sorted(ARCHS)} (ROADMAP: other arch configs)")
-    return ARCHS[arch]
+    return ARCHS[arch]["full"]

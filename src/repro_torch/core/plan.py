@@ -1,10 +1,13 @@
 """DeploymentPlan — the record of every decision the tuner makes (port of
 ``repro/core/plan.py``; the fields are the reference's, field for
-field, so plans from both packages compare directly)."""
+field, so plans from both packages compare directly).  The plan is
+shipped inside the package manifest so a deployment is reproducible and
+auditable (the paper's tuning report)."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 
 
 @dataclasses.dataclass
@@ -37,3 +40,64 @@ class DeploymentPlan:
     napkin: dict = dataclasses.field(default_factory=dict)
     notes: list = dataclasses.field(default_factory=list)
 
+    def to_json(self) -> str:
+        d = dataclasses.asdict(self)
+        d["mesh_shape"] = list(self.mesh_shape)
+        d["mesh_axes"] = list(self.mesh_axes)
+        return json.dumps(d, indent=2)
+
+    @classmethod
+    def from_json(cls, s: str) -> "DeploymentPlan":
+        d = json.loads(s)
+        d["mesh_shape"] = tuple(d["mesh_shape"])
+        d["mesh_axes"] = tuple(d["mesh_axes"])
+        return cls(**d)
+
+    def report(self) -> str:
+        lines = [f"EASEY tuning report — {self.arch} × {self.shape} on {self.target}",
+                 f"  mesh            : {dict(zip(self.mesh_axes, self.mesh_shape))}",
+                 f"  microbatches    : {self.microbatches}",
+                 f"  remat           : {self.remat_policy}",
+                 f"  grad accum dtype: {self.grad_accum_dtype}",
+                 f"  optimizer       : {self.optimizer}",
+                 f"  kernels         : {self.kernels}",
+                 f"  seq parallel    : {self.sequence_parallel}",
+                 f"  grad compression: {self.grad_compression}"]
+        if self.serve_slots:
+            per = " per replica" if self.serve_replicas > 1 else ""
+            lines.append(f"  serve kv pool   : {self.serve_slots} slots "
+                         f"x {self.serve_max_len}{per}")
+        if self.serve_num_pages:
+            per = " per replica" if self.serve_replicas > 1 else ""
+            lines.append(f"  serve kv pages  : {self.serve_num_pages} pages "
+                         f"x {self.serve_page_size} tokens (paged layout{per})")
+        if self.serve_replicas > 1:
+            lines.append(f"  serve replicas  : {self.serve_replicas} "
+                         f"(HBM budget split per replica)")
+        if self.serve_prefill_chunk:
+            lines.append(f"  serve prefill   : {self.serve_prefill_chunk} "
+                         f"tokens/chunk interleaved with decode ticks")
+        if self.serve_prefix_cache_pages:
+            lines.append(f"  serve prefix $  : up to "
+                         f"{self.serve_prefix_cache_pages} pages LRU-pinned "
+                         f"for shared-prefix reuse (paged layout)")
+        if self.serve_kv_kernel:
+            lines.append(f"  serve kv kernel : {self.serve_kv_kernel} "
+                         f"(paged decode attention)")
+        if self.serve_spec_k:
+            lines.append(f"  serve spec k    : {self.serve_spec_k} draft "
+                         f"tokens per verify step (draft-then-verify)")
+        if self.serve_slo_ttft_steps or self.serve_slo_e2e_steps:
+            lines.append(f"  serve SLO       : ttft <= "
+                         f"{self.serve_slo_ttft_steps} vsteps, e2e <= "
+                         f"{self.serve_slo_e2e_steps} vsteps "
+                         f"(goodput deadlines, virtual step clock)")
+        if self.napkin:
+            lines.append("  napkin math:")
+            for k, v in self.napkin.items():
+                lines.append(f"    {k}: {v}")
+        for n in self.notes:
+            lines.append(f"  note: {n}")
+        for f in self.sharding_fallbacks:
+            lines.append(f"  sharding fallback: {f}")
+        return "\n".join(lines)

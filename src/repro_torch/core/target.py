@@ -84,3 +84,9 @@ def default_target(device: torch.device) -> str:
     """The target a device runs when the caller names none: the H100 (its
     hand-written kernels) for CUDA, the CPU debug target otherwise."""
     return "nvidia:h100" if device.type == "cuda" else "local:cpu"
+
+
+def device_for(target: TargetSpec) -> torch.device:
+    """The device a target's deployment runs on: the CPU for the CPU
+    target, the card otherwise."""
+    return torch.device("cpu" if target.chip == "cpu" else "cuda")

@@ -68,8 +68,8 @@ def prefix_cache_quota(num_pages: int) -> int:
     return max((num_pages - 1) // 4, 1) if num_pages else 0
 
 
-def tune(cfg: ModelConfig, shape: ShapeConfig,
-         target: TargetSpec) -> DeploymentPlan:
+def tune(cfg: ModelConfig, shape: ShapeConfig, target: TargetSpec,
+         overrides: dict | None = None) -> DeploymentPlan:
     if shape.kind == "train":
         raise NotImplementedError(
             "training plans are not ported yet (ROADMAP slice E)")
@@ -85,6 +85,8 @@ def tune(cfg: ModelConfig, shape: ShapeConfig,
         plan.sequence_parallel = True
         plan.notes.append("batch smaller than data axis at long context -> "
                           "sequence-parallel activations")
+    for k, v in (overrides or {}).items():
+        setattr(plan, k, v)
     return plan
 
 

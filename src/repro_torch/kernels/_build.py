@@ -25,9 +25,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".cuda_build"
-SOURCES = ("paged_attention", "rmsnorm")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+SOURCES = ("paged_attention", "rmsnorm", "sedov_stencil")
+ARCH = "sm_90a"
+NVCC_FLAGS = ("-gencode", f"arch=compute_90a,code={ARCH}", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# flags of one source only: the stencil rounds every operation once, as
+# its plain version's separate PyTorch ops do (no a*b+c contracted to FMA)
+SOURCE_FLAGS = {"sedov_stencil": ("-fmad=false",)}
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 
 
@@ -42,9 +46,18 @@ def nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+def flags(name: str) -> tuple[str, ...]:
+    """The ``nvcc`` flags source ``name`` is compiled with."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
+def source_sha256(name: str) -> str:
+    return hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / f"{name}.cu").read_bytes() + " ".join(flags(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -62,7 +75,8 @@ def build(names=SOURCES) -> dict[str, str]:
     procs = {}
     for name in todo:
         tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [compiler, *flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []

@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.sedov_stencil import sedov_step_cuda
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -36,6 +37,18 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
         return rmsnorm_cuda(x, w, eps=eps, out_dtype=out_dtype)
     _check_cpu(x)
     return ref.rmsnorm_ref(x, w, eps=eps, out_dtype=out_dtype)
+
+
+def sedov_step_kernel(state: dict, cfg=None, *, dx: float = 1.0) -> dict:
+    """Fused LULESH step: the global CFL reduction (plain PyTorch, on the
+    state's device) and the stencil update given that ``dt`` (see
+    kernels/sedov_stencil.py).  ``cfg`` is accepted for the reference's
+    signature; the grid comes from the state."""
+    dt = ref.cfl_dt(state, dx=dx)
+    if state["rho"].is_cuda:
+        return sedov_step_cuda(state, dt, dx=dx)
+    _check_cpu(state["rho"])
+    return ref.sedov_step_ref(state, dt, dx=dx)
 
 
 def _check_cpu(t: torch.Tensor) -> None:

@@ -6,7 +6,11 @@ points, on any device.  The CPU path of the port runs on them
 against them, and ``chip_smoke.py`` holds each CUDA kernel against them
 on the card.  ``paged_attention_ref`` is also the engine's gather path
 (``kv_kernel="gather"``), taken on the card only when named; nothing on
-the main path calls these functions for CUDA tensors.
+the main path calls these functions for CUDA tensors.  ``cfl_dt`` is the
+exception and no kernel's plain version: the reference computes LULESH's
+global CFL reduction outside its stencil kernel, and the port runs the
+model's own (``models/lulesh.py``, re-exported here) in plain PyTorch on
+every device, leaving ``dt`` on the device.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.models.lulesh import C_Q, GAMMA, _div, _grad, cfl_dt  # noqa: F401
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -63,3 +69,24 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     xf = x.float()
     y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return (y * w.float()).to(out_dtype or x.dtype)
+
+
+def sedov_step_ref(state: dict, dt: torch.Tensor, *, dx: float = 1.0) -> dict:
+    """One fused Sedov hydro step for a given ``dt`` (0-d tensor), in the
+    kernel's own operation order (the reference kernel's
+    ``_sedov_kernel``): EOS, divergence, viscosity, pq = p + q, momentum
+    with grad(pq) * (1 / rho), re-divergence, energy, mass.  Every derived
+    field is itself edge-clamped: its value at a neighbour past the
+    domain edge is its value at the edge zone."""
+    rho, e, v = state["rho"], state["e"], state["v"]
+    rho_inv = 1.0 / torch.clamp_min(rho, 1e-12)
+    p = (GAMMA - 1.0) * rho * e
+    dv = _div(v, dx)
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    q = torch.where(dv < 0, C_Q * rho * dv * dv, zero)
+    pq = p + q
+    v_n = v - dt * _grad(pq, dx) * rho_inv
+    dv_n = _div(v_n, dx)
+    e_n = torch.clamp_min(e - dt * pq * dv_n * rho_inv, 0.0)
+    rho_n = torch.clamp_min(rho * (1.0 - dt * dv_n), 1e-12)
+    return {"rho": rho_n, "e": e_n, "v": v_n, "t": state["t"] + dt}

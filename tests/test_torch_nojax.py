@@ -30,6 +30,9 @@ def _run(args, cwd, env_src=True):
 def test_port_imports_no_jax_and_no_reference(tmp_path):
     code = ("import sys\n"
             "import repro_torch.serving.engine, repro_torch.kernels.ops\n"
+            "import repro_torch.core.workflow, repro_torch.launch.run\n"
+            "import repro_torch.models.lulesh, repro_torch.configs\n"
+            "import repro_torch.kernels.sedov_stencil\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
