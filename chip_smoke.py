@@ -51,7 +51,27 @@ Phases, each of which raises on failure:
    step of ``run``, the FOM of ``lulesh.run`` called directly and through
    ``run_easey`` (the same window: the state built before the clock
    starts), and how far the 1000-step kernel state is from 1000 oracle
-   steps.
+   steps;
+9. the flash-attention kernel against its plain version on the card: the
+   shapes of tests/test_kernels_flash.py, a causal s != t case, the
+   kernel bench's shape, kv_len 32
+   (garbage past it invisible bit for bit) and 0 (exact zeros), and the
+   full-width shapes of ``deepseek-7b`` (32 heads) and of
+   ``mistral-large-123b``'s attention (96 heads over 8 kv heads), both
+   s = t = 4096 in bf16, causal, each element within one bf16 step of
+   the plain version's value — with the kernel's, the plain
+   version's and ``scaled_dot_product_attention``'s device times from
+   CUDA graphs beside the bound;
+10. the kernel bench (``repro_torch.kernels.bench``, the flash kernel's
+   own path), its rows printed and its launches counted;
+11. serving beyond greedy paged decoding: at smoke size, speculative
+   decoding on ``picolm-4-smoke`` (spec-on streams equal spec-off, the
+   paged kernel on every spec-off tick), the contiguous layout on
+   ``deepseek-7b-smoke`` (streams equal the paged layout's, the serving
+   benchmark's contiguous step counts) and a sampled trace with and
+   without preemption (equal streams); at full width, ``deepseek-7b``
+   serving 8 sampled requests with ``spec_k=4`` (decode and verify
+   ticks, accepted tokens per verify and tokens/s printed, not gated).
 
 The second-to-last line of output is the card's ``name, power.limit``;
 before it a JSON line lists every kernel with its launches on its path's
@@ -85,10 +105,40 @@ KERNEL_ATOL = KERNEL_RTOL = 2e-2
 # kernel's worst tick may exceed the control's worst by at most this
 # factor.
 LOGITS_VS_CONTROL = 2.0
-# H100 SXM data sheet: device memory rate and f32 rate outside the
-# tensor cores (the kernels here run on CUDA cores in f32)
+# H100 SXM data sheet: device memory rate, f32 rate outside the tensor
+# cores (the kernels here run on CUDA cores in f32) and the dense bf16
+# tensor-core rate (the least time of the attention products)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
+# the flash kernel against its plain version (tests/test_kernels_flash.py)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# At full width (s = t = 4096, unit-normal q/k/v) a causal row averages
+# thousands of keys and its outputs are ~0.03, so 2e-2 is the size of a
+# typical output and would pass a kernel that dropped a key tile.  There
+# both versions compute in f32 (they differ by ~1e-6) and round once to
+# bf16, so they differ by at most one bf16 step of the value, which is at
+# most 2**-7 of it: the limit is atol + rtol * |plain| with these.
+FLASH_FULL_ATOL, FLASH_FULL_RTOL = 1e-4, 2.0 ** -7
+# (b, s, t, H, K, dh, causal, dtype): tests/test_kernels_flash.py's
+# shapes, a causal s != t case (the kernel's top-left mask) and the shape
+# the kernel bench gives the kernel (phase 10)
+FLASH_CASES = [
+    (1, 128, 128, 4, 4, 64, True, "float32"),
+    (2, 256, 256, 4, 2, 64, True, "float32"),
+    (1, 128, 128, 8, 1, 32, True, "float32"),
+    (2, 128, 128, 4, 4, 64, False, "float32"),
+    (1, 256, 256, 6, 2, 64, True, "bfloat16"),
+    (1, 64, 64, 2, 2, 128, True, "bfloat16"),
+    (2, 512, 512, 2, 2, 64, True, "float32"),
+    (1, 128, 256, 4, 2, 64, True, "float32"),
+    (1, 512, 512, 4, 2, 64, True, "float32"),
+]
+# full width, causal, bf16: deepseek-7b's attention and the GQA widths of
+# mistral-large-123b (96 heads over 8 kv heads of 128), s = t = 4096
+FLASH_FULL = {"deepseek-7b": (1, 4096, 4096, 32, 32, 128),
+              "mistral-large-123b": (1, 4096, 4096, 96, 8, 128)}
+SAMPLED = dict(temperature=0.7, top_k=16, top_p=0.9)
 # the stencil kernel (f32, built with -fmad=false) against its plain
 # version: each zone of every field within this rtol, with no absolute
 # slack, after any number of steps (each operation rounds once in both,
@@ -267,8 +317,10 @@ def _one_step_noise(torch, out, frac, gen):
 def _check_close(name, got, want, atol, rtol) -> float:
     err = (got.float() - want.float()).abs()
     lim = atol + rtol * want.float().abs()
-    if not bool((err <= lim).all()):
-        raise AssertionError(f"{name}: max abs err {err.max().item():.4g} "
+    over = err > lim
+    if bool(over.any()):
+        raise AssertionError(f"{name}: max abs err {err.max().item():.4g}; "
+                             f"{int(over.sum())} of {err.numel()} elements "
                              f"over atol {atol} + rtol {rtol}")
     return float(err.max().item())
 
@@ -357,6 +409,82 @@ def _stencil_checks(np, lulesh, ref, step_fn, grids, ten_grids,
     return err, rel, ten
 
 
+def _flash_checks(torch, ref, flash_cuda) -> float:
+    """The flash kernel against its plain version at FLASH_CASES, each also
+    with kv_len = t / 4 and 0; at the (b, 128, 128) cases kv_len 32 with
+    K/V past it set to 1e4 must give the same output bit for bit, and
+    kv_len 0 exact zeros.  Returns the max abs error."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    err = 0.0
+    for b, s, t, H, K, dh, causal, dt in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for shape in ((b, s, H, dh), (b, t, K, dh), (b, t, K, dh)))
+        for kv_len in (None, t // 4, 0):
+            got = flash_cuda(q, k, v, causal=causal, kv_len=kv_len)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           kv_len=kv_len)
+            err = max(err, _check_close(
+                f"flash_attention {(b, s, t, H, K, dh, causal, dt)} "
+                f"kv_len={kv_len}", got, want, FLASH_TOL[dt], FLASH_TOL[dt]))
+            if kv_len == 0 and bool(got.ne(0).any()):
+                raise AssertionError("flash_attention kv_len=0: not zeros")
+        if s == t == 128:
+            clean = flash_cuda(q, k, v, causal=causal, kv_len=32)
+            k2, v2 = k.clone(), v.clone()
+            k2[:, 32:], v2[:, 32:] = 1e4, 1e4
+            if not torch.equal(clean, flash_cuda(q, k2, v2, causal=causal,
+                                                 kv_len=32)):
+                raise AssertionError("flash_attention reads keys past "
+                                     "kv_len")
+    return err
+
+
+def _flash_full(torch, ref, flash_cuda, card, b, s, t, H, K, dh) -> dict:
+    """The flash kernel at one full-width causal bf16 shape: held against
+    its plain version, then the kernel, the plain version and
+    ``scaled_dot_product_attention`` (q, k, v in its (b, heads, s, dh)
+    layout, ``is_causal``, ``enable_gqa``) timed from CUDA graphs, and the
+    bound: the larger of q/k/v/out bytes over the memory rate and the
+    causal products' operations over the bf16 tensor-core rate."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16)
+               for shape in ((b, s, H, dh), (b, t, K, dh), (b, t, K, dh)))
+    got = flash_cuda(q, k, v, causal=True)
+    err = _check_close(f"flash_attention full width {(b, s, t, H, K, dh)}",
+                       got, ref.flash_attention_ref(q, k, v, causal=True),
+                       FLASH_FULL_ATOL, FLASH_FULL_RTOL)
+    ms = _graph_ms(torch, lambda: flash_cuda(q, k, v, causal=True), 5)
+    plain = _graph_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, causal=True), 2)
+    torch.cuda.empty_cache()
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = _graph_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=True,
+                                        enable_gqa=True), 20)
+    # key j <= query i < s (s == t here): s (s + 1) / 2 pairs per head,
+    # 2 dh operations each for q.k and for p.v
+    flops = 4 * b * H * dh * s * (s + 1) // 2
+    byts = (2 * b * s * H * dh + 2 * b * t * K * dh) * 2
+    bound = max(byts / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS) * 1e3
+    cores = flops / F32_FLOPS * 1e3
+    print(f"[numbers] {card} flash_attention b={b} s=t={s} H={H} K={K} "
+          f"dh={dh} bf16 causal (device ms per call, CUDA graphs): kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms; bound "
+          f"{bound:.4f} ms ({flops:.4g} operations on the bf16 tensor "
+          f"cores; {byts / 1e6:.1f} MB take {byts / HBM_BYTES_PER_S * 1e3:.4f}"
+          f" ms), {cores:.4f} ms at the f32 CUDA-core rate; max abs err "
+          f"{err:.4g} (limit {FLASH_FULL_ATOL} + {FLASH_FULL_RTOL} * "
+          f"|plain|); kernel at {bound / ms:.4f} of the bound, "
+          f"{cores / ms:.4f} of the CUDA-core figure")
+    del q, k, v, qs, ks, vs, got
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain": plain, "lib": lib, "bound": bound,
+            "bound_by": "bytes" if byts / HBM_BYTES_PER_S >=
+            flops / BF16_TENSOR_FLOPS else "operations", "err": err}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -373,17 +501,20 @@ def main() -> int:
     from repro_torch.core.tuning import (kv_bytes_per_token,
                                          param_count_estimate, tune)
     from repro_torch.configs.base import SHAPES
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, bench, ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.core.workflow import run_easey
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.kernels.sedov_stencil import sedov_step_cuda
     from repro_torch.models import lulesh
-    from repro_torch.serving import Request, ServeEngine, zipf_trace
+    from repro_torch.serving import (Request, ServeEngine, repetitive_trace,
+                                     zipf_trace)
     from repro_torch.training.steps import build_decode_step_slots_paged
 
     wrappers = {"paged_attention": paged_attention_cuda,
-                "rmsnorm": rmsnorm_cuda, "sedov_stencil": sedov_step_cuda}
+                "rmsnorm": rmsnorm_cuda, "sedov_stencil": sedov_step_cuda,
+                "flash_attention": flash_attention_cuda}
 
     def reset_counts():
         for w in wrappers.values():
@@ -548,7 +679,7 @@ def main() -> int:
     ticks, chunks = st_k.decode_steps, st_k.prefill_chunks
     want = {"paged_attention": full.num_layers * ticks,
             "rmsnorm": (2 * full.num_layers + 1) * (ticks + chunks),
-            "sedov_stencil": 0}
+            "sedov_stencil": 0, "flash_attention": 0}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
     for r, q_ in zip(st_k.results, reqs):
@@ -784,7 +915,7 @@ def main() -> int:
                 raise AssertionError(f"EASEY run {run_i}: job {state.value}"
                                      f":\n{mw.logs(jid)[1]}")
             want = {"paged_attention": 0, "rmsnorm": 0,
-                    "sedov_stencil": iters}
+                    "sedov_stencil": iters, "flash_attention": 0}
             if got_counts != want:
                 raise AssertionError(f"EASEY run {run_i}: kernel launches "
                                      f"{got_counts} != {want}")
@@ -896,6 +1027,120 @@ def main() -> int:
           f"{ {f: float(f'{e:.4g}') for f, e in drift.items()} }")
     del fin, plain_fin
 
+    # ---- 9. flash attention against its plain version -------------------
+    del eng_k, pool
+    torch.cuda.empty_cache()
+    k3_err = _flash_checks(torch, ref, flash_attention_cuda)
+    print(f"[kernels] flash_attention vs plain at {len(FLASH_CASES)} shapes "
+          f"(f32 and bf16, causal and not, GQA/MQA, s != t), kv_len t/4 and "
+          f"0: max abs err {k3_err:.4g} (tol {FLASH_TOL}); kv_len 0 exact "
+          f"zeros; keys past kv_len invisible bit for bit")
+    k3 = {name: _flash_full(torch, ref, flash_attention_cuda, card, *shape)
+          for name, shape in FLASH_FULL.items()}
+    k3_err = max(k3_err, *(r["err"] for r in k3.values()))
+
+    # ---- 10. the kernel bench: the flash kernel's own path ---------------
+    bench_rows = []
+    reset_counts()
+    bench.run(lambda name, us, note: bench_rows.append((name, us, note)))
+    bench_counts = counts()
+    for name, us, note in bench_rows:
+        print(f"[bench] {card} {name} {us:.2f} us ({note})")
+    if bench_counts["flash_attention"] == 0:
+        raise AssertionError("the kernel bench launched no flash kernel")
+    print(f"[bench] launches during the bench: {bench_counts}")
+
+    # ---- 11. sampling, speculation and the contiguous layout -------------
+    pico = ServeEngine(arch="picolm-4-smoke", num_slots=4, max_len=128,
+                       seed=0, log=quiet)
+    rtrace = repetitive_trace(12, 4, seed=0)
+    reset_counts()
+    spec_off = pico.run(rtrace, spec_k=0, prefill_chunk=0)
+    off_k1 = counts()["paged_attention"]
+    spec_on = pico.run(rtrace, spec_k=4, prefill_chunk=0)
+    if [r.tokens for r in spec_on.results] != \
+            [r.tokens for r in spec_off.results]:
+        raise AssertionError("picolm-4-smoke: spec-on streams differ from "
+                             "spec-off")
+    if pico.kv_kernel != "cuda" or \
+            off_k1 != pico.cfg.num_layers * spec_off.decode_steps:
+        raise AssertionError(f"spec-off decode ticks: {off_k1} paged "
+                             f"kernel launches for {spec_off.decode_steps} "
+                             f"ticks ({pico.kv_kernel})")
+    print(f"[smoke] picolm-4-smoke, 12 repetitive requests x 48: spec off "
+          f"{spec_off.decode_steps} decode ticks ({off_k1} paged-kernel "
+          f"launches), spec_k=4 {spec_on.decode_steps} ticks, "
+          f"{spec_on.accepted_per_verify:.4f} tokens per verify; streams "
+          f"equal")
+    tight = dict(target="bench:serve-tight", num_slots=8, max_len=128,
+                 seed=0, log=quiet)
+    eng_c = ServeEngine(arch="deepseek-7b-smoke", kv_layout="contiguous",
+                        **tight)
+    eng_p = ServeEngine(arch="deepseek-7b-smoke", kv_kernel="cuda", **tight)
+    for policy, steps in (("static", 93), ("continuous", 63)):
+        sc = eng_c.run(trace, policy=policy, prefill_chunk=0)
+        sp = eng_p.run(trace, policy=policy, prefill_chunk=0)
+        if [r.tokens for r in sc.results] != [r.tokens for r in sp.results]:
+            raise AssertionError(f"contiguous streams differ from paged "
+                                 f"({policy})")
+        if sc.decode_steps != steps:
+            raise AssertionError(f"contiguous {policy}: {sc.decode_steps} "
+                                 f"decode steps != {steps}")
+    print(f"[smoke] deepseek-7b-smoke contiguous ({eng_c.num_slots} slots, "
+          f"gather) == paged (kernel) streams, static and continuous; 93 and "
+          f"63 decode steps")
+    scarce = ServeEngine(arch="deepseek-7b-smoke", target="local:cpu",
+                         kv_kernel="cuda", num_slots=4, max_len=64,
+                         page_size=8, num_pages=13, seed=0, log=quiet)
+    roomy = ServeEngine(arch="deepseek-7b-smoke", target="local:cpu",
+                        kv_kernel="cuda", num_slots=4, max_len=64, seed=0,
+                        log=quiet)
+    strace = zipf_trace(12, smoke.vocab_size, max_prompt=24, max_new=32,
+                        seed=3, **SAMPLED)
+    s_scarce, s_roomy = scarce.run(strace), roomy.run(strace)
+    if s_scarce.preemptions == 0 or s_roomy.preemptions:
+        raise AssertionError(f"preemptions {s_scarce.preemptions} (scarce) "
+                             f"and {s_roomy.preemptions} (roomy)")
+    if [r.tokens for r in s_scarce.results] != \
+            [r.tokens for r in s_roomy.results]:
+        raise AssertionError("sampled streams change under preemption")
+    greedy = roomy.run(zipf_trace(12, smoke.vocab_size, max_prompt=24,
+                                  max_new=32, seed=3))
+    if [r.tokens for r in greedy.results] == \
+            [r.tokens for r in s_roomy.results]:
+        raise AssertionError("the sampled trace drew the greedy streams")
+    print(f"[smoke] sampled trace ({SAMPLED}): equal streams with "
+          f"{s_scarce.preemptions} preemptions and without")
+    del pico, eng_c, eng_p, scarce, roomy
+    torch.cuda.empty_cache()
+
+    eng_s = make_engine(spec_k=4)
+    sreqs = [dataclasses.replace(r, **SAMPLED) for r in reqs]
+    reset_counts()
+    st_s = eng_s.run(sreqs)
+    s_counts = counts()
+    for r in st_s.results:
+        if len(r.tokens) != 32 or \
+                not all(0 <= t < full.vocab_size for t in r.tokens):
+            raise AssertionError(f"sampled spec request {r.rid}: "
+                                 f"{len(r.tokens)} tokens")
+    want = {"paged_attention": 0, "sedov_stencil": 0, "flash_attention": 0,
+            "rmsnorm": (2 * full.num_layers + 1) * (st_s.decode_steps +
+                                                    st_s.prefill_chunks)}
+    if s_counts != want:
+        raise AssertionError(f"sampled spec run launches {s_counts} != {want}")
+    print(f"[full] {card} deepseek-7b, 8 sampled requests x 32 "
+          f"({SAMPLED}), spec_k=4: {st_s.decode_steps} decode ticks, all "
+          f"verify ticks ({st_s.spec_verify_steps} slot verifies), "
+          f"{st_s.accepted_per_verify:.4f} tokens per verify "
+          f"({st_s.spec_accepted_tokens}/{st_s.spec_drafted_tokens} drafts "
+          f"accepted), {st_s.prefill_chunks} prefill chunks, "
+          f"{st_s.generated_tokens} tokens in {st_s.wall_s:.3f} s = "
+          f"{st_s.tokens_per_s:.1f} tokens/s (first run, not warmed); "
+          f"launches {s_counts}")
+    del eng_s
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -921,6 +1166,15 @@ def main() -> int:
          "bound_by": "bytes" if k4_bytes / HBM_BYTES_PER_S >=
          k4_flops / F32_FLOPS else "operations",
          "library_ms": None},
+        # times at deepseek-7b's full-width shape; launches from the bench
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:108",
+         "launches": bench_counts["flash_attention"], "max_abs_err": k3_err,
+         "ms": k3["deepseek-7b"]["ms"], "plain_ms": k3["deepseek-7b"]["plain"],
+         "bound_ms": k3["deepseek-7b"]["bound"],
+         "bound_by": k3["deepseek-7b"]["bound_by"],
+         "library_ms": k3["deepseek-7b"]["lib"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

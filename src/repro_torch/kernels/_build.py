@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".cuda_build"
-SOURCES = ("paged_attention", "rmsnorm", "sedov_stencil")
+SOURCES = ("paged_attention", "rmsnorm", "sedov_stencil", "flash_attention")
 ARCH = "sm_90a"
 NVCC_FLAGS = ("-gencode", f"arch=compute_90a,code={ARCH}", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -10,9 +10,30 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.kernels.sedov_stencil import sedov_step_cuda
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, block_q: int = 128,
+                    block_k: int = 128,
+                    kv_len: int | None = None) -> torch.Tensor:
+    """Blockwise GQA attention (see kernels/flash_attention.py), with the
+    reference op's signature and checks.  q: (b, s, H, dh); k/v:
+    (b, t, K, dh).  ``block_q = min(block_q, s)`` must divide s and
+    ``block_k = min(block_k, t)`` must divide t, and ``0 <= kv_len <= t``
+    (AssertionError otherwise, as the reference); the blocks only select
+    these checks and do not change the result."""
+    s, t = q.shape[1], k.shape[1]
+    block_q, block_k = min(block_q, s), min(block_k, t)
+    assert s % block_q == 0 and t % block_k == 0, (s, t, block_q, block_k)
+    assert kv_len is None or 0 <= kv_len <= t, (kv_len, t)
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal, kv_len=kv_len)
+    _check_cpu(q)
+    return ref.flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,

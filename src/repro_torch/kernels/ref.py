@@ -10,7 +10,10 @@ the main path calls these functions for CUDA tensors.  ``cfl_dt`` is the
 exception and no kernel's plain version: the reference computes LULESH's
 global CFL reduction outside its stencil kernel, and the port runs the
 model's own (``models/lulesh.py``, re-exported here) in plain PyTorch on
-every device, leaving ``dt`` on the device.
+every device, leaving ``dt`` on the device.  ``attention_ref`` is the
+reference's full-softmax oracle, whose causal mask is aligned otherwise
+than the flash kernel's (see its docstring); the flash kernel's plain
+version is ``flash_attention_ref``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,67 @@ import math
 import torch
 
 from repro_torch.models.lulesh import C_Q, GAMMA, _div, _grad, cfl_dt  # noqa: F401
+
+
+NEG_INF = -1e30          # the flash kernel's mask value
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """Plain full-softmax GQA attention in f32 (the reference's
+    ``kernels/ref.py:attention_ref``).  q: (b, s, H, dh); k/v:
+    (b, t, K, dh).  Output in q's dtype.
+
+    Its causal mask is aligned at the BOTTOM RIGHT (``tril(k=t-s)``: query
+    i sees keys j <= i + t - s), while the flash kernel's is aligned at
+    the top left (j <= i; ``flash_attention_ref``).  The two agree only
+    when ``s == t`` (and the kernel has no ``kv_len``)."""
+    b, s, H, dh = q.shape
+    t, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(b, s, K, G, dh).float()
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(dh)
+    if causal:
+        mask = torch.ones((s, t), dtype=torch.bool,
+                          device=q.device).tril(diagonal=t - s)
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(b, s, H, dh).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        kv_len: int | None = None) -> torch.Tensor:
+    """What the flash kernel computes, in one pass instead of its online
+    one.  q: (b, s, H, dh); k/v: (b, t, K, dh), H % K == 0; f32 math,
+    output in q's dtype.
+
+    Scores ``(q . k) * scale`` in f32; key j is valid when ``j < kv_len``
+    (default t) and, if causal, ``j <= i`` — aligned at the TOP LEFT, as
+    the TPU kernel's ``k_pos <= q_pos``.  Invalid scores become -1e30 and
+    their probabilities are zeroed; ``out = (p @ v) / max(sum p, 1e-20)``,
+    so a row with no valid key returns exact zeros.  ``attention_ref``
+    masks causally at the bottom right instead: the two agree only when
+    ``s == t`` and ``kv_len`` is None."""
+    b, s, H, dh = q.shape
+    t, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(b, s, K, G, dh).float()
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * \
+        (1.0 / math.sqrt(dh))
+    k_pos = torch.arange(t, device=q.device)
+    mask = (k_pos < (t if kv_len is None else kv_len))[None, :]
+    if causal:
+        mask = mask & (k_pos[None, :] <=
+                       torch.arange(s, device=q.device)[:, None])
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(scores - m), torch.zeros_like(scores))
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    out = torch.einsum("bkgst,btkd->bkgsd", p, v.float()) / denom
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, H, dh).to(q.dtype)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

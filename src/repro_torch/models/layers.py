@@ -9,10 +9,11 @@ whose steps each round to bf16 the way XLA rounds the reference's
 ``jax.nn.silu`` on bf16.
 
 Attention runs in three modes: ``prefill`` (causal, returns fresh K/V),
-``decode`` (the paged slot-wise single-token arm) and ``chunk`` (chunked
-prefill written straight into the page pool).  Decode and chunk write
-K/V **in place** into the pool's storage: a functional copy of the pool
-per layer and tick would cost more than the tick itself.
+``decode`` (slot-wise: one token per row, or a speculative verify burst
+of s tokens, over a paged or a contiguous pool) and ``chunk`` (chunked
+prefill written straight into the pool).  Decode and chunk write K/V
+**in place** into the pool's storage: a functional copy of the pool per
+layer and tick would cost more than the tick itself.
 """
 
 from __future__ import annotations
@@ -171,65 +172,96 @@ def _write_pool(pool: torch.Tensor, fpos: torch.Tensor,
 
 
 def _paged_decode(q, k, v, cache):
-    """Paged slot-wise decode: scatter each row's new K/V to its own
-    page/offset, then attend through the page table — in the CUDA kernel
-    (``use_kernel``) or by gathering the rows' page runs and attending
-    over them with ``dot_attention``'s recipe (the gather path, which is
-    the kernel's plain version ``ref.paged_attention_ref`` on any
-    device)."""
-    if q.shape[1] != 1:
-        raise NotImplementedError(
-            "multi-token verify bursts come with speculative decoding "
-            "(ROADMAP: spec/verify)")
+    """Paged slot-wise decode of s tokens per row: scatter each row's new
+    K/V to its own pages/offsets through the page table (positions past
+    the row's page run go to the reserved junk page 0, never wrapped into
+    its last page), then attend.  A single token (s == 1) attends in the
+    CUDA kernel (``use_kernel``) or through the gather path, which is the
+    kernel's plain version ``ref.paged_attention_ref`` on any device; a
+    verify burst (s > 1) always gathers the rows' page runs and attends
+    with ``dot_attention``, as the reference does."""
     pages, idx = cache["pages"], cache["index"]
     ck, cv = cache["k"], cache["v"]
-    psize = ck.shape[1]
-    max_pages = pages.shape[1]
-    logical_page = idx // psize
-    ok = logical_page < max_pages
-    dest = pages.gather(1, logical_page.clamp(max=max_pages - 1)
-                        .long()[:, None])[:, 0]
-    # out-of-range writes (a slot already at its page-run capacity) route
-    # to the reserved junk page 0, never wrapped into the slot's last page
-    fpos = torch.where(ok, dest * psize + idx % psize, idx % psize)
-    _write_pool(ck, fpos, k[:, 0])
-    _write_pool(cv, fpos, v[:, 0])
-    attend = ops.paged_attention if cache.get("use_kernel") \
-        else ref.paged_attention_ref
-    return attend(q[:, 0].contiguous(), ck, cv, pages, idx + 1)[:, None]
-
-
-def _paged_chunk(q, k, v, cache):
-    """Chunked prefill straight into the page pool: the chunk's K/V land at
-    their final page/offset through the slot's page-table row, then the
-    chunk attends causally over the slot's first ``kv_bound`` positions
-    read back through the same row.  Bucket-padding rows past the row's
-    pages fall into the junk page 0."""
-    off, bound = cache["offset"], cache["kv_bound"]
-    pages_row = cache["pages_row"]
-    ck, cv = cache["k"], cache["v"]
     psize, Kh, dh = ck.shape[1], ck.shape[2], ck.shape[3]
-    max_pages = pages_row.shape[0]
+    slots, s = q.shape[0], q.shape[1]
+    max_pages = pages.shape[1]
+    pos = idx[:, None] + torch.arange(s, device=q.device)[None, :]
+    logical_page = pos // psize
+    ok = logical_page < max_pages
+    dest = pages.gather(1, logical_page.clamp(max=max_pages - 1).long())
+    fpos = torch.where(ok, dest * psize + pos % psize, pos % psize)
+    _write_pool(ck, fpos.reshape(-1), k.reshape(-1, Kh, dh))
+    _write_pool(cv, fpos.reshape(-1), v.reshape(-1, Kh, dh))
+    if s == 1:
+        attend = ops.paged_attention if cache.get("use_kernel") \
+            else ref.paged_attention_ref
+        return attend(q[:, 0].contiguous(), ck, cv, pages, idx + 1)[:, None]
+    read = pages.long()
+    kg = ck[read].reshape(slots, max_pages * psize, Kh, dh)
+    vg = cv[read].reshape(slots, max_pages * psize, Kh, dh)
+    return dot_attention(q, kg, vg, causal=True, q_offset=idx, kv_len=idx + s)
+
+
+def _slot_decode(q, k, v, cache):
+    """Contiguous slot-wise decode of s tokens per row: each row's new K/V
+    land at its own positions ``index .. index + s - 1`` of its
+    ``(max_len, K, dh)`` row (positions past max_len are dropped, as the
+    reference's one-hot select and ``mode="drop"`` scatter drop them),
+    then the row attends its own prefix with a per-row causal mask."""
+    idx, ck, cv = cache["index"], cache["k"], cache["v"]
+    slots, s = q.shape[0], q.shape[1]
+    t = ck.shape[1]
+    pos = idx[:, None].long() + torch.arange(s, device=q.device)[None, :]
+    rows = torch.arange(slots, device=q.device)[:, None].expand(slots, s)
+    ok = pos < t
+    ck.index_put_((rows[ok], pos[ok]), k[ok])
+    cv.index_put_((rows[ok], pos[ok]), v[ok])
+    return dot_attention(q, ck, cv, causal=True, q_offset=idx, kv_len=idx + s)
+
+
+def _chunk(q, k, v, cache):
+    """Chunked prefill straight into the pool: the chunk's K/V land at
+    their final positions, then the chunk attends causally over the
+    slot's first ``kv_bound`` positions read back through the same
+    indirection.  Paged: through the slot's page-table row, bucket
+    padding past the row's pages falling into the junk page 0.
+    Contiguous: the slot's row, positions past max_len dropped."""
+    off, bound = cache["offset"], cache["kv_bound"]
+    ck, cv = cache["k"], cache["v"]
+    Kh, dh = ck.shape[2], ck.shape[3]
     s = q.shape[1]
     pos = off + torch.arange(s, device=q.device)
-    logical = pos // psize
-    ok = logical < max_pages
-    dest = pages_row[logical.clamp(max=max_pages - 1)]
-    fpos = torch.where(ok, dest * psize + pos % psize, pos % psize)
-    _write_pool(ck, fpos, k[0])
-    _write_pool(cv, fpos, v[0])
-    B = min(-(-bound // psize), max_pages)
-    read = pages_row[:B].long()
-    kg = ck[read].reshape(1, B * psize, Kh, dh)
-    vg = cv[read].reshape(1, B * psize, Kh, dh)
+    if "pages_row" in cache:
+        pages_row = cache["pages_row"]
+        psize = ck.shape[1]
+        max_pages = pages_row.shape[0]
+        logical = pos // psize
+        ok = logical < max_pages
+        dest = pages_row[logical.clamp(max=max_pages - 1)]
+        fpos = torch.where(ok, dest * psize + pos % psize, pos % psize)
+        _write_pool(ck, fpos, k[0])
+        _write_pool(cv, fpos, v[0])
+        B = min(-(-bound // psize), max_pages)
+        read = pages_row[:B].long()
+        kg = ck[read].reshape(1, B * psize, Kh, dh)
+        vg = cv[read].reshape(1, B * psize, Kh, dh)
+    else:
+        slot = cache["slot"]
+        ok = pos < ck.shape[1]
+        ck[slot, pos[ok]] = k[0][ok]
+        cv[slot, pos[ok]] = v[0][ok]
+        L = min(bound, ck.shape[1])
+        kg, vg = ck[slot:slot + 1, :L], cv[slot:slot + 1, :L]
     return dot_attention(q, kg, vg, causal=True, q_offset=off, kv_len=off + s)
 
 
 def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
               mode: str, cache: dict | None = None):
-    """mode: 'prefill' (causal, returns the fresh K/V), 'decode' (paged
-    slot-wise single token, in-place pool write), 'chunk' (chunked prefill
-    into the page pool, in-place).  Returns (out, fresh_cache or None)."""
+    """mode: 'prefill' (causal, returns the fresh K/V), 'decode'
+    (slot-wise, one token or a verify burst per row, paged when the cache
+    has a page table, else contiguous; in-place pool write), 'chunk'
+    (chunked prefill into the pool, in-place).  Returns (out, fresh_cache
+    or None)."""
     q = torch.einsum("bse,ehd->bshd", x, p["wq"])
     k = torch.einsum("bte,ekd->btkd", x, p["wk"])
     v = torch.einsum("bte,ekd->btkd", x, p["wv"])
@@ -244,9 +276,10 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                        theta=cfg.rope_theta)
     new_cache = None
     if mode == "decode":
-        out = _paged_decode(q, k, v, cache)
+        out = _paged_decode(q, k, v, cache) if "pages" in cache \
+            else _slot_decode(q, k, v, cache)
     elif mode == "chunk":
-        out = _paged_chunk(q, k, v, cache)
+        out = _chunk(q, k, v, cache)
     elif mode == "prefill":
         out = dot_attention(q, k, v, causal=cfg.causal)
         new_cache = {"k": k, "v": v}

@@ -106,46 +106,54 @@ class DenseLM:
         return self.logits_from(params, x_last), cache
 
     def chunk_prefill(self, params, cache, tokens, slot: int, offset: int,
-                      n_valid: int, kv_bound: int, pages_row: torch.Tensor):
-        """One prompt chunk of one request, written straight into the page
-        pool.
+                      n_valid: int, kv_bound: int,
+                      pages_row: torch.Tensor | None = None):
+        """One prompt chunk of one request, written straight into the pool.
 
         tokens: (1, c) — a bucketed chunk padded past ``n_valid``; global
-        positions are ``[offset, offset + c)``.  ``pages_row`` is the
-        slot's (max_pages,) page-table row; ``kv_bound`` (>= offset + c)
-        caps the KV prefix the chunk reads back.  Returns the logits at
-        the chunk's last valid position and the pool cache, whose K/V
-        were written in place and whose index for ``slot`` is now
-        ``offset + n_valid``.
+        positions are ``[offset, offset + c)``.  ``cache`` is the pool's:
+        a page pool with ``pages_row`` the slot's (max_pages,) page-table
+        row, or (no ``pages_row``) a contiguous slot pool.  ``kv_bound``
+        (>= offset + c) caps the KV prefix the chunk reads back.  Returns
+        the logits at the chunk's last valid position and the pool cache,
+        whose K/V were written in place and whose index for ``slot`` is
+        now ``offset + n_valid``.
         """
         b, c = tokens.shape
         positions = offset + torch.arange(c, device=tokens.device).expand(b, c)
         x = L.embed(params["embed"], tokens, self.cfg)
         for i, lp in enumerate(self.layer_params(params)):
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
-                           "offset": offset, "kv_bound": int(kv_bound),
-                           "pages_row": pages_row}
+                           "slot": slot, "offset": offset,
+                           "kv_bound": int(kv_bound)}
+            if pages_row is not None:
+                layer_cache["pages_row"] = pages_row
             x, _ = self.block_apply(lp, x, positions, "chunk", layer_cache)
         logits = self.logits_from(params, x[:, n_valid - 1:n_valid])
         cache["index"][slot] = offset + n_valid
         return logits, cache
 
     def decode_step(self, params, cache, tokens):
-        """One token per slot through the paged pool: ``cache`` holds the
-        (layers, num_pages, page_size, K, dh) pool, the (slots,) index and
-        the (slots, max_pages) page table; ``use_kernel`` selects the CUDA
-        paged-decode kernel over the gather path."""
+        """s tokens per slot (one, or a verify burst) through the pool:
+        ``cache`` holds the (layers, ...) K/V and the (slots,) index, plus
+        for a paged pool the (slots, max_pages) page table and
+        ``use_kernel``, which selects the CUDA paged-decode kernel over
+        the gather path for single tokens."""
         b, s = tokens.shape
         idx = cache["index"]
         positions = idx[:, None] + torch.arange(s, device=idx.device)[None, :]
         x = L.embed(params["embed"], tokens, self.cfg)
+        pages = cache.get("pages")
         for i, lp in enumerate(self.layer_params(params)):
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
-                           "index": idx, "pages": cache["pages"],
-                           "use_kernel": cache.get("use_kernel", False)}
+                           "index": idx}
+            if pages is not None:
+                layer_cache.update(pages=pages,
+                                   use_kernel=cache.get("use_kernel", False))
             x, _ = self.block_apply(lp, x, positions, "decode", layer_cache)
-        new_cache = {"k": cache["k"], "v": cache["v"], "index": idx + s,
-                     "pages": cache["pages"]}
+        new_cache = {"k": cache["k"], "v": cache["v"], "index": idx + s}
+        if pages is not None:
+            new_cache["pages"] = pages
         return self.logits_from(params, x), new_cache
 
 

@@ -1,18 +1,22 @@
-"""ServeEngine — the serving facade, paged layout (port of
-``repro/serving/engine.py``).
+"""ServeEngine — the serving facade (port of ``repro/serving/engine.py``).
 
     AppSpec(arch, decode shape) + TargetSpec --tune--> DeploymentPlan
-        (pool sizes, prefill chunk grain, kv-kernel choice)
-    model_for(cfg) + build_prefill_chunk_step_paged +
-        build_decode_step_slots_paged --> steps
-    PagedKVCachePool + Scheduler --> continuous or gang-scheduled batching
+        (pool sizes, prefill chunk grain, kv-kernel choice, spec k)
+    model_for(cfg) + build_prefill_chunk_step[_paged] +
+        build_decode_step_slots[_paged] +
+        build_verify_step_slots[_paged] --> steps
+    KVCachePool | PagedKVCachePool + Scheduler + make_sampler(seed)
+        --> continuous or gang-scheduled batching, sampled or greedy,
+            with or without draft-then-verify speculation
 
 The engine runs on the GPU: ``device=None`` means CUDA, and raises where
 there is none; pass ``device="cpu"`` to run on the CPU, where every
 kernel is replaced by its plain PyTorch version.  With no ``target``
 the device picks it (``nvidia:h100`` on CUDA, ``local:cpu`` on the CPU).
 
-``kv_kernel`` selects the paged decode attention:
+``kv_layout`` is ``"paged"`` (pages behind a host page table) or
+``"contiguous"`` (one max_len row per slot, sized by the tuner's
+``plan.serve_slots``).  ``kv_kernel`` selects the paged decode attention:
 
 * ``"gather"`` — read K/V back through the page table into a
   materialized ``(slots, max_pages*page_size, K, dh)`` tensor, then
@@ -25,12 +29,14 @@ the device picks it (``nvidia:h100`` on CUDA, ``local:cpu`` on the CPU).
   a target that would give the gather raises: there the gather path is
   taken only when named.
 
-Both are held token-identical.  The RMSNorm of every layer goes through
+Both are held token-identical.  The contiguous layout has no kernel in
+the reference: it always attends through the gather path, on the card
+too.  Speculative verify bursts read through the gather path in both
+layouts, as in the reference.  The RMSNorm of every layer goes through
 the hand-written RMSNorm kernel whenever the tensors are on the card.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the contiguous layout, the shared-prefix cache, speculative
-decoding, tracing, and sampled (non-greedy) requests.
+item): the shared-prefix cache and tracing.
 """
 
 from __future__ import annotations
@@ -42,19 +48,24 @@ from repro_torch.core.target import default_target, get_target, resolve_device
 from repro_torch.core.tuning import tune
 from repro_torch.models.params import init_params
 from repro_torch.models.transformer import model_for
-from repro_torch.serving.pool import PagedKVCachePool
+from repro_torch.serving.pool import KVCachePool, PagedKVCachePool
+from repro_torch.serving.sampling import make_sampler
 from repro_torch.serving.scheduler import Scheduler, ServeStats
-from repro_torch.training.steps import (build_decode_step_slots_paged,
+from repro_torch.training.steps import (build_decode_step_slots,
+                                        build_decode_step_slots_paged,
+                                        build_prefill_chunk_step,
                                         build_prefill_chunk_step_paged,
-                                        build_prefill_step)
+                                        build_prefill_step,
+                                        build_verify_step_slots,
+                                        build_verify_step_slots_paged)
 
 SERVABLE_FAMILIES = ("dense",)
-KV_LAYOUTS = ("paged",)
+KV_LAYOUTS = ("contiguous", "paged")
 KV_KERNELS = ("auto", "gather", "cuda")
 
 
 class ServeEngine:
-    """One model + one paged KV pool + its steps; runs request traces.
+    """One model + one KV pool layout + its steps; runs request traces.
 
     ``target=None`` takes the device's own target (``nvidia:h100`` on
     CUDA, ``local:cpu`` on the CPU)."""
@@ -70,20 +81,18 @@ class ServeEngine:
                  repetitiveness: float = 0.0, log=print, device=None):
         self.device = resolve_device(device)
         target = target or default_target(self.device)
-        if kv_layout != "paged":
-            raise NotImplementedError(
-                f"kv_layout {kv_layout!r} is not ported yet (ROADMAP: "
-                f"contiguous layout); the port serves kv_layout='paged'")
+        if kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"kv_layout {kv_layout!r} not in {KV_LAYOUTS}")
         if kv_kernel not in KV_KERNELS:
             raise ValueError(f"kv_kernel {kv_kernel!r} not in {KV_KERNELS}")
+        if kv_kernel == "cuda" and kv_layout != "paged":
+            raise ValueError(
+                "kv_kernel='cuda' is the paged decode kernel: it needs "
+                f"kv_layout='paged', not {kv_layout!r}")
         if prefix_cache:
             raise NotImplementedError(
                 "the shared-prefix cache is not ported yet (ROADMAP: "
                 "prefix cache)")
-        if drafter is not None:
-            raise NotImplementedError(
-                "drafters come with speculative decoding (ROADMAP: "
-                "spec/verify)")
         if replicas < 1:
             raise ValueError(f"replicas {replicas} < 1")
         if spec_k is not None and spec_k < 0:
@@ -104,33 +113,43 @@ class ServeEngine:
             raise NotImplementedError(
                 "slot-wise decode does not support sliding-window attention")
         self.plan = tune(cfg, app.shape_config, get_target(target))
+        # spec_k=None defers to the tuner's pick (serve_repetitiveness)
         self.spec_k = self.plan.serve_spec_k if spec_k is None else spec_k
-        if self.spec_k:
-            raise NotImplementedError(
-                f"spec_k={self.spec_k}: speculative decoding is not ported "
-                f"yet (ROADMAP: spec/verify)")
+        self.drafter = drafter
         self.kv_layout = kv_layout
         self.max_len = self.plan.serve_max_len or max_len
-        # the page pool, not the slot count, is the memory reservation:
-        # slots are page-table rows, capped only by one page per request
-        self.page_size = page_size or self.plan.serve_page_size or 16
-        if num_pages:
-            self.num_pages = num_pages
-        elif self.plan.serve_num_pages and \
-                self.page_size == self.plan.serve_page_size:
-            self.num_pages = self.plan.serve_num_pages
-        elif self.plan.serve_num_pages:
-            # the tuner sized the pool for its own page size — carry the
-            # *token* budget over to the requested page size
-            tokens = (self.plan.serve_num_pages - 1) * self.plan.serve_page_size
-            self.num_pages = max(tokens // self.page_size, 1) + 1
+        if kv_layout == "paged":
+            # the page pool, not the slot count, is the memory
+            # reservation: slots are page-table rows, capped only by one
+            # page per request
+            self.page_size = page_size or self.plan.serve_page_size or 16
+            if num_pages:
+                self.num_pages = num_pages
+            elif self.plan.serve_num_pages and \
+                    self.page_size == self.plan.serve_page_size:
+                self.num_pages = self.plan.serve_num_pages
+            elif self.plan.serve_num_pages:
+                # the tuner sized the pool for its own page size — carry
+                # the *token* budget over to the requested page size
+                tokens = (self.plan.serve_num_pages - 1) * \
+                    self.plan.serve_page_size
+                self.num_pages = max(tokens // self.page_size, 1) + 1
+            else:
+                self.num_pages = 0
+            usable = (self.num_pages - 1) if self.num_pages else num_slots
+            self.num_slots = max(1, min(num_slots, usable))
+            if self.num_slots < num_slots:
+                log(f"[serve] pool capped by page budget: {num_slots} -> "
+                    f"{self.num_slots} slots (1 page per active request)")
         else:
+            self.page_size = 0
             self.num_pages = 0
-        usable = (self.num_pages - 1) if self.num_pages else num_slots
-        self.num_slots = max(1, min(num_slots, usable))
-        if self.num_slots < num_slots:
-            log(f"[serve] pool capped by page budget: {num_slots} -> "
-                f"{self.num_slots} slots (1 page per active request)")
+            # a contiguous slot is a worst-case reservation: the tuner may
+            # cap the pool below the requested batch
+            self.num_slots = self.plan.serve_slots or num_slots
+            if self.num_slots < num_slots:
+                log(f"[serve] pool capped by HBM budget: {num_slots} -> "
+                    f"{self.num_slots} slots")
         self.cfg = cfg
         self.model = model_for(cfg)
         self.eos_id = eos_id
@@ -141,12 +160,16 @@ class ServeEngine:
         self.chunk_unit = self.plan.serve_prefill_chunk or 16
         self.prefill_chunk = self.chunk_unit if prefill_chunk is None \
             else prefill_chunk
-        # "auto" follows the tuner's call for this target; on the card it
-        # must be the kernel — the gather path there is an explicit choice
-        self.kv_kernel = kv_kernel if kv_kernel != "auto" \
-            else (self.plan.serve_kv_kernel or "gather")
-        if kv_kernel == "auto" and self.device.type == "cuda" and \
-                self.kv_kernel != "cuda":
+        # "auto" follows the tuner's call for this target; on the card the
+        # paged layout must take the kernel — the gather path there is an
+        # explicit choice.  The contiguous layout has no kernel.
+        if kv_layout == "contiguous":
+            self.kv_kernel = "gather"
+        else:
+            self.kv_kernel = kv_kernel if kv_kernel != "auto" \
+                else (self.plan.serve_kv_kernel or "gather")
+        if kv_layout == "paged" and kv_kernel == "auto" and \
+                self.device.type == "cuda" and self.kv_kernel != "cuda":
             raise ValueError(
                 f"target {target!r} runs kernels="
                 f"{get_target(target).kernels!r}: on a CUDA device that "
@@ -154,10 +177,17 @@ class ServeEngine:
                 f"target, or pass kv_kernel='gather' explicitly")
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = init_params(self.model.param_table(), gen, self.device)
+        self.sampler = make_sampler(seed)
         self._prefill = build_prefill_step(self.model)
-        self._decode = build_decode_step_slots_paged(
-            self.model, use_kernel=(self.kv_kernel == "cuda"))
-        self._chunk = build_prefill_chunk_step_paged(self.model)
+        if kv_layout == "paged":
+            self._decode = build_decode_step_slots_paged(
+                self.model, use_kernel=(self.kv_kernel == "cuda"))
+            self._chunk = build_prefill_chunk_step_paged(self.model)
+            self._verify = build_verify_step_slots_paged(self.model)
+        else:
+            self._decode = build_decode_step_slots(self.model)
+            self._chunk = build_prefill_chunk_step(self.model)
+            self._verify = build_verify_step_slots(self.model)
 
     # -- step wrappers bound to the params ---------------------------------
     def prefill_fn(self, tokens: torch.Tensor, last: int | None = None):
@@ -175,11 +205,20 @@ class ServeEngine:
         return self._chunk(self.params, cache, tokens, slot, offset,
                            n_valid, kv_bound, *extras)
 
+    def verify_fn(self, cache, tokens, active, *extras):
+        """Score a (num_slots, k+1) speculative batch: logits at every
+        position (the index stays the host's)."""
+        return self._verify(self.params, cache, tokens, active, *extras)
+
     # -- driving -----------------------------------------------------------
-    def make_pool(self) -> PagedKVCachePool:
-        return PagedKVCachePool(self.model, self.num_slots, self.max_len,
-                                page_size=self.page_size,
-                                num_pages=self.num_pages, device=self.device)
+    def make_pool(self) -> KVCachePool | PagedKVCachePool:
+        if self.kv_layout == "paged":
+            return PagedKVCachePool(self.model, self.num_slots, self.max_len,
+                                    page_size=self.page_size,
+                                    num_pages=self.num_pages,
+                                    device=self.device)
+        return KVCachePool(self.model, self.num_slots, self.max_len,
+                           device=self.device)
 
     def run(self, requests, policy: str = "continuous",
             prefill_chunk: int | None = None,
@@ -190,19 +229,23 @@ class ServeEngine:
             tracer=None) -> ServeStats:
         """Drain `requests` under `policy` ('continuous' | 'static') on a
         fresh pool.  ``prefill_chunk`` overrides the ingestion grain for
-        this run (0 = blocking full-prompt prefill); ``slo_*_steps`` set
-        the virtual-step deadlines goodput is judged by."""
+        this run (0 = blocking full-prompt prefill); ``spec_k`` the draft
+        length (0 = one token per tick; spec-on and spec-off streams are
+        equal by construction); ``slo_*_steps`` set the virtual-step
+        deadlines goodput is judged by."""
         if prefix_cache:
             raise NotImplementedError("prefix cache (ROADMAP: prefix cache)")
-        if spec_k:
-            raise NotImplementedError("spec_k > 0 (ROADMAP: spec/verify)")
         if tracer is not None:
             raise NotImplementedError("tracing (ROADMAP: telemetry)")
         chunk = self.prefill_chunk if prefill_chunk is None else prefill_chunk
+        k = self.spec_k if spec_k is None else spec_k
         sched = Scheduler(self.make_pool(), self.decode_fn, self.chunk_fn,
                           eos_id=self.eos_id, policy=policy,
-                          prefill_chunk=chunk,
+                          sampler=self.sampler, prefill_chunk=chunk,
                           prefill_chunk_unit=self.chunk_unit,
+                          verify_fn=self.verify_fn if k else None,
+                          spec_k=k, drafter=self.drafter,
+                          vocab_size=self.cfg.vocab_size,
                           slo_ttft_steps=slo_ttft_steps,
                           slo_e2e_steps=slo_e2e_steps)
         stats = sched.run(list(requests))

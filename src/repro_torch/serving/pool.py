@@ -1,8 +1,16 @@
-"""Paged KV cache pool — the serving stack's memory layer (port of the
-paged half of ``repro/serving/pool.py``).
+"""KV cache pools — the serving stack's memory layer, in two layouts
+(port of ``repro/serving/pool.py`` without the prefix cache's page
+accounting).
 
-KV storage is a pool of fixed-size pages on the device plus a per-slot
-page-table indirection on the host:
+``KVCachePool`` (contiguous) holds one ``max_len`` row per slot:
+
+    k, v : (layers, num_slots, max_len, kv_heads, head_dim)
+    index: (num_slots,) int32 — tokens written per slot
+
+Every admitted request pins ``max_len`` positions for its whole life.
+``PagedKVCachePool`` breaks that reservation: KV storage is a pool of
+fixed-size pages on the device plus a per-slot page-table indirection on
+the host:
 
     k, v      : (layers, num_pages, page_size, kv_heads, head_dim)
     index     : (num_slots,) int32 — tokens written per slot
@@ -16,7 +24,8 @@ grow on demand during decode (``prepare_decode``); when the pool is out
 of pages the scheduler preempts a request and resumes it later.  Pages
 are refcounted (``page_refs``); the slot and page allocators are
 deterministic LIFO free lists, so every allocation matches the
-reference's.  The contiguous layout comes in a later slice.
+reference's.  Both pools take speculative verify bursts
+(``grow_for_burst``, ``sync_index``).
 """
 
 from __future__ import annotations
@@ -69,7 +78,128 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-class PagedKVCachePool:
+def _check_servable(cfg) -> None:
+    if cfg.family not in ("dense", "moe") or cfg.window:
+        raise NotImplementedError(
+            f"KV pools serve full-attention dense/moe families, not "
+            f"{cfg.family!r} (window={cfg.window})")
+
+
+def _kv_cache(cfg, rows: int, cols: int, num_slots: int, device) -> dict:
+    """Zeroed K/V storage ``(layers, rows, cols, kv_heads, head_dim)`` and
+    the per-slot index."""
+    shape = (cfg.num_layers, rows, cols, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.activation_dtype,
+                             device=device),
+            "v": torch.zeros(shape, dtype=cfg.activation_dtype,
+                             device=device),
+            "index": torch.zeros((num_slots,), dtype=torch.int32,
+                                 device=device)}
+
+
+class _LengthMirror:
+    """What both pools share: the host mirror of each slot's KV length
+    (``lengths``) and the device cache whose ``index`` it uploads."""
+
+    def sync_index(self) -> None:
+        """Upload the host length mirror as the device index (a verify
+        step leaves the index as it was: acceptance is the host's)."""
+        self.cache = dict(self.cache, index=to_device(
+            self.lengths.astype(np.int32), self.device))
+
+    def update(self, new_cache: dict, active_slots=()) -> None:
+        """Take the cache a decode step returned; the length mirror
+        advances only for the slots that were active this step."""
+        self.cache = new_cache
+        for slot in active_slots:
+            self.lengths[slot] += 1
+
+
+class KVCachePool(_LengthMirror):
+    """Fixed-capacity contiguous slot pool: one ``max_len`` row of K/V per
+    slot.  The storage lives on the GPU (``device=None``; raises without
+    one) unless the caller passes ``device="cpu"``."""
+
+    layout = "contiguous"
+
+    def __init__(self, model, num_slots: int, max_len: int,
+                 device: torch.device | str | None = None):
+        cfg = model.cfg
+        _check_servable(cfg)
+        if num_slots < 1 or max_len < 1:
+            raise ValueError((num_slots, max_len))
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.cache = _kv_cache(cfg, num_slots, max_len, num_slots,
+                               self.device)
+        self._free = _FreeList(num_slots)
+        self.lengths = np.zeros((num_slots,), np.int64)  # host mirror
+
+    # -- capacity ----------------------------------------------------------
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    def can_admit(self, prompt_len: int, active_slots=()) -> bool:
+        """A contiguous slot IS the worst-case reservation: one free slot
+        admits any prompt that fits max_len."""
+        return self.num_free > 0 and prompt_len <= self.max_len
+
+    def can_ever_serve(self, n_tokens: int) -> bool:
+        return n_tokens <= self.max_len
+
+    # -- slot lifecycle ----------------------------------------------------
+    def alloc(self) -> int:
+        if not self._free:
+            raise PoolExhausted(
+                f"all {self.num_slots} KV slots are in flight")
+        return self._free.pop()
+
+    def free(self, slot: int) -> None:
+        if not 0 <= slot < self.num_slots:
+            raise ValueError(f"slot {slot} out of range")
+        if self._free.is_free(slot):
+            raise ValueError(f"slot {slot} is already free")
+        self.lengths[slot] = 0
+        self._free.push(slot)
+
+    # -- cache plumbing ----------------------------------------------------
+    def reserve_prefix(self, slot: int, n_tokens: int) -> None:
+        """A slot IS the reservation: bounds-check only."""
+        if n_tokens > self.max_len:
+            raise ValueError(
+                f"prefix of {n_tokens} tokens > pool max_len {self.max_len}")
+
+    def chunk_extras(self, slot: int) -> tuple:
+        return ()
+
+    @property
+    def kv_bound_cap(self) -> int:
+        return self.max_len
+
+    def adopt(self, new_cache: dict) -> None:
+        self.cache = new_cache
+
+    def set_length(self, slot: int, n_tokens: int) -> None:
+        self.lengths[slot] = n_tokens
+
+    def prepare_decode(self, active_slots) -> list:
+        """Contiguous slots never grow: nothing can starve."""
+        return []
+
+    def decode_extras(self) -> tuple:
+        return ()
+
+    def grow_for_burst(self, slot: int, want_tokens: int) -> int:
+        """KV positions backed for a verify burst from the slot's length:
+        its headroom below max_len."""
+        return max(int(min(want_tokens, self.max_len - self.lengths[slot])),
+                   0)
+
+
+class PagedKVCachePool(_LengthMirror):
     """Page-table KV pool: slots hold page lists, not max_len reservations.
 
     ``num_pages`` counts the whole pool *including* the reserved junk page
@@ -85,10 +215,7 @@ class PagedKVCachePool:
                  page_size: int = 16, num_pages: int = 0,
                  device: torch.device | str | None = None):
         cfg = model.cfg
-        if cfg.family not in ("dense", "moe") or cfg.window:
-            raise NotImplementedError(
-                f"the paged pool serves full-attention dense/moe families, "
-                f"not {cfg.family!r} (window={cfg.window})")
+        _check_servable(cfg)
         if num_slots < 1 or max_len < 1 or page_size < 1:
             raise ValueError((num_slots, max_len, page_size))
         self.cfg = cfg
@@ -102,15 +229,8 @@ class PagedKVCachePool:
         if self.num_pages < 2:
             raise ValueError(f"num_pages {self.num_pages} < 2 "
                              f"(page 0 is reserved)")
-        kv_shape = (cfg.num_layers, self.num_pages, page_size,
-                    cfg.num_kv_heads, cfg.head_dim)
-        self.cache = {
-            "k": torch.zeros(kv_shape, dtype=cfg.activation_dtype,
-                             device=self.device),
-            "v": torch.zeros(kv_shape, dtype=cfg.activation_dtype,
-                             device=self.device),
-            "index": torch.zeros((num_slots,), dtype=torch.int32,
-                                 device=self.device)}
+        self.cache = _kv_cache(cfg, self.num_pages, page_size, num_slots,
+                               self.device)
         self.page_table = np.zeros((num_slots, self.max_pages), np.int32)
         self._pages_held = np.zeros((num_slots,), np.int64)
         self._free = _FreeList(num_slots)
@@ -234,9 +354,23 @@ class PagedKVCachePool:
     def decode_extras(self) -> tuple:
         return (to_device(self.page_table, self.device),)
 
-    def update(self, new_cache: dict, active_slots=()) -> None:
-        """Take the cache a decode step returned; the length mirror
-        advances only for the slots that were active this step."""
-        self.cache = new_cache
-        for slot in active_slots:
-            self.lengths[slot] += 1
+    def grow_for_burst(self, slot: int, want_tokens: int) -> int:
+        """Back up to ``want_tokens`` KV positions past ``slot``'s length
+        for a verify burst, with genuinely free pages only (a burst is a
+        bonus, never a reservation: it changes no admission or eviction).
+        Returns how many positions are backed (>= 1 after
+        ``prepare_decode``); verify writes past them divert to the junk
+        page 0 and the scheduler caps acceptance at the backed count."""
+        target = min(int(self.lengths[slot]) + want_tokens, self.max_len)
+        while int(self._pages_held[slot]) * self.page_size < target:
+            held = int(self._pages_held[slot])
+            if held >= self.max_pages or not self._free_pages:
+                break
+            page = self._free_pages.pop()
+            self.page_refs[page] = 1
+            self.page_table[slot, held] = page
+            self._pages_held[slot] = held + 1
+        backed = int(self._pages_held[slot]) * self.page_size \
+            - int(self.lengths[slot])
+        return max(min(backed, want_tokens,
+                       self.max_len - int(self.lengths[slot])), 0)

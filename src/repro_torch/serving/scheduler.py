@@ -1,7 +1,7 @@
-"""Request scheduler: admission, in-flight batching, eviction, preemption
-(port of ``repro/serving/scheduler.py`` for greedy requests).
+"""Request scheduler: admission, in-flight batching, eviction, preemption,
+sampling and speculative decoding (port of ``repro/serving/scheduler.py``).
 
-Two policies over the same paged KV pool and steps:
+Two policies over the same KV pool (contiguous or paged) and steps:
 
 * ``continuous`` — between decode steps, every freed slot is immediately
   re-filled from the queue (continuous / in-flight batching);
@@ -24,10 +24,21 @@ TTFT is tracked on a deterministic **virtual step clock**: one unit per
 model invocation (decode tick or prefill chunk), a blocking prefill
 priced at its ``ceil(n / chunk_unit)`` chunk-equivalents.
 
-This slice serves greedy requests: the next token is a plain argmax over
-the logits (the reference's all-greedy fast path).  Sampled requests,
-speculative decoding, the shared-prefix cache and tracing are later
-slices and raise ``NotImplementedError``.
+Sampling is per request: ``temperature`` / ``top_k`` / ``top_p`` ride
+in per-slot vectors into one sampler call per step
+(``serving/sampling.py``), each draw keyed by the request id and its
+generation step, so preemption and speculation never change a stream.
+A trace of greedy requests skips the sampler for a plain argmax (the
+sampler's own temperature-0 / top-k-1 case).
+
+With ``spec_k > 0`` (plus a ``verify_fn``) each decode tick is a
+draft-then-verify tick (``_spec_step``): a drafter proposes k tokens per
+slot, one verify step scores all k+1 positions, and each slot accepts
+the longest draft prefix that matches the sequential sampler's own
+draws — speculative streams equal ``spec_k == 0`` streams.
+
+The shared-prefix cache and tracing are later slices (``ServeEngine``
+raises on them).
 """
 
 from __future__ import annotations
@@ -40,6 +51,8 @@ import numpy as np
 
 from repro_torch.serving.pool import PoolExhausted, to_device
 from repro_torch.serving.prefill import PrefillManager
+from repro_torch.serving.sampling import K_CAP, effective_top_k
+from repro_torch.serving.spec import NGramDrafter
 
 
 def percentile_steps(values, q: float) -> float:
@@ -141,15 +154,35 @@ class ServeStats:
     goodput_tokens: int = 0       # tokens of requests that met the SLO
     slo_ttft_steps: int = 0
     slo_e2e_steps: int = 0
+    # speculative decoding (zeros with spec_k == 0): one verify event per
+    # active slot per verify step, so accepted_per_verify is per request
+    spec_verify_steps: int = 0    # slot-verify scoring events
+    spec_drafted_tokens: int = 0  # draft tokens proposed (k per event)
+    spec_accepted_tokens: int = 0  # draft tokens accepted
     total_vsteps: int = 0         # virtual-clock span of the whole drain
+    # the top-k the sampler applied per request that asked for one
+    effective_top_k: dict = dataclasses.field(default_factory=dict)
 
     @property
     def tokens_per_s(self) -> float:
         return self.generated_tokens / max(self.wall_s, 1e-9)
 
+    @property
+    def accepted_per_verify(self) -> float:
+        """Tokens emitted per slot-verify event (accepted drafts plus the
+        token each verify always emits); 0 without speculation."""
+        if not self.spec_verify_steps:
+            return 0.0
+        return (self.spec_verify_steps + self.spec_accepted_tokens) \
+            / self.spec_verify_steps
+
     def summary(self) -> str:
         lat = [r.latency_s for r in self.results]
         pre = f", {self.preemptions} preemptions" if self.preemptions else ""
+        if self.spec_verify_steps:
+            pre += (f", spec {self.accepted_per_verify:.2f} tok/verify "
+                    f"({self.spec_accepted_tokens}/{self.spec_drafted_tokens}"
+                    f" drafts accepted)")
         return (f"{len(self.results)} requests, {self.generated_tokens} tokens "
                 f"in {self.wall_s:.3f}s -> {self.tokens_per_s:.1f} tok/s | "
                 f"{self.decode_steps} decode steps, "
@@ -193,9 +226,10 @@ class _Active:
     #                               the preemption victim, ties by req.rid
 
 
-def _greedy(logits_last) -> np.ndarray:
-    """Row-wise argmax (first maximum on ties, as ``jnp.argmax``)."""
-    return logits_last.argmax(dim=-1).cpu().numpy()
+def _greedy(logits) -> np.ndarray:
+    """Argmax over the last axis (first maximum on ties, as
+    ``jnp.argmax``)."""
+    return logits.argmax(dim=-1).cpu().numpy()
 
 
 class Scheduler:
@@ -203,14 +237,22 @@ class Scheduler:
 
     def __init__(self, pool, decode_fn, chunk_step_fn,
                  eos_id: int | None = None, policy: str = "continuous",
+                 sampler=None,
                  # advisory wall_s only; gated metrics are vstep-clocked
                  clock=time.perf_counter,  # easeylint: allow[wall-clock]
                  prefill_chunk: int = 0, prefill_chunk_unit: int = 16,
+                 verify_fn=None, spec_k: int = 0, drafter=None,
+                 vocab_size: int | None = None,
                  slo_ttft_steps: int = 0, slo_e2e_steps: int = 0):
         if policy not in ("continuous", "static"):
             raise ValueError(policy)
         if prefill_chunk < 0 or prefill_chunk_unit < 1:
             raise ValueError((prefill_chunk, prefill_chunk_unit))
+        if spec_k < 0:
+            raise ValueError(f"spec_k {spec_k} < 0")
+        if spec_k and verify_fn is None:
+            raise ValueError("spec_k > 0 needs a verify_fn "
+                             "(training/steps.build_verify_step_slots*)")
         self.pool = pool
         self.decode_fn = decode_fn          # (cache, tokens, active, *extras)
         self.chunk_step_fn = chunk_step_fn  # (cache, toks, slot, off, n, ...)
@@ -218,8 +260,15 @@ class Scheduler:
         self.chunk_unit = prefill_chunk_unit
         self.eos_id = eos_id
         self.policy = policy
+        self.sampler = sampler              # None -> greedy argmax
         self.clock = clock
         self.vclock = VirtualClock()
+        self.verify_fn = verify_fn          # (cache, toks, active, *extras)
+        self.spec_k = spec_k
+        self.drafter = drafter if drafter is not None else \
+            (NGramDrafter() if spec_k else None)
+        self.vocab_size = vocab_size        # for effective-top-k reporting
+        self.all_greedy = False
         self.slo_ttft_steps = int(slo_ttft_steps)
         self.slo_e2e_steps = int(slo_e2e_steps)
         self.reset()
@@ -239,6 +288,10 @@ class Scheduler:
         self._peak_resident = 0
         self._preemptions = 0
         self._overlap = 0
+        self._spec_verifies = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._eff_topk: dict[int, int] = {}
         self._t0 = self.clock()
         self._v0 = self.vclock.t
         self._mgr = PrefillManager(self.pool, self.chunk_step_fn,
@@ -257,16 +310,14 @@ class Scheduler:
         """Reject up front what this scheduler or pool could never serve,
         so a mid-run rejection never throws away a drain's stats."""
         for req in requests:
-            if req.temperature > 0 and req.top_k != 1:
-                raise NotImplementedError(
-                    f"request {req.rid}: sampled decoding (temperature "
-                    f"{req.temperature}) needs the keyed sampler "
-                    f"(ROADMAP: keyed sampler); this slice serves greedy "
-                    f"requests")
             if len(req.prompt) > self.pool.max_len:
                 raise ValueError(
                     f"request {req.rid}: prompt ({len(req.prompt)}) does "
                     f"not fit pool max_len {self.pool.max_len}")
+            if not 0 <= req.top_k <= K_CAP:
+                raise ValueError(
+                    f"request {req.rid}: top_k {req.top_k} not in "
+                    f"[0, {K_CAP}] — the sampler would silently clamp it")
             if not 0.0 < req.top_p <= 1.0:
                 raise ValueError(
                     f"request {req.rid}: top_p {req.top_p} not in (0, 1]")
@@ -288,6 +339,52 @@ class Scheduler:
         return min(entry.pending_len + entry.remaining_new() - 1,
                    self.pool.max_len)
 
+    # -- sampling ----------------------------------------------------------
+    def _draw(self, logits, styles) -> np.ndarray:
+        """One sampler call over ``logits`` (rows, vocab); ``styles[i]`` is
+        row i's (request, generation step) or None (greedy)."""
+        n = len(styles)
+        temps = np.zeros((n,), np.float32)
+        topks = np.zeros((n,), np.int32)
+        topps = np.ones((n,), np.float32)
+        rids = np.zeros((n,), np.int32)
+        steps = np.zeros((n,), np.int32)
+        for i, style in enumerate(styles):
+            if style is None:
+                continue
+            req, step = style
+            temps[i], topks[i], topps[i] = req.temperature, req.top_k, \
+                req.top_p
+            rids[i], steps[i] = req.rid, step
+        dev = logits.device
+        return self.sampler(logits, *(to_device(a, dev) for a in (
+            temps, topks, topps, rids, steps))).cpu().numpy()
+
+    def _sample_rows(self, logits_last, entries) -> np.ndarray:
+        """One draw per row; entries[i] styles row i (None rows greedy)."""
+        if self.sampler is None or self.all_greedy:
+            return _greedy(logits_last)
+        return self._draw(logits_last, [
+            None if en is None else (en.req, len(en.st.tokens))
+            for en in entries])
+
+    def _sample_rows_multi(self, logits, width) -> np.ndarray:
+        """Draw ALL ``width`` speculated positions of every slot in one
+        sampler call: row (slot, j) draws with the slot's request at
+        generation step ``len(st.tokens) + j`` — the key the sequential
+        sampler uses if the j-th draft is accepted, which makes accepted
+        bursts equal one-at-a-time decoding.  (S, width, vocab) ->
+        (S, width)."""
+        if self.sampler is None or self.all_greedy:
+            return _greedy(logits)
+        S = logits.shape[0]
+        styles = [None] * (S * width)
+        for slot, en in self.active.items():
+            for j in range(width):
+                styles[slot * width + j] = (en.req, len(en.st.tokens) + j)
+        return self._draw(logits.reshape(S * width, -1),
+                          styles).reshape(S, width)
+
     # -- admission ---------------------------------------------------------
     def admit_from_queue(self) -> None:
         """Admit from the queue head while the pool has room."""
@@ -298,6 +395,10 @@ class Scheduler:
     def _admit(self, entry: _Entry) -> None:
         now = self.clock()
         req = entry.req
+        if req.top_k:
+            # what the sampler will apply (a small vocabulary caps it)
+            self._eff_topk[req.rid] = effective_top_k(
+                req.top_k, self.vocab_size or req.top_k)
         if entry.st is None:
             s = len(req.prompt)
             budget = self.pool.max_len - s + 1   # writes stop at max_len - 1
@@ -323,7 +424,7 @@ class Scheduler:
         """A job's final chunk landed: take the first token and either
         finish the request or activate its (already-populated) slot."""
         st, req = job.st, job.entry.req
-        tok = int(_greedy(logits[:, -1])[0])
+        tok = int(self._sample_rows(logits[:, -1], [_Active(req, st, 0)])[0])
         if job.entry.st is None:
             st.t_first = self.clock()
             st.v_first = self.vclock.t
@@ -400,6 +501,9 @@ class Scheduler:
         self._peak = max(self._peak, self.in_flight)
         self._peak_resident = max(self._peak_resident,
                                   int(self.pool.lengths.sum()))
+        if self.spec_k:
+            self._spec_step(chunked)
+            return
         device = self.pool.device
         logits, new_cache = self.decode_fn(
             self.pool.cache, to_device(self._last_tokens, device),
@@ -410,7 +514,8 @@ class Scheduler:
         self._busy += len(self.active)
         if chunked:
             self._overlap += 1       # ingested a chunk AND decoded a token
-        toks = _greedy(logits[:, -1])
+        rows = [self.active.get(i) for i in range(self.pool.num_slots)]
+        toks = self._sample_rows(logits[:, -1], rows)
         now = self.clock()
         vnow = self.vclock.t
         for slot, en in list(self.active.items()):
@@ -426,6 +531,85 @@ class Scheduler:
                 self._active_mask[slot] = 0
                 self._last_tokens[slot, 0] = 0
                 self.pool.free(slot)
+
+    # -- speculative decode -------------------------------------------------
+    def _spec_step(self, chunked: int) -> None:
+        """One draft-then-verify tick over the active set.
+
+        Per slot: the drafter proposes k tokens from the slot's history;
+        the verify step scores all k+1 positions (pending token + drafts)
+        in one call; every position is drawn with the sequential
+        sampler's own ``(rid, step)`` key; the slot accepts the longest
+        prefix of draws matching its drafts — exactly what one-at-a-time
+        decoding would emit.  ``prepare_decode`` granted the next token's
+        position; ``grow_for_burst`` backs as much of the burst as free
+        pages allow, acceptance is capped at the backed count, and writes
+        past it land in the junk page 0.  The verify step leaves the
+        device index alone: ``pool.sync_index`` uploads the host lengths
+        once per tick.
+        """
+        S = self.pool.num_slots
+        k = self.spec_k
+        tok_mat = np.zeros((S, k + 1), np.int32)
+        caps = np.zeros((S,), np.int64)
+        drafts: dict[int, list] = {}
+        for slot, en in self.active.items():
+            hist = np.asarray(en.req.prompt).tolist() + en.st.tokens
+            d = self.drafter.draft(hist, k)
+            drafts[slot] = d
+            tok_mat[slot, 0] = self._last_tokens[slot, 0]
+            tok_mat[slot, 1:] = d
+            caps[slot] = self.pool.grow_for_burst(slot, k + 1)
+        device = self.pool.device
+        logits, new_cache = self.verify_fn(
+            self.pool.cache, to_device(tok_mat, device),
+            to_device(self._active_mask, device), *self.pool.decode_extras())
+        self.pool.adopt(new_cache)
+        self.vclock.advance(1)
+        self._steps += 1
+        self._busy += len(self.active)
+        if chunked:
+            self._overlap += 1
+        toks = self._sample_rows_multi(logits, k + 1)
+        now = self.clock()
+        vnow = self.vclock.t
+        for slot, en in list(self.active.items()):
+            st = en.st
+            d = drafts[slot]
+            cap = int(caps[slot])        # >= 1: prepare_decode granted it
+            emitted = 0
+            j = 0
+            finished = False
+            while True:
+                tok = int(toks[slot, j])
+                st.tokens.append(tok)
+                emitted += 1
+                if len(st.tokens) >= st.max_new_tokens or \
+                        tok == self.eos_id:
+                    finished = True
+                    break
+                # no draft past position k to check; the next query
+                # position is not backed; or the draft fed at j + 1 is not
+                # what sequential decoding would have fed
+                if j >= k or emitted >= cap or tok != d[j]:
+                    break
+                j += 1
+            self._spec_verifies += 1
+            self._spec_drafted += k
+            self._spec_accepted += emitted - 1
+            self.pool.set_length(slot,
+                                 int(self.pool.lengths[slot]) + emitted)
+            if finished:
+                st.t_done = now
+                st.v_done = vnow
+                self.done.append(st)
+                del self.active[slot]
+                self._active_mask[slot] = 0
+                self._last_tokens[slot, 0] = 0
+                self.pool.free(slot)
+            else:
+                self._last_tokens[slot, 0] = int(toks[slot, emitted - 1])
+        self.pool.sync_index()
 
     # -- results -----------------------------------------------------------
     def stats(self) -> ServeStats:
@@ -456,7 +640,11 @@ class Scheduler:
             goodput_tokens=goodput,
             slo_ttft_steps=self.slo_ttft_steps,
             slo_e2e_steps=self.slo_e2e_steps,
-            total_vsteps=self.vclock.t - self._v0)
+            spec_verify_steps=self._spec_verifies,
+            spec_drafted_tokens=self._spec_drafted,
+            spec_accepted_tokens=self._spec_accepted,
+            total_vsteps=self.vclock.t - self._v0,
+            effective_top_k=dict(self._eff_topk))
 
     # -- main loop ---------------------------------------------------------
     def run(self, requests) -> ServeStats:
@@ -466,6 +654,10 @@ class Scheduler:
         idle pool to the next arrival."""
         requests = list(requests)
         self.validate(requests)
+        # all-greedy traces skip the sampler (argmax is its temperature-0
+        # / top_k-1 case)
+        self.all_greedy = all(r.temperature <= 0 or r.top_k == 1
+                              for r in requests)
         self.reset()
         # stable sort: ties (and the all-zero closed loop) keep trace order
         pending = deque(sorted((_Entry(r) for r in requests),

@@ -2,9 +2,11 @@
 ``repro/training/steps.py``).
 
 Each builder closes over the model and returns a plain function of
-``params`` and the step's inputs that runs without autograd.  The paged
-decode and chunk steps write K/V in place into the pool tensors they are
+``params`` and the step's inputs that runs without autograd.  The decode,
+verify and chunk steps write K/V in place into the pool tensors they are
 given and return the same tensors (the reference donates them instead).
+Each comes for the contiguous slot pool and for the paged pool
+(``_paged``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,18 @@ def build_prefill_step(model):
     def prefill_step(params, batch):
         return model.prefill(params, batch)
     return prefill_step
+
+
+def build_prefill_chunk_step(model):
+    """Chunked prefill straight into a contiguous KV pool: ``cache`` holds
+    K/V ``(layers, num_slots, max_len, kv_heads, head_dim)`` and the
+    per-slot index; the chunk's K/V land at ``[slot, offset:offset+c)``
+    and the chunk attends over the slot's first ``kv_bound`` positions."""
+    @torch.no_grad()
+    def chunk_step(params, cache, tokens, slot, offset, n_valid, kv_bound):
+        return model.chunk_prefill(params, cache, tokens, slot, offset,
+                                   n_valid, kv_bound)
+    return chunk_step
 
 
 def build_prefill_chunk_step_paged(model):
@@ -37,6 +51,19 @@ def build_prefill_chunk_step_paged(model):
         return model.chunk_prefill(params, cache, tokens, slot, offset,
                                    n_valid, kv_bound, pages_row)
     return chunk_step
+
+
+def build_decode_step_slots(model):
+    """Slot-wise decode over a contiguous KV pool.  Inactive slots ride
+    through the step (each writes only its own row, at its own stale
+    index) but their lengths do not advance."""
+    @torch.no_grad()
+    def decode_step(params, cache, tokens, active):
+        logits, new_cache = model.decode_step(params, cache, tokens)
+        new_index = torch.where(active.bool(), new_cache["index"],
+                                cache["index"])
+        return logits, dict(new_cache, index=new_index)
+    return decode_step
 
 
 def build_decode_step_slots_paged(model, use_kernel: bool = False):
@@ -62,3 +89,38 @@ def build_decode_step_slots_paged(model, use_kernel: bool = False):
         return logits, {"k": new_cache["k"], "v": new_cache["v"],
                         "index": new_index}
     return decode_step
+
+
+def build_verify_step_slots(model):
+    """Speculative verify step over a contiguous KV pool: ``tokens`` is
+    ``(num_slots, k+1)`` — each row's pending token and its k drafts —
+    and the step returns logits at every position ``(num_slots, k+1,
+    vocab)``.  Positions past a slot's max_len are dropped; a rejected
+    draft's KV is overwritten before any causal mask admits it.  The
+    returned index is the one given: how many positions became tokens is
+    the host's decision (``pool.sync_index``)."""
+    @torch.no_grad()
+    def verify_step(params, cache, tokens, active):
+        logits, new_cache = model.decode_step(params, cache, tokens)
+        return logits, dict(new_cache, index=cache["index"])
+    return verify_step
+
+
+def build_verify_step_slots_paged(model):
+    """Speculative verify step over a paged KV pool: as
+    ``build_verify_step_slots`` plus the page table; inactive rows divert
+    to the junk page 0 as in ``build_decode_step_slots_paged``, and each
+    position's page lookup keeps the junk-page ok-guard, so a burst past
+    a slot's page run never writes into a live page.  The burst always
+    reads through the gather path (the paged-decode kernel takes single
+    tokens)."""
+    @torch.no_grad()
+    def verify_step(params, cache, tokens, active, pages):
+        keep = active.bool()
+        safe_pages = torch.where(keep[:, None], pages, torch.zeros_like(pages))
+        logits, new_cache = model.decode_step(params,
+                                              dict(cache, pages=safe_pages),
+                                              tokens)
+        return logits, {"k": new_cache["k"], "v": new_cache["v"],
+                        "index": cache["index"]}
+    return verify_step

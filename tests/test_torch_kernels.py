@@ -17,6 +17,7 @@ import torch
 from repro.kernels import ops as ref_ops
 from repro.models.layers import dot_attention as ref_dot_attention
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.models.params import params_from_jax
@@ -150,6 +151,9 @@ def test_cuda_wrappers_reject_cpu_tensors():
         paged_attention_cuda(tt(q), tt(kp), tt(vp), tt(table), tt(kv_len))
     with pytest.raises(ValueError, match="CUDA"):
         rmsnorm_cuda(tt(q[0]), tt(q[0, 0]))
+    x = tt(np.zeros((1, 64, 2, 32), np.float32))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(x, x, x)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -198,3 +202,31 @@ def test_cuda_rmsnorm_matches_plain(cuda, rows):
     torch.testing.assert_close(rmsnorm_cuda(x, w).float(),
                                ref.rmsnorm_ref(x, w).float(),
                                rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,H,K,dh,causal,dtype", [
+    # tests/test_kernels_flash.py's shapes, a causal s != t case, a
+    # ragged one (the kernel masks partial tiles itself) and the kernel
+    # bench's shape
+    (1, 128, 128, 4, 4, 64, True, torch.float32),
+    (2, 256, 256, 4, 2, 64, True, torch.float32),
+    (1, 128, 128, 8, 1, 32, True, torch.float32),
+    (2, 128, 128, 4, 4, 64, False, torch.float32),
+    (1, 256, 256, 6, 2, 64, True, torch.bfloat16),
+    (1, 64, 64, 2, 2, 128, True, torch.bfloat16),
+    (2, 512, 512, 2, 2, 64, True, torch.float32),
+    (1, 128, 256, 4, 2, 64, True, torch.float32),
+    (1, 100, 77, 4, 2, 32, False, torch.float32),
+    (1, 512, 512, 4, 2, 64, True, torch.float32)])
+def test_cuda_flash_attention_matches_plain(cuda, b, s, t, H, K, dh, causal,
+                                            dtype):
+    gen = torch.Generator(device=cuda).manual_seed(s + t + H)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, s, H, dh), (b, t, K, dh), (b, t, K, dh)))
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for kv_len in (None, t // 4, 0):
+        got = flash_attention_cuda(q, k, v, causal=causal, kv_len=kv_len)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)

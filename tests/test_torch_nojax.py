@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from repro_torch.core.target import default_target
+from repro_torch.kernels import bench
 from repro_torch.serving import PagedKVCachePool, ServeEngine
+from repro_torch.serving.pool import KVCachePool
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -33,6 +35,10 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
             "import repro_torch.core.workflow, repro_torch.launch.run\n"
             "import repro_torch.models.lulesh, repro_torch.configs\n"
             "import repro_torch.kernels.sedov_stencil\n"
+            "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.kernels.bench, repro_torch.serving.sampling\n"
+            "import repro_torch.serving.spec, repro_torch.serving.trace\n"
+            "import repro_torch.configs.picolm\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -72,6 +78,19 @@ def test_engine_without_cuda_raises_unless_asked_for_cpu(monkeypatch):
         PagedKVCachePool(eng.model, 2, 32)
     pool = PagedKVCachePool(eng.model, 2, 32, device="cpu")
     assert pool.cache["k"].device.type == "cpu"
+
+
+def test_contiguous_pool_and_kernel_bench_refuse_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    eng = ServeEngine(device="cpu", kv_layout="contiguous",
+                      log=lambda *a, **k: None)
+    assert (eng.kv_layout, eng.kv_kernel) == ("contiguous", "gather")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KVCachePool(eng.model, 2, 32)
+    assert KVCachePool(eng.model, 2, 32, device="cpu").cache["k"].shape[1:3] \
+        == (2, 32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.run(lambda *row: None)
 
 
 def test_device_picks_the_target_and_cuda_never_defaults_to_gather():

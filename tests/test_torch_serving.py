@@ -205,20 +205,28 @@ def test_h100_target_picks_the_cuda_kernel():
 
 
 def test_unported_options_raise():
+    """The prefix cache and tracing raise; the contiguous layout, spec
+    decoding (explicit or the tuner's pick) and sampled requests are
+    served."""
     def engine(**kw):
         return ServeEngine(arch=ARCH, device="cpu", log=quiet, **kw)
-    for kw in (dict(kv_layout="contiguous"), dict(prefix_cache=True),
-               dict(spec_k=2), dict(spec_k=None, repetitiveness=0.9)):
-        with pytest.raises(NotImplementedError):
-            engine(**kw)
+    with pytest.raises(NotImplementedError):
+        engine(prefix_cache=True)
+    for kw in (dict(kv_layout="contiguous"), dict(spec_k=2),
+               dict(spec_k=None, repetitiveness=0.9)):
+        engine(**kw)
+    assert engine(spec_k=None, repetitiveness=0.9).spec_k > 0
+    with pytest.raises(ValueError):
+        engine(kv_layout="contiguous", kv_kernel="cuda")
     with pytest.raises(NotImplementedError):
         tune(get_config(ARCH), SHAPES["train_4k"],
              port_target.get_target("local:cpu"))
     eng = engine(num_slots=2, max_len=32)
     sampled = Request(rid=0, prompt=np.arange(1, 5, dtype=np.int32),
                       max_new_tokens=2, temperature=0.7)
-    with pytest.raises(NotImplementedError, match="sampler"):
-        eng.run([sampled])
+    assert eng.run([sampled]).generated_tokens == 2
+    with pytest.raises(ValueError, match="top_k"):
+        eng.run([dataclasses.replace(sampled, top_k=65)])
     with pytest.raises(NotImplementedError):
         eng.run([], tracer=object())
     assert eng.run([dataclasses.replace(sampled, top_k=1)]).generated_tokens \
