@@ -53,15 +53,18 @@ Phases, each of which raises on failure:
    starts), and how far the 1000-step kernel state is from 1000 oracle
    steps;
 9. the flash-attention kernel against its plain version on the card: the
-   shapes of tests/test_kernels_flash.py, a causal s != t case, the
-   kernel bench's shape, kv_len 32
-   (garbage past it invisible bit for bit) and 0 (exact zeros), and the
-   full-width shapes of ``deepseek-7b`` (32 heads) and of
+   shapes of tests/test_kernels_flash.py, a causal s != t case, a
+   ragged case, the kernel bench's shape, and a bf16 twin of every f32
+   shape (the tensor-core body, each element within one bf16 step),
+   each with kv_len t, t/4 and 0, and kv_len 32 (garbage past it
+   invisible bit for bit) and 0 (exact zeros); then the full-width
+   shapes of ``deepseek-7b`` (32 heads) and of
    ``mistral-large-123b``'s attention (96 heads over 8 kv heads), both
    s = t = 4096 in bf16, causal, each element within one bf16 step of
-   the plain version's value — with the kernel's, the plain
-   version's and ``scaled_dot_product_attention``'s device times from
-   CUDA graphs beside the bound;
+   the plain version's value, through the tensor-core body (its
+   launches counted) — with the kernel's, the plain version's and
+   ``scaled_dot_product_attention``'s device times from CUDA graphs
+   beside the bound;
 10. the kernel bench (``repro_torch.kernels.bench``, the flash kernel's
    own path), its rows printed and its launches counted;
 11. serving beyond greedy paged decoding: at smoke size, speculative
@@ -106,7 +109,7 @@ KERNEL_ATOL = KERNEL_RTOL = 2e-2
 # factor.
 LOGITS_VS_CONTROL = 2.0
 # H100 SXM data sheet: device memory rate, f32 rate outside the tensor
-# cores (the kernels here run on CUDA cores in f32) and the dense bf16
+# cores (K1, K2 and K4 run on CUDA cores in f32) and the dense bf16
 # tensor-core rate (the least time of the attention products)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -121,8 +124,9 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # most 2**-7 of it: the limit is atol + rtol * |plain| with these.
 FLASH_FULL_ATOL, FLASH_FULL_RTOL = 1e-4, 2.0 ** -7
 # (b, s, t, H, K, dh, causal, dtype): tests/test_kernels_flash.py's
-# shapes, a causal s != t case (the kernel's top-left mask) and the shape
-# the kernel bench gives the kernel (phase 10)
+# shapes, a causal s != t case (the kernel's top-left mask), a ragged one
+# (s, t not multiples of any tile) and the shape the kernel bench gives
+# the kernel (phase 10)
 FLASH_CASES = [
     (1, 128, 128, 4, 4, 64, True, "float32"),
     (2, 256, 256, 4, 2, 64, True, "float32"),
@@ -132,8 +136,14 @@ FLASH_CASES = [
     (1, 64, 64, 2, 2, 128, True, "bfloat16"),
     (2, 512, 512, 2, 2, 64, True, "float32"),
     (1, 128, 256, 4, 2, 64, True, "float32"),
+    (1, 100, 77, 4, 2, 32, False, "float32"),
     (1, 512, 512, 4, 2, 64, True, "float32"),
 ]
+# bf16 twins of the f32 shapes, which run the tensor-core body; held to
+# one bf16 step of each value (FLASH_FULL_ATOL, FLASH_FULL_RTOL), the
+# same reasoning as at full width
+FLASH_TWINS = [case[:7] + ("bfloat16",) for case in FLASH_CASES
+               if case[7] == "float32"]
 # full width, causal, bf16: deepseek-7b's attention and the GQA widths of
 # mistral-large-123b (96 heads over 8 kv heads of 128), s = t = 4096
 FLASH_FULL = {"deepseek-7b": (1, 4096, 4096, 32, 32, 128),
@@ -410,13 +420,16 @@ def _stencil_checks(np, lulesh, ref, step_fn, grids, ten_grids,
 
 
 def _flash_checks(torch, ref, flash_cuda) -> float:
-    """The flash kernel against its plain version at FLASH_CASES, each also
-    with kv_len = t / 4 and 0; at the (b, 128, 128) cases kv_len 32 with
-    K/V past it set to 1e4 must give the same output bit for bit, and
-    kv_len 0 exact zeros.  Returns the max abs error."""
+    """The flash kernel against its plain version at FLASH_CASES (their
+    dtype's FLASH_TOL) and FLASH_TWINS (one bf16 step), each also with
+    kv_len = t / 4 and 0; at the (b, 128, 128) cases kv_len 32 with K/V
+    past it set to 1e4 must give the same output bit for bit, and kv_len 0
+    exact zeros.  Returns the max abs error."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = 0.0
-    for b, s, t, H, K, dh, causal, dt in FLASH_CASES:
+    cases = [(c, FLASH_TOL[c[7]], FLASH_TOL[c[7]]) for c in FLASH_CASES] + \
+        [(c, FLASH_FULL_ATOL, FLASH_FULL_RTOL) for c in FLASH_TWINS]
+    for (b, s, t, H, K, dh, causal, dt), atol, rtol in cases:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for shape in ((b, s, H, dh), (b, t, K, dh), (b, t, K, dh)))
@@ -426,7 +439,7 @@ def _flash_checks(torch, ref, flash_cuda) -> float:
                                            kv_len=kv_len)
             err = max(err, _check_close(
                 f"flash_attention {(b, s, t, H, K, dh, causal, dt)} "
-                f"kv_len={kv_len}", got, want, FLASH_TOL[dt], FLASH_TOL[dt]))
+                f"kv_len={kv_len}", got, want, atol, rtol))
             if kv_len == 0 and bool(got.ne(0).any()):
                 raise AssertionError("flash_attention kv_len=0: not zeros")
         if s == t == 128:
@@ -455,7 +468,7 @@ def _flash_full(torch, ref, flash_cuda, card, b, s, t, H, K, dh) -> dict:
     err = _check_close(f"flash_attention full width {(b, s, t, H, K, dh)}",
                        got, ref.flash_attention_ref(q, k, v, causal=True),
                        FLASH_FULL_ATOL, FLASH_FULL_RTOL)
-    ms = _graph_ms(torch, lambda: flash_cuda(q, k, v, causal=True), 5)
+    ms = _graph_ms(torch, lambda: flash_cuda(q, k, v, causal=True), 20)
     plain = _graph_ms(torch, lambda: ref.flash_attention_ref(
         q, k, v, causal=True), 2)
     torch.cuda.empty_cache()
@@ -468,16 +481,18 @@ def _flash_full(torch, ref, flash_cuda, card, b, s, t, H, K, dh) -> dict:
     flops = 4 * b * H * dh * s * (s + 1) // 2
     byts = (2 * b * s * H * dh + 2 * b * t * K * dh) * 2
     bound = max(byts / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS) * 1e3
-    cores = flops / F32_FLOPS * 1e3
+    # the kernel's own work: P.V twice (p = p_hi + p_lo), so 1.5x the
+    # operations at the same rate
+    split = 1.5 * flops / BF16_TENSOR_FLOPS * 1e3
     print(f"[numbers] {card} flash_attention b={b} s=t={s} H={H} K={K} "
           f"dh={dh} bf16 causal (device ms per call, CUDA graphs): kernel "
           f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms; bound "
           f"{bound:.4f} ms ({flops:.4g} operations on the bf16 tensor "
           f"cores; {byts / 1e6:.1f} MB take {byts / HBM_BYTES_PER_S * 1e3:.4f}"
-          f" ms), {cores:.4f} ms at the f32 CUDA-core rate; max abs err "
-          f"{err:.4g} (limit {FLASH_FULL_ATOL} + {FLASH_FULL_RTOL} * "
+          f" ms), {split:.4f} ms for the split's 1.5x operations; max abs "
+          f"err {err:.4g} (limit {FLASH_FULL_ATOL} + {FLASH_FULL_RTOL} * "
           f"|plain|); kernel at {bound / ms:.4f} of the bound, "
-          f"{cores / ms:.4f} of the CUDA-core figure")
+          f"{split / ms:.4f} of the split's figure, {ms / lib:.4f}x SDPA")
     del q, k, v, qs, ks, vs, got
     torch.cuda.empty_cache()
     return {"ms": ms, "plain": plain, "lib": lib, "bound": bound,
@@ -1032,11 +1047,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     k3_err = _flash_checks(torch, ref, flash_attention_cuda)
     print(f"[kernels] flash_attention vs plain at {len(FLASH_CASES)} shapes "
-          f"(f32 and bf16, causal and not, GQA/MQA, s != t), kv_len t/4 and "
-          f"0: max abs err {k3_err:.4g} (tol {FLASH_TOL}); kv_len 0 exact "
-          f"zeros; keys past kv_len invisible bit for bit")
+          f"(f32 and bf16, causal and not, GQA/MQA, s != t, ragged) and "
+          f"{len(FLASH_TWINS)} bf16 twins of the f32 ones, kv_len t/4 and "
+          f"0: max abs err {k3_err:.4g} (tol {FLASH_TOL}; twins one bf16 "
+          f"step); kv_len 0 exact zeros; keys past kv_len invisible bit for "
+          f"bit")
+    flash_attention_cuda.tensor_core_launches = 0
     k3 = {name: _flash_full(torch, ref, flash_attention_cuda, card, *shape)
           for name, shape in FLASH_FULL.items()}
+    k3_tc = flash_attention_cuda.tensor_core_launches
+    if k3_tc == 0:
+        raise AssertionError("the full-width calls ran no tensor-core launch")
     k3_err = max(k3_err, *(r["err"] for r in k3.values()))
 
     # ---- 10. the kernel bench: the flash kernel's own path ---------------
@@ -1167,10 +1188,13 @@ def main() -> int:
          k4_flops / F32_FLOPS else "operations",
          "library_ms": None},
         # times at deepseek-7b's full-width shape; launches from the bench
+        # (f32: the CUDA-core body), tensor_core_launches from the
+        # full-width bf16 calls of phase 9
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:108",
-         "launches": bench_counts["flash_attention"], "max_abs_err": k3_err,
+         "launches": bench_counts["flash_attention"],
+         "tensor_core_launches": k3_tc, "max_abs_err": k3_err,
          "ms": k3["deepseek-7b"]["ms"], "plain_ms": k3["deepseek-7b"]["plain"],
          "bound_ms": k3["deepseek-7b"]["bound"],
          "bound_by": k3["deepseek-7b"]["bound_by"],

@@ -15,27 +15,76 @@
 //                           acc' = acc * exp(m - m') + sum_j p_ij v_j
 //   out_i = acc / max(l, 1e-20)                       cast to q's dtype
 // with m starting at -1e30 and l, acc at 0: the TPU kernel's constants and
-// masking, so a row with no valid key returns exact zeros.  p stays f32
-// for the P.V product, as in the TPU kernel.
+// masking, so a row with no valid key returns exact zeros.  p stays at f32
+// grade for the P.V product, as in the TPU kernel.  Key tiles wholly past
+// seq_k or wholly above the causal diagonal are skipped: with m still
+// -1e30 such a tile changes nothing (correction 1, p = 0), so skipping it
+// is exact.  Blocks are launched longest causal rows first.
 //
 // Bound on this card: operations.  At the deepseek-7b shape (s = t = 4096,
-// 32 heads of 128, causal) the products are 1.4e11 flops on 134 MB of
-// q/k/v/out, ~1000 flops per byte, far above the ~295 flop/byte ridge.
-// The least time is the tensor cores' (989 TFLOP/s bf16).  This first
-// design runs the products on CUDA cores in f32 (67 TFLOP/s at best), so
-// it cannot come within 15x of that bound; a wgmma/TMA design is later
-// work.  What the design does: one block per (q tile of 64 rows, q head,
-// batch); the q tile, one 64-key K tile and one V tile are staged in
-// shared memory as f32 (rows padded by one float, so that the column
-// reads below hit 32 different banks); each of the 256 threads holds a
-// 4 x 4 block of scores (rows ty + 16 i, keys tx + 16 j) and a 4 x dh/16
-// block of the output in registers, so each shared-memory read feeds 4
-// multiply-adds.  Key tiles wholly past seq_k or wholly above the causal
-// diagonal are skipped: with m still -1e30 such a tile changes nothing
-// (correction exp(0) = 1, p = 0), so skipping it is exact.  Blocks are
-// launched longest causal rows first.  Partial tiles (any s, t) are
-// masked here; the op checks the reference's block divisibility.
+// 32 heads of 128, causal) the two products are 1.4e11 operations on 134
+// MB of q/k/v/out, ~1000 per byte, far above the ~295 per byte at which
+// the bf16 tensor cores (989 TFLOP/s) become the limit; the least time is
+// 0.139 ms.  This kernel does P.V twice (below), 1.5x that work: 0.209 ms.
+//
+// bf16 (the tensor-core body, `tc`).  One block of 384 threads per (128
+// query rows, query head, batch): a producer warpgroup whose one thread
+// issues every TMA load, and two consumer warpgroups of 64 query rows
+// each, with registers moved from the first to the others by setmaxnreg
+// (24 and 240 per thread; 168 at launch).  Key tiles hold 128 keys at
+// every dh: at dh 32 a 256-key tile would need 128 score and 128 p
+// registers per thread, past the 240 a consumer has.  Shared memory holds
+// the Q tile once and a ring of 2 stages of K and V tiles, in bf16, laid
+// out by TMA with the 128-byte swizzle (64-byte at dh 32) that wgmma's
+// descriptors read, plus 5 mbarriers and 1 KB to align the ring: 164,904
+// bytes at dh 128 (32 KB of Q, 64 KB per stage), 82,984 at dh 64, 42,024
+// at dh 32.  The tensor maps cover q (b, s, H, dh) and k/v (b, t, K, dh) in
+// their own layouts (the head a tensor dimension, no transpose); they are
+// built per call on the host and passed by value.  TMA fills rows past s
+// or t with zeros; keys in [seq_k, t) are loaded and masked in registers;
+// q rows past s are not stored.  Per key tile, each consumer warpgroup:
+//   S = Q K^T      wgmma m64n128k16, f32 accumulate, both operands K-major
+//                  in shared memory, dh / 16 steps;
+//   softmax        in the accumulator's register layout: a row's 4 lanes
+//                  reduce the max with shuffles; m, l and the correction
+//                  stay in registers; scores are multiplied by
+//                  scale * log2(e) (still after the dot) and exponentiated
+//                  with exp2f, which rounds otherwise than expf by about an
+//                  ulp; only tiles crossing seq_k or the diagonal are
+//                  masked, to -inf, so masked p = exp2(-inf) = 0 exactly;
+//   O += P V       O rescaled by the correction first; p split in registers
+//                  into p_hi = bf16(p) and p_lo = bf16(p - p_hi), both in
+//                  the A-from-registers fragment layout (the accumulator's
+//                  own), and two wgmma m64n(dh)k16 per 16 keys, B = V read
+//                  MN-major (V's rows are keys), into one f32 accumulator;
+// then frees the stage on its mbarrier.  out = O / max(l, 1e-20), rounded
+// once to bf16.
+//
+// Why the split: the op promises P.V with p in f32.  bf16 q and k, and p_hi
+// or p_lo times bf16 v, are exact products in f32, so only the order of
+// the f32 sums differs from the plain version, plus p_lo's own rounding:
+// p - p_hi is exact, so p_hi + p_lo carries p to ~16 significant bits
+// (relative error ~2^-17).  One bf16 wgmma on p would round p to 8 bits;
+// TF32 would run at half the bf16 rate and keep 10 mantissa bits.
+//
+// f32 (the CUDA-core body, `simt`).  f32 inputs on the tensor cores would
+// run in TF32, about three decimal digits, which fails the reference's
+// 2e-5 tolerance; so f32 keeps a CUDA-core design: one block per (64
+// query rows, query head, batch), q, one 64-key K tile and one V tile
+// staged in shared memory as f32 (rows padded by one float, so that column
+// reads hit 32 different banks), each of 256 threads holding a 4 x 4 block
+// of scores and a 4 x dh/16 block of the output in registers, so that each
+// shared-memory read feeds 4 multiply-adds.
+//
+// Both bodies mask partial tiles (any s, t) themselves; the op checks the
+// reference's block divisibility.
+//
+// The C entry point picks the body by dtype.  Neither falls back to the
+// other: a failed tensor-map encode or launch returns its error.  wgmma,
+// TMA and mbarriers are raw PTX with hand-built descriptors (no CUTLASS or
+// CuTe), so the file builds with nvcc alone in a few seconds.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,26 +92,27 @@
 
 namespace {
 
-constexpr int kBQ = 64;             // query rows per block
-constexpr int kBK = 64;             // keys per staged tile
-constexpr int kThreads = 256;       // 16 x 16 threads
 constexpr float kNegInf = -1e30f;   // the TPU kernel's NEG_INF
 constexpr float kMinDenom = 1e-20f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core body
 
-// Stage `rows` rows of DH elements (row r at src + r * stride) into dst as
-// f32 with row stride DH + 1; rows at or past `valid` are zero-filled.
-// Consecutive threads read consecutive elements of a row.
-template <int DH, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+namespace simt {
+
+constexpr int kBQ = 64;             // query rows per block
+constexpr int kBK = 64;             // keys per staged tile
+constexpr int kThreads = 256;       // 16 x 16 threads
+
+// Stage `rows` rows of DH floats (row r at src + r * stride) into dst with
+// row stride DH + 1; rows at or past `valid` are zero-filled.  Consecutive
+// threads read consecutive elements of a row.
+template <int DH>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       size_t stride, int rows, int valid) {
   for (int i = threadIdx.x; i < rows * DH; i += blockDim.x) {
     const int r = i / DH, d = i % DH;
-    dst[r * (DH + 1) + d] = r < valid ? to_f32(src[(size_t)r * stride + d]) : 0.f;
+    dst[r * (DH + 1) + d] = r < valid ? src[(size_t)r * stride + d] : 0.f;
   }
 }
 
@@ -85,11 +135,11 @@ constexpr int smem_floats() {
   return kBQ * (DH + 1) + 2 * kBK * (DH + 1) + kBQ * (kBK + 1);
 }
 
-template <int DH, typename T>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int s, int t,
-                 int H, int K, int seq_k, int causal, float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int s,
+                 int t, int H, int K, int seq_k, int causal, float scale) {
   constexpr int LD = DH + 1;         // padded row stride of q/k/v tiles
   constexpr int LP = kBK + 1;        // padded row stride of the p tile
   constexpr int CPT = DH / 16;       // output columns per thread
@@ -106,9 +156,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int q0 = qt * kBQ;
   const size_t q_stride = (size_t)H * DH, kv_stride = (size_t)K * DH;
-  const T* qb = q + ((size_t)ib * s + q0) * q_stride + (size_t)ih * DH;
-  const T* kb = k + (size_t)ib * t * kv_stride + (size_t)kh * DH;
-  const T* vb = v + (size_t)ib * t * kv_stride + (size_t)kh * DH;
+  const float* qb = q + ((size_t)ib * s + q0) * q_stride + (size_t)ih * DH;
+  const float* kb = k + (size_t)ib * t * kv_stride + (size_t)kh * DH;
+  const float* vb = v + (size_t)ib * t * kv_stride + (size_t)kh * DH;
 
   stage<DH>(qs, qb, q_stride, kBQ, min(kBQ, s - q0));
 
@@ -201,39 +251,531 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int q_pos = q0 + ty + 16 * i;
     if (q_pos >= s) continue;
     const float denom = fmaxf(l[i], kMinDenom);
-    T* orow = out + ((size_t)ib * s + q_pos) * q_stride + (size_t)ih * DH;
+    float* orow = out + ((size_t)ib * s + q_pos) * q_stride + (size_t)ih * DH;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) store(orow + tx + 16 * c, acc[i][c] / denom);
+    for (int c = 0; c < CPT; ++c) orow[tx + 16 * c] = acc[i][c] / denom;
   }
 }
 
-template <int DH, typename T>
+template <int DH>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int s, int t, int H, int K, int seq_k, int causal, float scale,
            cudaStream_t stream) {
   const int smem = smem_floats<DH>() * (int)sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<DH, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((s + kBQ - 1) / kBQ, H, b);
-  flash_fwd_kernel<DH, T><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, s, t, H, K, seq_k,
-      causal, scale);
+  flash_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, s, t, H,
+      K, seq_k, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* out, int b,
-              int s, int t, int H, int K, int dh, int seq_k, int causal,
-              float scale, cudaStream_t stream) {
-  switch (dh) {
-    case 32: return launch<32, T>(q, k, v, out, b, s, t, H, K, seq_k, causal, scale, stream);
-    case 64: return launch<64, T>(q, k, v, out, b, s, t, H, K, seq_k, causal, scale, stream);
-    case 128: return launch<128, T>(q, k, v, out, b, s, t, H, K, seq_k, causal, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core body
+
+namespace tc {
+
+constexpr int kBQ = 128;            // query rows per block
+constexpr int kBK = 128;            // keys per tile
+constexpr int kStages = 2;          // K/V tiles in the ring
+constexpr int kConsumers = 2;       // warpgroups, 64 query rows each
+constexpr int kThreads = 128 * (1 + kConsumers);   // + the producer's
+// registers per thread after rebalancing (setmaxnreg): the producer
+// warpgroup gives up what the consumers take, 24 * 128 + 240 * 256 =
+// 168 * 384, the launch's share at one block of 384 threads per SM
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory geometry of one head dim.  Q, K and V tiles are stored as
+// TMA writes them with a 128-byte swizzle (64-byte at dh 32): rows of
+// kRowBytes, the head dim cut into kChunks column chunks of kChunk
+// elements, chunk c of a tile of R rows at byte c * R * kRowBytes.  An
+// 8-row atom (kAtom bytes) is the swizzle's period.
+template <int DH>
+struct Geo {
+  static constexpr int kRowBytes = DH >= 64 ? 128 : 64;
+  static constexpr int kChunk = kRowBytes / 2;
+  static constexpr int kChunks = DH / kChunk;
+  static constexpr int kAtom = 8 * kRowBytes;
+  static constexpr uint64_t kLayout = DH >= 64 ? 1 : 2;   // B128 : B64
+  static constexpr int kQBytes = kBQ * DH * 2;
+  static constexpr int kTileBytes = kBK * DH * 2;          // one K or V tile
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kTileBytes;
+  // + 1024: the dynamic buffer is rounded up to the swizzle's alignment
+  static constexpr int kSmemBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at coordinates (c0, c1, c2, c3) of `map` into shared memory
+// at `dst`; its bytes count against the expect_tx of barrier `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets, swizzle layout (1 = 128 B, 2 = 64 B)
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Pin accumulator registers at this point of the program: the compiler
+// sees them rewritten here, so it moves no read of them above the wait
+// that precedes this call.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 128, f32) = or += A (64 x 16, bf16, shared) * B (16 x 128, bf16,
+// shared), both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                                uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// D (64 x N, f32) += A (64 x 16, bf16, registers) * B (16 x N, bf16,
+// shared, MN-major), N = 32, 64, 128
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S (64 x 128 keys, f32) = Q (this warpgroup's 64 rows) K^T, over dh in
+// steps of 16: both operands K-major, the step's bytes within a swizzled
+// row added to the start address, the next column chunk a whole tile on
+template <int DH>
+__device__ __forceinline__ void qk(float (&sc)[kBK / 2], uint32_t q_wg,
+                                   uint32_t k_tile) {
+  using G = Geo<DH>;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const int c = kk * 16 / G::kChunk;
+    const uint32_t off = (kk * 16 % G::kChunk) * 2;
+    const uint64_t da = make_desc(q_wg + c * kBQ * G::kRowBytes + off, 16,
+                                  G::kAtom, G::kLayout);
+    const uint64_t db = make_desc(k_tile + c * kBK * G::kRowBytes + off, 16,
+                                  G::kAtom, G::kLayout);
+    wgmma_ss_n128(sc, da, db, kk > 0);
   }
+}
+
+// O (64 x dh, f32) += p_hi V + p_lo V over the tile's keys in steps of 16:
+// V (keys x dh) read MN-major, 16 keys = 16 swizzled rows further, its
+// column chunks a tile apart (the leading byte offset)
+template <int DH>
+__device__ __forceinline__ void pv(float (&o)[DH / 2],
+                                   const uint32_t (&p_hi)[kBK / 16][4],
+                                   const uint32_t (&p_lo)[kBK / 16][4],
+                                   uint32_t v_tile) {
+  using G = Geo<DH>;
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t db = make_desc(v_tile + kk * 16 * G::kRowBytes,
+                                  kBK * G::kRowBytes, G::kAtom, G::kLayout);
+    wgmma_rs(o, p_hi[kk], db);
+    wgmma_rs(o, p_lo[kk], db);
+  }
+}
+
+// The online softmax of one tile, in the accumulator's layout: element i
+// of sc is row row0 + 8 * ((i / 2) % 2), key k0 + 8 * (i / 4) + col + i % 2,
+// and the 4 lanes of a row share lane / 4.  Scores go to the log2 domain
+// (log2(e) is folded into the scale); masked ones become -inf, so their
+// p = exp2(-inf - m) is exactly 0 while m keeps the -1e30 start.  Leaves
+// p (f32) in sc, the new row max in m, the correction exp(m_old - m_new)
+// in corr, and l = l * corr + the thread's own part of the row sum (the
+// 4 lanes are summed once, at the end).
+__device__ __forceinline__ void softmax(float (&sc)[kBK / 2], float (&m)[2],
+                                        float (&l)[2], float (&corr)[2],
+                                        float scale_log2, bool masked, int k0,
+                                        int limit, int causal, int row0,
+                                        int col) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    const int r = (i / 2) % 2;
+    float x = sc[i] * scale_log2;
+    if (masked) {
+      const int kp = k0 + 8 * (i / 4) + col + i % 2;
+      if (kp >= limit || (causal && kp > row0 + 8 * r)) x = -INFINITY;
+    }
+    sc[i] = x;
+    mx[r] = fmaxf(mx[r], x);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    corr[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    const int r = (i / 2) % 2;
+    sc[i] = exp2f(sc[i] - m[r]);
+    l[r] += sc[i];
+  }
+}
+
+// p = p_hi + p_lo, both bf16, as wgmma A fragments: key step kk's register
+// j holds the pair p[8 kk + 2 j], p[8 kk + 2 j + 1] (rows and keys of the
+// accumulator layout are those of the A layout).  p - p_hi is exact in
+// f32, so p_hi + p_lo carries p to ~16 significant bits.
+__device__ __forceinline__ void split(const float (&p)[kBK / 2],
+                                      uint32_t (&p_hi)[kBK / 16][4],
+                                      uint32_t (&p_lo)[kBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float a = p[8 * kk + 2 * j], b = p[8 * kk + 2 * j + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+      p_hi[kk][j] = bits(hi);
+      p_lo[kk][j] = bits(__floats2bfloat162_rn(a - __low2float(hi),
+                                               b - __high2float(hi)));
+    }
+}
+
+// Key tile kt of kv head kh into its ring stage: K and V, each in
+// kChunks TMA boxes, completing on the stage's `full` barrier
+template <int DH>
+__device__ __forceinline__ void load_kv(const CUtensorMap* tm_k,
+                                        const CUtensorMap* tm_v, uint32_t k_sm,
+                                        uint32_t v_sm, uint32_t full, int kt,
+                                        int kh, int ib) {
+  using G = Geo<DH>;
+  const int st = kt % kStages;
+  mbar_expect_tx(full + 8 * st, 2 * G::kTileBytes);
+#pragma unroll
+  for (int c = 0; c < G::kChunks; ++c) {
+    const uint32_t off = st * G::kTileBytes + c * kBK * G::kRowBytes;
+    tma_load(k_sm + off, tm_k, full + 8 * st, c * G::kChunk, kh, kt * kBK, ib);
+    tma_load(v_sm + off, tm_v, full + 8 * st, c * G::kChunk, kh, kt * kBK, ib);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tc(__grid_constant__ const CUtensorMap tm_q,
+             __grid_constant__ const CUtensorMap tm_k,
+             __grid_constant__ const CUtensorMap tm_v,
+             __nv_bfloat16* __restrict__ out, int s, int t, int H, int K,
+             int seq_k, int causal, float scale_log2) {
+  using G = Geo<DH>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_sm = base;
+  const uint32_t k_sm = base + G::kQBytes;                        // + st * kTileBytes
+  const uint32_t v_sm = base + G::kQBytes + kStages * G::kTileBytes;
+  const uint32_t q_full = base + G::kBarOffset;
+  const uint32_t full = q_full + 8;                               // + 8 * st
+  const uint32_t empty = q_full + 8 * (1 + kStages);              // + 8 * st
+
+  const int n_qt = (s + kBQ - 1) / kBQ;
+  const int qt = n_qt - 1 - (int)blockIdx.x;   // longest causal rows first
+  const int ih = blockIdx.y, ib = blockIdx.z;
+  const int kh = ih / (H / K);
+  const int q0 = qt * kBQ;
+  const int limit = min(seq_k, t);
+  const int kv_end = causal ? min(limit, min(q0 + kBQ, s)) : limit;
+  const int n_kt = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every load; a stage is
+    // refilled once both consumer warpgroups have released it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, G::kQBytes);
+#pragma unroll
+      for (int c = 0; c < G::kChunks; ++c)
+        tma_load(q_sm + c * kBQ * G::kRowBytes, &tm_q, q_full, c * G::kChunk,
+                 ih, q0, ib);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        // round kt / kStages of a stage waits for the consumers' release
+        // of round kt / kStages - 1 (the first round passes at once)
+        mbar_wait(empty + 8 * (kt % kStages), ((kt / kStages) & 1) ^ 1);
+        load_kv<DH>(&tm_k, &tm_v, k_sm, v_sm, full, kt, kh, ib);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+
+  const int tid = threadIdx.x - 128;
+  const int w = tid / 128;                   // consumer warpgroup
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int row0 = q0 + 64 * w + 16 * warp + lane / 4;   // and row0 + 8
+  const int col = 2 * (lane % 4);
+  const uint32_t q_wg = q_sm + 64 * w * G::kRowBytes;
+
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(q_full, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % kStages;
+    mbar_wait(full + 8 * st, (kt / kStages) & 1);
+    float sc[kBK / 2];
+    wg_fence();
+    qk<DH>(sc, q_wg, k_sm + st * G::kTileBytes);
+    wg_commit();
+    wg_wait_all();
+    pin(sc);
+    // only tiles that cross kv_len or this warpgroup's causal diagonal
+    // are masked
+    float corr[2];
+    const int k0 = kt * kBK;
+    softmax(sc, m, l, corr, scale_log2,
+            k0 + kBK > limit || (causal && k0 + kBK - 1 > q0 + 64 * w), k0,
+            limit, causal, row0, col);
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] *= corr[(i / 2) % 2];
+    uint32_t p_hi[kBK / 16][4], p_lo[kBK / 16][4];
+    split(sc, p_hi, p_lo);
+    wg_fence();
+    pv<DH>(o, p_hi, p_lo, v_sm + st * G::kTileBytes);
+    wg_commit();
+    wg_wait_all();
+    pin(o);
+    mbar_arrive(empty + 8 * st);   // both warpgroups free the stage
+  }
+
+  // out = O / max(l, 1e-20), rounded once to bf16; rows past s not stored
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], kMinDenom);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= s) continue;
+    __nv_bfloat16* orow = out + (((size_t)ib * s + row) * H + ih) * DH + col;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
+          o[4 * j + 2 * r] / l[r], o[4 * j + 2 * r + 1] / l[r]);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// Tensor map over a contiguous (b, n, heads, DH) bf16 tensor in its own
+// layout: dims (DH, heads, n, b), innermost first; the box is one chunk
+// of the head dim, one head, `rows` rows of n and one batch.  Coordinates
+// past n are filled with zeros.
+template <int DH>
+CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int b,
+                int n, int heads, int rows) {
+  using G = Geo<DH>;
+  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)heads, (cuuint64_t)n,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)DH * 2, (cuuint64_t)heads * DH * 2,
+                                 (cuuint64_t)n * heads * DH * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)G::kChunk, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            DH >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* out, int b,
+           int s, int t, int H, int K, int seq_k, int causal, float scale,
+           cudaStream_t stream) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 ||
+      (uintptr_t)out % 4)
+    return (int)cudaErrorMisalignedAddress;
+  // t == 0: no key is ever loaded; the K/V maps only need a valid address
+  const void* kp = t > 0 ? k : q;
+  const void* vp = t > 0 ? v : q;
+  CUtensorMap mq, mk, mv;
+  CUresult r = encode<DH>(fn, &mq, q, b, s, H, kBQ);
+  if (r == CUDA_SUCCESS) r = encode<DH>(fn, &mk, kp, b, t > 0 ? t : 1, K, kBK);
+  if (r == CUDA_SUCCESS) r = encode<DH>(fn, &mv, vp, b, t > 0 ? t : 1, K, kBK);
+  if (r != CUDA_SUCCESS) return (int)r;
+  const int smem = Geo<DH>::kSmemBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_tc<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((s + kBQ - 1) / kBQ, H, b);
+  flash_fwd_tc<DH><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)out, s, t, H, K, seq_k, causal,
+      scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+template <int DH>
+int launch_dh(const void* q, const void* k, const void* v, void* out, int bf16,
+              int b, int s, int t, int H, int K, int seq_k, int causal,
+              float scale, cudaStream_t stream) {
+  return bf16 ? tc::launch<DH>(q, k, v, out, b, s, t, H, K, seq_k, causal, scale, stream)
+              : simt::launch<DH>(q, k, v, out, b, s, t, H, K, seq_k, causal, scale, stream);
 }
 
 }  // namespace
@@ -242,9 +784,12 @@ extern "C" {
 
 // q (b, s, H, dh), k/v (b, t, K, dh), out (b, s, H, dh); all contiguous, of
 // one dtype (bf16 when `bf16` is nonzero, else f32); H % K == 0, dh in
-// {32, 64, 128}; keys at or past `seq_k` are masked.  Launches on `stream`
-// (nothing when s, H or b is 0); returns the CUDA error code of the launch
-// (0 on success, cudaErrorInvalidValue for a dh without an instance).
+// {32, 64, 128}; keys at or past `seq_k` are masked.  bf16 runs the
+// tensor-core body, f32 the CUDA-core body; neither falls back to the
+// other.  Launches on `stream` (nothing when s, H or b is 0); returns 0 on
+// success, else the error: the CUDA runtime's of the launch, the driver's
+// of a tensor-map encode, cudaErrorInvalidValue for a dh without an
+// instance, cudaErrorMisalignedAddress for bf16 q/k/v not 16-byte aligned.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int bf16, int b, int s, int t, int H,
                            int K, int dh, int seq_k, int causal, float scale,
@@ -252,8 +797,12 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (K <= 0 || H % K) return (int)cudaErrorInvalidValue;
   if (b == 0 || s == 0 || H == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? launch_dh<__nv_bfloat16>(q, k, v, out, b, s, t, H, K, dh, seq_k, causal, scale, st)
-              : launch_dh<float>(q, k, v, out, b, s, t, H, K, dh, seq_k, causal, scale, st);
+  switch (dh) {
+    case 32: return launch_dh<32>(q, k, v, out, bf16, b, s, t, H, K, seq_k, causal, scale, st);
+    case 64: return launch_dh<64>(q, k, v, out, bf16, b, s, t, H, K, seq_k, causal, scale, st);
+    case 128: return launch_dh<128>(q, k, v, out, bf16, b, s, t, H, K, seq_k, causal, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

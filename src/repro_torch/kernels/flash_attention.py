@@ -3,12 +3,21 @@ the port of the Pallas kernel
 ``repro/kernels/flash_attention.py:flash_attention_pallas``.
 
 Blockwise causal or non-causal GQA attention with an online softmax in
-f32: one block per (64 query rows, query head, batch), K/V streamed in
-64-key tiles through shared memory, the TPU kernel's ``-1e30`` masking,
-zeroed masked probabilities and 1e-20 denominator clamp.  Its plain
-version is ``ref.flash_attention_ref``; ``ops.flash_attention`` picks
-between the two by the tensors' device.  This wrapper takes CUDA tensors
-only and raises on anything the kernel does not take.
+f32, the TPU kernel's ``-1e30`` masking, zeroed masked probabilities and
+1e-20 denominator clamp.  The work is bound by operations on the card.
+bf16 inputs run on the tensor cores: ``wgmma`` for q.k and for p.v,
+one block per (128 query rows, query head, batch) with a producer
+warpgroup issuing TMA loads of 128-key K/V tiles into a two-stage ring
+and two consumer warpgroups of 64 rows; p is split into two bf16 terms,
+p_hi = bf16(p) and p_lo = bf16(p - p_hi), each multiplied with V into
+one f32 accumulator, so P.V keeps p at f32 grade (~16 significant bits)
+for 1.5x the bf16 work.  f32 inputs stay on CUDA cores (one block per
+64 query rows, 64-key tiles), because the tensor cores would round
+them to TF32.  Its plain version is ``ref.flash_attention_ref``;
+``ops.flash_attention`` picks between the two by the tensors' device.
+This wrapper takes CUDA tensors only and raises on anything the kernel
+does not take, or when the kernel reports an error; it counts its
+launches, and the bf16 ones apart.
 """
 
 from __future__ import annotations
@@ -80,7 +89,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     flash_attention_cuda.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_cuda.tensor_core_launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+# the bf16 launches among them: those that ran the tensor-core body
+flash_attention_cuda.tensor_core_launches = 0

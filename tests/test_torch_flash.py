@@ -8,7 +8,9 @@ in interpret mode (its CPU form) at every shape of
 ``tests/test_kernels_flash.py``, with that file's tolerances (2e-5 f32,
 2e-2 bf16).  The CUDA kernel's own cases are in
 ``tests/test_torch_kernels.py`` (marked ``cuda``, skipped here);
-``chip_smoke.py`` holds it against the plain version on the card.
+``chip_smoke.py`` holds it against the plain version on the card.  The
+bf16 tensor-core body's rounding recipe (p split into two bf16 terms) is
+emulated here in plain PyTorch and held against the plain version.
 """
 
 import ml_dtypes
@@ -165,3 +167,79 @@ def test_kernel_bench_rows_on_the_cpu():
     assert rows[1][2] == "bytes=1572864,traffic_reduction=8.0x,device=cpu"
     assert rows[2][2] == "bytes=524288,device=cpu"
     assert rows[3][2] == "bytes=442368,traffic_reduction=1.2x,device=cpu"
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core body's rounding recipe (csrc/flash_attention.cu, bf16),
+# emulated in plain PyTorch on the CPU
+
+
+def _split_recipe(q, k, v, *, causal=True, keep_lo=True, block_k=128):
+    """The bf16 kernel's numerics, tile by tile: bf16 q.k products summed
+    in f32 and scaled after the dot (log2(e) folded into the scale), an
+    online softmax in exp2 over 128-key tiles with masked p exactly 0,
+    p split into p_hi = bf16(p) and p_lo = bf16(p - p_hi), each multiplied
+    with bf16 V in f32 into one f32 accumulator, divided by
+    max(l, 1e-20).  Returns the f32 output, before the one rounding to
+    bf16."""
+    b, s, H, dh = q.shape
+    t, K = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, s, K, H // K, dh)
+    scale_log2 = (1.0 / dh ** 0.5) * 1.4426950408889634
+    m = torch.full((b, K, H // K, s, 1), -1e30)
+    l = torch.zeros((b, K, H // K, s, 1))
+    o = torch.zeros((b, K, H // K, s, dh))
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, t, block_k):
+        kt = k[:, k0:k0 + block_k].float()
+        vt = v[:, k0:k0 + block_k].float()
+        x = torch.einsum("bskgd,btkd->bkgst", qf, kt) * scale_log2
+        keys = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        valid = (keys <= rows) if causal else torch.ones_like(keys <= rows)
+        x = torch.where(valid, x, torch.full_like(x, -torch.inf))
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float()
+        pv = torch.einsum("bkgst,btkd->bkgsd", p_hi, vt)
+        if keep_lo:
+            pv = pv + torch.einsum("bkgst,btkd->bkgsd", p_lo, vt)
+        o = o * corr + pv
+        m = m_new
+    out = o / l.clamp_min(1e-20)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, H, dh)
+
+
+def _recipe_inputs():
+    q, k, v = qkv(14, 1, 512, 512, 4, 2, 128, BF16)
+    return tt(q), tt(k), tt(v)
+
+
+def test_split_recipe_holds_one_bf16_step_of_the_plain_version():
+    """The recipe rounded once to bf16 sits within one bf16 step of each
+    value of ``ref.flash_attention_ref`` (chip_smoke.py's full-width
+    limit, 1e-4 + 2^-7 |plain|), and before that rounding within 1e-5 of
+    the plain version's f32 output: p_hi + p_lo carries p to ~16
+    significant bits, so the split keeps P.V at f32 grade."""
+    q, k, v = _recipe_inputs()
+    got32 = _split_recipe(q, k, v)
+    want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                     causal=True)
+    np.testing.assert_allclose(got32.numpy(), want32.numpy(), rtol=0,
+                               atol=1e-5)
+    got = got32.to(torch.bfloat16).float()
+    want = ref.flash_attention_ref(q, k, v, causal=True).float()
+    assert bool(((got - want).abs() <= 1e-4 + 2.0 ** -7 * want.abs()).all())
+
+
+def test_split_recipe_without_p_lo_loses_f32_grade():
+    """What the split buys: with p rounded to bf16 alone (p_lo dropped)
+    the f32 output leaves the 1e-5 band around the plain version's."""
+    q, k, v = _recipe_inputs()
+    want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                     causal=True)
+    err_split = (_split_recipe(q, k, v) - want32).abs().max().item()
+    err_hi = (_split_recipe(q, k, v, keep_lo=False) - want32).abs().max()
+    assert err_split <= 1e-5 < err_hi.item()
