@@ -14,7 +14,11 @@ Phases, each of which raises on failure:
    of the paged-decode attention kernel (G in {1, 4}, shuffled page
    tables, lengths 0 / 1 / page boundary / full, a poisoned junk page 0)
    and of the RMSNorm kernel, plus both at the full-width main-path
-   shapes;
+   shapes; then K1 held, element by element, within what two bf16
+   roundings allow (``_rounding_diff``, ratio <= 1) and bitwise equal
+   across two calls, at the main-path shape, 1 and 2 slots, lengths
+   that fill whole splits, one token past them and inside the first
+   page, one slot of 4,096 tokens, and G = 4 and 8 (``_k1_cases``);
 3. stream identity at smoke size: ``deepseek-7b-smoke`` served through
    ``ServeEngine`` on the serving benchmark's trace (continuous and
    static batching, blocking and chunked prefill) and on a scarce-page
@@ -29,14 +33,18 @@ Phases, each of which raises on failure:
 5. numbers (printed, nothing gated on them): kernel, plain-version and
    library-call times at the main-path shapes (device time per call from
    CUDA graphs: K1 and SDPA of flush + call pairs less the flushes alone,
-   RMSNorm of back-to-back calls), the full-width decode tick, the
-   chunked-prefill step and end-to-end tokens/s;
+   RMSNorm of back-to-back calls; K1 also at 1 slot x 4,096 tokens and
+   at 2 slots), the full-width decode tick, the chunked-prefill step and
+   end-to-end tokens/s;
 6. the Sedov stencil kernel against its plain version on the card: grids
-   8, 13, 16, 24, 32, 64 and 256, each on a developed blast state and on
-   a rough state (every zone different, so that every tile seam sees
-   varied data), one step and ten, every zone of every field held to
-   rtol 1e-6 (the kernel rounds as the plain version does); ten kernel
-   steps also against ten oracle steps (n = 16 and 256);
+   1, 2, 3, 5 (fewer planes than the kernel's pipeline is deep), 8, 13,
+   16, 24, 32, 33, 64, 70, 100 and 256 (chunk seams along axis 0 and
+   tile seams along axes 1 and 2, on full and partial tiles), each on a
+   developed blast state and on a rough state (every zone different, so
+   that every seam sees varied data), one step, and ten at 16, 70 and
+   256, every zone of every field held to rtol 1e-6 (the kernel rounds
+   as the plain version does); ten kernel steps also against ten oracle
+   steps;
 7. the LULESH path at full size: ``run_easey`` deploys ``lulesh-dash``
    (``lulesh -i 1000 -s 256``) with the paper's Listing 1.5 job to
    ``nvidia:h100`` twice (the first run is warm-up); each run must end
@@ -314,6 +322,90 @@ def _rounding_diff(torch, ref, args, got) -> dict:
             "frac": float((diff > 0).float().mean())}
 
 
+def _k1_cases(torch, rng, K, dh, page_size, sms, num_splits):
+    """(name, case) pairs for K1's rounding and determinism gates at full
+    width (K kv heads of dh): 1 and 2 slots; lengths that fill whole
+    splits, one token past them and inside the first page (one slot,
+    whose pair count gives ``num_splits`` splits); one slot of 4,096
+    tokens over 256 pages; G = 4 and 8 on 8 slots."""
+    one = num_splits(K, 64, sms)
+    whole = 2 * one * page_size              # 2 pages per split
+    lens8 = [300, 5, 0, 17, 129, 64, 512, 200]
+    return [
+        ("1 slot", _paged_case(torch, rng, [200], page_size, 32, K, 1, dh)),
+        ("2 slots", _paged_case(torch, rng, [130, 77], page_size, 32, K, 1,
+                                dh)),
+        (f"whole splits ({one} x 2 pages)",
+         _paged_case(torch, rng, [whole], page_size, 64, K, 1, dh)),
+        ("one past whole splits",
+         _paged_case(torch, rng, [whole + 1], page_size, 64, K, 1, dh)),
+        ("inside the first page",
+         _paged_case(torch, rng, [5], page_size, 64, K, 1, dh)),
+        ("1 slot x 4096", _paged_case(torch, rng, [4096], 16, 256, K, 1, dh)),
+        ("G=4", _paged_case(torch, rng, lens8, page_size, 32, K // 4, 4, dh)),
+        ("G=8", _paged_case(torch, rng, lens8, page_size, 32, K // 8, 8, dh)),
+    ]
+
+
+def _k1_hold(torch, ref, attend, name, case) -> dict:
+    """K1 on ``case`` within the two-rounding bound of its plain version
+    (ratio <= 1 for every element), the same bits on a second call, and
+    exact zeros at freed slots; returns ``_rounding_diff``'s record."""
+    got = attend(*case)
+    d = _rounding_diff(torch, ref, case, got)
+    if d["ratio"] > 1:
+        raise AssertionError(f"paged_attention {name}: {d['ratio']:.4g} of "
+                             f"the two-rounding bound ({d})")
+    if not torch.equal(got, attend(*case)):
+        raise AssertionError(f"paged_attention {name}: two calls differ")
+    freed = (case[4] == 0).nonzero()[:, 0]
+    if bool(got[freed].ne(0).any()):
+        raise AssertionError(f"paged_attention {name}: freed slot not zero")
+    return d
+
+
+def _k1_numbers(torch, ref, attend, card, what, case, flush) -> dict:
+    """K1 on ``case``: kernel and SDPA over pre-gathered KV (CUDA graphs of
+    L2 flush + call pairs less the flushes), the kernel's calls back to
+    back from the host (CUDA events), the plain version (the gather
+    path, CUDA events after a flush), and the bound: the bytes of
+    q, out, the table, the lengths and each held K/V row once over the
+    memory rate, or 4 H dh operations per token over the f32 rate."""
+    q, kp, vp, table, kv_len = case
+    slots, H, dh = q.shape
+    Kh = kp.shape[2]
+    toks = int(kv_len.sum())
+    byts = 2 * q.numel() * 2 + table.numel() * 4 + kv_len.numel() * 4 + \
+        2 * toks * Kh * dh * 2
+    flops = 4 * H * dh * toks
+    bound = max(byts / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    ms = _graph_pairs_ms(torch, lambda: attend(*case), flush, 50)
+    # calls back to back from the host, L2 warm: the host's cost per call
+    # (two launches and the wrapper) where it exceeds the device's
+    host = _events_ms(torch, lambda: attend(*case), 200)
+    plain = _events_ms(torch, lambda: ref.paged_attention_ref(*case), 20,
+                       flush)
+    T = table.shape[1] * kp.shape[1]
+    kg = kp[table.long()].reshape(slots, T, Kh, dh).transpose(1, 2)
+    vg = vp[table.long()].reshape(slots, T, Kh, dh).transpose(1, 2)
+    mask = (torch.arange(T, device="cuda")[None] <
+            kv_len[:, None])[:, None, None]
+    lib = _graph_pairs_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kg, vg, attn_mask=mask), flush, 50)
+    print(f"[numbers] {card} paged_attention {what}: {slots} slots x {H} "
+          f"heads x {dh}, {toks} held tokens, L2 flushed: kernel {ms:.4f} ms"
+          f" and SDPA over pre-gathered KV {lib:.4f} ms (device, CUDA graph "
+          f"of flush + call pairs less the flushes), plain (the gather "
+          f"path, CUDA events) {plain:.4f} ms, bound {bound:.4f} ms "
+          f"({byts / 1e6:.2f} MB); kernel at {bound / ms:.4f} of the bound, "
+          f"{ms / lib:.4f}x SDPA; kernel called back to back from the host "
+          f"{host:.4f} ms per call")
+    return {"ms": ms, "plain": plain, "lib": lib, "bound": bound,
+            "bound_by": "bytes" if byts / HBM_BYTES_PER_S >=
+            flops / F32_FLOPS else "operations"}
+
+
 def _one_step_noise(torch, out, frac, gen):
     """bf16 ``out`` with one bf16 step up or down at a random ``frac`` of
     its nonzero elements."""
@@ -518,7 +610,8 @@ def main() -> int:
     from repro_torch.configs.base import SHAPES
     from repro_torch.kernels import _build, bench, ops, ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.paged_attention import (num_splits,
+                                                      paged_attention_cuda)
     from repro_torch.core.workflow import run_easey
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.kernels.sedov_stencil import sedov_step_cuda
@@ -602,6 +695,21 @@ def main() -> int:
     print(f"[kernels] paged_attention vs plain: max abs err {k1_err:.4g} "
           f"(atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}), junk page ignored, "
           f"freed slots exact zeros")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k1_cases = [("main path", k1_main)] + _k1_cases(
+        torch, rng, full.num_kv_heads, full.head_dim, plan.serve_page_size,
+        sms, num_splits)
+    for name, case in k1_cases:
+        d = _k1_hold(torch, ref, paged_attention_cuda, name, case)
+        k1_err = max(k1_err, d["abs"])
+        print(f"[kernels] paged_attention {name} (lengths "
+              f"{case[4].tolist()[:8]}, G={case[0].shape[1] // case[1].shape[2]}"
+              f", {num_splits(case[0].shape[0] * case[1].shape[2], case[3].shape[1], sms)}"
+              f" splits): {d['ratio']:.4f} of the two-rounding bound, "
+              f"{d['ulps']:.3g} bf16 steps, max abs {d['abs']:.4g}; two calls "
+              f"bitwise equal")
+    k1_long, k1_two = dict(k1_cases)["1 slot x 4096"], \
+        dict(k1_cases)["2 slots"]
 
     k2_err = 0.0
     d = full.d_model
@@ -815,32 +923,10 @@ def main() -> int:
     # ---- 5. numbers ------------------------------------------------------
     flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
-    q, kp, vp, table, kv_len = k1_main
-    slots, H, dh = q.shape
-    Kh = kp.shape[2]
-    toks = int(kv_len.sum())
-    k1_bytes = 2 * q.numel() * 2 + table.numel() * 4 + kv_len.numel() * 4 + \
-        2 * toks * Kh * dh * 2
-    k1_flops = 4 * H * dh * toks
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_flops / F32_FLOPS) * 1e3
-    k1_ms = _graph_pairs_ms(torch, lambda: paged_attention_cuda(*k1_main),
-                            flush, 50)
-    # the plain version is the engine's gather path
-    k1_plain = _events_ms(torch, lambda: ref.paged_attention_ref(*k1_main),
-                          20, flush)
-    T = table.shape[1] * kp.shape[1]
-    kg = kp[table.long()].reshape(slots, T, Kh, dh).transpose(1, 2)
-    vg = vp[table.long()].reshape(slots, T, Kh, dh).transpose(1, 2)
-    mask = (torch.arange(T, device="cuda")[None] < kv_len[:, None])[:, None, None]
-    k1_lib = _graph_pairs_ms(
-        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None], kg, vg, attn_mask=mask), flush, 50)
-    print(f"[numbers] {card} paged_attention {slots} slots x {H} heads x "
-          f"{dh}, {toks} held tokens, L2 flushed: kernel {k1_ms:.4f} ms and "
-          f"SDPA over pre-gathered KV {k1_lib:.4f} ms (device, CUDA graph "
-          f"of flush + call pairs less the flushes), plain (the gather "
-          f"path, CUDA events) {k1_plain:.4f} ms, bound {k1_bound:.4f} ms "
-          f"({k1_bytes / 1e6:.2f} MB)")
+    k1 = _k1_numbers(torch, ref, paged_attention_cuda, card, "main path",
+                     k1_main, flush)
+    for what, case in (("1 slot x 4096", k1_long), ("2 slots", k1_two)):
+        _k1_numbers(torch, ref, paged_attention_cuda, card, what, case, flush)
 
     # K2 is far shorter than its host call: device time per call from a
     # CUDA graph of back-to-back calls, host time per call beside it
@@ -897,9 +983,9 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 
     # ---- 6. the stencil against its plain version ------------------------
-    grids = (8, 13, 16, 24, 32, 64, LULESH_GRID)
+    grids = (1, 2, 3, 5, 8, 13, 16, 24, 32, 33, 64, 70, 100, LULESH_GRID)
     k4_err, k4_rel, ten = _stencil_checks(np, lulesh, ref, sedov_step_cuda,
-                                          grids, (16, LULESH_GRID))
+                                          grids, (16, 70, LULESH_GRID))
     print(f"[kernels] sedov_stencil vs plain, developed and rough states, one "
           f"step at n = {grids} and ten at n = {tuple(ten)}: every zone of "
           f"every field within rtol {STENCIL_ELEM_RTOL} (max abs "
@@ -990,7 +1076,7 @@ def main() -> int:
           f"finite, e[1,0,0] {float(fin['e'][1, 0, 0]):.6g}, max |rho - 1| "
           f"{float((fin['rho'] - 1.0).abs().max()):.6g}, t "
           f"{float(fin['t']):.6g}, v != 0 up to index {reach} along axes "
-          f"0/1/2 (tiles 8 x 8 x 32); equal to {iters} plain fused steps "
+          f"0/1/2 (tiles 16 x 32 over axes 1/2, chunks of 64 planes); equal to {iters} plain fused steps "
           f"and one more kernel step equal to the plain one, every zone "
           f"within rtol {STENCIL_ELEM_RTOL}")
 
@@ -1167,10 +1253,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:197",
          "launches": launches["paged_attention"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >=
-         k1_flops / F32_FLOPS else "operations",
-         "library_ms": k1_lib},
+         "ms": k1["ms"], "plain_ms": k1["plain"], "bound_ms": k1["bound"],
+         "bound_by": k1["bound_by"], "library_ms": k1["lib"]},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:38",

@@ -1,4 +1,5 @@
-// Paged single-token decode attention for NVIDIA Hopper (sm_90a).
+// Paged single-token decode attention for NVIDIA Hopper (sm_90a), split
+// over the KV run so that the grid fills the card at any slot count.
 //
 // Replaces the Pallas TPU kernel `paged_attention_pallas` / its body
 // `_paged_decode_kernel` (src/repro/kernels/paged_attention.py).
@@ -9,27 +10,50 @@
 //   m    = max_t s_t,  l = sum_t exp(s_t - m)      f32
 //   out  = sum_t bf16(exp(s_t - m) / l) * v_t      f32 accumulate -> bf16
 // Positions on the junk page 0 or at/after kv_len are masked with p = 0
-// (explicitly, never exp(-inf - -inf)); a slot with no live page writes
-// exact zeros.  Normalizing THEN rounding each probability to bf16 before
-// PV is the reference gather path's recipe (layers.dot_attention rounds
-// probs to the value dtype), which keeps kernel-on token streams equal to
-// the gather path's.
+// (explicitly, never exp(-inf - -inf)) and never read; a slot with no
+// live page writes exact zeros.  Normalizing with the GLOBAL m and l and
+// THEN rounding each probability to bf16 before PV is the reference
+// gather path's recipe (layers.dot_attention rounds probs to the value
+// dtype), which keeps kernel-on token streams equal to the gather path's.
+// That recipe rules out FlashDecoding's rescaling of unnormalized partial
+// outputs by exp(m_i - m): a probability may be rounded only once the
+// whole run's m and l are known.
 //
-// Bound on this card: device-memory bytes.  A decode tick reads each held
-// K/V token once (2 * K * dh * 2 bytes per token) and does 4 * G flops per
-// byte-pair of K/V, far below the ~295 flop/byte ridge of an H100.  The
-// design reads each K and V row once: the TPU kernel walks the pages three
-// times (max, denominator, PV) and recomputes the scores each time; here
-// the scores of the slot are computed once into shared memory (G * T
-// floats, T = max_pages * page_size) and the max / denominator passes run
-// over shared memory, so only the PV pass touches V.
+// Bound on this card: device-memory bytes.  A call reads each live K and V
+// row once (2 * K * dh * 2 bytes per token) and does 4 * G operations per
+// byte-pair of K/V, far below the ~295 operations per byte of an H100's
+// ridge.  So the design is about bytes in flight and full SMs.
 //
-// Layout: one block of kThreads threads per (kv head, slot).  Scores: one
-// warp per token, each lane loading 4 bf16 of the K row (8-byte vector
-// loads, a warp covers a 128-wide row in one 256-byte transaction).  PV:
-// each thread owns a pair of output columns (bf16x2 loads of V) for a
-// strided subset of the tokens; the column groups are summed through
-// shared memory at the end.
+// Work split.  Each (slot, kv head) pair is cut into `nsplit` splits of
+// whole pages: of the P = ceil(min(kv_len, T) / page_size) live pages,
+// split i takes pages [i P / nsplit, (i + 1) P / nsplit), so the splits
+// follow kv_len on the device and pages past it are never walked.  The
+// wrapper picks nsplit from the pair count and the SM count (about four
+// blocks per SM), so 1 slot fills the card as well as 8 do.  Two kernels,
+// grid (nsplit, K, slots), 128 threads a block:
+//   (a) paged_scores_kernel: each split computes its scores into a device
+//       scratch (slots, K, G, T) and its local max per query head.
+//   (b) paged_pv_kernel: each split takes m as the max of the local maxima,
+//       computes l over ALL the pair's scores (read back from L2) in one
+//       fixed order, so every split gets the same l bit for bit, rounds
+//       bf16(exp(s - m) / l) for its own tokens and writes its f32 P.V
+//       partial.  The last block of the pair to finish (a ticket: an
+//       atomicAdd on the pair's int counter after __threadfence) sums the
+//       partials in split order into the bf16 output and resets the
+//       counter to 0, so the next call (or a CUDA-graph replay) finds it
+//       so.  No float atomics: the same inputs give the same bits.
+// Rows: a K or V row of dh bf16 is read with 16-byte loads, 8 bf16 per
+// lane, by a group of lpr = pow2ceil(dh / 8) lanes (16 at dh 128, so a
+// warp covers two rows per load).  Each lane keeps two batches of kUnroll
+// row loads in flight (the next batch loads while the current one is
+// used), and the split's page ids are staged in shared memory kPageChunk
+// at a time, so no row load waits on a page-table load.  (b) starts
+// before (a) ends (programmatic dependent launch: (a) lets it launch at
+// once, (b) loads its first V rows, which are inputs, and only then waits
+// for (a)'s scores at griddepcontrol.wait), so its loads overlap (a)'s
+// tail and the gap between the launches.  Shared memory does not depend
+// on T: kPageChunk ints, and in (b) kWarps * G * dh floats to sum its
+// warps' partials.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,207 +63,385 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;                        // row loads in flight per lane
 constexpr int kMaxG = 8;
+constexpr int kPageChunk = 64;                    // page ids staged at a time
 
-__device__ __forceinline__ float warp_max(float v) {
+struct Geo {
+  int K, dh, page_size, max_pages, nsplit, lpr;
+};
+
+// Pages [p0, p1) of `split` in a run of len_eff tokens (p1 <= p0: none).
+__device__ __forceinline__ void split_pages(int len_eff, const Geo& g,
+                                            int split, int& p0, int& p1) {
+  const int P = (len_eff + g.page_size - 1) / g.page_size;
+  p0 = (int)((long long)split * P / g.nsplit);
+  p1 = (int)((long long)(split + 1) * P / g.nsplit);
+}
+
+__device__ __forceinline__ int live_len(const int32_t* kv_len, int slot,
+                                        const Geo& g) {
+  return max(0, min(kv_len[slot], g.max_pages * g.page_size));
+}
+
+__device__ __forceinline__ void bf16x8(const uint4& raw, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  for (int j = 0; j < 4; ++j) {
+    const float2 p = __bfloat1622float2(h[j]);
+    f[2 * j] = p.x;
+    f[2 * j + 1] = p.y;
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// Address of the bf16 row of token `pos` of kv head kh on `page`.
+__device__ __forceinline__ const __nv_bfloat16* row_at(
+    const __nv_bfloat16* pages, int page, int pos, int kh, const Geo& g) {
+  return pages + (((size_t)page * g.page_size + pos % g.page_size) * g.K + kh)
+                     * g.dh;
+}
+
+// The rows a warp loads at once: kUnroll loads per lane, each lane group
+// of lpr lanes covering one row.  Rows at or past `tb`, or on page 0, are
+// dead: not loaded, p = 0.
+struct Batch {
+  uint4 raw[kUnroll];
+  int pos[kUnroll];
+  bool live[kUnroll];
+};
+
+// Load the batch of rows starting at token `base` of the chunk whose page
+// ids (from page pc0 on) are in `spg`.
+__device__ __forceinline__ void fetch(Batch& b, const __nv_bfloat16* pages,
+                                      const int* spg, int pc0, int base,
+                                      int tb, int kh, int warp, int grp,
+                                      int rpl, int c, bool on, const Geo& g) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int u = 0; u < kUnroll; ++u) {
+    b.pos[u] = base + (u * kWarps + warp) * rpl + grp;
+    const int page = b.pos[u] < tb ? spg[b.pos[u] / g.page_size - pc0] : 0;
+    b.live[u] = page != 0;
+    b.raw[u] = make_uint4(0, 0, 0, 0);
+    if (b.live[u] && on)
+      b.raw[u] = *reinterpret_cast<const uint4*>(
+          row_at(pages, page, b.pos[u], kh, g) + c);
+  }
 }
 
-// Block-wide reduction; every thread gets the result.  `red` is 32 floats
-// of shared scratch; the leading barrier makes back-to-back calls safe.
-template <bool kIsMax>
-__device__ float block_reduce(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = kIsMax ? warp_max(v) : warp_sum(v);
+// Page ids of pages [pc0, pc1) of the slot's row into shared memory.
+__device__ __forceinline__ void load_table(int* spg, const int32_t* row,
+                                           int pc0, int pc1) {
+  __syncthreads();                                // the last chunk is done
+  for (int i = threadIdx.x; i < pc1 - pc0; i += kThreads) spg[i] = row[pc0 + i];
   __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  const int nwarps = blockDim.x >> 5;
-  v = lane < nwarps ? red[lane] : (kIsMax ? -INFINITY : 0.f);
-  return kIsMax ? warp_max(v) : warp_sum(v);
 }
 
+// ---- (a) scores and local maxima ------------------------------------------
+template <int G>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
+paged_scores_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k_pages,
-                    const __nv_bfloat16* __restrict__ v_pages,
                     const int32_t* __restrict__ page_table,
                     const int32_t* __restrict__ kv_len,
-                    __nv_bfloat16* __restrict__ out,
-                    int K, int G, int dh, int page_size, int max_pages,
-                    float scale) {
-  extern __shared__ float smem[];
-  __shared__ float red[32];
-  const int T = max_pages * page_size;
-  const int kh = blockIdx.x, slot = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int len = kv_len[slot];
-  const int32_t* row = page_table + (size_t)slot * max_pages;
-  const size_t tok_stride = (size_t)K * dh;      // elements per token
-  float* qs = smem;                               // G * dh
-  float* sc = smem + G * dh;                      // max(G * T, groups * G * dh)
+                    float* __restrict__ scores, float* __restrict__ maxes,
+                    Geo geo, float scale) {
+  // (b) may start now: it loads its V rows, then waits for this grid
+  asm volatile("griddepcontrol.launch_dependents;");
+  __shared__ float wmax[kWarps][G];
+  __shared__ int spg[kPageChunk];
+  const int split = blockIdx.x, kh = blockIdx.y, slot = blockIdx.z;
+  const int pair = slot * geo.K + kh;
+  const int T = geo.max_pages * geo.page_size;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lpr = geo.lpr, rpl = 32 / lpr;        // lanes per row, rows per load
+  const int sub = lane & (lpr - 1), grp = lane / lpr;
+  const int c = sub * 8;
+  const bool on = c < geo.dh;
+  const int32_t* row = page_table + (size_t)slot * geo.max_pages;
+  const int len = live_len(kv_len, slot, geo);
+  int p0, p1;
+  split_pages(len, geo, split, p0, p1);
 
-  const __nv_bfloat16* qh = q + ((size_t)slot * K * G + (size_t)kh * G) * dh;
-  for (int i = tid; i < G * dh; i += blockDim.x) qs[i] = __bfloat162float(qh[i]);
-  __syncthreads();
-
-  // ---- scores: one warp per token position ----
-  for (int pos = warp; pos < T; pos += nwarps) {
-    const int page = row[pos / page_size];
-    if (page == 0 || pos >= len) {
-      if (lane < G) sc[lane * T + pos] = -INFINITY;
-      continue;
-    }
-    const __nv_bfloat16* krow = k_pages +
-        ((size_t)page * page_size + pos % page_size) * tok_stride + (size_t)kh * dh;
-    float part[kMaxG];
+  float qf[G][8];
+  const __nv_bfloat16* qh = q + ((size_t)pair * G) * geo.dh;
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) part[g] = 0.f;
-    for (int d = lane * 4; d < dh; d += 128) {
-      const uint2 raw = *reinterpret_cast<const uint2*>(krow + d);
-      const float2 k01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-      const float2 k23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          const float* qg = qs + g * dh + d;
-          part[g] += qg[0] * k01.x + qg[1] * k01.y + qg[2] * k23.x + qg[3] * k23.y;
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        const float s = warp_sum(part[g]);
-        if (lane == 0) sc[g * T + pos] = s * scale;
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- max, denominator, then normalized bf16-rounded probabilities ----
   for (int g = 0; g < G; ++g) {
-    float* sg = sc + g * T;
-    float m = -INFINITY;
-    for (int i = tid; i < T; i += blockDim.x) m = fmaxf(m, sg[i]);
-    m = block_reduce<true>(m, red);
-    float l = 0.f;
-    for (int i = tid; i < T; i += blockDim.x)
-      if (sg[i] != -INFINITY) l += expf(sg[i] - m);
-    l = block_reduce<false>(l, red);
-    // each thread rewrites only the entries it read above: no race
-    for (int i = tid; i < T; i += blockDim.x) {
-      const float s = sg[i];
-      sg[i] = s == -INFINITY ? 0.f
-                             : __bfloat162float(__float2bfloat16(expf(s - m) / l));
-    }
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (on) raw = *reinterpret_cast<const uint4*>(qh + g * geo.dh + c);
+    bf16x8(raw, qf[g]);
   }
-  __syncthreads();
+  float mx[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
 
-  // ---- PV: thread = (token group, column pair) ----
-  const int pairs = dh / 2;
-  const int groups = blockDim.x / pairs;
-  const int grp = tid / pairs, c = (tid % pairs) * 2;
-  float acc[kMaxG][2];
+  float* sc = scores + (size_t)pair * G * T;
+  const int step = kWarps * rpl * kUnroll;
+  for (int pc0 = p0; pc0 < p1; pc0 += kPageChunk) {   // uniform over the block
+    const int pc1 = min(pc0 + kPageChunk, p1);
+    load_table(spg, row, pc0, pc1);
+    const int ta = pc0 * geo.page_size, tb = min(pc1 * geo.page_size, len);
+    Batch cur;
+    fetch(cur, k_pages, spg, pc0, ta, tb, kh, warp, grp, rpl, c, on, geo);
+    for (int base = ta; base < tb; base += step) {
+      Batch nxt;                                  // in flight while cur is used
+      fetch(nxt, k_pages, spg, pc0, base + step, tb, kh, warp, grp, rpl, c, on,
+            geo);
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) acc[g][0] = acc[g][1] = 0.f;
-  if (grp < groups) {
-    for (int pos = grp; pos < T; pos += groups) {
-      const int page = row[pos / page_size];
-      if (page == 0 || pos >= len) continue;
-      const __nv_bfloat16* vrow = v_pages +
-          ((size_t)page * page_size + pos % page_size) * tok_stride + (size_t)kh * dh;
-      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vrow + c));
+      for (int u = 0; u < kUnroll; ++u) {
+        float kf[8];
+        bf16x8(cur.raw[u], kf);
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          const float p = sc[g * T + pos];
-          acc[g][0] += p * v.x;
-          acc[g][1] += p * v.y;
+        for (int g = 0; g < G; ++g) {
+          float part = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) part += qf[g][j] * kf[j];
+          // xor butterfly inside the row's lane group: every lane of the
+          // group ends with the same bits (a + b == b + a)
+          for (int o = lpr >> 1; o > 0; o >>= 1)
+            part += __shfl_xor_sync(0xffffffffu, part, o);
+          const float s = part * scale;
+          if (cur.pos[u] < tb && sub == 0)
+            sc[g * T + cur.pos[u]] = cur.live[u] ? s : -INFINITY;
+          if (cur.live[u]) mx[g] = fmaxf(mx[g], s);
         }
       }
+      cur = nxt;
     }
   }
-  __syncthreads();                                // done reading sc
-  float* part = sc;                               // groups * G * dh floats
-  if (grp < groups) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        part[(grp * G + g) * dh + c] = acc[g][0];
-        part[(grp * G + g) * dh + c + 1] = acc[g][1];
-      }
-    }
+  for (int g = 0; g < G; ++g) {
+    float v = mx[g];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (lane == 0) wmax[warp][g] = v;
   }
   __syncthreads();
-  __nv_bfloat16* oh = out + ((size_t)slot * K * G + (size_t)kh * G) * dh;
-  for (int i = tid; i < G * dh; i += blockDim.x) {
+  if (threadIdx.x < G) {
+    float v = -INFINITY;
+    for (int w = 0; w < kWarps; ++w) v = fmaxf(v, wmax[w][threadIdx.x]);
+    maxes[((size_t)pair * geo.nsplit + split) * G + threadIdx.x] = v;
+  }
+}
+
+// ---- (b) P.V partials, and the combine by the pair's last block ------------
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+paged_pv_kernel(const __nv_bfloat16* __restrict__ v_pages,
+                const int32_t* __restrict__ page_table,
+                const int32_t* __restrict__ kv_len,
+                const float* __restrict__ scores,
+                const float* __restrict__ maxes, float* partials,
+                int* counters, __nv_bfloat16* __restrict__ out, Geo geo) {
+  extern __shared__ float wacc[];                 // kWarps * G * dh
+  __shared__ float wsum[kWarps][G];
+  __shared__ int spg[kPageChunk];
+  __shared__ int is_last;
+  const int split = blockIdx.x, kh = blockIdx.y, slot = blockIdx.z;
+  const int pair = slot * geo.K + kh;
+  const int T = geo.max_pages * geo.page_size;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lpr = geo.lpr, rpl = 32 / lpr;
+  const int sub = lane & (lpr - 1), grp = lane / lpr;
+  const int c = sub * 8;
+  const bool on = c < geo.dh;
+  const int GD = G * geo.dh;
+  const int32_t* row = page_table + (size_t)slot * geo.max_pages;
+  const int len = live_len(kv_len, slot, geo);
+  int p0, p1;
+  split_pages(len, geo, split, p0, p1);
+  const float* sc = scores + (size_t)pair * G * T;
+  const int step = kWarps * rpl * kUnroll;
+
+  // the first rows of V are inputs, not (a)'s results: load them before
+  // waiting for (a) to finish
+  int pc0 = p0, pc1 = min(p0 + kPageChunk, p1);
+  load_table(spg, row, pc0, pc1);
+  Batch cur;
+  fetch(cur, v_pages, spg, pc0, pc0 * geo.page_size,
+        min(pc1 * geo.page_size, len), kh, warp, grp, rpl, c, on, geo);
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+
+  // m: the max of the splits' maxima (exact in any order)
+  float m[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) m[g] = -INFINITY;
+  for (int i = 0; i < geo.nsplit; ++i) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      m[g] = fmaxf(m[g], maxes[((size_t)pair * geo.nsplit + i) * G + g]);
+  }
+  // l: every split sums all the pair's scores in the same fixed order
+  float l[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) l[g] = 0.f;
+  for (int i = tid; i < len; i += kThreads) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float s = sc[g * T + i];
+      if (s != -INFINITY) l[g] += expf(s - m[g]);
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float v = l[g];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) wsum[warp][g] = v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float v = 0.f;
+    for (int w = 0; w < kWarps; ++w) v += wsum[w][g];
+    l[g] = v;
+  }
+
+  float acc[G][8];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[g][j] = 0.f;
+  while (pc0 < p1) {                              // uniform over the block
+    const int ta = pc0 * geo.page_size, tb = min(pc1 * geo.page_size, len);
+    for (int base = ta; base < tb; base += step) {
+      Batch nxt;                                  // in flight while cur is used
+      fetch(nxt, v_pages, spg, pc0, base + step, tb, kh, warp, grp, rpl, c, on,
+            geo);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (!cur.live[u]) continue;
+        float vf[8];
+        bf16x8(cur.raw[u], vf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float p = __bfloat162float(__float2bfloat16(
+              expf(sc[g * T + cur.pos[u]] - m[g]) / l[g]));
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[g][j] += p * vf[j];
+        }
+      }
+      cur = nxt;
+    }
+    pc0 = pc1;
+    pc1 = min(pc0 + kPageChunk, p1);
+    if (pc0 < p1) {
+      load_table(spg, row, pc0, pc1);
+      fetch(cur, v_pages, spg, pc0, pc0 * geo.page_size,
+            min(pc1 * geo.page_size, len), kh, warp, grp, rpl, c, on, geo);
+    }
+  }
+  // the warp's row groups, then the warps, each summed in a fixed order
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      for (int o = lpr; o < 32; o <<= 1)
+        acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], o);
+  if (grp == 0 && on) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) wacc[(warp * G + g) * geo.dh + c + j] = acc[g][j];
+  }
+  __syncthreads();
+  float* part = partials + ((size_t)pair * geo.nsplit + split) * GD;
+  for (int i = tid; i < GD; i += kThreads) {
     float s = 0.f;
-    for (int r = 0; r < groups; ++r) s += part[r * G * dh + i];
+    for (int w = 0; w < kWarps; ++w) s += wacc[w * GD + i];
+    part[i] = s;
+  }
+
+  // ticket: the pair's last block sums the partials in split order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(counters + pair, 1) == geo.nsplit - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const float* parts = partials + (size_t)pair * geo.nsplit * GD;
+  __nv_bfloat16* oh = out + (size_t)pair * GD;
+  for (int i = tid; i < GD; i += kThreads) {
+    float s = 0.f;
+    for (int sp = 0; sp < geo.nsplit; ++sp) s += __ldcg(parts + (size_t)sp * GD + i);
     oh[i] = __float2bfloat16(s);
   }
+  if (tid == 0) counters[pair] = 0;
+}
+
+template <int G>
+cudaError_t launch_g(const void* q, const void* k_pages, const void* v_pages,
+                     const void* page_table, const void* kv_len, void* out,
+                     float* scores, float* maxes, float* partials,
+                     int* counters, int slots, const Geo& geo, float scale,
+                     cudaStream_t stream) {
+  const dim3 grid(geo.nsplit, geo.K, slots);
+  paged_scores_kernel<G><<<grid, kThreads, 0, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
+      (const int32_t*)page_table, (const int32_t*)kv_len, scores, maxes, geo,
+      scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  // (b) may start once every block of (a) has begun (programmatic
+  // dependent launch); it waits for (a)'s results at griddepcontrol.wait
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)kWarps * G * geo.dh * sizeof(float);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, paged_pv_kernel<G>,
+                         (const __nv_bfloat16*)v_pages,
+                         (const int32_t*)page_table, (const int32_t*)kv_len,
+                         (const float*)scores, (const float*)maxes, partials,
+                         counters, (__nv_bfloat16*)out, geo);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes the launch needs (the wrapper checks them against
-// the card's per-block limit before launching).
-int paged_attention_smem_bytes(int G, int dh, int page_size, int max_pages) {
-  const int T = max_pages * page_size;
-  const int groups = kThreads / (dh / 2);
-  const int scratch = G * T > groups * G * dh ? G * T : groups * G * dh;
-  return (G * dh + scratch) * (int)sizeof(float);
-}
-
-// Dynamic shared memory one block may take on the current device: the
-// card's opt-in per-block limit less the kernel's static shared memory.
-// A negative CUDA error code on failure.
-int paged_attention_smem_limit(void) {
-  int dev = 0, optin = 0;
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, paged_decode_kernel);
-  if (e != cudaSuccess) return -(int)e;
-  return optin - (int)attr.sharedSizeBytes;
-}
-
 // q (slots, K*G, dh) bf16; k/v_pages (num_pages, page_size, K, dh) bf16;
 // page_table (slots, max_pages) int32; kv_len (slots,) int32;
-// out (slots, K*G, dh) bf16.  All contiguous.  Requires G <= 8,
-// dh % 8 == 0 and dh <= 256.  Launches on `stream`; returns the CUDA error
-// code of the launch (0 on success).
+// out (slots, K*G, dh) bf16; all contiguous, q/k/v/out 16-byte aligned.
+// Scratch from the caller: scores slots*K*G*max_pages*page_size f32,
+// maxes slots*K*nsplit*G f32, partials slots*K*nsplit*G*dh f32 and
+// counters slots*K int32, all ZERO before the first call (the last block
+// of each pair leaves its counter at 0 again).  Requires 1 <= G <= 8,
+// dh % 8 == 0, dh <= 256, 1 <= nsplit.  Launches the two kernels on
+// `stream`; returns the CUDA error code of the launches (0 on success).
 int paged_attention_launch(const void* q, const void* k_pages,
                            const void* v_pages, const void* page_table,
-                           const void* kv_len, void* out, int slots, int K,
-                           int G, int dh, int page_size, int max_pages,
-                           float scale, void* stream) {
-  const int smem = paged_attention_smem_bytes(G, dh, page_size, max_pages);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
+                           const void* kv_len, void* out, void* scores,
+                           void* maxes, void* partials, void* counters,
+                           int slots, int K, int G, int dh, int page_size,
+                           int max_pages, int nsplit, float scale,
+                           void* stream) {
+  if (G < 1 || G > kMaxG || dh % 8 || dh > 256 || nsplit < 1)
+    return (int)cudaErrorInvalidValue;
+  int lpr = 1;
+  while (lpr * 8 < dh) lpr <<= 1;
+  const Geo geo{K, dh, page_size, max_pages, nsplit, lpr};
+  float *s = (float*)scores, *mx = (float*)maxes, *pt = (float*)partials;
+  int* ct = (int*)counters;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define PAGED_G(n)                                                           \
+  case n:                                                                    \
+    return (int)launch_g<n>(q, k_pages, v_pages, page_table, kv_len, out, s, \
+                            mx, pt, ct, slots, geo, scale, st);
+  switch (G) {
+    PAGED_G(1) PAGED_G(2) PAGED_G(3) PAGED_G(4)
+    PAGED_G(5) PAGED_G(6) PAGED_G(7) PAGED_G(8)
   }
-  const dim3 grid(K, slots);
-  paged_decode_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
-      (const __nv_bfloat16*)v_pages, (const int32_t*)page_table,
-      (const int32_t*)kv_len, (__nv_bfloat16*)out, K, G, dh, page_size,
-      max_pages, scale);
-  return (int)cudaGetLastError();
+#undef PAGED_G
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -2,11 +2,21 @@
 (``csrc/paged_attention.cu``), the port of the Pallas kernel
 ``repro/kernels/paged_attention.py:paged_attention_pallas``.
 
-The kernel walks each slot's page-table row on the card: one block per
-(kv head, slot) holding that head's G query heads.  Its plain version is
-``ref.paged_attention_ref``; ``ops.paged_attention`` picks between the
-two by the tensors' device.  This wrapper takes CUDA tensors only and
-raises on anything the kernel does not take.
+The kernel walks each slot's page-table row on the card, split over the
+KV run: each (slot, kv head) pair is cut into ``num_splits`` splits of
+whole live pages, sized on the device from ``kv_len``, so that the grid
+fills the card at one slot as well as at eight.  One call is two
+launches: (a) each split's scores and local maxima into a scratch, (b)
+each split's P.V partial under the global max and denominator, summed
+in split order by the pair's last block.  The result is deterministic.
+The scratch (scores, maxima, partials and the pairs' arrival counters)
+is allocated once per (device, shape) and kept: the decode tick is
+bound by the host, and an allocation per call would cost it.  One
+shape's scratch serves one stream at a time.
+
+Its plain version is ``ref.paged_attention_ref``; ``ops.paged_attention``
+picks between the two by the tensors' device.  This wrapper takes CUDA
+tensors only and raises on anything the kernel does not take.
 """
 
 from __future__ import annotations
@@ -20,33 +30,46 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_G = 8                      # query heads per kv head the kernel holds
+BLOCKS_PER_SM = 4              # the grid (nsplit, K, slots) aims at this many
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_SCRATCH: dict[tuple, tuple[torch.Tensor, ...]] = {}
 
 
 @functools.cache
 def _lib():
-    """The built library, its C signatures declared once."""
+    """The built library, its C signature declared once."""
     lib = _build.load("paged_attention")
-    lib.paged_attention_launch.argtypes = [_P] * 6 + [_I] * 6 + \
+    lib.paged_attention_launch.argtypes = [_P] * 10 + [_I] * 7 + \
         [ctypes.c_float, _P]
     lib.paged_attention_launch.restype = _I
-    lib.paged_attention_smem_bytes.argtypes = [_I] * 4
-    lib.paged_attention_smem_bytes.restype = _I
-    lib.paged_attention_smem_limit.argtypes = []
-    lib.paged_attention_smem_limit.restype = _I
     return lib
 
 
 @functools.cache
-def _smem_limit(device_index: int) -> int:
-    """Dynamic shared memory one block may take on the (current) device
-    ``device_index``, as the card reports it."""
-    limit = _lib().paged_attention_smem_limit()
-    if limit < 0:
-        raise RuntimeError(f"reading the shared-memory limit of cuda:"
-                           f"{device_index} failed: CUDA error {-limit}")
-    return limit
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def num_splits(pairs: int, max_pages: int, sms: int) -> int:
+    """Splits per (slot, kv head) pair: enough blocks for BLOCKS_PER_SM on
+    each of ``sms`` SMs, at most one per page of the table row."""
+    want = -(-BLOCKS_PER_SM * sms // max(pairs, 1))
+    return max(1, min(max_pages, want))
+
+
+def _scratch(device: torch.device, slots: int, K: int, G: int, dh: int,
+             T: int, nsplit: int) -> tuple[torch.Tensor, ...]:
+    key = (device.index, slots, K, G, dh, T, nsplit)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        f32 = dict(dtype=torch.float32, device=device)
+        buf = (torch.empty(slots * K * G * T, **f32),
+               torch.empty(slots * K * nsplit * G, **f32),
+               torch.empty(slots * K * nsplit * G * dh, **f32),
+               torch.zeros(slots * K, dtype=torch.int32, device=device))
+        _SCRATCH[key] = buf
+    return buf
 
 
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
@@ -69,6 +92,9 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("page_table and kv_len must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention_cuda takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("q/k/v must start on 16-byte boundaries (the "
+                         "kernel reads rows with 16-byte loads)")
     slots, H, dh = q.shape
     num_pages, page_size, K, dh_kv = k_pages.shape
     if v_pages.shape != k_pages.shape or dh_kv != dh or H % K:
@@ -85,17 +111,15 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if slots == 0:
         return out
-    lib = _lib()
-    stream = _build.stream_of(q)
-    smem = lib.paged_attention_smem_bytes(G, dh, page_size, max_pages)
-    if smem > _smem_limit(q.device.index):
-        raise ValueError(f"{max_pages} pages x {page_size} tokens x G={G} "
-                         f"need {smem} B of shared memory > "
-                         f"{_smem_limit(q.device.index)}")
-    rc = lib.paged_attention_launch(
+    nsplit = num_splits(slots * K, max_pages, _sm_count(q.device.index))
+    scores, maxes, partials, counters = _scratch(
+        q.device, slots, K, G, dh, max_pages * page_size, nsplit)
+    rc = _lib().paged_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        slots, K, G, dh, page_size, max_pages, 1.0 / math.sqrt(dh), stream)
+        scores.data_ptr(), maxes.data_ptr(), partials.data_ptr(),
+        counters.data_ptr(), slots, K, G, dh, page_size, max_pages, nsplit,
+        1.0 / math.sqrt(dh), _build.stream_of(q))
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
@@ -104,4 +128,3 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_attention_cuda.launches = 0
-

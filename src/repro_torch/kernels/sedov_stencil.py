@@ -4,7 +4,11 @@ the port of the Pallas kernel
 
 One launch is one fused LULESH step for a given ``dt``: EOS, divergence,
 viscosity, momentum, re-divergence, energy and mass, edge-clamped at the
-domain boundary, and ``t + dt``.  ``dt`` (from ``ref.cfl_dt``) stays a
+domain boundary, and ``t + dt``.  The kernel marches along axis 0: each
+block owns a 16 x 32 tile of axes (1, 2) and a chunk of 64 planes,
+streams the input planes into a shared-memory ring and computes pq, v_n
+and the outputs one plane behind each other, so each input zone is
+loaded once per block.  ``dt`` (from ``ref.cfl_dt``) stays a
 device scalar: the kernel reads it through a pointer, so a step never
 waits for the host.  Its plain version is ``ref.sedov_step_ref``;
 ``ops.sedov_step_kernel`` picks between the two by the tensors' device.
@@ -22,8 +26,9 @@ import torch
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# blocks along axes 1 and 2 of the grid launch (CUDA's 65,535 limit)
-MAX_GRID = 65_535 * 8
+# grid side whose 16-row tiles along axis 1 stay within CUDA's 65,535
+# blocks on grid dimension y
+MAX_GRID = 65_535 * 16
 
 
 @functools.cache

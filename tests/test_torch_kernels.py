@@ -181,9 +181,16 @@ def cuda():
     return torch.device("cuda")
 
 
+# the bf16 sweep cases the kernel takes, one slot, and one long slot
+# (4,096 tokens over 256 pages: many splits per pair)
+CUDA_CASES = [c for c in CASES if c[6] == BF16 and c[4] % 8 == 0] + [
+    (16, 8, 2, 1, 128, [100], BF16),
+    (16, 256, 4, 1, 128, [4096], BF16),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("psize,mp,K,G,dh,lens,dtype",
-                         [c for c in CASES if c[6] == BF16 and c[4] % 8 == 0])
+@pytest.mark.parametrize("psize,mp,K,G,dh,lens,dtype", CUDA_CASES)
 def test_cuda_paged_attention_matches_plain(cuda, psize, mp, K, G, dh, lens,
                                             dtype):
     case = [tt(a).to(cuda) for a in make_case(7, lens, psize, mp, K, G, dh,
@@ -192,6 +199,13 @@ def test_cuda_paged_attention_matches_plain(cuda, psize, mp, K, G, dh, lens,
     want = ref.paged_attention_ref(*case)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+    # within two bf16 roundings (of each probability and of the output)
+    # of the plain version, element by element, and the same bits again
+    spread = ref.paged_attention_ref(case[0], case[1], case[2].abs(),
+                                     *case[3:]).float()
+    bound = 2.0 ** -7 * (spread * (1 + 2.0 ** -7) + want.float().abs()) + 1e-6
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+    assert torch.equal(got, paged_attention_cuda(*case))
 
 
 @pytest.mark.cuda
