@@ -18,7 +18,14 @@ Phases, each of which raises on failure:
    roundings allow (``_rounding_diff``, ratio <= 1) and bitwise equal
    across two calls, at the main-path shape, 1 and 2 slots, lengths
    that fill whole splits, one token past them and inside the first
-   page, one slot of 4,096 tokens, and G = 4 and 8 (``_k1_cases``);
+   page, one slot of 4,096 tokens, and G = 4, 8, 11 and 12 (``_k1_cases``;
+   G = 12 is ``mistral-large-123b``'s 96 heads over 8 kv heads, three
+   chunks of 4 heads a block, and G = 11 ends in a short chunk of 3);
+   then the fused residual add + RMSNorm
+   (``add_rmsnorm_cuda``) at rows 1, 8, 40, 128 and 1000 by widths 64,
+   4096, 12288 and 18432, both forms: the residual bitwise equal to the
+   plain version's, the norm within one bf16 step of it, two calls
+   bitwise equal (``_k2_hold``);
 3. stream identity at smoke size: ``deepseek-7b-smoke`` served through
    ``ServeEngine`` on the serving benchmark's trace (continuous and
    static batching, blocking and chunked prefill) and on a scarce-page
@@ -26,16 +33,22 @@ Phases, each of which raises on failure:
    identical greedy streams, and the benchmark's scheduling counts;
 4. the slice at full width: ``deepseek-7b`` (random weights from a seed)
    on one card, 8 greedy requests through the paged engine built with
-   its defaults, with both kernels on every step, counted; then the same
-   run teacher-forced, each tick's logits held against the gather path's
-   on the same pool, and a free-running gather run whose streams are
-   compared;
+   its defaults, with the kernels on every step, counted (the fused
+   add + norm on every norm but layer 0's first); then the same run
+   teacher-forced, each tick's logits held against the gather path's on
+   the same pool and every fused add + norm call held as phase 2 holds
+   it, and a free-running gather run whose streams are compared;
 5. numbers (printed, nothing gated on them): kernel, plain-version and
    library-call times at the main-path shapes (device time per call from
    CUDA graphs: K1 and SDPA of flush + call pairs less the flushes alone,
-   RMSNorm of back-to-back calls; K1 also at 1 slot x 4,096 tokens and
-   at 2 slots), the full-width decode tick, the chunked-prefill step and
-   end-to-end tokens/s;
+   RMSNorm of back-to-back calls; K1 also at 1 slot x 4,096 tokens, at 2
+   slots and at G = 12; both RMSNorm entries at 8, 40 and 128 rows beside
+   an empty kernel's launch in the same harness (built here from
+   ``EMPTY_KERNEL_CU``: a yardstick, no kernel of the port),
+   ``F.rms_norm`` and the eager composition the fused entry replaces,
+   and the host's time per call), the full-width decode tick, the chunked-prefill step (each with
+   its device launches and busy time from the profiler) and end-to-end
+   tokens/s;
 6. the Sedov stencil kernel against its plain version on the card: grids
    1, 2, 3, 5 (fewer planes than the kernel's pipeline is deep), 8, 13,
    16, 24, 32, 33, 64, 70, 100 and 256 (chunk seams along axis 0 and
@@ -69,7 +82,8 @@ Phases, each of which raises on failure:
    shapes of ``deepseek-7b`` (32 heads) and of
    ``mistral-large-123b``'s attention (96 heads over 8 kv heads), both
    s = t = 4096 in bf16, causal, each element within one bf16 step of
-   the plain version's value, through the tensor-core body (its
+   the plain version's value, and ``nemotron-4-340b``'s (96 heads over 8
+   kv heads of 192), through the tensor-core body (its
    launches counted) — with the kernel's, the plain version's and
    ``scaled_dot_product_attention``'s device times from CUDA graphs
    beside the bound;
@@ -146,6 +160,11 @@ FLASH_CASES = [
     (1, 128, 256, 4, 2, 64, True, "float32"),
     (1, 100, 77, 4, 2, 32, False, "float32"),
     (1, 512, 512, 4, 2, 64, True, "float32"),
+    # head dims 16 (the smoke configs), 112 (zamba2-7b) and 192
+    # (nemotron-4-340b): padded widths, 32-byte swizzle, 64-key tiles
+    (1, 128, 128, 4, 2, 16, True, "float32"),
+    (1, 200, 200, 4, 2, 112, True, "float32"),
+    (1, 128, 256, 2, 1, 192, True, "float32"),
 ]
 # bf16 twins of the f32 shapes, which run the tensor-core body; held to
 # one bf16 step of each value (FLASH_FULL_ATOL, FLASH_FULL_RTOL), the
@@ -153,9 +172,16 @@ FLASH_CASES = [
 FLASH_TWINS = [case[:7] + ("bfloat16",) for case in FLASH_CASES
                if case[7] == "float32"]
 # full width, causal, bf16: deepseek-7b's attention and the GQA widths of
-# mistral-large-123b (96 heads over 8 kv heads of 128), s = t = 4096
+# mistral-large-123b (96 heads over 8 kv heads of 128) and nemotron-4-340b
+# (96 over 8 of 192), s = t = 4096
 FLASH_FULL = {"deepseek-7b": (1, 4096, 4096, 32, 32, 128),
-              "mistral-large-123b": (1, 4096, 4096, 96, 8, 128)}
+              "mistral-large-123b": (1, 4096, 4096, 96, 8, 128),
+              "nemotron-4-340b": (1, 4096, 4096, 96, 8, 192)}
+# the fused residual add + RMSNorm's gate: decode (1, 8 rows), a verify
+# burst (8 x 5), a prefill chunk, a long prefill; the smoke configs'
+# width and deepseek-7b's, mistral-large's and nemotron-4's
+K2_ROWS = (1, 8, 40, 128, 1000)
+K2_WIDTHS = (64, 4096, 12288, 18432)
 SAMPLED = dict(temperature=0.7, top_k=16, top_p=0.9)
 # the stencil kernel (f32, built with -fmad=false) against its plain
 # version: each zone of every field within this rtol, with no absolute
@@ -172,6 +198,16 @@ LULESH_ITERS, LULESH_GRID = 1000, 256
 # once per zone: EOS 2, div 8, q 4, pq 1, 1/rho 2, momentum 15, div 8,
 # energy 5, mass 4)
 STENCIL_FLOPS_PER_ZONE = 49
+# the floor under any launch's device time: a kernel that does nothing,
+# timed in the harness that times the RMSNorm kernel
+EMPTY_KERNEL_CU = r'''
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+'''
 
 
 def _smi() -> str:
@@ -180,6 +216,41 @@ def _smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _empty_kernel_build(torch, _build):
+    """Start ``nvcc`` on ``EMPTY_KERNEL_CU`` (beside the port's kernels,
+    with their flags); returns a function that waits for the build and
+    returns a launcher of the empty kernel on the current stream."""
+    import ctypes
+    import hashlib
+    flags = _build.flags("empty")
+    digest = hashlib.sha256((EMPTY_KERNEL_CU + " ".join(flags)).encode())
+    lib_path = _build.BUILD_DIR / f"libempty-{digest.hexdigest()[:16]}.so"
+    proc = None
+    if not lib_path.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cu = lib_path.with_suffix(".cu")
+        cu.write_text(EMPTY_KERNEL_CU)
+        proc = subprocess.Popen(
+            [_build.nvcc(), *flags, "-o", str(lib_path), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def launcher():
+        if proc is not None and proc.wait() != 0:
+            raise RuntimeError("nvcc failed for the empty kernel:\n" +
+                               proc.stdout.read())
+        lib = ctypes.CDLL(str(lib_path))
+        lib.empty_launch.argtypes = [ctypes.c_void_p]
+        lib.empty_launch.restype = ctypes.c_int
+
+        def launch():
+            rc = lib.empty_launch(torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"empty kernel launch failed: CUDA error "
+                                   f"{rc}")
+        return launch
+    return launcher
 
 
 def _timed(fn, *args, **kw):
@@ -239,9 +310,11 @@ def _graph_pairs_ms(torch, fn, flush, n: int) -> float:
         _graph_ms(torch, flush, n)
 
 
-def _profile_ticks(torch, card: str, tick, n: int) -> None:
-    """Where a decode tick's time goes: host wall time of ``n`` ticks
-    against the device time the profiler attributes to kernels, and the
+def _profile_ticks(torch, card: str, what: str, tick, n: int) -> dict:
+    """Where a step's time goes: host wall time of ``n`` steps against the
+    device time the profiler attributes to kernels, the device operations
+    launched per step (kernels, and copies and fills apart; the count is
+    deterministic), the RMSNorm kernel's share of the busy time, and the
     kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -260,19 +333,31 @@ def _profile_ticks(torch, card: str, tick, n: int) -> None:
 
     def device_us(e):
         return e.self_device_time_total
+    copies = sum(e.count for e in events
+                 if e.key.startswith(("Memcpy", "Memset")))
+    out = {"host_ms": wall_s * 1e3 / n,
+           "kernels": (sum(e.count for e in events) - copies) / n,
+           "copies": copies / n}
     busy_us = sum(device_us(e) for e in events)
     wall_us = wall_s * 1e6
     if busy_us <= 0:
-        print(f"[profile] {card} decode tick: host {wall_us / n / 1e3:.3f} "
-              f"ms; device time not measured (the profiler saw no device "
-              f"activity)")
-        return
-    print(f"[profile] {card} decode tick: host {wall_us / n / 1e3:.3f} ms, "
-          f"device busy {busy_us / n / 1e3:.3f} ms, idle share "
-          f"{1 - busy_us / wall_us:.3f} (profiler on)")
+        print(f"[profile] {card} {what}: host {out['host_ms']:.3f} ms, "
+              f"{out['kernels']:g} kernels and {out['copies']:g} copies "
+              f"launched; device time not measured (the profiler saw no "
+              f"device time)")
+        return out
+    norm_us = sum(device_us(e) for e in events if "norm_kernel" in e.key)
+    out.update(busy_ms=busy_us / n / 1e3, idle=1 - busy_us / wall_us,
+               norm_ms=norm_us / n / 1e3)
+    print(f"[profile] {card} {what}: host {out['host_ms']:.3f} ms, device "
+          f"busy {out['busy_ms']:.3f} ms, idle share {out['idle']:.3f} "
+          f"(profiler on); {out['kernels']:g} kernels and {out['copies']:g} "
+          f"copies launched per step; RMSNorm kernel {out['norm_ms']:.4f} ms "
+          f"({norm_us / busy_us:.4f} of busy)")
     for e in sorted(events, key=device_us, reverse=True)[:8]:
-        print(f"[profile]   {device_us(e) / n / 1e3:8.3f} ms/tick "
-              f"{e.count // n:5d} calls/tick  {e.key[:70]}")
+        print(f"[profile]   {device_us(e) / n / 1e3:8.3f} ms/step "
+              f"{e.count // n:5d} calls/step  {e.key[:70]}")
+    return out
 
 
 def _paged_case(torch, rng, lens, page_size, max_pages, K, G, dh,
@@ -327,7 +412,10 @@ def _k1_cases(torch, rng, K, dh, page_size, sms, num_splits):
     width (K kv heads of dh): 1 and 2 slots; lengths that fill whole
     splits, one token past them and inside the first page (one slot,
     whose pair count gives ``num_splits`` splits); one slot of 4,096
-    tokens over 256 pages; G = 4 and 8 on 8 slots."""
+    tokens over 256 pages; G = 4 and 8 on 8 slots; G = 12 on 8 slots at
+    mistral-large-123b's widths (96 heads over 8 kv heads of 128), three
+    chunks of 4 heads a block; and G = 11 (88 heads over 8), whose last
+    chunk holds 3."""
     one = num_splits(K, 64, sms)
     whole = 2 * one * page_size              # 2 pages per split
     lens8 = [300, 5, 0, 17, 129, 64, 512, 200]
@@ -344,6 +432,8 @@ def _k1_cases(torch, rng, K, dh, page_size, sms, num_splits):
         ("1 slot x 4096", _paged_case(torch, rng, [4096], 16, 256, K, 1, dh)),
         ("G=4", _paged_case(torch, rng, lens8, page_size, 32, K // 4, 4, dh)),
         ("G=8", _paged_case(torch, rng, lens8, page_size, 32, K // 8, 8, dh)),
+        ("G=12", _paged_case(torch, rng, lens8, page_size, 32, 8, 12, 128)),
+        ("G=11", _paged_case(torch, rng, lens8, page_size, 32, 8, 11, 128)),
     ]
 
 
@@ -362,6 +452,32 @@ def _k1_hold(torch, ref, attend, name, case) -> dict:
     if bool(got[freed].ne(0).any()):
         raise AssertionError(f"paged_attention {name}: freed slot not zero")
     return d
+
+
+def _k2_hold(torch, ref, fused, name, x, a, w, rounded, repeat=True) -> dict:
+    """The fused residual add + RMSNorm ``fused`` on (x, a, w) against its
+    plain version: the residual bitwise equal, the norm within one bf16
+    step of the plain value (FLASH_FULL_ATOL + FLASH_FULL_RTOL * |plain|:
+    both compute in f32, only the order of the sum of squares differs,
+    and each rounds once), and with ``repeat`` a second call bitwise
+    equal.  Returns the norm's max abs error and its largest share of the
+    limit."""
+    r, y = fused(x, a, w, norm_of_rounded=rounded)
+    r_want, y_want = ref.add_rmsnorm_ref(x, a, w, norm_of_rounded=rounded)
+    if not torch.equal(r.view(torch.int16), r_want.view(torch.int16)):
+        raise AssertionError(f"add_rmsnorm {name}: residual differs from "
+                             f"the plain version's")
+    err = (y.float() - y_want.float()).abs()
+    share = float((err / (FLASH_FULL_ATOL + FLASH_FULL_RTOL *
+                          y_want.float().abs())).max())
+    if share > 1:
+        raise AssertionError(f"add_rmsnorm {name}: norm {share:.4g} of one "
+                             f"bf16 step from the plain version's")
+    if repeat:
+        r2, y2 = fused(x, a, w, norm_of_rounded=rounded)
+        if not (torch.equal(r2, r) and torch.equal(y2, y)):
+            raise AssertionError(f"add_rmsnorm {name}: two calls differ")
+    return {"abs": float(err.max()), "share": share}
 
 
 def _k1_numbers(torch, ref, attend, card, what, case, flush) -> dict:
@@ -392,7 +508,8 @@ def _k1_numbers(torch, ref, attend, card, what, case, flush) -> dict:
             kv_len[:, None])[:, None, None]
     lib = _graph_pairs_ms(
         torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None], kg, vg, attn_mask=mask), flush, 50)
+            q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=H != Kh),
+        flush, 50)
     print(f"[numbers] {card} paged_attention {what}: {slots} slots x {H} "
           f"heads x {dh}, {toks} held tokens, L2 flushed: kernel {ms:.4f} ms"
           f" and SDPA over pre-gathered KV {lib:.4f} ms (device, CUDA graph "
@@ -610,10 +727,11 @@ def main() -> int:
     from repro_torch.configs.base import SHAPES
     from repro_torch.kernels import _build, bench, ops, ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.paged_attention import (num_splits,
+    from repro_torch.kernels.paged_attention import (head_chunk, head_chunks,
+                                                      num_splits,
                                                       paged_attention_cuda)
     from repro_torch.core.workflow import run_easey
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
     from repro_torch.kernels.sedov_stencil import sedov_step_cuda
     from repro_torch.models import lulesh
     from repro_torch.serving import (Request, ServeEngine, repetitive_trace,
@@ -621,7 +739,8 @@ def main() -> int:
     from repro_torch.training.steps import build_decode_step_slots_paged
 
     wrappers = {"paged_attention": paged_attention_cuda,
-                "rmsnorm": rmsnorm_cuda, "sedov_stencil": sedov_step_cuda,
+                "rmsnorm": rmsnorm_cuda, "add_rmsnorm": add_rmsnorm_cuda,
+                "sedov_stencil": sedov_step_cuda,
                 "flash_attention": flash_attention_cuda}
 
     def reset_counts():
@@ -641,7 +760,9 @@ def main() -> int:
     print(f"[device] {smi} | {props.name}, {props.multi_processor_count} SMs,"
           f" {props.total_memory / 1e9:.1f} GB | torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    empty_kernel = _empty_kernel_build(torch, _build)
     logs, build_s = _timed(_build.build)
+    empty_cuda = empty_kernel()
     print(f"[build] nvcc {', '.join(sorted(logs)) or '(already built)'} for "
           f"sm_90a in {build_s:.2f} s")
     for name, log in logs.items():
@@ -702,14 +823,18 @@ def main() -> int:
     for name, case in k1_cases:
         d = _k1_hold(torch, ref, paged_attention_cuda, name, case)
         k1_err = max(k1_err, d["abs"])
+        slots, H, _ = case[0].shape
+        Kh = case[1].shape[2]
+        gc = head_chunk(H // Kh)
+        pairs = slots * Kh * head_chunks(H // Kh)
         print(f"[kernels] paged_attention {name} (lengths "
-              f"{case[4].tolist()[:8]}, G={case[0].shape[1] // case[1].shape[2]}"
-              f", {num_splits(case[0].shape[0] * case[1].shape[2], case[3].shape[1], sms)}"
-              f" splits): {d['ratio']:.4f} of the two-rounding bound, "
+              f"{case[4].tolist()[:8]}, G={H // Kh} in chunks of {gc}, "
+              f"{num_splits(pairs, case[3].shape[1], sms)} splits): "
+              f"{d['ratio']:.4f} of the two-rounding bound, "
               f"{d['ulps']:.3g} bf16 steps, max abs {d['abs']:.4g}; two calls "
               f"bitwise equal")
-    k1_long, k1_two = dict(k1_cases)["1 slot x 4096"], \
-        dict(k1_cases)["2 slots"]
+    k1_long, k1_two, k1_g12 = (dict(k1_cases)[c] for c in (
+        "1 slot x 4096", "2 slots", "G=12"))
 
     k2_err = 0.0
     d = full.d_model
@@ -726,6 +851,22 @@ def main() -> int:
         KERNEL_ATOL, KERNEL_RTOL))
     print(f"[kernels] rmsnorm vs plain (rows 1/8/128/1000 x {d}, bf16 and "
           f"f32 input): max abs err {k2_err:.4g}")
+    k2f_err, k2f_share = 0.0, 0.0
+    for dk in K2_WIDTHS:
+        wk = (1 + 0.1 * torch.randn(dk, device="cuda")).to(torch.bfloat16)
+        for rows in K2_ROWS:
+            xk = (3 * torch.randn((rows, dk), device="cuda")).to(torch.bfloat16)
+            ak = torch.randn((rows, dk), device="cuda").to(torch.bfloat16)
+            for rounded in (False, True):
+                h = _k2_hold(torch, ref, add_rmsnorm_cuda,
+                             f"rows={rows} d={dk} norm_of_rounded={rounded}",
+                             xk, ak, wk, rounded)
+                k2f_err = max(k2f_err, h["abs"])
+                k2f_share = max(k2f_share, h["share"])
+    print(f"[kernels] add_rmsnorm vs plain (rows {K2_ROWS} x d {K2_WIDTHS}, "
+          f"the norm of the f32 sum and of the rounded one): residual "
+          f"bitwise equal, norm within {k2f_share:.4f} of one bf16 step "
+          f"(max abs {k2f_err:.4g}), two calls bitwise equal")
 
     # ---- 3. stream identity at smoke size ------------------------------
     smoke = get_config("deepseek-7b-smoke")
@@ -800,8 +941,11 @@ def main() -> int:
     st_k = eng_k.run(reqs)
     launches = counts()
     ticks, chunks = st_k.decode_steps, st_k.prefill_chunks
+    # per step: layer 0's first norm alone, then 2 fused add + norms a
+    # layer (the second norm; the next first norm or ln_f)
     want = {"paged_attention": full.num_layers * ticks,
-            "rmsnorm": (2 * full.num_layers + 1) * (ticks + chunks),
+            "rmsnorm": ticks + chunks,
+            "add_rmsnorm": 2 * full.num_layers * (ticks + chunks),
             "sedov_stencil": 0, "flash_attention": 0}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
@@ -821,8 +965,16 @@ def main() -> int:
     noisy_step = build_decode_step_slots_paged(eng_k.model, use_kernel=True)
     kernel_step = eng_k._decode
     attend = ops.paged_attention
+    fused = ops.add_rmsnorm
     noise = torch.Generator(device="cuda").manual_seed(0)
     tf, calls = [], []           # one record per decode tick / per K1 call
+    k2_held = []                 # one record per fused add + norm call
+
+    def held_norm(x, a, w, eps=1e-6, *, norm_of_rounded):
+        k2_held.append(_k2_hold(torch, ref, add_rmsnorm_cuda,
+                                f"main path call {len(k2_held)}", x, a, w,
+                                norm_of_rounded))
+        return fused(x, a, w, eps, norm_of_rounded=norm_of_rounded)
 
     def held(*args):
         got = attend(*args)
@@ -862,8 +1014,12 @@ def main() -> int:
                        finite=bool(torch.isfinite(got).all())))
         return out
     eng_k._decode = teacher_forced
-    st_tf = eng_k.run(reqs)
-    eng_k._decode = kernel_step
+    ops.add_rmsnorm = held_norm
+    try:
+        st_tf = eng_k.run(reqs)
+    finally:
+        ops.add_rmsnorm = fused
+        eng_k._decode = kernel_step
     if not all(t["finite"] for t in tf):
         raise AssertionError("non-finite logits")
     full_ticks = sum(t["live"] == len(reqs) for t in tf)
@@ -889,6 +1045,13 @@ def main() -> int:
           f"greedy picks differ, the gather path's own pick above the "
           f"kernel's by at most {max(t['gap'] for t in tf):.4g}; the rerun "
           f"repeats the counted run's streams: {same}")
+    print(f"[full] {card} teacher-forced: every fused add + norm call held "
+          f"as phase 2 holds it, {len(k2_held)} calls (decode ticks, "
+          f"prefill chunks and the gather and control ticks beside them): "
+          f"residual bitwise equal, norm within "
+          f"{max(h['share'] for h in k2_held):.4f} of one bf16 step (max abs "
+          f"{max(h['abs'] for h in k2_held):.4g}), two calls bitwise equal")
+    k2f_err = max(k2f_err, *(h["abs"] for h in k2_held))
     if not full_ticks:
         raise AssertionError(f"no tick had all {len(reqs)} slots live")
     if max(c["ratio"] for c in calls) > 1:
@@ -928,13 +1091,28 @@ def main() -> int:
     for what, case in (("1 slot x 4096", k1_long), ("2 slots", k1_two)):
         _k1_numbers(torch, ref, paged_attention_cuda, card, what, case, flush)
 
+    k1_g12n = _k1_numbers(torch, ref, paged_attention_cuda, card,
+                          "G=12 (mistral-large-123b widths)", k1_g12, flush)
+
+    def unfused(x, a, w, eps=1e-6, *, norm_of_rounded):
+        """The residual add and the norm as the model launched them before
+        the fused entry: the add (in f32, or in bf16), the norm kernel on
+        the sum and, for the f32 sum, its rounding."""
+        if norm_of_rounded:
+            r = x + a
+            return r, rmsnorm_cuda(r, w, eps=eps)
+        s_ = x.float() + a.float()
+        return s_.to(x.dtype), rmsnorm_cuda(s_, w, eps=eps, out_dtype=x.dtype)
+
     # K2 is far shorter than its host call: device time per call from a
-    # CUDA graph of back-to-back calls, host time per call beside it
-    k2 = {}
+    # CUDA graph of back-to-back calls (an empty kernel's launch in the
+    # same harness is the floor), host time per call beside it
+    k2, k2f = {}, {}
     rms_norm = getattr(torch.nn.functional, "rms_norm", None)
-    for rows in (8, 128):
+    floor = _graph_ms(torch, empty_cuda, 100)
+    for rows in (8, 40, 128):
         x = torch.randn((rows, d), device="cuda").to(torch.bfloat16)
-        byt = 2 * rows * d * 2 + d * 2
+        a = torch.randn((rows, d), device="cuda").to(torch.bfloat16)
         fns = {"ms": lambda: rmsnorm_cuda(x, w),
                "plain": lambda: ref.rmsnorm_ref(x, w)}
         if rms_norm:
@@ -942,13 +1120,40 @@ def main() -> int:
         k2[rows] = {k: _graph_ms(torch, fn, 100) for k, fn in fns.items()}
         k2[rows].setdefault("lib", None)
         k2[rows]["host"] = _events_ms(torch, fns["ms"], 200)
-        k2[rows]["bound"] = max(byt / HBM_BYTES_PER_S,
+        k2[rows]["bound"] = max((2 * rows * d * 2 + d * 2) / HBM_BYTES_PER_S,
                                 4 * rows * d / F32_FLOPS) * 1e3
+        # the fused entry: x and a read, r and y written, w read
+        f = {}
+        for rounded in (False, True):
+            ffns = {"ms": lambda: add_rmsnorm_cuda(
+                        x, a, w, norm_of_rounded=rounded),
+                    "plain": lambda: ref.add_rmsnorm_ref(
+                        x, a, w, norm_of_rounded=rounded),
+                    "chain": lambda: unfused(x, a, w,
+                                             norm_of_rounded=rounded)}
+            f[rounded] = {k: _graph_ms(torch, fn, 100)
+                          for k, fn in ffns.items()}
+            f[rounded]["host"] = _events_ms(torch, ffns["ms"], 200)
+        k2f[rows] = dict(f[True], bound=max(
+            (4 * rows * d * 2 + d * 2) / HBM_BYTES_PER_S,
+            5 * rows * d / F32_FLOPS) * 1e3)
         print(f"[numbers] {card} rmsnorm ({rows}, {d}) bf16, device ms per "
               f"call in a CUDA graph: kernel {k2[rows]['ms']:.5f} ms, plain "
               f"{k2[rows]['plain']:.5f} ms, F.rms_norm {k2[rows]['lib']} ms, "
-              f"bound {k2[rows]['bound']:.5f} ms; kernel call back to back "
-              f"from the host {k2[rows]['host']:.5f} ms")
+              f"bound {k2[rows]['bound']:.5f} ms, empty kernel {floor:.5f} "
+              f"ms; kernel call back to back from the host "
+              f"{k2[rows]['host']:.5f} ms")
+        for rounded in (False, True):
+            g = f[rounded]
+            print(f"[numbers] {card} add_rmsnorm ({rows}, {d}) bf16, "
+                  f"norm_of_rounded={rounded}, device ms per call in a CUDA "
+                  f"graph: kernel {g['ms']:.5f} ms ({g['ms'] / floor:.3f}x "
+                  f"the empty kernel's {floor:.5f}), bound "
+                  f"{k2f[rows]['bound']:.5f} ms ({k2f[rows]['bound'] / g['ms']:.4f}"
+                  f" of it), plain {g['plain']:.5f} ms, the unfused chain it "
+                  f"replaces (add, norm kernel{'' if rounded else ', cast'}) "
+                  f"{g['chain']:.5f} ms; kernel call back to back from the "
+                  f"host {g['host']:.5f} ms")
 
     # decode tick / chunk step at full width on a pool mid-generation
     pool = eng_k.make_pool()
@@ -960,27 +1165,58 @@ def main() -> int:
     tok = torch.ones((8, 1), dtype=torch.int32, device="cuda")
     act = torch.ones((8,), dtype=torch.int32, device="cuda")
     pages = torch.as_tensor(pool.page_table, device="cuda")
-    tick_k = _events_ms(torch, lambda: eng_k.decode_fn(
-        pool.cache, tok, act, pages), 20)
-    tick_g = _events_ms(torch, lambda: gather_step(
-        eng_k.params, pool.cache, tok, act, pages), 20)
     ctoks = torch.ones((1, eng_k.prefill_chunk), dtype=torch.int32,
                        device="cuda")
     row = pages[0].contiguous()
-    chunk_ms = _events_ms(torch, lambda: eng_k.chunk_fn(
-        pool.cache, ctoks, 0, 0, eng_k.prefill_chunk, eng_k.prefill_chunk,
-        row), 20)
-    _profile_ticks(torch, card, lambda: eng_k.decode_fn(
-        pool.cache, tok, act, pages), n=5)
-    st_warm = eng_k.run(reqs)
+
+    def tick():
+        return eng_k.decode_fn(pool.cache, tok, act, pages)
+
+    def chunk():
+        return eng_k.chunk_fn(pool.cache, ctoks, 0, 0, eng_k.prefill_chunk,
+                              eng_k.prefill_chunk, row)
+    tick_k = _events_ms(torch, tick, 20)
+    tick_g = _events_ms(torch, lambda: gather_step(
+        eng_k.params, pool.cache, tok, act, pages), 20)
+    chunk_ms = _events_ms(torch, chunk, 20)
+    prof = {}
+    for label in ("fused", "unfused"):
+        ops.add_rmsnorm = fused if label == "fused" else unfused
+        try:
+            prof[label] = (
+                _profile_ticks(torch, card, f"decode tick, {label} add + norm",
+                               tick, n=5),
+                _profile_ticks(torch, card, f"chunk step, {label} add + norm",
+                               chunk, n=3))
+        finally:
+            ops.add_rmsnorm = fused
+    (pt, pc), (ut, uc) = prof["fused"], prof["unfused"]
+    print(f"[numbers] {card} launches per decode tick {pt['kernels']:g} "
+          f"kernels + {pt['copies']:g} copies (unfused add + norm: "
+          f"{ut['kernels']:g} + {ut['copies']:g}); per chunk step "
+          f"{pc['kernels']:g} + {pc['copies']:g} (unfused: {uc['kernels']:g} "
+          f"+ {uc['copies']:g}); device busy per tick "
+          f"{pt.get('busy_ms', float('nan')):.3f} ms (unfused "
+          f"{ut.get('busy_ms', float('nan')):.3f})")
+    # end to end, the fused and the unfused add + norm in turns
+    e2e = {"fused": [], "unfused": []}
+    for label in ("fused", "unfused", "unfused", "fused"):
+        ops.add_rmsnorm = fused if label == "fused" else unfused
+        try:
+            st_warm = eng_k.run(reqs)
+        finally:
+            ops.add_rmsnorm = fused
+        e2e[label].append(st_warm.tokens_per_s)
     print(f"[numbers] {card} deepseek-7b decode tick (8 slots, "
           f"{sum(main_lens)} held tokens): {tick_k:.3f} ms with the kernel, "
           f"{tick_g:.3f} ms gather; chunked-prefill step "
           f"({eng_k.prefill_chunk} tokens): {chunk_ms:.3f} ms; end to end "
           f"{st_warm.generated_tokens} tokens in {st_warm.wall_s:.3f} s = "
           f"{st_warm.tokens_per_s:.1f} tokens/s ({st_warm.decode_steps} ticks, "
-          f"{st_warm.prefill_chunks} chunks); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+          f"{st_warm.prefill_chunks} chunks); in turns (fused, unfused, "
+          f"unfused, fused): fused {[round(v, 2) for v in e2e['fused']]}, "
+          f"unfused {[round(v, 2) for v in e2e['unfused']]} tokens/s; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 
     # ---- 6. the stencil against its plain version ------------------------
     grids = (1, 2, 3, 5, 8, 13, 16, 24, 32, 33, 64, 70, 100, LULESH_GRID)
@@ -1015,7 +1251,7 @@ def main() -> int:
             if state is not JobState.FINISHED:
                 raise AssertionError(f"EASEY run {run_i}: job {state.value}"
                                      f":\n{mw.logs(jid)[1]}")
-            want = {"paged_attention": 0, "rmsnorm": 0,
+            want = {"paged_attention": 0, "rmsnorm": 0, "add_rmsnorm": 0,
                     "sedov_stencil": iters, "flash_attention": 0}
             if got_counts != want:
                 raise AssertionError(f"EASEY run {run_i}: kernel launches "
@@ -1231,9 +1467,9 @@ def main() -> int:
                 not all(0 <= t < full.vocab_size for t in r.tokens):
             raise AssertionError(f"sampled spec request {r.rid}: "
                                  f"{len(r.tokens)} tokens")
+    steps = st_s.decode_steps + st_s.prefill_chunks
     want = {"paged_attention": 0, "sedov_stencil": 0, "flash_attention": 0,
-            "rmsnorm": (2 * full.num_layers + 1) * (st_s.decode_steps +
-                                                    st_s.prefill_chunks)}
+            "rmsnorm": steps, "add_rmsnorm": 2 * full.num_layers * steps}
     if s_counts != want:
         raise AssertionError(f"sampled spec run launches {s_counts} != {want}")
     print(f"[full] {card} deepseek-7b, 8 sampled requests x 32 "
@@ -1262,6 +1498,16 @@ def main() -> int:
          "ms": k2[8]["ms"], "plain_ms": k2[8]["plain"],
          "bound_ms": k2[8]["bound"], "bound_by": "bytes",
          "library_ms": k2[8]["lib"]},
+        # the fused entry of the same kernel (norm_of_rounded=True) at
+        # (8, 4096); its plain version is the eager add and norm, and no
+        # one PyTorch call computes it: library_ms is null
+        {"name": "add_rmsnorm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:38",
+         "launches": launches["add_rmsnorm"], "max_abs_err": k2f_err,
+         "ms": k2f[8]["ms"], "plain_ms": k2f[8]["plain"],
+         "bound_ms": k2f[8]["bound"], "bound_by": "bytes",
+         "library_ms": None},
         # no one PyTorch call computes the fused step: library_ms is null
         {"name": "sedov_stencil", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sedov_stencil.cu",

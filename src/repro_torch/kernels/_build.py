@@ -101,9 +101,11 @@ def load(name: str) -> ctypes.CDLL:
 
 def stream_of(t: torch.Tensor) -> int:
     """Handle of the stream a kernel on ``t`` launches on: the current
-    stream of the current device, which must be ``t``'s."""
-    if t.device.index is not None and \
-            t.device.index != torch.cuda.current_device():
+    stream of the current device, which must be ``t``'s.  Read as a raw
+    handle (no ``torch.cuda.Stream`` object is built: this runs once per
+    launch on a tick that the host bounds)."""
+    index = torch._C._cuda_getDevice()
+    if t.get_device() != index:
         raise ValueError(f"tensors on {t.device}, but the current device is "
-                         f"cuda:{torch.cuda.current_device()}")
-    return torch.cuda.current_stream().cuda_stream
+                         f"cuda:{index}")
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -27,24 +27,37 @@
 // the bf16 tensor cores (989 TFLOP/s) become the limit; the least time is
 // 0.139 ms.  This kernel does P.V twice (below), 1.5x that work: 0.209 ms.
 //
+// Head dims.  Both bodies take any dh % 8 == 0 up to 256.  Each is
+// compiled for a padded width DP in {16, 32, 64, 128, 192, 256}, the
+// least one >= dh; the columns in [dh, DP) of q, k and v are zeros in
+// shared memory (loaded as zeros, never read from the tensors), which add
+// exact zeros to q . k and give output columns that are not stored.
+//
 // bf16 (the tensor-core body, `tc`).  One block of 384 threads per (128
 // query rows, query head, batch): a producer warpgroup whose one thread
 // issues every TMA load, and two consumer warpgroups of 64 query rows
 // each, with registers moved from the first to the others by setmaxnreg
-// (24 and 240 per thread; 168 at launch).  Key tiles hold 128 keys at
-// every dh: at dh 32 a 256-key tile would need 128 score and 128 p
-// registers per thread, past the 240 a consumer has.  Shared memory holds
-// the Q tile once and a ring of 2 stages of K and V tiles, in bf16, laid
-// out by TMA with the 128-byte swizzle (64-byte at dh 32) that wgmma's
-// descriptors read, plus 5 mbarriers and 1 KB to align the ring: 164,904
-// bytes at dh 128 (32 KB of Q, 64 KB per stage), 82,984 at dh 64, 42,024
-// at dh 32.  The tensor maps cover q (b, s, H, dh) and k/v (b, t, K, dh) in
-// their own layouts (the head a tensor dimension, no transpose); they are
-// built per call on the host and passed by value.  TMA fills rows past s
-// or t with zeros; keys in [seq_k, t) are loaded and masked in registers;
-// q rows past s are not stored.  Per key tile, each consumer warpgroup:
-//   S = Q K^T      wgmma m64n128k16, f32 accumulate, both operands K-major
-//                  in shared memory, dh / 16 steps;
+// (24 and 240 per thread; 168 at launch).  Key tiles hold 128 keys up to
+// DP 128 and 64 keys above it: at dh 32 a 256-key tile would need 128
+// score and 128 p registers per thread, past the 240 a consumer has, and
+// at DP 192 and 256 the output's 96 and 128 registers leave room for 64
+// keys only (and a two-stage ring of 128-key tiles would pass the 232,448
+// bytes of shared memory a block may take).  Shared memory holds the Q
+// tile once and a ring of 2 stages of K and V tiles, in bf16, laid out
+// by TMA with the swizzle that wgmma's descriptors read (128-byte rows
+// of 64 columns from DP 64 up, 64-byte at DP 32, 32-byte at DP 16), plus
+// 5 mbarriers and 1 KB to align the ring: 164,904 bytes at DP 128 (32 KB
+// of Q, 64 KB per stage), 148,520 at DP 192, 197,672 at DP 256, 82,984 at
+// DP 64, 42,024 at DP 32, 21,544 at DP 16.  The tensor maps cover q (b,
+// s, H, dh) and k/v (b, t, K, dh) in their own layouts (the head a tensor
+// dimension, no transpose); they are built per call on the host and
+// passed by value.  TMA fills rows past s or t, and columns past dh (at
+// dh 112 the second 64-column box of a row holds 48 columns of the
+// tensor), with zeros; keys in [seq_k, t) are loaded and masked in
+// registers; q rows past s are not stored.  Per key tile, each consumer
+// warpgroup:
+//   S = Q K^T      wgmma m64n(keys)k16, f32 accumulate, both operands
+//                  K-major in shared memory, DP / 16 steps;
 //   softmax        in the accumulator's register layout: a row's 4 lanes
 //                  reduce the max with shuffles; m, l and the correction
 //                  stay in registers; scores are multiplied by
@@ -55,7 +68,7 @@
 //   O += P V       O rescaled by the correction first; p split in registers
 //                  into p_hi = bf16(p) and p_lo = bf16(p - p_hi), both in
 //                  the A-from-registers fragment layout (the accumulator's
-//                  own), and two wgmma m64n(dh)k16 per 16 keys, B = V read
+//                  own), and two wgmma m64n(DP)k16 per 16 keys, B = V read
 //                  MN-major (V's rows are keys), into one f32 accumulator;
 // then frees the stage on its mbarrier.  out = O / max(l, 1e-20), rounded
 // once to bf16.
@@ -73,8 +86,9 @@
 // query rows, query head, batch), q, one 64-key K tile and one V tile
 // staged in shared memory as f32 (rows padded by one float, so that column
 // reads hit 32 different banks), each of 256 threads holding a 4 x 4 block
-// of scores and a 4 x dh/16 block of the output in registers, so that each
-// shared-memory read feeds 4 multiply-adds.
+// of scores and a 4 x DP/16 block of the output in registers, so that each
+// shared-memory read feeds 4 multiply-adds (214,016 bytes of shared memory
+// at DP 256).
 //
 // Both bodies mask partial tiles (any s, t) themselves; the op checks the
 // reference's block divisibility.
@@ -104,15 +118,17 @@ constexpr int kBQ = 64;             // query rows per block
 constexpr int kBK = 64;             // keys per staged tile
 constexpr int kThreads = 256;       // 16 x 16 threads
 
-// Stage `rows` rows of DH floats (row r at src + r * stride) into dst with
-// row stride DH + 1; rows at or past `valid` are zero-filled.  Consecutive
-// threads read consecutive elements of a row.
-template <int DH>
+// Stage `rows` rows of dh floats (row r at src + r * stride) into dst with
+// row stride DP + 1; rows at or past `valid`, and columns dh..DP-1, are
+// zero-filled.  Consecutive threads read consecutive elements of a row.
+template <int DP>
 __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      size_t stride, int rows, int valid) {
-  for (int i = threadIdx.x; i < rows * DH; i += blockDim.x) {
-    const int r = i / DH, d = i % DH;
-    dst[r * (DH + 1) + d] = r < valid ? src[(size_t)r * stride + d] : 0.f;
+                                      size_t stride, int rows, int valid,
+                                      int dh) {
+  for (int i = threadIdx.x; i < rows * DP; i += blockDim.x) {
+    const int r = i / DP, d = i % DP;
+    dst[r * (DP + 1) + d] =
+        r < valid && d < dh ? src[(size_t)r * stride + d] : 0.f;
   }
 }
 
@@ -130,19 +146,20 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-template <int DH>
+template <int DP>
 constexpr int smem_floats() {
-  return kBQ * (DH + 1) + 2 * kBK * (DH + 1) + kBQ * (kBK + 1);
+  return kBQ * (DP + 1) + 2 * kBK * (DP + 1) + kBQ * (kBK + 1);
 }
 
-template <int DH>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int s,
-                 int t, int H, int K, int seq_k, int causal, float scale) {
-  constexpr int LD = DH + 1;         // padded row stride of q/k/v tiles
+                 int t, int H, int K, int dh, int seq_k, int causal,
+                 float scale) {
+  constexpr int LD = DP + 1;         // padded row stride of q/k/v tiles
   constexpr int LP = kBK + 1;        // padded row stride of the p tile
-  constexpr int CPT = DH / 16;       // output columns per thread
+  constexpr int CPT = DP / 16;       // output columns per thread
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + kBQ * LD;
@@ -155,12 +172,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kh = ih / (H / K);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int q0 = qt * kBQ;
-  const size_t q_stride = (size_t)H * DH, kv_stride = (size_t)K * DH;
-  const float* qb = q + ((size_t)ib * s + q0) * q_stride + (size_t)ih * DH;
-  const float* kb = k + (size_t)ib * t * kv_stride + (size_t)kh * DH;
-  const float* vb = v + (size_t)ib * t * kv_stride + (size_t)kh * DH;
+  const size_t q_stride = (size_t)H * dh, kv_stride = (size_t)K * dh;
+  const float* qb = q + ((size_t)ib * s + q0) * q_stride + (size_t)ih * dh;
+  const float* kb = k + (size_t)ib * t * kv_stride + (size_t)kh * dh;
+  const float* vb = v + (size_t)ib * t * kv_stride + (size_t)kh * dh;
 
-  stage<DH>(qs, qb, q_stride, kBQ, min(kBQ, s - q0));
+  stage<DP>(qs, qb, q_stride, kBQ, min(kBQ, s - q0), dh);
 
   float acc[4][CPT], m[4], l[4];
 #pragma unroll
@@ -180,8 +197,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();                 // the previous tile's reads are done
-    stage<DH>(ks, kb + (size_t)k0 * kv_stride, kv_stride, kBK, min(kBK, t - k0));
-    stage<DH>(vs, vb + (size_t)k0 * kv_stride, kv_stride, kBK, min(kBK, t - k0));
+    stage<DP>(ks, kb + (size_t)k0 * kv_stride, kv_stride, kBK, min(kBK, t - k0),
+              dh);
+    stage<DP>(vs, vb + (size_t)k0 * kv_stride, kv_stride, kBK, min(kBK, t - k0),
+              dh);
     __syncthreads();
 
     float sc[4][4];
@@ -190,7 +209,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
+    for (int d = 0; d < DP; ++d) {
       float qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * LD + d];
@@ -251,26 +270,27 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int q_pos = q0 + ty + 16 * i;
     if (q_pos >= s) continue;
     const float denom = fmaxf(l[i], kMinDenom);
-    float* orow = out + ((size_t)ib * s + q_pos) * q_stride + (size_t)ih * DH;
+    float* orow = out + ((size_t)ib * s + q_pos) * q_stride + (size_t)ih * dh;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) orow[tx + 16 * c] = acc[i][c] / denom;
+    for (int c = 0; c < CPT; ++c)
+      if (tx + 16 * c < dh) orow[tx + 16 * c] = acc[i][c] / denom;
   }
 }
 
-template <int DH>
+template <int DP>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s, int t, int H, int K, int seq_k, int causal, float scale,
-           cudaStream_t stream) {
-  const int smem = smem_floats<DH>() * (int)sizeof(float);
+           int s, int t, int H, int K, int dh, int seq_k, int causal,
+           float scale, cudaStream_t stream) {
+  const int smem = smem_floats<DP>() * (int)sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((s + kBQ - 1) / kBQ, H, b);
-  flash_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<DP><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, s, t, H,
-      K, seq_k, causal, scale);
+      K, dh, seq_k, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -282,7 +302,6 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 namespace tc {
 
 constexpr int kBQ = 128;            // query rows per block
-constexpr int kBK = 128;            // keys per tile
 constexpr int kStages = 2;          // K/V tiles in the ring
 constexpr int kConsumers = 2;       // warpgroups, 64 query rows each
 constexpr int kThreads = 128 * (1 + kConsumers);   // + the producer's
@@ -293,20 +312,23 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory geometry of one head dim.  Q, K and V tiles are stored as
-// TMA writes them with a 128-byte swizzle (64-byte at dh 32): rows of
-// kRowBytes, the head dim cut into kChunks column chunks of kChunk
-// elements, chunk c of a tile of R rows at byte c * R * kRowBytes.  An
-// 8-row atom (kAtom bytes) is the swizzle's period.
-template <int DH>
+// Shared-memory geometry of one padded head dim DP.  Q, K and V tiles are
+// stored as TMA writes them with a 128-byte swizzle (64-byte at DP 32,
+// 32-byte at DP 16): rows of kRowBytes, the head dim cut into kChunks
+// column chunks of kChunk elements, chunk c of a tile of R rows at byte
+// c * R * kRowBytes.  An 8-row atom (kAtom bytes) is the swizzle's
+// period.  Key tiles hold kBK keys.
+template <int DP>
 struct Geo {
-  static constexpr int kRowBytes = DH >= 64 ? 128 : 64;
+  static constexpr int kRowBytes = DP >= 64 ? 128 : 2 * DP;
   static constexpr int kChunk = kRowBytes / 2;
-  static constexpr int kChunks = DH / kChunk;
+  static constexpr int kChunks = DP / kChunk;
   static constexpr int kAtom = 8 * kRowBytes;
-  static constexpr uint64_t kLayout = DH >= 64 ? 1 : 2;   // B128 : B64
-  static constexpr int kQBytes = kBQ * DH * 2;
-  static constexpr int kTileBytes = kBK * DH * 2;          // one K or V tile
+  // wgmma's swizzle codes: 1 = 128 B, 2 = 64 B, 3 = 32 B
+  static constexpr uint64_t kLayout = DP >= 64 ? 1 : DP == 32 ? 2 : 3;
+  static constexpr int kBK = DP > 128 ? 64 : 128;
+  static constexpr int kQBytes = kBQ * DP * 2;
+  static constexpr int kTileBytes = kBK * DP * 2;          // one K or V tile
   static constexpr int kBarOffset = kQBytes + 2 * kStages * kTileBytes;
   // + 1024: the dynamic buffer is rounded up to the swizzle's alignment
   static constexpr int kSmemBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
@@ -383,17 +405,36 @@ __device__ __forceinline__ void pin(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// D (64 x 64, f32) = or += A (64 x 16, bf16, shared) * B (16 x 64, bf16,
+// shared), both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 // D (64 x 128, f32) = or += A (64 x 16, bf16, shared) * B (16 x 128, bf16,
 // shared), both K-major
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                                uint64_t b, int acc) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                         int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -407,13 +448,26 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
 }
 
 // D (64 x N, f32) += A (64 x 16, bf16, registers) * B (16 x N, bf16,
-// shared, MN-major), N = 32, 64, 128
+// shared, MN-major), N = 16, 32, 64, 128, 192, 256: the head dims
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
                                          uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
       "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
@@ -426,7 +480,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -443,7 +498,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -456,42 +512,104 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// S (64 x 128 keys, f32) = Q (this warpgroup's 64 rows) K^T, over dh in
+// S (64 x kBK keys, f32) = Q (this warpgroup's 64 rows) K^T, over DP in
 // steps of 16: both operands K-major, the step's bytes within a swizzled
 // row added to the start address, the next column chunk a whole tile on
-template <int DH>
-__device__ __forceinline__ void qk(float (&sc)[kBK / 2], uint32_t q_wg,
+template <int DP>
+__device__ __forceinline__ void qk(float (&sc)[Geo<DP>::kBK / 2], uint32_t q_wg,
                                    uint32_t k_tile) {
-  using G = Geo<DH>;
+  using G = Geo<DP>;
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
+  for (int kk = 0; kk < DP / 16; ++kk) {
     const int c = kk * 16 / G::kChunk;
     const uint32_t off = (kk * 16 % G::kChunk) * 2;
     const uint64_t da = make_desc(q_wg + c * kBQ * G::kRowBytes + off, 16,
                                   G::kAtom, G::kLayout);
-    const uint64_t db = make_desc(k_tile + c * kBK * G::kRowBytes + off, 16,
+    const uint64_t db = make_desc(k_tile + c * G::kBK * G::kRowBytes + off, 16,
                                   G::kAtom, G::kLayout);
-    wgmma_ss_n128(sc, da, db, kk > 0);
+    wgmma_ss(sc, da, db, kk > 0);
   }
 }
 
-// O (64 x dh, f32) += p_hi V + p_lo V over the tile's keys in steps of 16:
-// V (keys x dh) read MN-major, 16 keys = 16 swizzled rows further, its
+// O (64 x DP, f32) += p_hi V + p_lo V over the tile's keys in steps of 16:
+// V (keys x DP) read MN-major, 16 keys = 16 swizzled rows further, its
 // column chunks a tile apart (the leading byte offset)
-template <int DH>
-__device__ __forceinline__ void pv(float (&o)[DH / 2],
-                                   const uint32_t (&p_hi)[kBK / 16][4],
-                                   const uint32_t (&p_lo)[kBK / 16][4],
+template <int DP>
+__device__ __forceinline__ void pv(float (&o)[DP / 2],
+                                   const uint32_t (&p_hi)[Geo<DP>::kBK / 16][4],
+                                   const uint32_t (&p_lo)[Geo<DP>::kBK / 16][4],
                                    uint32_t v_tile) {
-  using G = Geo<DH>;
+  using G = Geo<DP>;
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
+  for (int kk = 0; kk < G::kBK / 16; ++kk) {
     const uint64_t db = make_desc(v_tile + kk * 16 * G::kRowBytes,
-                                  kBK * G::kRowBytes, G::kAtom, G::kLayout);
+                                  G::kBK * G::kRowBytes, G::kAtom, G::kLayout);
     wgmma_rs(o, p_hi[kk], db);
     wgmma_rs(o, p_lo[kk], db);
   }
@@ -505,6 +623,7 @@ __device__ __forceinline__ void pv(float (&o)[DH / 2],
 // p (f32) in sc, the new row max in m, the correction exp(m_old - m_new)
 // in corr, and l = l * corr + the thread's own part of the row sum (the
 // 4 lanes are summed once, at the end).
+template <int kBK>
 __device__ __forceinline__ void softmax(float (&sc)[kBK / 2], float (&m)[2],
                                         float (&l)[2], float (&corr)[2],
                                         float scale_log2, bool masked, int k0,
@@ -543,6 +662,7 @@ __device__ __forceinline__ void softmax(float (&sc)[kBK / 2], float (&m)[2],
 // j holds the pair p[8 kk + 2 j], p[8 kk + 2 j + 1] (rows and keys of the
 // accumulator layout are those of the A layout).  p - p_hi is exact in
 // f32, so p_hi + p_lo carries p to ~16 significant bits.
+template <int kBK>
 __device__ __forceinline__ void split(const float (&p)[kBK / 2],
                                       uint32_t (&p_hi)[kBK / 16][4],
                                       uint32_t (&p_lo)[kBK / 16][4]) {
@@ -560,30 +680,33 @@ __device__ __forceinline__ void split(const float (&p)[kBK / 2],
 
 // Key tile kt of kv head kh into its ring stage: K and V, each in
 // kChunks TMA boxes, completing on the stage's `full` barrier
-template <int DH>
+template <int DP>
 __device__ __forceinline__ void load_kv(const CUtensorMap* tm_k,
                                         const CUtensorMap* tm_v, uint32_t k_sm,
                                         uint32_t v_sm, uint32_t full, int kt,
                                         int kh, int ib) {
-  using G = Geo<DH>;
+  using G = Geo<DP>;
   const int st = kt % kStages;
   mbar_expect_tx(full + 8 * st, 2 * G::kTileBytes);
 #pragma unroll
   for (int c = 0; c < G::kChunks; ++c) {
-    const uint32_t off = st * G::kTileBytes + c * kBK * G::kRowBytes;
-    tma_load(k_sm + off, tm_k, full + 8 * st, c * G::kChunk, kh, kt * kBK, ib);
-    tma_load(v_sm + off, tm_v, full + 8 * st, c * G::kChunk, kh, kt * kBK, ib);
+    const uint32_t off = st * G::kTileBytes + c * G::kBK * G::kRowBytes;
+    tma_load(k_sm + off, tm_k, full + 8 * st, c * G::kChunk, kh, kt * G::kBK,
+             ib);
+    tma_load(v_sm + off, tm_v, full + 8 * st, c * G::kChunk, kh, kt * G::kBK,
+             ib);
   }
 }
 
-template <int DH>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc(__grid_constant__ const CUtensorMap tm_q,
              __grid_constant__ const CUtensorMap tm_k,
              __grid_constant__ const CUtensorMap tm_v,
              __nv_bfloat16* __restrict__ out, int s, int t, int H, int K,
-             int seq_k, int causal, float scale_log2) {
-  using G = Geo<DH>;
+             int dh, int seq_k, int causal, float scale_log2) {
+  using G = Geo<DP>;
+  constexpr int kBK = G::kBK;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t q_sm = base;
@@ -626,7 +749,7 @@ flash_fwd_tc(__grid_constant__ const CUtensorMap tm_q,
         // round kt / kStages of a stage waits for the consumers' release
         // of round kt / kStages - 1 (the first round passes at once)
         mbar_wait(empty + 8 * (kt % kStages), ((kt / kStages) & 1) ^ 1);
-        load_kv<DH>(&tm_k, &tm_v, k_sm, v_sm, full, kt, kh, ib);
+        load_kv<DP>(&tm_k, &tm_v, k_sm, v_sm, full, kt, kh, ib);
       }
     }
     return;
@@ -640,9 +763,9 @@ flash_fwd_tc(__grid_constant__ const CUtensorMap tm_q,
   const int col = 2 * (lane % 4);
   const uint32_t q_wg = q_sm + 64 * w * G::kRowBytes;
 
-  float o[DH / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   mbar_wait(q_full, 0);
@@ -651,7 +774,7 @@ flash_fwd_tc(__grid_constant__ const CUtensorMap tm_q,
     mbar_wait(full + 8 * st, (kt / kStages) & 1);
     float sc[kBK / 2];
     wg_fence();
-    qk<DH>(sc, q_wg, k_sm + st * G::kTileBytes);
+    qk<DP>(sc, q_wg, k_sm + st * G::kTileBytes);
     wg_commit();
     wg_wait_all();
     pin(sc);
@@ -659,22 +782,23 @@ flash_fwd_tc(__grid_constant__ const CUtensorMap tm_q,
     // are masked
     float corr[2];
     const int k0 = kt * kBK;
-    softmax(sc, m, l, corr, scale_log2,
+    softmax<kBK>(sc, m, l, corr, scale_log2,
             k0 + kBK > limit || (causal && k0 + kBK - 1 > q0 + 64 * w), k0,
             limit, causal, row0, col);
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) o[i] *= corr[(i / 2) % 2];
+    for (int i = 0; i < DP / 2; ++i) o[i] *= corr[(i / 2) % 2];
     uint32_t p_hi[kBK / 16][4], p_lo[kBK / 16][4];
-    split(sc, p_hi, p_lo);
+    split<kBK>(sc, p_hi, p_lo);
     wg_fence();
-    pv<DH>(o, p_hi, p_lo, v_sm + st * G::kTileBytes);
+    pv<DP>(o, p_hi, p_lo, v_sm + st * G::kTileBytes);
     wg_commit();
     wg_wait_all();
     pin(o);
     mbar_arrive(empty + 8 * st);   // both warpgroups free the stage
   }
 
-  // out = O / max(l, 1e-20), rounded once to bf16; rows past s not stored
+  // out = O / max(l, 1e-20), rounded once to bf16; rows past s and
+  // columns past dh not stored
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -685,11 +809,12 @@ flash_fwd_tc(__grid_constant__ const CUtensorMap tm_q,
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= s) continue;
-    __nv_bfloat16* orow = out + (((size_t)ib * s + row) * H + ih) * DH + col;
+    __nv_bfloat16* orow = out + (((size_t)ib * s + row) * H + ih) * dh + col;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
-          o[4 * j + 2 * r] / l[r], o[4 * j + 2 * r + 1] / l[r]);
+    for (int j = 0; j < DP / 8; ++j)
+      if (8 * j < dh)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
+            o[4 * j + 2 * r] / l[r], o[4 * j + 2 * r + 1] / l[r]);
   }
 }
 
@@ -719,31 +844,33 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map over a contiguous (b, n, heads, DH) bf16 tensor in its own
-// layout: dims (DH, heads, n, b), innermost first; the box is one chunk
-// of the head dim, one head, `rows` rows of n and one batch.  Coordinates
-// past n are filled with zeros.
-template <int DH>
+// Tensor map over a contiguous (b, n, heads, dh) bf16 tensor in its own
+// layout: dims (dh, heads, n, b), innermost first; the box is one chunk
+// of the padded head dim, one head, `rows` rows of n and one batch.
+// Coordinates past n or past dh are filled with zeros.
+template <int DP>
 CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int b,
-                int n, int heads, int rows) {
-  using G = Geo<DH>;
-  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)heads, (cuuint64_t)n,
+                int n, int heads, int dh, int rows) {
+  using G = Geo<DP>;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, (cuuint64_t)n,
                               (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)DH * 2, (cuuint64_t)heads * DH * 2,
-                                 (cuuint64_t)n * heads * DH * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2, (cuuint64_t)heads * dh * 2,
+                                 (cuuint64_t)n * heads * dh * 2};
   const cuuint32_t box[4] = {(cuuint32_t)G::kChunk, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            DH >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            G::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+            : G::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int DH>
+template <int DP>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s, int t, int H, int K, int seq_k, int causal, float scale,
-           cudaStream_t stream) {
+           int s, int t, int H, int K, int dh, int seq_k, int causal,
+           float scale, cudaStream_t stream) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 ||
@@ -753,29 +880,34 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   const void* kp = t > 0 ? k : q;
   const void* vp = t > 0 ? v : q;
   CUtensorMap mq, mk, mv;
-  CUresult r = encode<DH>(fn, &mq, q, b, s, H, kBQ);
-  if (r == CUDA_SUCCESS) r = encode<DH>(fn, &mk, kp, b, t > 0 ? t : 1, K, kBK);
-  if (r == CUDA_SUCCESS) r = encode<DH>(fn, &mv, vp, b, t > 0 ? t : 1, K, kBK);
+  constexpr int kBK = Geo<DP>::kBK;
+  CUresult r = encode<DP>(fn, &mq, q, b, s, H, dh, kBQ);
+  if (r == CUDA_SUCCESS)
+    r = encode<DP>(fn, &mk, kp, b, t > 0 ? t : 1, K, dh, kBK);
+  if (r == CUDA_SUCCESS)
+    r = encode<DP>(fn, &mv, vp, b, t > 0 ? t : 1, K, dh, kBK);
   if (r != CUDA_SUCCESS) return (int)r;
-  const int smem = Geo<DH>::kSmemBytes;
+  const int smem = Geo<DP>::kSmemBytes;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_tc<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_tc<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((s + kBQ - 1) / kBQ, H, b);
-  flash_fwd_tc<DH><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)out, s, t, H, K, seq_k, causal,
+  flash_fwd_tc<DP><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)out, s, t, H, K, dh, seq_k, causal,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
-template <int DH>
-int launch_dh(const void* q, const void* k, const void* v, void* out, int bf16,
-              int b, int s, int t, int H, int K, int seq_k, int causal,
+template <int DP>
+int launch_dp(const void* q, const void* k, const void* v, void* out, int bf16,
+              int b, int s, int t, int H, int K, int dh, int seq_k, int causal,
               float scale, cudaStream_t stream) {
-  return bf16 ? tc::launch<DH>(q, k, v, out, b, s, t, H, K, seq_k, causal, scale, stream)
-              : simt::launch<DH>(q, k, v, out, b, s, t, H, K, seq_k, causal, scale, stream);
+  return bf16 ? tc::launch<DP>(q, k, v, out, b, s, t, H, K, dh, seq_k, causal,
+                               scale, stream)
+              : simt::launch<DP>(q, k, v, out, b, s, t, H, K, dh, seq_k, causal,
+                                 scale, stream);
 }
 
 }  // namespace
@@ -783,26 +915,29 @@ int launch_dh(const void* q, const void* k, const void* v, void* out, int bf16,
 extern "C" {
 
 // q (b, s, H, dh), k/v (b, t, K, dh), out (b, s, H, dh); all contiguous, of
-// one dtype (bf16 when `bf16` is nonzero, else f32); H % K == 0, dh in
-// {32, 64, 128}; keys at or past `seq_k` are masked.  bf16 runs the
+// one dtype (bf16 when `bf16` is nonzero, else f32); H % K == 0, dh % 8 ==
+// 0 and 8 <= dh <= 256; keys at or past `seq_k` are masked.  bf16 runs the
 // tensor-core body, f32 the CUDA-core body; neither falls back to the
 // other.  Launches on `stream` (nothing when s, H or b is 0); returns 0 on
 // success, else the error: the CUDA runtime's of the launch, the driver's
-// of a tensor-map encode, cudaErrorInvalidValue for a dh without an
-// instance, cudaErrorMisalignedAddress for bf16 q/k/v not 16-byte aligned.
+// of a tensor-map encode, cudaErrorInvalidValue for a dh it does not take,
+// cudaErrorMisalignedAddress for bf16 q/k/v not 16-byte aligned.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int bf16, int b, int s, int t, int H,
                            int K, int dh, int seq_k, int causal, float scale,
                            void* stream) {
-  if (K <= 0 || H % K) return (int)cudaErrorInvalidValue;
+  if (K <= 0 || H % K || dh % 8 || dh < 8 || dh > 256)
+    return (int)cudaErrorInvalidValue;
   if (b == 0 || s == 0 || H == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (dh) {
-    case 32: return launch_dh<32>(q, k, v, out, bf16, b, s, t, H, K, seq_k, causal, scale, st);
-    case 64: return launch_dh<64>(q, k, v, out, bf16, b, s, t, H, K, seq_k, causal, scale, st);
-    case 128: return launch_dh<128>(q, k, v, out, bf16, b, s, t, H, K, seq_k, causal, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define FLASH_DP(n)                                                          \
+  if (dh <= n)                                                               \
+    return launch_dp<n>(q, k, v, out, bf16, b, s, t, H, K, dh, seq_k, causal, \
+                        scale, st);
+  FLASH_DP(16) FLASH_DP(32) FLASH_DP(64) FLASH_DP(128) FLASH_DP(192)
+  FLASH_DP(256)
+#undef FLASH_DP
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -42,6 +42,21 @@
 //       partials in split order into the bf16 output and resets the
 //       counter to 0, so the next call (or a CUDA-graph replay) finds it
 //       so.  No float atomics: the same inputs give the same bits.
+// Head chunks.  A block holds the q vectors and P.V accumulators of its
+// query heads in registers (qf[G][8], acc[G][8]), which spill past 8
+// heads.  So past 8 the G query heads of a kv head are cut into hc =
+// ceil(G / gc) chunks of gc heads (the wrapper's head_chunk: about 4, the
+// fastest measured at G = 12), the last one holding the G - (hc - 1) gc
+// heads left (G = 11: 4, 4 and 3).  Each chunk is a pair of its own: the
+// grid's y runs over the K * hc (kv head, chunk) pairs, which read the kv
+// head's rows.  q and out keep their (slots, H, dh) layout: a chunk reads
+// and writes only its own heads, and a short chunk's missing heads are
+// zero q vectors whose results are never written.  The scratch is laid out
+// per pair, gc heads each.  Each chunk's blocks read the kv head's K and
+// V rows again: hc times the rows' bytes per call (3 times at G = 12, 4
+// at G = 16), mostly from L2 where the chunks run together.  Each head's
+// m, l, p and partials are computed exactly as with one chunk: the same
+// bits.
 // Rows: a K or V row of dh bf16 is read with 16-byte loads, 8 bf16 per
 // lane, by a group of lpr = pow2ceil(dh / 8) lanes (16 at dh 128, so a
 // warp covers two rows per load).  Each lane keeps two batches of kUnroll
@@ -69,8 +84,17 @@ constexpr int kMaxG = 8;
 constexpr int kPageChunk = 64;                    // page ids staged at a time
 
 struct Geo {
-  int K, dh, page_size, max_pages, nsplit, lpr;
-};
+  int K, heads, hc, dh, page_size, max_pages, nsplit, lpr;
+};  // heads: query heads per kv head, hc: their chunks
+
+// First query head of the block's chunk, and how many of its gc heads are
+// real (fewer in the last chunk where gc does not divide the heads).
+__device__ __forceinline__ int chunk_heads(int slot, int gc, const Geo& g,
+                                           int& nh) {
+  const int kh = blockIdx.y / g.hc, ci = blockIdx.y % g.hc;
+  nh = min(gc, g.heads - ci * gc);
+  return (slot * g.K + kh) * g.heads + ci * gc;
+}
 
 // Pages [p0, p1) of `split` in a run of len_eff tokens (p1 <= p0: none).
 __device__ __forceinline__ void split_pages(int len_eff, const Geo& g,
@@ -150,8 +174,9 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,
   asm volatile("griddepcontrol.launch_dependents;");
   __shared__ float wmax[kWarps][G];
   __shared__ int spg[kPageChunk];
-  const int split = blockIdx.x, kh = blockIdx.y, slot = blockIdx.z;
-  const int pair = slot * geo.K + kh;
+  const int split = blockIdx.x, slot = blockIdx.z;
+  const int pair = slot * gridDim.y + blockIdx.y;   // (slot, kv head, chunk)
+  const int kh = blockIdx.y / geo.hc;
   const int T = geo.max_pages * geo.page_size;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int lpr = geo.lpr, rpl = 32 / lpr;        // lanes per row, rows per load
@@ -164,11 +189,14 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,
   split_pages(len, geo, split, p0, p1);
 
   float qf[G][8];
-  const __nv_bfloat16* qh = q + ((size_t)pair * G) * geo.dh;
+  int nh;
+  const __nv_bfloat16* qh =
+      q + (size_t)chunk_heads(slot, G, geo, nh) * geo.dh;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     uint4 raw = make_uint4(0, 0, 0, 0);
-    if (on) raw = *reinterpret_cast<const uint4*>(qh + g * geo.dh + c);
+    if (on && g < nh)
+      raw = *reinterpret_cast<const uint4*>(qh + g * geo.dh + c);
     bf16x8(raw, qf[g]);
   }
   float mx[G];
@@ -238,8 +266,9 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v_pages,
   __shared__ float wsum[kWarps][G];
   __shared__ int spg[kPageChunk];
   __shared__ int is_last;
-  const int split = blockIdx.x, kh = blockIdx.y, slot = blockIdx.z;
-  const int pair = slot * geo.K + kh;
+  const int split = blockIdx.x, slot = blockIdx.z;
+  const int pair = slot * gridDim.y + blockIdx.y;   // (slot, kv head, chunk)
+  const int kh = blockIdx.y / geo.hc;
   const int T = geo.max_pages * geo.page_size;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int lpr = geo.lpr, rpl = 32 / lpr;
@@ -361,8 +390,9 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v_pages,
   if (!is_last) return;
   __threadfence();
   const float* parts = partials + (size_t)pair * geo.nsplit * GD;
-  __nv_bfloat16* oh = out + (size_t)pair * GD;
-  for (int i = tid; i < GD; i += kThreads) {
+  int nh;
+  __nv_bfloat16* oh = out + (size_t)chunk_heads(slot, G, geo, nh) * geo.dh;
+  for (int i = tid; i < nh * geo.dh; i += kThreads) {
     float s = 0.f;
     for (int sp = 0; sp < geo.nsplit; ++sp) s += __ldcg(parts + (size_t)sp * GD + i);
     oh[i] = __float2bfloat16(s);
@@ -376,7 +406,7 @@ cudaError_t launch_g(const void* q, const void* k_pages, const void* v_pages,
                      float* scores, float* maxes, float* partials,
                      int* counters, int slots, const Geo& geo, float scale,
                      cudaStream_t stream) {
-  const dim3 grid(geo.nsplit, geo.K, slots);
+  const dim3 grid(geo.nsplit, geo.K * geo.hc, slots);
   paged_scores_kernel<G><<<grid, kThreads, 0, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
       (const int32_t*)page_table, (const int32_t*)kv_len, scores, maxes, geo,
@@ -411,24 +441,26 @@ extern "C" {
 // q (slots, K*G, dh) bf16; k/v_pages (num_pages, page_size, K, dh) bf16;
 // page_table (slots, max_pages) int32; kv_len (slots,) int32;
 // out (slots, K*G, dh) bf16; all contiguous, q/k/v/out 16-byte aligned.
-// Scratch from the caller: scores slots*K*G*max_pages*page_size f32,
-// maxes slots*K*nsplit*G f32, partials slots*K*nsplit*G*dh f32 and
-// counters slots*K int32, all ZERO before the first call (the last block
-// of each pair leaves its counter at 0 again).  Requires 1 <= G <= 8,
-// dh % 8 == 0, dh <= 256, 1 <= nsplit.  Launches the two kernels on
-// `stream`; returns the CUDA error code of the launches (0 on success).
+// Query heads are taken gc at a time (1 <= gc <= 8), in hc = ceil(G / gc)
+// chunks.  Scratch from the caller, with C = slots*K*hc*gc: scores
+// C*max_pages*page_size f32, maxes C*nsplit f32, partials C*nsplit*dh f32
+// and counters slots*K*hc int32, all ZERO before the first call (the last
+// block of each pair leaves its counter at 0 again).  Requires dh % 8 ==
+// 0, dh <= 256, 1 <= nsplit.  Launches the two kernels on `stream`;
+// returns the CUDA error code of the launches (0 on success).
 int paged_attention_launch(const void* q, const void* k_pages,
                            const void* v_pages, const void* page_table,
                            const void* kv_len, void* out, void* scores,
                            void* maxes, void* partials, void* counters,
-                           int slots, int K, int G, int dh, int page_size,
-                           int max_pages, int nsplit, float scale,
-                           void* stream) {
-  if (G < 1 || G > kMaxG || dh % 8 || dh > 256 || nsplit < 1)
+                           int slots, int K, int G, int gc, int dh,
+                           int page_size, int max_pages, int nsplit,
+                           float scale, void* stream) {
+  if (gc < 1 || gc > kMaxG || G < 1 || dh % 8 || dh > 256 || nsplit < 1)
     return (int)cudaErrorInvalidValue;
   int lpr = 1;
   while (lpr * 8 < dh) lpr <<= 1;
-  const Geo geo{K, dh, page_size, max_pages, nsplit, lpr};
+  const Geo geo{K, G, (G + gc - 1) / gc, dh, page_size, max_pages, nsplit,
+                lpr};
   float *s = (float*)scores, *mx = (float*)maxes, *pt = (float*)partials;
   int* ct = (int*)counters;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -436,7 +468,7 @@ int paged_attention_launch(const void* q, const void* k_pages,
   case n:                                                                    \
     return (int)launch_g<n>(q, k_pages, v_pages, page_table, kv_len, out, s, \
                             mx, pt, ct, slots, geo, scale, st);
-  switch (G) {
+  switch (gc) {
     PAGED_G(1) PAGED_G(2) PAGED_G(3) PAGED_G(4)
     PAGED_G(5) PAGED_G(6) PAGED_G(7) PAGED_G(8)
   }

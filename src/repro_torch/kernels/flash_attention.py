@@ -13,7 +13,10 @@ p_hi = bf16(p) and p_lo = bf16(p - p_hi), each multiplied with V into
 one f32 accumulator, so P.V keeps p at f32 grade (~16 significant bits)
 for 1.5x the bf16 work.  f32 inputs stay on CUDA cores (one block per
 64 query rows, 64-key tiles), because the tensor cores would round
-them to TF32.  Its plain version is ``ref.flash_attention_ref``;
+them to TF32.  Any head dim with ``dh % 8 == 0`` up to 256 runs, each
+body compiled for a padded width (16, 32, 64, 128, 192, 256) whose extra
+columns are zeros; above 128 the tensor-core body takes 64-key tiles.
+Its plain version is ``ref.flash_attention_ref``;
 ``ops.flash_attention`` picks between the two by the tensors' device.
 This wrapper takes CUDA tensors only and raises on anything the kernel
 does not take, or when the kernel reports an error; it counts its
@@ -30,10 +33,17 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)      # the kernel's template instances
+MAX_HEAD_DIM = 256
 MAX_GRID_YZ = 65_535           # CUDA's limit on grid dimensions y and z
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def kernel_takes(H: int, K: int, dh: int) -> bool:
+    """Whether the kernel takes H query heads over K kv heads of dh: GQA
+    (H % K == 0) and dh % 8 == 0 up to ``MAX_HEAD_DIM`` (16-byte rows for
+    TMA, 8-column steps of the tensor cores' output)."""
+    return K > 0 and H % K == 0 and dh % 8 == 0 and 0 < dh <= MAX_HEAD_DIM
 
 
 @functools.cache
@@ -50,7 +60,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          kv_len: int | None = None) -> torch.Tensor:
     """q: (b, s, H, dh); k/v: (b, t, K, dh) with H % K == 0; one dtype,
-    f32 or bf16; dh in ``HEAD_DIMS``.  Keys at or past ``kv_len`` (default
+    f32 or bf16; ``kernel_takes(H, K, dh)``.  Keys at or past ``kv_len`` (default
     t) are masked; ``causal`` masks key j > query i (top-left aligned).
     Returns (b, s, H, dh) in q's dtype."""
     tensors = (q, k, v)
@@ -67,11 +77,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"(b, t, K, dh) twice")
     b, s, H, dh = q.shape
     _, t, K, dh_kv = k.shape
-    if k.shape[0] != b or dh_kv != dh or K == 0 or H % K:
-        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)} "
-                         f"do not form GQA")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {dh}")
+    if k.shape[0] != b or dh_kv != dh or not kernel_takes(H, K, dh):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}: "
+                         f"kernel takes GQA (H % K == 0) with dh % 8 == 0, "
+                         f"dh <= {MAX_HEAD_DIM}")
     if H > MAX_GRID_YZ or b > MAX_GRID_YZ:
         raise ValueError(f"{H} heads x batch {b}: each must be <= "
                          f"{MAX_GRID_YZ}")

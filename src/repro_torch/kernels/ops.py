@@ -12,7 +12,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
 from repro_torch.kernels.sedov_stencil import sedov_step_cuda
 
 
@@ -58,6 +58,20 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
         return rmsnorm_cuda(x, w, eps=eps, out_dtype=out_dtype)
     _check_cpu(x)
     return ref.rmsnorm_ref(x, w, eps=eps, out_dtype=out_dtype)
+
+
+def add_rmsnorm(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor,
+                eps: float = 1e-6, *, norm_of_rounded: bool
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The residual add ``x + a`` fused into the RMSNorm of the sum:
+    ``(r, y)``, the sum rounded to x's dtype and the norm of the f32 sum
+    (``norm_of_rounded=False``) or of r (True); see kernels/rmsnorm.py."""
+    if x.is_cuda:
+        return add_rmsnorm_cuda(x, a, w, eps=eps,
+                                norm_of_rounded=norm_of_rounded)
+    _check_cpu(x)
+    return ref.add_rmsnorm_ref(x, a, w, eps=eps,
+                               norm_of_rounded=norm_of_rounded)
 
 
 def sedov_step_kernel(state: dict, cfg=None, *, dx: float = 1.0) -> dict:

@@ -135,6 +135,22 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     return (y * w.float()).to(out_dtype or x.dtype)
 
 
+def add_rmsnorm_ref(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor, *,
+                    eps: float = 1e-6, norm_of_rounded: bool
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The residual add ``x + a`` and the RMSNorm of the sum, as the model
+    composed them before the fused kernel (the same ops, so the same
+    bits): returns ``(r, y)``, r the sum rounded to x's dtype.  With
+    ``norm_of_rounded=False`` y is the norm of the unrounded f32 sum
+    (``x.float() + a.float()``), cast to x's dtype; with True, of r (the
+    add in x's dtype, as ``x + a``)."""
+    if norm_of_rounded:
+        r = x + a
+        return r, rmsnorm_ref(r, w, eps=eps)
+    s = x.float() + a.float()
+    return s.to(x.dtype), rmsnorm_ref(s, w, eps=eps, out_dtype=x.dtype)
+
+
 def sedov_step_ref(state: dict, dt: torch.Tensor, *, dx: float = 1.0) -> dict:
     """One fused Sedov hydro step for a given ``dt`` (0-d tensor), in the
     kernel's own operation order (the reference kernel's

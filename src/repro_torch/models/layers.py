@@ -37,19 +37,27 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     return ops.rmsnorm(x, scale, eps, out_dtype=out_dtype)
 
 
+def add_norm(p: dict, x: torch.Tensor, a: torch.Tensor | None, kind: str,
+             *, norm_of_rounded: bool = True
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The residual add ``x + a`` and the norm of the sum, in one kernel on
+    the card: ``(stream, normed)``, the sum rounded to x's dtype and its
+    norm in x's dtype.  The norm reads the rounded sum, or with
+    ``norm_of_rounded=False`` the unrounded f32 sum.  ``a=None``: x is
+    the stream as it is, and only the norm runs."""
+    if kind != "rmsnorm":
+        raise NotImplementedError(
+            f"norm {kind!r} is not ported yet (ROADMAP: other arch configs)")
+    if a is None:
+        return x, rmsnorm(x, p["scale"])
+    return ops.add_rmsnorm(x, a, p["scale"], norm_of_rounded=norm_of_rounded)
+
+
 def norm_defs(d_model: int, kind: str) -> dict:
     if kind == "rmsnorm":
         return {"scale": ParamDef((d_model,), ("embed",), init="ones")}
     return {"scale": ParamDef((d_model,), ("embed",), init="ones"),
             "bias": ParamDef((d_model,), ("embed",), init="zeros")}
-
-
-def apply_norm(p: dict, x: torch.Tensor, kind: str,
-               out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {kind!r} is not ported yet (ROADMAP: other arch configs)")
-    return rmsnorm(x, p["scale"], out_dtype=out_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -43,8 +43,21 @@ class LuleshConfig:
     dtype: torch.dtype = torch.float32
 
 
-def init_state(cfg: LuleshConfig, device="cpu") -> dict:
-    """Sedov problem: cold uniform gas, energy spike at the corner zone."""
+def _device(device) -> torch.device:
+    """The card unless the caller names a device (``device="cpu"``); raises
+    where there is no card and none is named."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: LULESH states live on the "
+                               "GPU; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def init_state(cfg: LuleshConfig, device=None) -> dict:
+    """Sedov problem: cold uniform gas, energy spike at the corner zone.
+    ``device=None`` is the card."""
+    device = _device(device)
     n = cfg.grid
     rho = torch.ones((n, n, n), dtype=cfg.dtype, device=device)
     e = torch.full((n, n, n), 1e-6, dtype=cfg.dtype, device=device)
@@ -54,8 +67,10 @@ def init_state(cfg: LuleshConfig, device="cpu") -> dict:
             "t": torch.zeros((), dtype=cfg.dtype, device=device)}
 
 
-def state_from_numpy(arrays: dict, device="cpu") -> dict:
-    """A state from numpy arrays (e.g. the reference's), bit for bit."""
+def state_from_numpy(arrays: dict, device=None) -> dict:
+    """A state from numpy arrays (e.g. the reference's), bit for bit, on
+    ``device`` (None: the card)."""
+    device = _device(device)
     return {k: torch.from_numpy(np.array(arrays[k], np.float32)).to(device)
             for k in ("rho", "e", "v", "t")}
 

@@ -6,6 +6,12 @@ leading ``layers`` axis.  A Python loop over per-layer views of those
 stacked tensors takes the place of ``lax.scan``; each layer's pool slice
 ``cache["k"][i]`` is a view, so the in-place K/V writes of the decode and
 chunk modes land in the pool's own storage.
+
+Each residual add runs fused into the norm that reads its sum
+(``layers.add_norm``, one kernel on the card): the attention's add into
+the block's second norm, and the MLP's add into the next block's first
+norm, or into ``ln_f`` after the last block.  So a block hands on its
+stream and its MLP output unsummed, and the layer loops carry the pair.
 """
 
 from __future__ import annotations
@@ -57,19 +63,23 @@ class DenseLM:
         }
 
     # ---- block ----
-    def block_apply(self, p, x, positions, mode, cache):
+    def block_apply(self, p, x, delta, positions, mode, cache):
+        """One block on the residual stream ``x + delta``, ``delta`` the
+        previous block's MLP output not yet added (None before the first
+        block).  Returns ``(x, mlp_out, new_cache)``: the stream after the
+        attention's add and this block's MLP output, whose sum the next
+        norm takes (``ln_f``, in ``logits_from``, after the last block)."""
         cfg = self.cfg
-        h = L.apply_norm(p["ln1"], x, cfg.norm)
+        x, h = L.add_norm(p["ln1"], x, delta, cfg.norm)
         attn_out, new_cache = L.attention(p["attn"], h, cfg,
                                           positions=positions, mode=mode,
                                           cache=cache)
         # XLA evaluates the reference's bf16 residual add in f32 and hands
         # the unrounded sum to the next norm (excess precision), while the
         # residual stream itself is rounded; both are mirrored here
-        x_mid = x.float() + attn_out.float()
-        h = L.apply_norm(p["ln2"], x_mid, cfg.norm, out_dtype=x.dtype)
-        x = x_mid.to(x.dtype) + L.mlp(p["mlp"], h, cfg)
-        return x, new_cache
+        x, h = L.add_norm(p["ln2"], x, attn_out, cfg.norm,
+                          norm_of_rounded=False)
+        return x, L.mlp(p["mlp"], h, cfg), new_cache
 
     def layer_params(self, params) -> list[dict]:
         """Per-layer views of the stacked block weights, built once per
@@ -82,9 +92,10 @@ class DenseLM:
         return self._views[1]
 
     # ---- entry points ----
-    def logits_from(self, params, x):
-        x = L.apply_norm(params["ln_f"], x, self.cfg.norm)
-        return L.unembed(params["embed"], x, self.cfg)
+    def logits_from(self, params, x, delta=None):
+        """Logits of the stream ``x + delta`` (the last block's pair)."""
+        _, h = L.add_norm(params["ln_f"], x, delta, self.cfg.norm)
+        return L.unembed(params["embed"], h, self.cfg)
 
     def prefill(self, params, batch):
         """Whole-prompt forward: returns last-position logits and a fresh
@@ -93,17 +104,18 @@ class DenseLM:
         tokens = batch["tokens"]
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-        x = L.embed(params["embed"], tokens, self.cfg)
+        x, delta = L.embed(params["embed"], tokens, self.cfg), None
         ks, vs = [], []
         for lp in self.layer_params(params):
-            x, nc = self.block_apply(lp, x, positions, "prefill", None)
+            x, delta, nc = self.block_apply(lp, x, delta, positions,
+                                            "prefill", None)
             ks.append(nc["k"])
             vs.append(nc["v"])
         last = batch.get("last")
-        x_last = x[:, -1:] if last is None else x[:, last:last + 1]
+        pick = slice(s - 1, s) if last is None else slice(last, last + 1)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs),
                  "index": torch.tensor(s, dtype=torch.int32)}
-        return self.logits_from(params, x_last), cache
+        return self.logits_from(params, x[:, pick], delta[:, pick]), cache
 
     def chunk_prefill(self, params, cache, tokens, slot: int, offset: int,
                       n_valid: int, kv_bound: int,
@@ -121,15 +133,17 @@ class DenseLM:
         """
         b, c = tokens.shape
         positions = offset + torch.arange(c, device=tokens.device).expand(b, c)
-        x = L.embed(params["embed"], tokens, self.cfg)
+        x, delta = L.embed(params["embed"], tokens, self.cfg), None
         for i, lp in enumerate(self.layer_params(params)):
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
                            "slot": slot, "offset": offset,
                            "kv_bound": int(kv_bound)}
             if pages_row is not None:
                 layer_cache["pages_row"] = pages_row
-            x, _ = self.block_apply(lp, x, positions, "chunk", layer_cache)
-        logits = self.logits_from(params, x[:, n_valid - 1:n_valid])
+            x, delta, _ = self.block_apply(lp, x, delta, positions, "chunk",
+                                           layer_cache)
+        pick = slice(n_valid - 1, n_valid)
+        logits = self.logits_from(params, x[:, pick], delta[:, pick])
         cache["index"][slot] = offset + n_valid
         return logits, cache
 
@@ -142,7 +156,7 @@ class DenseLM:
         b, s = tokens.shape
         idx = cache["index"]
         positions = idx[:, None] + torch.arange(s, device=idx.device)[None, :]
-        x = L.embed(params["embed"], tokens, self.cfg)
+        x, delta = L.embed(params["embed"], tokens, self.cfg), None
         pages = cache.get("pages")
         for i, lp in enumerate(self.layer_params(params)):
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
@@ -150,11 +164,12 @@ class DenseLM:
             if pages is not None:
                 layer_cache.update(pages=pages,
                                    use_kernel=cache.get("use_kernel", False))
-            x, _ = self.block_apply(lp, x, positions, "decode", layer_cache)
+            x, delta, _ = self.block_apply(lp, x, delta, positions, "decode",
+                                           layer_cache)
         new_cache = {"k": cache["k"], "v": cache["v"], "index": idx + s}
         if pages is not None:
             new_cache["pages"] = pages
-        return self.logits_from(params, x), new_cache
+        return self.logits_from(params, x, delta), new_cache
 
 
 def model_for(cfg: ModelConfig) -> DenseLM:

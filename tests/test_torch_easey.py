@@ -233,7 +233,7 @@ def test_cpu_build_runs_the_plain_step():
     assert (out["device"], out["kernels"]) == ("cpu", "reference")
     cfg = lulesh.LuleshConfig(grid=8)
     got = out["state"]
-    want = lulesh.step(lulesh.init_state(cfg), cfg)
+    want = lulesh.step(lulesh.init_state(cfg, "cpu"), cfg)
     for k in ("rho", "e", "v", "t"):
         assert torch.equal(got[k], want[k])
 
@@ -378,7 +378,7 @@ def test_run_easey_state_equals_direct_run(tmp_path):
                            _lulesh_spec(jobspec, 5, 12), storage=tmp_path)
     got = mw.scheduler.result(jid)[0]["state"]
     cfg = lulesh.LuleshConfig(grid=12)
-    want = lulesh.run(lulesh.init_state(cfg), cfg, 5)
+    want = lulesh.run(lulesh.init_state(cfg, "cpu"), cfg, 5)
     for k in ("rho", "e", "v", "t"):
         assert torch.equal(got[k], want[k]), k
 

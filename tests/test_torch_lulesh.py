@@ -72,7 +72,7 @@ def _assert_close(got: dict, want: dict, tol, fields=FIELDS + ("t",)):
 @pytest.mark.parametrize("n", [1, 8, 13])
 def test_init_state_equals_reference_bitwise(n):
     want = _np(ref_lulesh.init_state(ref_lulesh.LuleshConfig(grid=n)))
-    got = lulesh.state_to_numpy(lulesh.init_state(lulesh.LuleshConfig(grid=n)))
+    got = lulesh.state_to_numpy(lulesh.init_state(lulesh.LuleshConfig(grid=n), "cpu"))
     for k in want:
         assert got[k].dtype == np.float32 and got[k].shape == want[k].shape
         np.testing.assert_array_equal(got[k], want[k])
@@ -80,7 +80,7 @@ def test_init_state_equals_reference_bitwise(n):
 
 def test_state_numpy_roundtrip_is_exact():
     _, st = _ref_state(8, 2)
-    back = lulesh.state_to_numpy(lulesh.state_from_numpy(_np(st)))
+    back = lulesh.state_to_numpy(lulesh.state_from_numpy(_np(st), "cpu"))
     for k, v in _np(st).items():
         np.testing.assert_array_equal(back[k], v)
 
@@ -89,7 +89,7 @@ def test_state_numpy_roundtrip_is_exact():
 def test_step_matches_reference(n, warm):
     cfg, st = _ref_state(n, warm)
     want = _np(ref_lulesh.step(st, cfg))
-    got = lulesh.state_to_numpy(lulesh.step(lulesh.state_from_numpy(_np(st)),
+    got = lulesh.state_to_numpy(lulesh.step(lulesh.state_from_numpy(_np(st), "cpu"),
                                             lulesh.LuleshConfig(grid=n)))
     _assert_close(got, want, 1e-6)
 
@@ -99,7 +99,7 @@ def test_run_matches_reference(n, iters):
     cfg = ref_lulesh.LuleshConfig(grid=n)
     want = _np(ref_lulesh.run(ref_lulesh.init_state(cfg), cfg, iters))
     pcfg = lulesh.LuleshConfig(grid=n)
-    got = lulesh.state_to_numpy(lulesh.run(lulesh.init_state(pcfg), pcfg,
+    got = lulesh.state_to_numpy(lulesh.run(lulesh.init_state(pcfg, "cpu"), pcfg,
                                            iters))
     _assert_close(got, want, 1e-5)
 
@@ -109,7 +109,7 @@ def test_plain_fused_step_matches_reference_kernel(n, bx):
     _, st = _ref_state(n, 3)
     dt = ref_cfl_dt(st)
     want = _np(sedov_step_pallas(st, dt, block_x=bx, interpret=True))
-    got = ref.sedov_step_ref(lulesh.state_from_numpy(_np(st)),
+    got = ref.sedov_step_ref(lulesh.state_from_numpy(_np(st), "cpu"),
                              torch.tensor(np.asarray(dt)))
     _assert_close(lulesh.state_to_numpy(got), want, 1e-6)
 
@@ -123,7 +123,7 @@ def test_plain_fused_step_matches_reference_kernel_on_rough_state(n, bx):
     want = _np(sedov_step_pallas({k: jnp.asarray(a) for k, a in st.items()},
                                  dt, block_x=bx, interpret=True))
     got = lulesh.state_to_numpy(ref.sedov_step_ref(
-        lulesh.state_from_numpy(st), torch.tensor(np.asarray(dt))))
+        lulesh.state_from_numpy(st, "cpu"), torch.tensor(np.asarray(dt))))
     for f in FIELDS + ("t",):
         np.testing.assert_allclose(got[f], want[f], rtol=1e-6,
                                    atol=1e-6 * np.abs(want[f]).max(),
@@ -137,7 +137,7 @@ def test_plain_fused_step_boundary_planes_exact():
     dt = ref_cfl_dt(st)
     want = _np(sedov_step_pallas(st, dt, block_x=4, interpret=True))
     got = lulesh.state_to_numpy(ref.sedov_step_ref(
-        lulesh.state_from_numpy(_np(st)), torch.tensor(np.asarray(dt))))
+        lulesh.state_from_numpy(_np(st), "cpu"), torch.tensor(np.asarray(dt))))
     for f in ("rho", "e"):
         for plane in (0, -1):
             np.testing.assert_allclose(got[f][plane], want[f][plane],
@@ -151,7 +151,7 @@ def test_plain_fused_step_boundary_planes_exact():
 @pytest.mark.parametrize("n,warm", [(8, 0), (16, 3)])
 def test_cfl_dt_matches_reference(n, warm):
     _, st = _ref_state(n, warm)
-    got = ref.cfl_dt(lulesh.state_from_numpy(_np(st)))
+    got = ref.cfl_dt(lulesh.state_from_numpy(_np(st), "cpu"))
     assert got.dim() == 0 and got.dtype == torch.float32
     np.testing.assert_allclose(float(got), float(ref_cfl_dt(st)), rtol=1e-6)
 
@@ -161,7 +161,7 @@ def test_kernel_entry_point_matches_reference_kernel_on_cpu():
     plain fused step — the reference's ``ops.sedov_step_kernel``."""
     cfg, st = _ref_state(16, 2)
     want = _np(ref_sedov_kernel(st, cfg, block_x=8, interpret=True))
-    got = ops.sedov_step_kernel(lulesh.state_from_numpy(_np(st)),
+    got = ops.sedov_step_kernel(lulesh.state_from_numpy(_np(st), "cpu"),
                                 lulesh.LuleshConfig(grid=16))
     _assert_close(lulesh.state_to_numpy(got), want, 1e-6)
 
@@ -172,7 +172,7 @@ def test_kernel_run_trajectory_matches_reference():
     cfg = ref_lulesh.LuleshConfig(grid=16)
     want = _np(ref_lulesh.run(ref_lulesh.init_state(cfg), cfg, 10))
     pcfg = lulesh.LuleshConfig(grid=16)
-    got = lulesh.state_to_numpy(lulesh.run(lulesh.init_state(pcfg), pcfg, 10,
+    got = lulesh.state_to_numpy(lulesh.run(lulesh.init_state(pcfg, "cpu"), pcfg, 10,
                                            use_kernel=True))
     _assert_close(got, want, 1e-4, fields=("rho", "e"))
 
@@ -180,7 +180,7 @@ def test_kernel_run_trajectory_matches_reference():
 def test_blast_wave_propagates():
     """tests/test_models_smoke.py's blast-wave checks, on the port."""
     cfg = lulesh.LuleshConfig(grid=16)
-    st = lulesh.run(lulesh.init_state(cfg), cfg, 20)
+    st = lulesh.run(lulesh.init_state(cfg, "cpu"), cfg, 20)
     assert bool(torch.isfinite(st["e"]).all())
     assert bool(torch.isfinite(st["rho"]).all())
     assert float(st["e"][1, 0, 0]) > 1e3     # wavefront reached neighbors
@@ -191,7 +191,7 @@ def test_blast_wave_propagates():
 def test_step_refuses_a_mesh():
     cfg = lulesh.LuleshConfig(grid=4)
     with pytest.raises(NotImplementedError, match="slice G"):
-        lulesh.step(lulesh.init_state(cfg), cfg, mesh=object())
+        lulesh.step(lulesh.init_state(cfg, "cpu"), cfg, mesh=object())
 
 
 def test_fom_matches_reference():
@@ -201,7 +201,7 @@ def test_fom_matches_reference():
 def test_cuda_wrapper_refuses_cpu_tensors():
     """No fallback inside the wrapper: CPU tensors go to the plain
     version through ``ops``, never through ``sedov_step_cuda``."""
-    st = lulesh.init_state(lulesh.LuleshConfig(grid=4))
+    st = lulesh.init_state(lulesh.LuleshConfig(grid=4), "cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
         sedov_step_cuda(st, ref.cfl_dt(st))
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Mutants of the paged-decode (K1) and Sedov stencil (K4) kernels, each
-held by the gates of ``chip_smoke.py``, which must reject it.
+"""Mutants of the paged-decode (K1), RMSNorm (K2) and Sedov stencil (K4)
+kernels, each held by the gates of ``chip_smoke.py``, which must reject
+it.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
@@ -12,6 +13,9 @@ to a kernel source; a child process imports the port from that copy (so
 K1's ``_k1_hold`` over the main-path case and ``_k1_cases`` (every
 element within the two-rounding bound, two calls bitwise equal, freed
 slots zero), with the old 2e-2 tolerance at the main path beside it;
+K2's ``_k2_hold`` at each shape of phase 2 (rows 1, 8, 40, 128 and 1000
+by d 64, 4096, 12288 and 18432, both forms of the fused add + norm: the
+residual bitwise, the norm within one bf16 step, two calls equal);
 K4's ``_stencil_checks`` at each grid of phase 6 (every zone of every
 field within rtol 1e-6 of the plain step, developed and rough states).
 The unedited sources run first as the control, which must pass.  Prints
@@ -30,11 +34,13 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 K1 = "src/repro_torch/kernels/csrc/paged_attention.cu"
+K2 = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 K4 = "src/repro_torch/kernels/csrc/sedov_stencil.cu"
 GRIDS = (1, 2, 3, 5, 8, 13, 16, 24, 32, 33, 64, 70, 100, 256)
 # name: (gate, source, text, replacement); None: the control
 MUTANTS = {
     "control K1": ("k1", K1, None, None),
+    "control K2": ("k2", K2, None, None),
     "control K4": ("k4", K4, None, None),
     # the combine leaves split 0's partial out
     "K1 split 0 dropped": (
@@ -47,6 +53,18 @@ MUTANTS = {
         "        if (!cur.live[u]) continue;",
         "        if (!cur.live[u] || cur.pos[u] == pc1 * geo.page_size - 1)"
         " continue;"),
+    # the pv kernel skips the last chunk of each kv head's query heads
+    # (G = 12: heads 6-11 of every kv head are never written)
+    "K1 last head chunk skipped": (
+        "k1", K1,
+        "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;",
+        "  if (geo.hc > 1 && (int)blockIdx.y % geo.hc == geo.hc - 1) return;\n"
+        "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;"),
+    # the row's sum of squares leaves the last warp's partial out
+    "K2 last warp's partial dropped": (
+        "k2", K2,
+        "for (int i = 0; i < nthreads / 32; ++i) s += red[i];",
+        "for (int i = 0; i < nthreads / 32 - 1; ++i) s += red[i];"),
     # 2 warm-up planes in place of 3 at an inner chunk seam
     "K4 two warm-up planes": (
         "k4", K4,
@@ -98,6 +116,25 @@ def gate(src: str, which: str) -> int:
             except AssertionError as e:
                 rejected += 1
                 print(f"  {name}: rejects: {str(e)[:240]}")
+    elif which == "k2":
+        from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, plan
+        torch.manual_seed(0)
+        for dk in cs.K2_WIDTHS:
+            w = (1 + 0.1 * torch.randn(dk, device="cuda")).to(torch.bfloat16)
+            for rows in cs.K2_ROWS:
+                x = (3 * torch.randn((rows, dk), device="cuda")).to(
+                    torch.bfloat16)
+                a = torch.randn((rows, dk), device="cuda").to(torch.bfloat16)
+                for rounded in (False, True):
+                    name = (f"rows={rows} d={dk} norm_of_rounded={rounded} "
+                            f"(threads, nv) = {plan(dk)}")
+                    try:
+                        h = cs._k2_hold(torch, ref, add_rmsnorm_cuda, name,
+                                        x, a, w, rounded)
+                        print(f"  {name}: holds ({h['share']:.4f} of a step)")
+                    except AssertionError as e:
+                        rejected += 1
+                        print(f"  {name}: rejects: {str(e)[:160]}")
     else:
         from repro_torch.kernels.sedov_stencil import sedov_step_cuda
         from repro_torch.models import lulesh
