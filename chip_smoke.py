@@ -18,7 +18,10 @@ Phases, each of which raises on failure:
    roundings allow (``_rounding_diff``, ratio <= 1) and bitwise equal
    across two calls, at the main-path shape, 1 and 2 slots, lengths
    that fill whole splits, one token past them and inside the first
-   page, one slot of 4,096 tokens, and G = 4, 8, 11 and 12 (``_k1_cases``;
+   page, one slot long enough that split 0 holds pages, one slot of 4,096
+   tokens, four slots whose page-table rows share a 16-page run (two of
+   them over the same pages with the same query, whose outputs must be
+   equal bit for bit), and G = 4, 8, 11 and 12 (``_k1_cases``;
    G = 12 is ``mistral-large-123b``'s 96 heads over 8 kv heads, three
    chunks of 4 heads a block, and G = 11 ends in a short chunk of 3);
    then the fused residual add + RMSNorm
@@ -30,7 +33,13 @@ Phases, each of which raises on failure:
    ``ServeEngine`` on the serving benchmark's trace (continuous and
    static batching, blocking and chunked prefill) and on a scarce-page
    trace that preempts, with the paged kernel and with the gather path —
-   identical greedy streams, and the benchmark's scheduling counts;
+   identical greedy streams, and the benchmark's scheduling counts; then
+   the benchmark's seven router cells (``router_least_loaded_x3``, the
+   long-prompt, shared-prefix and open-loop cells) through
+   ``ReplicaRouter`` fleets, every deterministic key equal to
+   ``BENCH_serving.json``'s, the 3-replica streams equal to one
+   engine's, and shared-prefix streams equal with the prefix cache on
+   and off;
 4. the slice at full width: ``deepseek-7b`` (random weights from a seed)
    on one card, 8 greedy requests through the paged engine built with
    its defaults, with the kernels on every step, counted (the fused
@@ -96,7 +105,19 @@ Phases, each of which raises on failure:
    benchmark's contiguous step counts) and a sampled trace with and
    without preemption (equal streams); at full width, ``deepseek-7b``
    serving 8 sampled requests with ``spec_k=4`` (decode and verify
-   ticks, accepted tokens per verify and tokens/s printed, not gated).
+   ticks, accepted tokens per verify and tokens/s printed, not gated);
+12. the router and the shared-prefix cache at full width: one
+   ``deepseek-7b`` engine built for 3 replicas (random weights from the
+   seed of phase 4, checked equal), ``ReplicaRouter([eng] * 3,
+   policy="prefix_affinity")`` over 48 shared-prefix requests (4 heads of
+   256 tokens: 16 pages, 2 chunks), once to warm up, then with the cache
+   off and on: every request complete in both, identical greedy streams,
+   hits, saved prefill tokens and fewer chunk steps with the cache, the
+   paged kernel on every decode tick of every replica and the RMSNorm
+   kernel on every norm (counted); then ``least_loaded`` x3 over phase
+   4's 8 requests, whose streams must equal phase 4's single engine's
+   (pool bytes, tokens/s, TTFT, chunk steps and the phase's seconds
+   printed).
 
 The second-to-last line of output is the card's ``name, power.limit``;
 before it a JSON line lists every kernel with its launches on its path's
@@ -407,20 +428,56 @@ def _rounding_diff(torch, ref, args, got) -> dict:
             "frac": float((diff > 0).float().mean())}
 
 
+def _shared_run_case(torch, rng, page_size, max_pages, K, G, dh,
+                     head_pages=16):
+    """Four slots whose page-table rows share one run of ``head_pages``
+    pages, as the prefix cache leaves them: slots 0 and 1 name the same
+    pages with the same length and query (so their outputs must be equal
+    bit for bit), slot 2 extends the run with pages of its own, slot 3
+    holds none of it; junk page 0 poisoned as in ``_paged_case``."""
+    head = head_pages * page_size
+    lens = [head + 40, head + 40, head + 90, 70]
+    own = [-(-(n - head) // page_size) for n in lens[:3]] + \
+        [-(-lens[3] // page_size)]
+    num_pages = 1 + head_pages + own[0] + own[2] + own[3]
+    order = [int(x) for x in rng.permutation(range(1, num_pages))]
+    run, order = order[:head_pages], order[head_pages:]
+    tail0, order = order[:own[0]], order[own[0]:]
+    tail2, tail3 = order[:own[2]], order[own[2]:]
+    table = torch.zeros((4, max_pages), dtype=torch.int32)
+    for s, row in enumerate((run + tail0, run + tail0, run + tail2, tail3)):
+        table[s, :len(row)] = torch.as_tensor(row, dtype=torch.int32)
+    q, kp, vp, _, _ = _paged_case(torch, rng, [1], page_size, max_pages,
+                                  K, G, dh, num_pages=num_pages)
+    q = q.expand(4, -1, -1).clone()
+    q[1:] = torch.randn_like(q[1:], dtype=torch.float32).to(q.dtype)
+    q[1] = q[0]
+    return (q, kp, vp, table.to("cuda"),
+            torch.as_tensor(lens, dtype=torch.int32, device="cuda"))
+
+
 def _k1_cases(torch, rng, K, dh, page_size, sms, num_splits):
     """(name, case) pairs for K1's rounding and determinism gates at full
     width (K kv heads of dh): 1 and 2 slots; lengths that fill whole
     splits, one token past them and inside the first page (one slot,
-    whose pair count gives ``num_splits`` splits); one slot of 4,096
-    tokens over 256 pages; G = 4 and 8 on 8 slots; G = 12 on 8 slots at
-    mistral-large-123b's widths (96 heads over 8 kv heads of 128), three
-    chunks of 4 heads a block; and G = 11 (88 heads over 8), whose last
-    chunk holds 3."""
+    whose pair count gives ``num_splits`` splits); one slot over 32 pages
+    long enough that split 0 holds pages (at 200 tokens it holds none);
+    one slot of 4,096 tokens over 256 pages; four slots whose rows share
+    a 16-page run (``_shared_run_case``: the prefix cache's page sharing);
+    G = 4 and 8 on 8 slots; G = 12 on 8 slots at mistral-large-123b's
+    widths (96 heads over 8 kv heads of 128), three chunks of 4 heads a
+    block; and G = 11 (88 heads over 8), whose last chunk holds 3."""
     one = num_splits(K, 64, sms)
     whole = 2 * one * page_size              # 2 pages per split
+    # split i of a run of P live pages takes pages [i P / n, (i + 1) P / n)
+    split0 = num_splits(K, 32, sms) * page_size + 24
     lens8 = [300, 5, 0, 17, 129, 64, 512, 200]
     return [
         ("1 slot", _paged_case(torch, rng, [200], page_size, 32, K, 1, dh)),
+        ("1 slot, split 0 holds pages",
+         _paged_case(torch, rng, [split0], page_size, 32, K, 1, dh)),
+        ("shared page run", _shared_run_case(torch, rng, page_size, 32, K,
+                                             1, dh)),
         ("2 slots", _paged_case(torch, rng, [130, 77], page_size, 32, K, 1,
                                 dh)),
         (f"whole splits ({one} x 2 pages)",
@@ -452,6 +509,120 @@ def _k1_hold(torch, ref, attend, name, case) -> dict:
     if bool(got[freed].ne(0).any()):
         raise AssertionError(f"paged_attention {name}: freed slot not zero")
     return d
+
+
+def _streams(stats) -> list:
+    return [r.tokens for r in sorted(stats.results, key=lambda r: r.rid)]
+
+
+def _router_cells(serving, cont, paged) -> dict:
+    """The router, long-prompt, shared-prefix and open-loop cells of
+    ``BENCH_serving.json`` (``benchmarks/serving_throughput.py``'s
+    ``run_smoke``), every key but the wall-clock ``tokens_per_s``, from
+    fleets of ``cont`` (the tight target's 3 contiguous slots x 128) and
+    ``paged`` (its paged twin on the paged kernel).  Also holds the
+    3-replica fleet's streams to the single engine's, and the cached
+    shared-prefix run's to the cold run's."""
+    quiet = lambda *a, **k: None  # noqa: E731
+    vocab = cont.cfg.vocab_size
+
+    def num(x):
+        return None if x != x else round(x, 4)
+
+    def rounds(s):
+        return max(max(r.decode_steps for r in s.replica_stats), 1)
+
+    def fleet(e, n=3, policy="least_loaded"):
+        return serving.ReplicaRouter([e] * n, policy=policy, log=quiet)
+
+    def zipf():
+        return serving.zipf_trace(12, vocab, max_prompt=48, max_new=32,
+                                  alpha=1.3, seed=0)
+    cells = {}
+    s = fleet(cont).run(zipf(), prefill_chunk=0)
+    single = cont.run(zipf(), prefill_chunk=0)
+    if _streams(s) != _streams(single):
+        raise AssertionError("router x3 streams differ from one engine's")
+    cells["router_least_loaded_x3"] = {
+        "tokens_per_step": round(s.generated_tokens / rounds(s), 4),
+        "replicas": 3, "route_policy": "least_loaded",
+        "generated_tokens": s.generated_tokens, "decode_steps": rounds(s),
+        "peak_in_flight": s.peak_in_flight,
+        "in_flight_vs_single": round(
+            s.peak_in_flight / max(single.peak_active, 1), 2),
+        "load_imbalance": num(s.imbalance), "reroutes": s.reroutes}
+    for name, chunk in (("longprompt_router_blocking", 0),
+                        ("longprompt_router_chunked", None)):
+        s = fleet(cont).run(serving.longprompt_trace(
+            12, vocab, max_prompt=128, max_new=8, seed=0),
+            prefill_chunk=chunk)
+        cells[name] = {
+            "tokens_per_step": round(s.generated_tokens / rounds(s), 4),
+            "mean_ttft_steps": round(s.mean_ttft_steps, 4),
+            "prefill_chunk": 0 if chunk == 0 else cont.prefill_chunk,
+            "prefill_chunks": s.prefill_chunks,
+            "prefill_compiles": max(r.prefill_buckets
+                                    for r in s.replica_stats),
+            "prefill_queue_peak": max(r.prefill_queue_peak
+                                      for r in s.replica_stats),
+            "overlap_steps": s.overlap_steps,
+            "generated_tokens": s.generated_tokens,
+            "decode_steps": rounds(s), "replicas": 3,
+            "reroutes": s.reroutes}
+    shared = {}
+    for name, cached in (("sharedprefix_router_cold", False),
+                         ("sharedprefix_router_cached", True)):
+        s = fleet(paged, policy="prefix_affinity").run(
+            serving.sharedprefix_trace(36, vocab, seed=0),
+            prefix_cache=cached)
+        shared[cached] = _streams(s)
+        cells[name] = {
+            "tokens_per_step": round(s.generated_tokens / rounds(s), 4),
+            "mean_ttft_steps": num(s.mean_ttft_steps),
+            "prefill_tokens": s.prefill_tokens,
+            "prefill_tokens_saved": s.prefill_tokens_saved,
+            "prefix_hits": s.prefix_hits, "prefix_misses": s.prefix_misses,
+            "prefix_hit_rate": num(s.prefix_hit_rate),
+            "generated_tokens": s.generated_tokens,
+            "decode_steps": rounds(s), "replicas": 3,
+            "route_policy": "prefix_affinity",
+            "load_imbalance": num(s.imbalance)}
+    if shared[True] != shared[False]:
+        raise AssertionError("smoke shared-prefix streams differ with the "
+                             "prefix cache on and off")
+    for name, n, auto in (("openloop_poisson_fixed", 1, None),
+                          ("openloop_poisson_autoscale", 3,
+                           serving.AutoscalePolicy(min_replicas=1,
+                                                   max_replicas=3))):
+        s = fleet(cont, n).run(
+            serving.with_arrivals(zipf(), "poisson", mean_gap=6.0, seed=3),
+            prefill_chunk=0, slo_ttft_steps=20, slo_e2e_steps=120,
+            autoscale=auto)
+        m = s.to_metrics()
+        cells[name] = {
+            "arrivals": "poisson", "arrival_gap": 6.0, "arrival_seed": 3,
+            "slo_ttft_steps": 20, "slo_e2e_steps": 120,
+            "p50_ttft_steps": num(s.p50_ttft_steps),
+            "p99_ttft_steps": num(s.p99_ttft_steps),
+            "p50_e2e_steps": num(s.p50_e2e_steps),
+            "p99_e2e_steps": num(s.p99_e2e_steps),
+            "goodput_tokens": s.goodput_tokens,
+            "generated_tokens": s.generated_tokens,
+            "total_vsteps": s.total_vsteps,
+            "peak_replicas": m["router_peak_replicas"],
+            "autoscale_grows": m["router_autoscale_grows"],
+            "autoscale_drains": m["router_autoscale_drains"],
+            "replicas": n}
+    return cells
+
+
+def _weights_sig(eng) -> tuple:
+    """A fingerprint of an engine's weights: f64 sums of the embedding,
+    layer 0's query projection and the final norm's scale."""
+    p = eng.params
+    return tuple(float(w.double().sum()) for w in (
+        p["embed"]["embedding"], p["blocks"]["attn"]["wq"][0],
+        p["ln_f"]["scale"]))
 
 
 def _k2_hold(torch, ref, fused, name, x, a, w, rounded, repeat=True) -> dict:
@@ -734,7 +905,9 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
     from repro_torch.kernels.sedov_stencil import sedov_step_cuda
     from repro_torch.models import lulesh
-    from repro_torch.serving import (Request, ServeEngine, repetitive_trace,
+    from repro_torch import serving
+    from repro_torch.serving import (ReplicaRouter, Request, ServeEngine,
+                                     repetitive_trace, sharedprefix_trace,
                                      zipf_trace)
     from repro_torch.training.steps import build_decode_step_slots_paged
 
@@ -822,6 +995,10 @@ def main() -> int:
         sms, num_splits)
     for name, case in k1_cases:
         d = _k1_hold(torch, ref, paged_attention_cuda, name, case)
+        if name == "shared page run" and not torch.equal(
+                *paged_attention_cuda(*case)[:2]):
+            raise AssertionError("paged_attention: two slots over the same "
+                                 "pages and query differ")
         k1_err = max(k1_err, d["abs"])
         slots, H, _ = case[0].shape
         Kh = case[1].shape[2]
@@ -917,6 +1094,24 @@ def main() -> int:
           f"prefill; 31 decode steps, 6.2581 tokens/step) and under "
           f"{s.preemptions} preemptions")
     del eng
+    bench_cells = json.loads((REPO / "BENCH_serving.json").read_text())[
+        "cells"]
+    tight_kw = dict(target="bench:serve-tight", num_slots=8, max_len=128,
+                    seed=0, log=quiet)
+    cells, cells_s = _timed(
+        _router_cells, serving,
+        ServeEngine(arch="deepseek-7b-smoke", kv_layout="contiguous",
+                    **tight_kw),
+        ServeEngine(arch="deepseek-7b-smoke", kv_kernel="cuda", **tight_kw))
+    for name, got in cells.items():
+        want = {k: v for k, v in bench_cells[name].items()
+                if k != "tokens_per_s"}
+        if got != want:
+            raise AssertionError(f"smoke cell {name}: {got} != {want}")
+    print(f"[smoke] deepseek-7b-smoke router cells ({', '.join(cells)}): "
+          f"every deterministic key equals BENCH_serving.json's; router x3 "
+          f"streams equal one engine's, shared-prefix streams equal with "
+          f"the prefix cache on and off ({cells_s:.1f} s)")
 
     # ---- 4. the slice at full width ------------------------------------
     reqs = [Request(rid=i, prompt=prng.randint(1, full.vocab_size - 1,
@@ -940,6 +1135,7 @@ def main() -> int:
     reset_counts()
     st_k = eng_k.run(reqs)
     launches = counts()
+    p4_streams, p4_sig = _streams(st_k), _weights_sig(eng_k)
     ticks, chunks = st_k.decode_steps, st_k.prefill_chunks
     # per step: layer 0's first norm alone, then 2 fused add + norms a
     # layer (the second norm; the next first norm or ln_f)
@@ -982,7 +1178,8 @@ def main() -> int:
         return got
 
     def teacher_forced(params, cache, tokens, active, pages):
-        copies = [{n: t.clone() for n, t in cache.items()} for _ in range(2)]
+        copies = [{n: t.clone() if torch.is_tensor(t) else t
+                   for n, t in cache.items()} for _ in range(2)]
         n0 = len(calls)
         ops.paged_attention = held
         try:
@@ -1365,7 +1562,8 @@ def main() -> int:
     del fin, plain_fin
 
     # ---- 9. flash attention against its plain version -------------------
-    del eng_k, pool
+    # the steps hold phase 4's model, whose per-layer views hold its weights
+    del eng_k, pool, kernel_step, gather_step, noisy_step
     torch.cuda.empty_cache()
     k3_err = _flash_checks(torch, ref, flash_attention_cuda)
     print(f"[kernels] flash_attention vs plain at {len(FLASH_CASES)} shapes "
@@ -1484,11 +1682,134 @@ def main() -> int:
     del eng_s
     torch.cuda.empty_cache()
 
+    # ---- 12. the router and the prefix cache at full width --------------
+    t12 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    eng_r = ServeEngine(arch="deepseek-7b", replicas=3, num_slots=8,
+                        max_len=512, seed=0, log=quiet)
+    if (eng_r.num_pages, eng_r.page_size, eng_r.prefill_chunk,
+            eng_r.kv_kernel) != (257, 16, 128, "cuda"):
+        raise AssertionError(f"3-replica engine: {eng_r.num_pages} pages x "
+                             f"{eng_r.page_size}, chunk "
+                             f"{eng_r.prefill_chunk}, {eng_r.kv_kernel}")
+    if _weights_sig(eng_r) != p4_sig:
+        raise AssertionError("the 3-replica engine's weights differ from "
+                             "phase 4's")
+    # the engine's own memory (its construction peaks on f32 draws); the
+    # serving runs' peak is read from here on
+    mem_built = torch.cuda.memory_allocated()
+    peak_built = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pool_bytes = eng_r.num_pages * eng_r.page_size * kv_bytes_per_token(full)
+    n12 = 48        # two fleet-fulls of 24 slots: later waves find heads
+
+    def trace12():
+        return sharedprefix_trace(n12, full.vocab_size, n_heads=4,
+                                  head_len=256, max_suffix=64, max_new=16,
+                                  seed=0)
+    fleet = ReplicaRouter([eng_r] * 3, policy="prefix_affinity", log=quiet)
+    fleet.run(trace12(), prefix_cache=True)                  # warm-up
+    # where a run's host time goes: inside the decode and chunk steps
+    # (launching their kernels; the device runs behind), and the rest
+    # (router, scheduler, the sampler's wait for each tick's logits)
+    inside = {}
+
+    def host_timed(name, step):
+        def timed(*args):
+            t0 = time.perf_counter()
+            out = step(*args)
+            inside[name] = inside.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+    steps_r = eng_r._decode, eng_r._chunk
+    eng_r._decode = host_timed("decode", steps_r[0])
+    eng_r._chunk = host_timed("chunk", steps_r[1])
+    runs, r_counts, r_inside = {}, {}, {}
+    try:
+        for cached in (False, True):
+            inside.clear()
+            reset_counts()
+            runs[cached] = fleet.run(trace12(), prefix_cache=cached)
+            r_counts[cached] = counts()
+            r_inside[cached] = dict(inside)
+    finally:
+        eng_r._decode, eng_r._chunk = steps_r
+    nl = full.num_layers
+    asks = {r.rid: r.max_new_tokens for r in trace12()}
+    for cached, s in runs.items():
+        if len(s.results) != n12 or any(
+                len(r.tokens) != asks[r.rid] or
+                not all(0 <= x < full.vocab_size for x in r.tokens)
+                for r in s.results):
+            raise AssertionError(f"phase 12 (cache {cached}): "
+                                 f"{len(s.results)} of {n12} requests done")
+        ticks = sum(x.decode_steps for x in s.replica_stats)
+        steps = ticks + s.prefill_chunks
+        want = {"paged_attention": nl * ticks, "rmsnorm": steps,
+                "add_rmsnorm": 2 * nl * steps, "sedov_stencil": 0,
+                "flash_attention": 0}
+        if r_counts[cached] != want:
+            raise AssertionError(f"phase 12 (cache {cached}) launches "
+                                 f"{r_counts[cached]} != {want}")
+    cold, hot = runs[False], runs[True]
+    parted = [(r.rid, next(i for i, (a, b) in enumerate(zip(r.tokens,
+                                                            c.tokens))
+                           if a != b))
+              for r, c in zip(hot.results, cold.results)
+              if r.tokens != c.tokens]
+    if parted:
+        raise AssertionError(f"full-width streams with the prefix cache on "
+                             f"and off part (rid, token): {parted}")
+    if not (hot.prefix_hits > 0 and hot.prefill_tokens_saved > 0 and
+            hot.prefill_chunks < cold.prefill_chunks):
+        raise AssertionError(f"prefix cache: {hot.prefix_hits} hits, "
+                             f"{hot.prefill_tokens_saved} tokens saved, "
+                             f"{hot.prefill_chunks} chunk steps against "
+                             f"{cold.prefill_chunks} cold")
+    ll = ReplicaRouter([eng_r] * 3, policy="least_loaded", log=quiet).run(
+        reqs)
+    if _streams(ll) != p4_streams:
+        raise AssertionError("least_loaded x3 streams differ from phase 4's "
+                             "single engine")
+    t12 = time.perf_counter() - t12
+    for label, s in (("cold", cold), ("cached", hot)):
+        ins = r_inside[label == "cached"]
+        print(f"[router] {card} deepseek-7b x3 replicas (one card, "
+              f"{pool_bytes / 1e9:.3f} GB of KV pool per replica), "
+              f"prefix_affinity, {n12} shared-prefix requests (4 heads of "
+              f"256 tokens), cache {label}: {s.generated_tokens} tokens in "
+              f"{s.wall_s:.3f} s = {s.tokens_per_s:.2f} tokens/s, "
+              f"{max(x.decode_steps for x in s.replica_stats)} rounds, "
+              f"{sum(x.decode_steps for x in s.replica_stats)} decode ticks, "
+              f"{s.prefill_chunks} chunk steps, mean TTFT "
+              f"{s.mean_ttft_steps:.4f} vsteps, {s.prefix_hits} hits / "
+              f"{s.prefix_misses} misses, {s.prefill_tokens_saved} prefill "
+              f"tokens saved, replicas {sorted(set(s.replica_of.values()))};"
+              f" launches {r_counts[label == 'cached']}; host inside decode "
+              f"steps {ins['decode']:.3f} s, inside chunk steps "
+              f"{ins['chunk']:.3f} s, the rest "
+              f"{s.wall_s - sum(ins.values()):.3f} s")
+    print(f"[router] {card} cached == cold streams ({n12} requests, "
+          f"{sum(asks.values())} tokens); "
+          f"least_loaded x3 over phase 4's 8 requests: streams equal the "
+          f"single engine's ({ll.tokens_per_s:.2f} tokens/s, "
+          f"{max(x.decode_steps for x in ll.replica_stats)} rounds); phase "
+          f"12 took {t12:.1f} s; memory allocated before it "
+          f"{mem0 / 1e9:.1f} GB, with the engine built {mem_built / 1e9:.1f}"
+          f" GB (construction's peak {peak_built / 1e9:.1f} GB), the "
+          f"serving runs' peak {torch.cuda.max_memory_allocated() / 1e9:.1f}"
+          f" GB")
+    router_k1 = r_counts[True]["paged_attention"]
+    del eng_r, fleet
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:197",
-         "launches": launches["paged_attention"], "max_abs_err": k1_err,
+         "launches": launches["paged_attention"],
+         "router_launches": router_k1, "max_abs_err": k1_err,
          "ms": k1["ms"], "plain_ms": k1["plain"], "bound_ms": k1["bound"],
          "bound_by": k1["bound_by"], "library_ms": k1["lib"]},
         {"name": "rmsnorm", "route": "cuda",

@@ -31,6 +31,18 @@ SERVE_SLO_TTFT_STALL_MULT = 4
 SERVE_SLO_E2E_STEPS_PER_TOKEN = 2
 
 
+def ttft_napkin_steps(prompt_len: int, chunk_unit: int,
+                      backlog_chunks: int = 0,
+                      waited_steps: int = 0) -> int:
+    """Predicted time-to-first-token, in virtual steps — the napkin the
+    router's SLO admission and autoscaler consult: the steps already
+    waited, plus the pending prefill backlog in chunk-equivalents, plus
+    the request's own prompt at ``ceil(prompt_len / chunk_unit)`` chunk
+    steps (the unit the virtual clock prices blocking prefills in)."""
+    own = -(-max(int(prompt_len), 1) // max(int(chunk_unit), 1))
+    return int(waited_steps) + int(backlog_chunks) + own
+
+
 def spec_k_for(repetitiveness: float) -> int:
     """Draft length the tuner picks for a trace's repetitiveness r: k
     grows while the marginal expected token r^(k+1) stays >= 0.1, capped

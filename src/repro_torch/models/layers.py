@@ -233,13 +233,14 @@ def _chunk(q, k, v, cache):
     slot's first ``kv_bound`` positions read back through the same
     indirection.  Paged: through the slot's page-table row, bucket
     padding past the row's pages falling into the junk page 0.
-    Contiguous: the slot's row, positions past max_len dropped."""
+    Contiguous: the slot's row, positions past max_len dropped.  The
+    pool's ``layout`` picks which."""
     off, bound = cache["offset"], cache["kv_bound"]
     ck, cv = cache["k"], cache["v"]
     Kh, dh = ck.shape[2], ck.shape[3]
     s = q.shape[1]
     pos = off + torch.arange(s, device=q.device)
-    if "pages_row" in cache:
+    if cache["layout"] == "paged":
         pages_row = cache["pages_row"]
         psize = ck.shape[1]
         max_pages = pages_row.shape[0]
@@ -266,10 +267,10 @@ def _chunk(q, k, v, cache):
 def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
               mode: str, cache: dict | None = None):
     """mode: 'prefill' (causal, returns the fresh K/V), 'decode'
-    (slot-wise, one token or a verify burst per row, paged when the cache
-    has a page table, else contiguous; in-place pool write), 'chunk'
-    (chunked prefill into the pool, in-place).  Returns (out, fresh_cache
-    or None)."""
+    (slot-wise, one token or a verify burst per row, through the page
+    table or the slot rows as the pool's ``cache["layout"]`` says;
+    in-place pool write), 'chunk' (chunked prefill into the pool,
+    in-place).  Returns (out, fresh_cache or None)."""
     q = torch.einsum("bse,ehd->bshd", x, p["wq"])
     k = torch.einsum("bte,ekd->btkd", x, p["wk"])
     v = torch.einsum("bte,ekd->btkd", x, p["wv"])
@@ -284,8 +285,8 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                        theta=cfg.rope_theta)
     new_cache = None
     if mode == "decode":
-        out = _paged_decode(q, k, v, cache) if "pages" in cache \
-            else _slot_decode(q, k, v, cache)
+        out = _paged_decode(q, k, v, cache) \
+            if cache["layout"] == "paged" else _slot_decode(q, k, v, cache)
     elif mode == "chunk":
         out = _chunk(q, k, v, cache)
     elif mode == "prefill":

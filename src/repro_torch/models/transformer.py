@@ -123,23 +123,27 @@ class DenseLM:
         """One prompt chunk of one request, written straight into the pool.
 
         tokens: (1, c) — a bucketed chunk padded past ``n_valid``; global
-        positions are ``[offset, offset + c)``.  ``cache`` is the pool's:
-        a page pool with ``pages_row`` the slot's (max_pages,) page-table
-        row, or (no ``pages_row``) a contiguous slot pool.  ``kv_bound``
+        positions are ``[offset, offset + c)``.  ``cache`` is the pool's,
+        its ``layout`` saying which: a page pool, with ``pages_row`` the
+        slot's (max_pages,) page-table row, or a contiguous slot pool.
+        ``kv_bound``
         (>= offset + c) caps the KV prefix the chunk reads back.  Returns
         the logits at the chunk's last valid position and the pool cache,
         whose K/V were written in place and whose index for ``slot`` is
         now ``offset + n_valid``.
         """
+        layout = cache["layout"]
+        if (layout == "paged") != (pages_row is not None):
+            raise ValueError(f"a {layout} pool's chunk takes "
+                             f"{'a' if layout == 'paged' else 'no'} page-"
+                             f"table row")
         b, c = tokens.shape
         positions = offset + torch.arange(c, device=tokens.device).expand(b, c)
         x, delta = L.embed(params["embed"], tokens, self.cfg), None
         for i, lp in enumerate(self.layer_params(params)):
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
-                           "slot": slot, "offset": offset,
-                           "kv_bound": int(kv_bound)}
-            if pages_row is not None:
-                layer_cache["pages_row"] = pages_row
+                           "layout": layout, "slot": slot, "offset": offset,
+                           "kv_bound": int(kv_bound), "pages_row": pages_row}
             x, delta, _ = self.block_apply(lp, x, delta, positions, "chunk",
                                            layer_cache)
         pick = slice(n_valid - 1, n_valid)
@@ -149,26 +153,24 @@ class DenseLM:
 
     def decode_step(self, params, cache, tokens):
         """s tokens per slot (one, or a verify burst) through the pool:
-        ``cache`` holds the (layers, ...) K/V and the (slots,) index, plus
-        for a paged pool the (slots, max_pages) page table and
-        ``use_kernel``, which selects the CUDA paged-decode kernel over
-        the gather path for single tokens."""
+        ``cache`` holds the (layers, ...) K/V, the (slots,) index and the
+        pool's ``layout``, plus for a paged pool the (slots, max_pages)
+        page table and ``use_kernel``, which selects the CUDA paged-decode
+        kernel over the gather path for single tokens."""
         b, s = tokens.shape
         idx = cache["index"]
         positions = idx[:, None] + torch.arange(s, device=idx.device)[None, :]
         x, delta = L.embed(params["embed"], tokens, self.cfg), None
-        pages = cache.get("pages")
+        paged = {"pages": cache["pages"],
+                 "use_kernel": cache.get("use_kernel", False)} \
+            if cache["layout"] == "paged" else {}
         for i, lp in enumerate(self.layer_params(params)):
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
-                           "index": idx}
-            if pages is not None:
-                layer_cache.update(pages=pages,
-                                   use_kernel=cache.get("use_kernel", False))
+                           "index": idx, "layout": cache["layout"], **paged}
             x, delta, _ = self.block_apply(lp, x, delta, positions, "decode",
                                            layer_cache)
-        new_cache = {"k": cache["k"], "v": cache["v"], "index": idx + s}
-        if pages is not None:
-            new_cache["pages"] = pages
+        new_cache = {"k": cache["k"], "v": cache["v"], "index": idx + s,
+                     "layout": cache["layout"], **paged}
         return self.logits_from(params, x, delta), new_cache
 
 

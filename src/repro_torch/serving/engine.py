@@ -5,9 +5,11 @@
     model_for(cfg) + build_prefill_chunk_step[_paged] +
         build_decode_step_slots[_paged] +
         build_verify_step_slots[_paged] --> steps
-    KVCachePool | PagedKVCachePool + Scheduler + make_sampler(seed)
+    KVCachePool | PagedKVCachePool (+ PrefixCache) + Scheduler +
+    make_sampler(seed)
         --> continuous or gang-scheduled batching, sampled or greedy,
-            with or without draft-then-verify speculation
+            with or without draft-then-verify speculation and the
+            shared-prefix cache
 
 The engine runs on the GPU: ``device=None`` means CUDA, and raises where
 there is none; pass ``device="cpu"`` to run on the CPU, where every
@@ -35,8 +37,15 @@ too.  Speculative verify bursts read through the gather path in both
 layouts, as in the reference.  The RMSNorm of every layer goes through
 the hand-written RMSNorm kernel whenever the tensors are on the card.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the shared-prefix cache and tracing.
+``prefix_cache=True`` (paged layout only) attaches a shared-prefix KV
+cache (``serving/prefix_cache.PrefixCache``) to every pool the engine
+builds, so one per replica under a ``ReplicaRouter``: an admission whose
+prompt prefix is resident reuses the cached page run and prefills only
+the cold suffix.  Cached and cold streams are equal: the cache changes
+where prefix KV comes from, not what it holds.
+
+Not ported yet: tracing (``tracer=`` raises ``NotImplementedError``
+naming its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -45,10 +54,11 @@ import torch
 
 from repro_torch.core.appspec import AppSpec
 from repro_torch.core.target import default_target, get_target, resolve_device
-from repro_torch.core.tuning import tune
+from repro_torch.core.tuning import prefix_cache_quota, tune
 from repro_torch.models.params import init_params
 from repro_torch.models.transformer import model_for
 from repro_torch.serving.pool import KVCachePool, PagedKVCachePool
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampling import make_sampler
 from repro_torch.serving.scheduler import Scheduler, ServeStats
 from repro_torch.training.steps import (build_decode_step_slots,
@@ -89,10 +99,10 @@ class ServeEngine:
             raise ValueError(
                 "kv_kernel='cuda' is the paged decode kernel: it needs "
                 f"kv_layout='paged', not {kv_layout!r}")
-        if prefix_cache:
-            raise NotImplementedError(
-                "the shared-prefix cache is not ported yet (ROADMAP: "
-                "prefix cache)")
+        if prefix_cache and kv_layout != "paged":
+            raise ValueError(
+                "prefix_cache reuses page runs by pointer copy — it needs "
+                f"kv_layout='paged', not {kv_layout!r}")
         if replicas < 1:
             raise ValueError(f"replicas {replicas} < 1")
         if spec_k is not None and spec_k < 0:
@@ -153,7 +163,13 @@ class ServeEngine:
         self.cfg = cfg
         self.model = model_for(cfg)
         self.eos_id = eos_id
+        self.seed = seed
         self.log = log
+        # shared-prefix KV cache (paged only): an LRU pin budget out of
+        # the same page pool, re-capped in make_pool against the pool
+        # actually built
+        self.prefix_cache = prefix_cache
+        self.prefix_cache_pages = self.plan.serve_prefix_cache_pages
         # prompt-ingestion grain: None -> the tuner's chunk size; 0 ->
         # blocking full-prompt prefill; >0 -> explicit chunk tokens.
         # chunk_unit prices blocking prefills on the virtual TTFT clock.
@@ -211,12 +227,27 @@ class ServeEngine:
         return self._verify(self.params, cache, tokens, active, *extras)
 
     # -- driving -----------------------------------------------------------
-    def make_pool(self) -> KVCachePool | PagedKVCachePool:
+    def make_pool(self, prefix_cache: bool | None = None
+                  ) -> KVCachePool | PagedKVCachePool:
+        """A fresh pool and, when the cache is on, a fresh shared-prefix
+        cache attached to it (per pool, so per replica under a router).
+        ``prefix_cache`` overrides the engine's default for this pool."""
+        use_cache = self.prefix_cache if prefix_cache is None \
+            else prefix_cache
         if self.kv_layout == "paged":
-            return PagedKVCachePool(self.model, self.num_slots, self.max_len,
+            pool = PagedKVCachePool(self.model, self.num_slots, self.max_len,
                                     page_size=self.page_size,
                                     num_pages=self.num_pages,
                                     device=self.device)
+            if use_cache:
+                # the tuner's quota, never more than ~1/4 of the pool
+                # actually built (explicit page counts may shrink it)
+                cap = prefix_cache_quota(pool.num_pages)
+                budget = min(self.prefix_cache_pages or cap, cap)
+                PrefixCache(pool, max_pages=max(budget, 1))
+            return pool
+        if use_cache:
+            raise ValueError("prefix_cache needs the paged KV layout")
         return KVCachePool(self.model, self.num_slots, self.max_len,
                            device=self.device)
 
@@ -231,15 +262,17 @@ class ServeEngine:
         fresh pool.  ``prefill_chunk`` overrides the ingestion grain for
         this run (0 = blocking full-prompt prefill); ``spec_k`` the draft
         length (0 = one token per tick; spec-on and spec-off streams are
-        equal by construction); ``slo_*_steps`` set the virtual-step
-        deadlines goodput is judged by."""
-        if prefix_cache:
-            raise NotImplementedError("prefix cache (ROADMAP: prefix cache)")
+        equal by construction); ``prefix_cache`` turns the shared-prefix
+        cache on or off for this run (None: the engine's setting);
+        ``slo_*_steps`` set the virtual-step deadlines goodput is judged
+        by.  Requests with an ``arrival_vstep`` are admitted open-loop,
+        once the virtual clock reaches it."""
         if tracer is not None:
             raise NotImplementedError("tracing (ROADMAP: telemetry)")
         chunk = self.prefill_chunk if prefill_chunk is None else prefill_chunk
         k = self.spec_k if spec_k is None else spec_k
-        sched = Scheduler(self.make_pool(), self.decode_fn, self.chunk_fn,
+        sched = Scheduler(self.make_pool(prefix_cache=prefix_cache),
+                          self.decode_fn, self.chunk_fn,
                           eos_id=self.eos_id, policy=policy,
                           sampler=self.sampler, prefill_chunk=chunk,
                           prefill_chunk_unit=self.chunk_unit,

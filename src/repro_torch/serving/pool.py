@@ -1,6 +1,5 @@
 """KV cache pools — the serving stack's memory layer, in two layouts
-(port of ``repro/serving/pool.py`` without the prefix cache's page
-accounting).
+(port of ``repro/serving/pool.py``).
 
 ``KVCachePool`` (contiguous) holds one ``max_len`` row per slot:
 
@@ -22,10 +21,21 @@ reserved junk page: inactive slots (zeroed page-table rows) scatter their
 dead writes there and nothing reads it through a live page table.  Pages
 grow on demand during decode (``prepare_decode``); when the pool is out
 of pages the scheduler preempts a request and resumes it later.  Pages
-are refcounted (``page_refs``); the slot and page allocators are
-deterministic LIFO free lists, so every allocation matches the
-reference's.  Both pools take speculative verify bursts
-(``grow_for_burst``, ``sync_index``).
+are refcounted (``page_refs``): normally a page has one owner, but an
+attached shared-prefix cache (``serving/prefix_cache.PrefixCache``) lets
+several requests — and the cache itself — reference one page, and
+``free`` then only decrements; a page rejoins the free list at refcount
+zero, so a preempted sharer never frees a page another request reads.
+Cache-only pages (``page_cached`` at refcount 1, counted in
+``reclaimable_pages``) count as free for admission and the router's load
+signal, and a starved free list reclaims them (LRU) before anyone is
+preempted.  The slot and page allocators are deterministic LIFO free
+lists, so every allocation matches the reference's.  Both pools take
+speculative verify bursts (``grow_for_burst``, ``sync_index``).
+
+Each pool's cache dict carries its ``layout`` ("contiguous" or
+"paged"): the steps and the model read the layout from there, so the
+pool is the one place that decides how K/V are addressed.
 """
 
 from __future__ import annotations
@@ -85,21 +95,26 @@ def _check_servable(cfg) -> None:
             f"{cfg.family!r} (window={cfg.window})")
 
 
-def _kv_cache(cfg, rows: int, cols: int, num_slots: int, device) -> dict:
-    """Zeroed K/V storage ``(layers, rows, cols, kv_heads, head_dim)`` and
-    the per-slot index."""
+def _kv_cache(cfg, layout: str, rows: int, cols: int, num_slots: int,
+              device) -> dict:
+    """Zeroed K/V storage ``(layers, rows, cols, kv_heads, head_dim)``, the
+    per-slot index, and the pool's layout."""
     shape = (cfg.num_layers, rows, cols, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.activation_dtype,
                              device=device),
             "v": torch.zeros(shape, dtype=cfg.activation_dtype,
                              device=device),
             "index": torch.zeros((num_slots,), dtype=torch.int32,
-                                 device=device)}
+                                 device=device),
+            "layout": layout}
 
 
 class _LengthMirror:
     """What both pools share: the host mirror of each slot's KV length
-    (``lengths``) and the device cache whose ``index`` it uploads."""
+    (``lengths``), the device cache whose ``index`` it uploads, and the
+    attached shared-prefix cache (None: none; paged pools only)."""
+
+    prefix_cache = None
 
     def sync_index(self) -> None:
         """Upload the host length mirror as the device index (a verify
@@ -132,8 +147,8 @@ class KVCachePool(_LengthMirror):
         self.device = resolve_device(device)
         self.num_slots = num_slots
         self.max_len = max_len
-        self.cache = _kv_cache(cfg, num_slots, max_len, num_slots,
-                               self.device)
+        self.cache = _kv_cache(cfg, self.layout, num_slots, max_len,
+                               num_slots, self.device)
         self._free = _FreeList(num_slots)
         self.lengths = np.zeros((num_slots,), np.int64)  # host mirror
 
@@ -142,9 +157,17 @@ class KVCachePool(_LengthMirror):
     def num_free(self) -> int:
         return len(self._free)
 
-    def can_admit(self, prompt_len: int, active_slots=()) -> bool:
+    @property
+    def free_tokens(self) -> int:
+        """Admittable KV tokens left (free worst-case slots) — the load
+        signal a router's least-loaded policy balances."""
+        return self.num_free * self.max_len
+
+    def can_admit(self, prompt_len: int, active_slots=(),
+                  hit=None) -> bool:
         """A contiguous slot IS the worst-case reservation: one free slot
-        admits any prompt that fits max_len."""
+        admits any prompt that fits max_len (``hit``, a prefix-cache
+        probe, applies to paged pools only)."""
         return self.num_free > 0 and prompt_len <= self.max_len
 
     def can_ever_serve(self, n_tokens: int) -> bool:
@@ -229,14 +252,21 @@ class PagedKVCachePool(_LengthMirror):
         if self.num_pages < 2:
             raise ValueError(f"num_pages {self.num_pages} < 2 "
                              f"(page 0 is reserved)")
-        self.cache = _kv_cache(cfg, self.num_pages, page_size, num_slots,
-                               self.device)
+        self.cache = _kv_cache(cfg, self.layout, self.num_pages, page_size,
+                               num_slots, self.device)
         self.page_table = np.zeros((num_slots, self.max_pages), np.int32)
         self._pages_held = np.zeros((num_slots,), np.int64)
         self._free = _FreeList(num_slots)
         self._free_pages = _FreeList(self.num_pages - 1, start=1)
         self.lengths = np.zeros((num_slots,), np.int64)  # host mirror
+        # owners per page: the allocating request, each prefix-cache
+        # sharer and the cache cell itself hold one reference each.
+        # page_cached flags cache-pinned pages; _cache_only counts those
+        # no request shares (refcount exactly 1), kept on the 1 <-> 2
+        # refcount transitions so admission never scans the cache
         self.page_refs = np.zeros((self.num_pages,), np.int32)
+        self.page_cached = np.zeros((self.num_pages,), bool)
+        self._cache_only = 0
 
     # -- capacity ----------------------------------------------------------
     @property
@@ -247,19 +277,45 @@ class PagedKVCachePool(_LengthMirror):
     def free_pages(self) -> int:
         return len(self._free_pages)
 
+    @property
+    def reclaimable_pages(self) -> int:
+        """Pages the attached prefix cache could hand back on demand
+        (cache-pinned, shared with no live request): a running count."""
+        return self._cache_only
+
+    @property
+    def free_tokens(self) -> int:
+        """Admittable KV tokens left: free and reclaimable pages' worth,
+        0 without a free page-table row.  A page shared by several
+        requests is simply not free, so it is never counted twice."""
+        if not self.num_free:
+            return 0
+        return (self.free_pages + self.reclaimable_pages) * self.page_size
+
     def pages_for(self, n_tokens: int) -> int:
         return math.ceil(n_tokens / self.page_size)
 
-    def can_admit(self, prompt_len: int, active_slots=()) -> bool:
+    def can_admit(self, prompt_len: int, active_slots=(),
+                  hit=None) -> bool:
         """Admission needs a slot, pages for the prompt, and headroom for
         the in-flight requests about to cross a page boundary (reserving
-        those avoids admit/preempt ping-pong under pressure)."""
+        those avoids admit/preempt ping-pong under pressure).
+
+        With a prefix-cache ``hit`` only the cold suffix needs pages, and
+        the hit's cache-only pages leave the spendable headroom (attaching
+        pins them: counted as reclaimable too, they would be promised
+        twice)."""
         if self.num_free == 0 or prompt_len > self.max_len:
             return False
         imminent = sum(
             1 for s in active_slots
             if self.lengths[s] >= self._pages_held[s] * self.page_size)
-        return self.free_pages >= self.pages_for(prompt_len) + imminent
+        need = self.pages_for(prompt_len)
+        avail = self.free_pages + self.reclaimable_pages
+        if hit is not None and hit.pages:
+            need -= len(hit.pages)
+            avail -= hit.pinned
+        return avail >= need + imminent
 
     def can_ever_serve(self, n_tokens: int) -> bool:
         """Whether a request resident at `n_tokens` could ever fit an
@@ -286,27 +342,73 @@ class PagedKVCachePool(_LengthMirror):
         self._pages_held[slot] = 0
         self.lengths[slot] = 0
         self._free.push(slot)
+        if self.prefix_cache is not None:
+            # shared pages may just have become cache-only: keep the
+            # cache inside its pin budget
+            self.prefix_cache.enforce_budget()
 
     def release_page(self, page: int) -> None:
-        """Drop one reference on `page`; free it at refcount zero."""
+        """Drop one reference on `page`; free it at refcount zero.  A
+        cache-pinned page whose last request reference just left becomes
+        reclaimable (the cache's own reference keeps it resident)."""
         self.page_refs[page] -= 1
         if self.page_refs[page] == 0:
             self._free_pages.push(page)
         elif self.page_refs[page] < 0:
             raise ValueError(f"page {page} released below zero references")
+        elif self.page_refs[page] == 1 and self.page_cached[page]:
+            self._cache_only += 1
+
+    def pin_page(self, page: int) -> None:
+        """The prefix cache takes its reference on `page` (cell insert);
+        the inserting request still holds it, so it is shared."""
+        self.page_refs[page] += 1
+        self.page_cached[page] = True
+
+    def unpin_page(self, page: int) -> None:
+        """The prefix cache drops its reference on `page` (cell evict)."""
+        if self.page_refs[page] == 1:
+            self._cache_only -= 1
+        self.page_cached[page] = False
+        self.release_page(page)
+
+    def adopt_run(self, slot: int, pages) -> None:
+        """Install a shared page run as the head of `slot`'s page table
+        (prefix-cache hit), one reference per page.  The slot must hold
+        nothing yet; ``reserve_prefix`` then adds the cold suffix's own
+        pages."""
+        if self._pages_held[slot]:
+            raise ValueError(
+                f"slot {slot} already holds {self._pages_held[slot]} pages; "
+                f"a shared run must be adopted first")
+        for i, page in enumerate(pages):
+            if self.page_refs[page] == 1 and self.page_cached[page]:
+                self._cache_only -= 1   # cache-only -> shared again
+            self.page_refs[page] += 1
+            self.page_table[slot, i] = page
+        self._pages_held[slot] = len(pages)
+
+    def _take_page(self, slot: int, held: int) -> None:
+        """Pop a free page into `slot`'s table at position `held`."""
+        page = self._free_pages.pop()
+        self.page_refs[page] = 1
+        self.page_cached[page] = False
+        self.page_table[slot, held] = page
+        self._pages_held[slot] = held + 1
 
     def _grow(self, slot: int) -> bool:
-        """Append one page to `slot`; False when the pool is starved."""
+        """Append one page to `slot`; False when the pool is starved.  A
+        starved free list reclaims LRU cache-only prefix pages first: the
+        cache gives way before any request is preempted."""
         held = int(self._pages_held[slot])
         if held >= self.max_pages:
             raise PoolExhausted(
                 f"slot {slot} already holds max_pages={self.max_pages}")
+        if not self._free_pages and self.prefix_cache is not None:
+            self.prefix_cache.reclaim(1)
         if not self._free_pages:
             return False
-        page = self._free_pages.pop()
-        self.page_refs[page] = 1
-        self.page_table[slot, held] = page
-        self._pages_held[slot] = held + 1
+        self._take_page(slot, held)
         return True
 
     # -- cache plumbing ----------------------------------------------------
@@ -317,7 +419,8 @@ class PagedKVCachePool(_LengthMirror):
             raise ValueError(
                 f"prefix of {n_tokens} tokens > pool max_len {self.max_len}")
         need = self.pages_for(n_tokens)
-        if need - int(self._pages_held[slot]) > self.free_pages:
+        if need - int(self._pages_held[slot]) > \
+                self.free_pages + self.reclaimable_pages:
             raise PoolExhausted(
                 f"prefix of {n_tokens} tokens needs {need} pages, "
                 f"{self.free_pages} free")
@@ -366,10 +469,7 @@ class PagedKVCachePool(_LengthMirror):
             held = int(self._pages_held[slot])
             if held >= self.max_pages or not self._free_pages:
                 break
-            page = self._free_pages.pop()
-            self.page_refs[page] = 1
-            self.page_table[slot, held] = page
-            self._pages_held[slot] = held + 1
+            self._take_page(slot, held)
         backed = int(self._pages_held[slot]) * self.page_size \
             - int(self.lengths[slot])
         return max(min(backed, want_tokens,

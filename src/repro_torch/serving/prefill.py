@@ -1,6 +1,5 @@
 """PrefillManager — chunked prompt ingestion as its own schedulable stage
-(port of ``repro/serving/prefill.py`` without the prefix cache and the
-tracer).
+(port of ``repro/serving/prefill.py`` without the tracer).
 
 A prompt is cut into fixed-size chunks (the tuner's
 ``plan.serve_prefill_chunk``), each padded to a power-of-two bucket, and
@@ -12,6 +11,13 @@ pages are reserved at ``submit`` — the decision point blocking admission
 reserves at — so admission order, preemption and every token stream
 match the blocking path.  Blocking mode is the degenerate manager: one
 chunk covering the whole (bucketed) prompt, drained inline.
+
+When the pool carries a shared-prefix cache
+(``serving/prefix_cache.PrefixCache``), ``submit`` probes it first: a hit
+installs the cached page run into the slot by pointer copy and starts
+the ingest cursor past the shared prefix, so only the cold suffix is cut
+into chunks.  The final chunk of every prompt registers its whole pages
+back into the cache.
 """
 
 from __future__ import annotations
@@ -71,16 +77,33 @@ class PrefillManager:
     def has_jobs(self) -> bool:
         return bool(self.jobs)
 
+    @property
+    def pending_tokens(self) -> int:
+        """Prompt tokens still owed to the pool — the ingest backlog a
+        router charges against a replica's free capacity."""
+        return sum(j.remaining for j in self.jobs)
+
     def submit(self, entry, st, prompt: np.ndarray) -> PrefillJob:
-        """Reserve the slot and the prompt's pages, queue the job."""
+        """Reserve the slot and the prompt's pages, queue the job.
+
+        A prefix-cache hit adopts the shared page run first (pointer
+        copies, a reference per page) and reserves pages for the cold
+        suffix only; the job's cursor starts past the cached tokens."""
         prompt = np.asarray(prompt, np.int32)
         slot = self.pool.alloc()
+        cached = 0
+        if self.pool.prefix_cache is not None:
+            cached = self.pool.prefix_cache.attach(
+                slot, prompt, getattr(entry, "probe_hit", None))
         try:
             self.pool.reserve_prefix(slot, len(prompt))
         except Exception:
-            self.pool.free(slot)
+            self.pool.free(slot)   # also drops the shared run's references
             raise
-        job = PrefillJob(entry=entry, st=st, prompt=prompt, slot=slot)
+        if cached:
+            self.pool.set_length(slot, cached)
+        job = PrefillJob(entry=entry, st=st, prompt=prompt, slot=slot,
+                         done=cached)
         self.jobs.append(job)
         self.queue_peak = max(self.queue_peak, len(self.jobs))
         return job
@@ -111,7 +134,13 @@ class PrefillManager:
         self.shape_buckets.add((bucket, bound))
         # mid-ingest KV is resident and must show in peak_resident_tokens
         self.pool.set_length(job.slot, job.done)
-        return logits if job.done == len(job.prompt) else None
+        if job.done < len(job.prompt):
+            return None
+        if self.pool.prefix_cache is not None:
+            # the run is written and read-only from here on: register its
+            # whole prompt pages for later sharers
+            self.pool.prefix_cache.insert(job.prompt, job.slot)
+        return logits
 
     def tick(self, vclock=None):
         """Ingest up to ``chunk_tokens`` prompt tokens (head-of-line).

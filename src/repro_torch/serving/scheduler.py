@@ -37,8 +37,16 @@ slot, one verify step scores all k+1 positions, and each slot accepts
 the longest draft prefix that matches the sequential sampler's own
 draws — speculative streams equal ``spec_k == 0`` streams.
 
-The shared-prefix cache and tracing are later slices (``ServeEngine``
-raises on them).
+Admission asks the pool for an entry's *cold* footprint: with a
+shared-prefix cache attached (``serving/prefix_cache.py``) a probe hit
+leaves only the un-cached suffix to reserve and ingest.  ``run()``
+drains a whole trace, and every phase is also exposed step-wise
+(``reset`` / ``try_admit`` / ``admit_from_queue`` / ``step`` /
+``stats``) so a ``ReplicaRouter`` can drive N schedulers in lockstep on
+one shared clock (``RoundClock``), routing at admission and taking back
+a request that starves its replica alone
+(``step(evict_on_starvation=True)``).  Tracing is a later slice
+(``ServeEngine`` raises on it).
 """
 
 from __future__ import annotations
@@ -76,6 +84,40 @@ class VirtualClock:
 
     def advance(self, n: int = 1) -> None:
         self._t += int(n)
+
+    # host-thread work that stalls everyone (a blocking prefill): on the
+    # plain clock the same as advance; a router's RoundClock tells them
+    # apart
+    advance_serial = advance
+
+
+class RoundClock:
+    """A replica's view of a shared fleet clock during one lockstep round.
+
+    Parallel work (``advance``: decode ticks, prefill chunks) accumulates
+    a local offset; at the end of the round the router advances the
+    shared clock by the largest offset of the fleet, since replicas work
+    at once.  Serial work (``advance_serial``: a blocking prefill at
+    dispatch) goes straight to the shared clock — the host runs those
+    one after another, stalling every replica's round."""
+
+    def __init__(self, shared: VirtualClock):
+        self.shared = shared
+        self.offset = 0
+
+    @property
+    def t(self) -> int:
+        return self.shared.t + self.offset
+
+    def advance(self, n: int = 1) -> None:
+        self.offset += int(n)
+
+    def advance_serial(self, n: int = 1) -> None:
+        self.shared.advance(n)
+
+    def take(self) -> int:
+        off, self.offset = self.offset, 0
+        return off
 
 
 @dataclasses.dataclass
@@ -154,6 +196,11 @@ class ServeStats:
     goodput_tokens: int = 0       # tokens of requests that met the SLO
     slo_ttft_steps: int = 0
     slo_e2e_steps: int = 0
+    # shared-prefix KV cache (zeros with the cache off)
+    prefix_hits: int = 0          # admissions that reused a cached run
+    prefix_misses: int = 0        # admissions with no cached prefix
+    prefill_tokens_saved: int = 0  # prompt tokens skipped via cache hits
+    prefix_evictions: int = 0     # cache cells reclaimed under pressure
     # speculative decoding (zeros with spec_k == 0): one verify event per
     # active slot per verify step, so accepted_per_verify is per request
     spec_verify_steps: int = 0    # slot-verify scoring events
@@ -179,6 +226,9 @@ class ServeStats:
     def summary(self) -> str:
         lat = [r.latency_s for r in self.results]
         pre = f", {self.preemptions} preemptions" if self.preemptions else ""
+        if self.prefix_hits:
+            pre += (f", {self.prefix_hits} prefix hits "
+                    f"({self.prefill_tokens_saved}t prefill saved)")
         if self.spec_verify_steps:
             pre += (f", spec {self.accepted_per_verify:.2f} tok/verify "
                     f"({self.spec_accepted_tokens}/{self.spec_drafted_tokens}"
@@ -194,9 +244,14 @@ class ServeStats:
 @dataclasses.dataclass
 class _Entry:
     """A queued unit of work: a fresh request, or a preempted one carrying
-    the result it must resume (tokens generated so far)."""
+    the result it must resume (tokens generated so far).  ``rerouted``
+    marks an entry a router took back after it starved its replica alone:
+    it is placed by its full remaining generation, even under an eos."""
     req: Request
     st: RequestResult | None = None
+    rerouted: bool = False
+    probe_hit: object = None      # the prefix-cache probe of the can_admit
+    #                               just before _admit, which attach reuses
 
     @property
     def pending_len(self) -> int:
@@ -243,7 +298,8 @@ class Scheduler:
                  prefill_chunk: int = 0, prefill_chunk_unit: int = 16,
                  verify_fn=None, spec_k: int = 0, drafter=None,
                  vocab_size: int | None = None,
-                 slo_ttft_steps: int = 0, slo_e2e_steps: int = 0):
+                 slo_ttft_steps: int = 0, slo_e2e_steps: int = 0,
+                 vclock=None, replica_id: int = 0):
         if policy not in ("continuous", "static"):
             raise ValueError(policy)
         if prefill_chunk < 0 or prefill_chunk_unit < 1:
@@ -262,7 +318,8 @@ class Scheduler:
         self.policy = policy
         self.sampler = sampler              # None -> greedy argmax
         self.clock = clock
-        self.vclock = VirtualClock()
+        self.vclock = vclock or VirtualClock()
+        self.replica_id = int(replica_id)
         self.verify_fn = verify_fn          # (cache, toks, active, *extras)
         self.spec_k = spec_k
         self.drafter = drafter if drafter is not None else \
@@ -274,8 +331,9 @@ class Scheduler:
         self.reset()
 
     # -- state ---------------------------------------------------------------
-    def reset(self) -> None:
-        """Fresh drain state (queue, active set, counters, host mirrors)."""
+    def reset(self, t0: float | None = None) -> None:
+        """Fresh drain state (queue, active set, counters, host mirrors);
+        ``t0`` is the wall-clock start a router shares across replicas."""
         S = self.pool.num_slots
         self.queue: deque = deque()
         self.active: dict[int, _Active] = {}
@@ -292,7 +350,7 @@ class Scheduler:
         self._spec_drafted = 0
         self._spec_accepted = 0
         self._eff_topk: dict[int, int] = {}
-        self._t0 = self.clock()
+        self._t0 = self.clock() if t0 is None else t0
         self._v0 = self.vclock.t
         self._mgr = PrefillManager(self.pool, self.chunk_step_fn,
                                    self.prefill_chunk)
@@ -302,9 +360,27 @@ class Scheduler:
         return bool(self.queue or self.active or self._mgr.has_jobs)
 
     @property
+    def prefill_backlog(self) -> bool:
+        """Whether requests are mid-prefill (chunks still queued)."""
+        return self._mgr.has_jobs
+
+    @property
     def in_flight(self) -> int:
         """Requests holding pool resources: decoding plus mid-prefill."""
         return len(self.active) + len(self._mgr.jobs)
+
+    @property
+    def prefill_backlog_tokens(self) -> int:
+        """Prompt tokens queued for ingestion and not yet chunked through —
+        the backlog the router's TTFT napkin charges new arrivals."""
+        return self._mgr.pending_tokens
+
+    @property
+    def free_tokens(self) -> int:
+        """Router load signal: the pool's admittable tokens less the
+        prefill backlog still owed to it (a replica mid-ingest has the
+        memory reserved but the compute pending)."""
+        return max(self.pool.free_tokens - self._mgr.pending_tokens, 0)
 
     def validate(self, requests) -> None:
         """Reject up front what this scheduler or pool could never serve,
@@ -386,10 +462,34 @@ class Scheduler:
                           styles).reshape(S, width)
 
     # -- admission ---------------------------------------------------------
+    def _probe_prefix(self, entry: _Entry):
+        """Read-only shared-prefix cache probe for `entry` (None without a
+        cache)."""
+        cache = self.pool.prefix_cache
+        if cache is None:
+            return None
+        return cache.probe(entry.pending_tokens())
+
+    def can_admit(self, entry: _Entry) -> bool:
+        """Whether the pool takes the entry's *cold* footprint now.  The
+        probe rides on the entry, so the ``_admit`` right after a True
+        answer attaches it without walking the keys again (a router's
+        losing replicas overwrite it; the winner probes again in
+        ``try_admit`` just before admitting, so it is never stale)."""
+        entry.probe_hit = self._probe_prefix(entry)
+        return self.pool.can_admit(entry.pending_len, tuple(self.active),
+                                   hit=entry.probe_hit)
+
+    def try_admit(self, entry: _Entry) -> bool:
+        """Router-facing single-entry admission; False when full."""
+        if not self.can_admit(entry):
+            return False
+        self._admit(entry)
+        return True
+
     def admit_from_queue(self) -> None:
         """Admit from the queue head while the pool has room."""
-        while self.queue and self.pool.can_admit(self.queue[0].pending_len,
-                                                 tuple(self.active)):
+        while self.queue and self.can_admit(self.queue[0]):
             self._admit(self.queue.popleft())
 
     def _admit(self, entry: _Entry) -> None:
@@ -415,9 +515,10 @@ class Scheduler:
         job.admit_step = self._steps
         if self.prefill_chunk:
             return                               # chunks interleave in step()
-        # blocking: the whole prompt as one chunk, inline — priced on the
-        # virtual clock at its chunk-equivalent cost
-        self.vclock.advance(-(-job.remaining // self.chunk_unit))
+        # blocking: the un-cached remainder as one chunk, inline — priced
+        # on the virtual clock at its chunk-equivalent cost, serially (it
+        # stalls a router's whole lockstep round)
+        self.vclock.advance_serial(-(-job.remaining // self.chunk_unit))
         self._finish_prefill(job, self._mgr.drain(job))
 
     def _finish_prefill(self, job, logits) -> None:
@@ -441,15 +542,19 @@ class Scheduler:
         self._active_mask[job.slot] = 1
 
     # -- preemption --------------------------------------------------------
-    def _preempt(self, slot: int) -> None:
-        """Free `slot` and re-queue its request at the front."""
+    def _evict(self, slot: int) -> _Entry:
+        """Free `slot` and return its request as a resumable entry."""
         en = self.active.pop(slot)
         en.st.slot = -1
         en.st.preemptions += 1
         self._active_mask[slot] = 0
         self._last_tokens[slot, 0] = 0
         self.pool.free(slot)                 # returns its pages
-        self.queue.appendleft(_Entry(en.req, en.st))
+        return _Entry(en.req, en.st)
+
+    def _preempt(self, slot: int) -> None:
+        """Evict `slot` and re-queue its request at the front."""
+        self.queue.appendleft(self._evict(slot))
         self._preemptions += 1
 
     def _requeue_job(self, job) -> None:
@@ -463,14 +568,17 @@ class Scheduler:
         self._preemptions += 1
 
     # -- one iteration -----------------------------------------------------
-    def step(self) -> None:
+    def step(self, evict_on_starvation: bool = False) -> list:
         """One scheduler tick: ingest at most ``prefill_chunk`` queued
         prompt tokens, then one slot-wise decode over the active set.
 
         Starvation preempts mid-prefill jobs first (youngest), then the
-        youngest in-flight request until the step fits; when the *sole*
-        active request starves, the pool can never make progress and
-        ``PoolExhausted`` is raised.
+        youngest in-flight request until the step fits.  When the *sole*
+        active request starves, the pool can never make progress alone:
+        raise ``PoolExhausted``, or — under a router
+        (``evict_on_starvation``) — hand the evicted entry back for
+        re-routing to a replica that can hold it.  Returns the evicted
+        entries (empty on the single-engine path).
         """
         chunked = 0
         if self._mgr.has_jobs:
@@ -479,7 +587,8 @@ class Scheduler:
             for job, logits in finished:
                 self._finish_prefill(job, logits)
         if not self.active:
-            return
+            return []
+        evicted = []
         while True:
             starved = self.pool.prepare_decode(sorted(self.active))
             if not starved:
@@ -489,11 +598,15 @@ class Scheduler:
                 continue
             if len(self.active) == 1:
                 (slot,) = self.active
-                raise PoolExhausted(
-                    f"page starvation mid-decode: request "
-                    f"{self.active[slot].req.rid} holds every page and "
-                    f"still needs another — the page pool is too small "
-                    f"for it")
+                if not evict_on_starvation:
+                    raise PoolExhausted(
+                        f"page starvation mid-decode: request "
+                        f"{self.active[slot].req.rid} holds every page and "
+                        f"still needs another — the page pool is too "
+                        f"small for it")
+                evicted.append(self._evict(slot))
+                self._preemptions += 1
+                return evicted               # nothing left to decode
             victim = max(self.active,
                          key=lambda sl: (self.active[sl].admit_step,
                                          self.active[sl].req.rid))
@@ -503,7 +616,7 @@ class Scheduler:
                                   int(self.pool.lengths.sum()))
         if self.spec_k:
             self._spec_step(chunked)
-            return
+            return evicted
         device = self.pool.device
         logits, new_cache = self.decode_fn(
             self.pool.cache, to_device(self._last_tokens, device),
@@ -531,6 +644,7 @@ class Scheduler:
                 self._active_mask[slot] = 0
                 self._last_tokens[slot, 0] = 0
                 self.pool.free(slot)
+        return evicted
 
     # -- speculative decode -------------------------------------------------
     def _spec_step(self, chunked: int) -> None:
@@ -621,6 +735,7 @@ class Scheduler:
             len(r.tokens) for r in done
             if r.meets_slo(self.slo_ttft_steps, self.slo_e2e_steps))
         mgr = self._mgr
+        pc = self.pool.prefix_cache
         return ServeStats(
             results=done, wall_s=wall, decode_steps=self._steps,
             generated_tokens=sum(len(r.tokens) for r in done),
@@ -640,6 +755,10 @@ class Scheduler:
             goodput_tokens=goodput,
             slo_ttft_steps=self.slo_ttft_steps,
             slo_e2e_steps=self.slo_e2e_steps,
+            prefix_hits=pc.hits if pc else 0,
+            prefix_misses=pc.misses if pc else 0,
+            prefill_tokens_saved=pc.tokens_saved if pc else 0,
+            prefix_evictions=pc.evictions if pc else 0,
             spec_verify_steps=self._spec_verifies,
             spec_drafted_tokens=self._spec_drafted,
             spec_accepted_tokens=self._spec_accepted,

@@ -6,12 +6,22 @@ Each builder closes over the model and returns a plain function of
 verify and chunk steps write K/V in place into the pool tensors they are
 given and return the same tensors (the reference donates them instead).
 Each comes for the contiguous slot pool and for the paged pool
-(``_paged``).
+(``_paged``); a pool's cache names its layout, and a step given another
+layout's cache raises.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _of_layout(cache: dict, layout: str) -> dict:
+    """``cache`` stamped with the step's ``layout``: a pool's cache names
+    its own, which must agree; a bare dict of tensors takes the step's."""
+    if cache.get("layout", layout) != layout:
+        raise ValueError(f"a {layout} step was given a {cache['layout']} "
+                         f"pool's cache")
+    return dict(cache, layout=layout)
 
 
 def build_prefill_step(model):
@@ -29,8 +39,8 @@ def build_prefill_chunk_step(model):
     and the chunk attends over the slot's first ``kv_bound`` positions."""
     @torch.no_grad()
     def chunk_step(params, cache, tokens, slot, offset, n_valid, kv_bound):
-        return model.chunk_prefill(params, cache, tokens, slot, offset,
-                                   n_valid, kv_bound)
+        return model.chunk_prefill(params, _of_layout(cache, "contiguous"),
+                                   tokens, slot, offset, n_valid, kv_bound)
     return chunk_step
 
 
@@ -48,8 +58,9 @@ def build_prefill_chunk_step_paged(model):
     @torch.no_grad()
     def chunk_step(params, cache, tokens, slot, offset, n_valid, kv_bound,
                    pages_row):
-        return model.chunk_prefill(params, cache, tokens, slot, offset,
-                                   n_valid, kv_bound, pages_row)
+        return model.chunk_prefill(params, _of_layout(cache, "paged"),
+                                   tokens, slot, offset, n_valid, kv_bound,
+                                   pages_row)
     return chunk_step
 
 
@@ -59,10 +70,11 @@ def build_decode_step_slots(model):
     index) but their lengths do not advance."""
     @torch.no_grad()
     def decode_step(params, cache, tokens, active):
+        cache = _of_layout(cache, "contiguous")
         logits, new_cache = model.decode_step(params, cache, tokens)
         new_index = torch.where(active.bool(), new_cache["index"],
                                 cache["index"])
-        return logits, dict(new_cache, index=new_index)
+        return logits, dict(cache, index=new_index)
     return decode_step
 
 
@@ -81,13 +93,13 @@ def build_decode_step_slots_paged(model, use_kernel: bool = False):
     """
     @torch.no_grad()
     def decode_step(params, cache, tokens, active, pages):
+        cache = _of_layout(cache, "paged")
         keep = active.bool()
         safe_pages = torch.where(keep[:, None], pages, torch.zeros_like(pages))
         dcache = dict(cache, pages=safe_pages, use_kernel=use_kernel)
         logits, new_cache = model.decode_step(params, dcache, tokens)
         new_index = torch.where(keep, new_cache["index"], cache["index"])
-        return logits, {"k": new_cache["k"], "v": new_cache["v"],
-                        "index": new_index}
+        return logits, dict(cache, index=new_index)
     return decode_step
 
 
@@ -101,8 +113,9 @@ def build_verify_step_slots(model):
     the host's decision (``pool.sync_index``)."""
     @torch.no_grad()
     def verify_step(params, cache, tokens, active):
-        logits, new_cache = model.decode_step(params, cache, tokens)
-        return logits, dict(new_cache, index=cache["index"])
+        cache = _of_layout(cache, "contiguous")
+        logits, _ = model.decode_step(params, cache, tokens)
+        return logits, cache
     return verify_step
 
 
@@ -116,11 +129,10 @@ def build_verify_step_slots_paged(model):
     tokens)."""
     @torch.no_grad()
     def verify_step(params, cache, tokens, active, pages):
+        cache = _of_layout(cache, "paged")
         keep = active.bool()
         safe_pages = torch.where(keep[:, None], pages, torch.zeros_like(pages))
-        logits, new_cache = model.decode_step(params,
-                                              dict(cache, pages=safe_pages),
-                                              tokens)
-        return logits, {"k": new_cache["k"], "v": new_cache["v"],
-                        "index": cache["index"]}
+        logits, _ = model.decode_step(params, dict(cache, pages=safe_pages),
+                                      tokens)
+        return logits, cache
     return verify_step

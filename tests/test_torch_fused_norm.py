@@ -191,14 +191,15 @@ def test_fused_paged_decode_logits_equal_the_unfused_loop(smoke):
 
     def cache():
         return {"k": pool["k"].clone(), "v": pool["v"].clone(),
-                "index": idx.clone(), "pages": pages, "use_kernel": True}
+                "index": idx.clone(), "layout": "paged", "pages": pages,
+                "use_kernel": True}
     got, _ = model.decode_step(params, cache(), toks)
     c = cache()
     x = layers.embed(params["embed"], toks, cfg)
     want = unfused_logits(
         model, params, x, idx[:, None], "decode",
         lambda i: {"k": c["k"][i], "v": c["v"][i], "index": idx,
-                   "pages": pages, "use_kernel": True})
+                   "layout": "paged", "pages": pages, "use_kernel": True})
     assert torch.equal(got, want)
 
 

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.core.target import default_target
 from repro_torch.kernels import bench
-from repro_torch.serving import PagedKVCachePool, ServeEngine
+from repro_torch.serving import PagedKVCachePool, ReplicaRouter, ServeEngine
 from repro_torch.serving.pool import KVCachePool
 
 REPO = Path(__file__).resolve().parents[1]
@@ -39,6 +39,9 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
             "import repro_torch.kernels.bench, repro_torch.serving.sampling\n"
             "import repro_torch.serving.spec, repro_torch.serving.trace\n"
             "import repro_torch.configs.picolm\n"
+            "import repro_torch.serving.router\n"
+            "import repro_torch.serving.prefix_cache\n"
+            "import repro_torch.runtime.elastic\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -78,6 +81,19 @@ def test_engine_without_cuda_raises_unless_asked_for_cpu(monkeypatch):
         PagedKVCachePool(eng.model, 2, 32)
     pool = PagedKVCachePool(eng.model, 2, 32, device="cpu")
     assert pool.cache["k"].device.type == "cpu"
+
+
+def test_router_and_prefix_cache_refuse_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplicaRouter.build(replicas=2, num_slots=2, max_len=32,
+                            prefix_cache=True, log=lambda *a, **k: None)
+    fleet = ReplicaRouter.build(replicas=2, num_slots=2, max_len=32,
+                                prefix_cache=True, log=lambda *a, **k: None,
+                                device="cpu")
+    pool = fleet.engines[0].make_pool()
+    assert pool.cache["k"].device.type == "cpu"
+    assert pool.prefix_cache is not None and pool.cache["layout"] == "paged"
 
 
 def test_contiguous_pool_and_kernel_bench_refuse_without_cuda(monkeypatch):

@@ -205,13 +205,15 @@ def test_h100_target_picks_the_cuda_kernel():
 
 
 def test_unported_options_raise():
-    """The prefix cache and tracing raise; the contiguous layout, spec
-    decoding (explicit or the tuner's pick) and sampled requests are
+    """Tracing raises; the prefix cache is served on the paged layout and
+    refused (ValueError) on the contiguous one; the contiguous layout,
+    spec decoding (explicit or the tuner's pick) and sampled requests are
     served."""
     def engine(**kw):
         return ServeEngine(arch=ARCH, device="cpu", log=quiet, **kw)
-    with pytest.raises(NotImplementedError):
-        engine(prefix_cache=True)
+    with pytest.raises(ValueError, match="paged"):
+        engine(prefix_cache=True, kv_layout="contiguous")
+    assert engine(prefix_cache=True).make_pool().prefix_cache is not None
     for kw in (dict(kv_layout="contiguous"), dict(spec_k=2),
                dict(spec_k=None, repetitiveness=0.9)):
         engine(**kw)
