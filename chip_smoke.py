@@ -21,9 +21,11 @@ Phases, each of which raises on failure:
    page, one slot long enough that split 0 holds pages, one slot of 4,096
    tokens, four slots whose page-table rows share a 16-page run (two of
    them over the same pages with the same query, whose outputs must be
-   equal bit for bit), and G = 4, 8, 11 and 12 (``_k1_cases``;
+   equal bit for bit), G = 4, 8, 11 and 12 (``_k1_cases``;
    G = 12 is ``mistral-large-123b``'s 96 heads over 8 kv heads, three
-   chunks of 4 heads a block, and G = 11 ends in a short chunk of 3);
+   chunks of 4 heads a block, and G = 11 ends in a short chunk of 3), and
+   the attention shapes of ``stablelm-1.6b`` (32 heads over 32 kv heads
+   of 64, G = 1) and ``nemotron-4-340b`` (96 over 8 of 192, G = 12);
    then the fused residual add + RMSNorm
    (``add_rmsnorm_cuda``) at rows 1, 8, 40, 128 and 1000 by widths 64,
    4096, 12288 and 18432, both forms: the residual bitwise equal to the
@@ -34,12 +36,18 @@ Phases, each of which raises on failure:
    static batching, blocking and chunked prefill) and on a scarce-page
    trace that preempts, with the paged kernel and with the gather path —
    identical greedy streams, and the benchmark's scheduling counts; then
-   the benchmark's seven router cells (``router_least_loaded_x3``, the
-   long-prompt, shared-prefix and open-loop cells) through
-   ``ReplicaRouter`` fleets, every deterministic key equal to
-   ``BENCH_serving.json``'s, the 3-replica streams equal to one
-   engine's, and shared-prefix streams equal with the prefix cache on
-   and off;
+   all 15 cells of ``BENCH_serving.json`` at smoke size, every
+   deterministic key equal to the file's: the seven single-engine cells
+   (``_engine_cells``; ``paged_spec_on`` on its weight-independent keys,
+   since its acceptance counts depend on weights the card draws with
+   torch, and with spec-on streams equal to spec-off), the seven router
+   cells (``router_least_loaded_x3``, the long-prompt, shared-prefix and
+   open-loop cells) through ``ReplicaRouter`` fleets, with the 3-replica
+   streams equal to one engine's and shared-prefix streams equal with the
+   prefix cache on and off, and ``telemetry_overhead``: the
+   ``paged_continuous`` drain re-run with a ``Tracer`` (31 decode steps,
+   6.2581 tokens per step, 32 spans, 0 ring events, mean TTFT 18.9167
+   steps), its streams equal to the untraced run's;
 4. the slice at full width: ``deepseek-7b`` (random weights from a seed)
    on one card, 8 greedy requests through the paged engine built with
    its defaults, with the kernels on every step, counted (the fused
@@ -114,10 +122,31 @@ Phases, each of which raises on failure:
    off and on: every request complete in both, identical greedy streams,
    hits, saved prefill tokens and fewer chunk steps with the cache, the
    paged kernel on every decode tick of every replica and the RMSNorm
-   kernel on every norm (counted); then ``least_loaded`` x3 over phase
-   4's 8 requests, whose streams must equal phase 4's single engine's
-   (pool bytes, tokens/s, TTFT, chunk steps and the phase's seconds
-   printed).
+   kernel on every norm (counted); the cached run carries a ``Tracer``
+   and keeps its schedule (124 decode ticks, 108 chunk steps, 45 rounds),
+   and its Chrome trace, serialized twice, must be byte-identical, with
+   one process per replica that served, integer monotone timestamps and
+   metrics keys exactly ``ROUTER_SCHEMA``'s (``_trace_checks``); then
+   ``least_loaded`` x3 over phase 4's 8 requests, whose streams must
+   equal phase 4's single engine's (pool bytes, tokens/s, TTFT, chunk
+   steps and the phase's seconds printed);
+13. the serving app through EASEY at full width: ``run_easey`` deploys a
+   ``deepseek-7b`` serving Appfile (``RUN serve --kv-layout paged
+   --batch 8 --max-len 512 --requests 8 --prefill 256 --decode 32
+   --trace-out ... --metrics-out ... --prom-out ...``) to
+   ``nvidia:h100``: the build compiles K1 and K2, the job ends
+   ``finished``, K1 runs on every decode tick and K2 on every norm
+   (counted), the three files are written, the trace has one ``queued``
+   and one ``decode`` span per request and one ``prefill_chunk`` span
+   per chunk step, and the streams equal the same ``serve_main`` call
+   untraced; then ``serve_main`` serves ``stablelm-1.6b`` at full width
+   (24 layers, 32 heads of 64, LayerNorm: no K2) the same way, K1
+   counted on every tick, its streams equal to an engine's on the same
+   trace, and that engine's run teacher-forced as phase 4's is
+   (``_teacher_forced_run``: every K1 call within the two-rounding
+   bound, logits against the gather path within LOGITS_VS_CONTROL x the
+   one-step-noise control); tokens/s traced and untraced, in turns, and
+   the peak memory printed, not gated.
 
 The second-to-last line of output is the card's ``name, power.limit``;
 before it a JSON line lists every kernel with its launches on its path's
@@ -129,6 +158,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -466,7 +496,10 @@ def _k1_cases(torch, rng, K, dh, page_size, sms, num_splits):
     a 16-page run (``_shared_run_case``: the prefix cache's page sharing);
     G = 4 and 8 on 8 slots; G = 12 on 8 slots at mistral-large-123b's
     widths (96 heads over 8 kv heads of 128), three chunks of 4 heads a
-    block; and G = 11 (88 heads over 8), whose last chunk holds 3."""
+    block; G = 11 (88 heads over 8), whose last chunk holds 3; and on 8
+    slots the attention shapes of ``stablelm-1.6b`` (32 heads over 32 kv
+    heads of 64, G = 1) and of ``nemotron-4-340b`` (96 heads over 8 kv
+    heads of 192, G = 12)."""
     one = num_splits(K, 64, sms)
     whole = 2 * one * page_size              # 2 pages per split
     # split i of a run of P live pages takes pages [i P / n, (i + 1) P / n)
@@ -491,6 +524,10 @@ def _k1_cases(torch, rng, K, dh, page_size, sms, num_splits):
         ("G=8", _paged_case(torch, rng, lens8, page_size, 32, K // 8, 8, dh)),
         ("G=12", _paged_case(torch, rng, lens8, page_size, 32, 8, 12, 128)),
         ("G=11", _paged_case(torch, rng, lens8, page_size, 32, 8, 11, 128)),
+        ("stablelm-1.6b (G=1, dh 64)",
+         _paged_case(torch, rng, lens8, page_size, 32, 32, 1, 64)),
+        ("nemotron-4-340b (G=12, dh 192)",
+         _paged_case(torch, rng, lens8, page_size, 32, 8, 12, 192)),
     ]
 
 
@@ -616,6 +653,112 @@ def _router_cells(serving, cont, paged) -> dict:
     return cells
 
 
+def _engine_cells(serving, kv_bytes, tight_kw, trace) -> dict:
+    """The single-engine cells of ``BENCH_serving.json`` (``run_smoke``'s
+    first seven) on the card: the contiguous and paged layouts under the
+    tight target, static and continuous, blocking prefill; the paged
+    continuous drain through the paged kernel (the reference's Pallas
+    kernel, named ``"cuda"`` here); and ``picolm-4-smoke``'s repetitive
+    trace with spec off and with ``spec_k=4``, whose streams must be
+    equal.  ``paged_spec_on``'s acceptance counts depend on the weights,
+    which the card draws with torch where the file's come from JAX: its
+    weight-independent keys only (the rest is the CPU tests' work, on
+    crossed weights)."""
+    quiet = lambda *a, **k: None  # noqa: E731
+
+    def pool_bytes(e):
+        tok = kv_bytes(e.cfg)
+        if e.kv_layout == "paged":
+            return e.num_pages * e.page_size * tok
+        return e.num_slots * e.max_len * tok
+
+    def cell(e, s):
+        return {"tokens_per_step": round(s.generated_tokens / s.decode_steps,
+                                         4),
+                "hbm_bytes_per_admitted_token": round(
+                    pool_bytes(e) / max(s.peak_resident_tokens, 1), 1),
+                "pool_bytes": pool_bytes(e), "slots": e.num_slots,
+                "decode_steps": s.decode_steps,
+                "generated_tokens": s.generated_tokens,
+                "occupancy": round(s.occupancy, 4),
+                "peak_active": s.peak_active, "preemptions": s.preemptions,
+                "mean_ttft_steps": round(s.mean_ttft_steps, 4)}
+    cells = {}
+    for layout, kv in (("contiguous", "auto"), ("paged", "gather")):
+        e = serving.ServeEngine(arch="deepseek-7b-smoke", kv_layout=layout,
+                                kv_kernel=kv, **tight_kw)
+        for policy in ("static", "continuous"):
+            cells[f"{layout}_{policy}"] = cell(
+                e, e.run(trace, policy=policy, prefill_chunk=0))
+    e = serving.ServeEngine(arch="deepseek-7b-smoke", kv_kernel="cuda",
+                            **tight_kw)
+    s = e.run(trace, policy="continuous", prefill_chunk=0)
+    cells["paged_continuous_kernel"] = dict(cell(e, s), kv_kernel="cuda")
+    pico = serving.ServeEngine(arch="picolm-4-smoke", target="local:cpu",
+                               num_slots=4, max_len=128, seed=0,
+                               kv_layout="paged", kv_kernel="cuda", log=quiet)
+    rtrace = serving.repetitive_trace(12, pico.cfg.vocab_size, max_new=48,
+                                      seed=0)
+    spec = {k: pico.run(rtrace, spec_k=k, prefill_chunk=0) for k in (0, 4)}
+    if _streams(spec[0]) != _streams(spec[4]):
+        raise AssertionError("picolm-4-smoke: spec-on streams differ from "
+                             "spec-off")
+    for name, k in (("paged_spec_off", 0), ("paged_spec_on", 4)):
+        s = spec[k]
+        cells[name] = {
+            "tokens_per_step": round(s.generated_tokens / s.decode_steps, 4),
+            "arch": "picolm-4-smoke", "spec_k": k,
+            "decode_steps": s.decode_steps,
+            "generated_tokens": s.generated_tokens,
+            "spec_verify_steps": s.spec_verify_steps,
+            "spec_drafted_tokens": s.spec_drafted_tokens,
+            "spec_accepted_tokens": s.spec_accepted_tokens,
+            "accepted_per_verify": round(s.accepted_per_verify, 4)}
+    return cells
+
+
+# the keys of paged_spec_on that do not depend on the drawn weights
+SPEC_ON_KEYS = ("arch", "spec_k", "generated_tokens")
+
+
+def _trace_checks(serving, tracer, stats, out_dir: Path) -> dict:
+    """A traced router run's exports: the Chrome trace serialized twice,
+    byte for byte the same; one process per replica that served; integer
+    and monotone ``ts``; every span closed; the metrics snapshot's keys
+    exactly ``ROUTER_SCHEMA``'s for the fleet's replicas."""
+    a, b = out_dir / "trace_a.json", out_dir / "trace_b.json"
+    trace = serving.write_chrome_trace(tracer, a)
+    serving.write_chrome_trace(tracer, b)
+    if a.read_bytes() != b.read_bytes():
+        raise AssertionError("the Chrome trace serialized twice differs")
+    evs = trace["traceEvents"]
+    pids = {ev["pid"] for ev in evs
+            if ev["ph"] == "M" and ev["name"] == "process_name"}
+    served = set(stats.replica_of.values())
+    if pids != served:
+        raise AssertionError(f"trace processes {sorted(pids)} != replicas "
+                             f"that served {sorted(served)}")
+    if not all(isinstance(ev["ts"], int) for ev in evs if "ts" in ev):
+        raise AssertionError("non-integer trace timestamps")
+    ts = [ev["ts"] for ev in evs if ev["ph"] == "X"]
+    if ts != sorted(ts):
+        raise AssertionError("trace timestamps not monotone")
+    if tracer._open:
+        raise AssertionError(f"{len(tracer._open)} spans left open")
+    keys = list(stats.to_metrics())
+    schema = serving.ROUTER_SCHEMA
+    want = [s.key for s in schema if "{i}" not in s.key] + [
+        s.key.replace("{i}", str(i)) for i in range(len(stats.replica_stats))
+        for s in schema if "{i}" in s.key]
+    if keys != want:
+        raise AssertionError(f"router metrics keys {keys} != the schema's "
+                             f"{want}")
+    return {"bytes": len(a.read_bytes()), "events": len(evs),
+            "spans": len(tracer.spans), "ring": tracer.total_events,
+            "phases": sorted({s.phase for s in tracer.spans}),
+            "pids": sorted(pids)}
+
+
 def _weights_sig(eng) -> tuple:
     """A fingerprint of an engine's weights: f64 sums of the embedding,
     layer 0's query projection and the final norm's scale."""
@@ -692,6 +835,92 @@ def _k1_numbers(torch, ref, attend, card, what, case, flush) -> dict:
     return {"ms": ms, "plain": plain, "lib": lib, "bound": bound,
             "bound_by": "bytes" if byts / HBM_BYTES_PER_S >=
             flops / F32_FLOPS else "operations"}
+
+
+def _teacher_forced_run(torch, ref, ops, eng, reqs, gather_step,
+                        noisy_step, noise, held_norm=None):
+    """``eng.run(reqs)`` with every decode tick teacher-forced: each K1
+    call held against the plain version on its own inputs, and each tick
+    also run on copies of the same pool, tokens and page table (a)
+    through the gather path and (b) through the gather path with one
+    bf16 step of noise at as many attention outputs as the kernel changed
+    (the control: how far the model carries rounding-sized differences).
+    Logit differences cannot compound across ticks.  ``held_norm`` stands
+    in for ``ops.add_rmsnorm`` during the run.  Returns (stats, one record
+    per tick, one ``_rounding_diff`` record per K1 call)."""
+    kernel_step = eng._decode
+    attend = ops.paged_attention
+    fused = ops.add_rmsnorm
+    tf, calls = [], []
+
+    def held(*args):
+        got = attend(*args)
+        calls.append(_rounding_diff(torch, ref, args, got))
+        return got
+
+    def teacher_forced(params, cache, tokens, active, pages):
+        copies = [{n: t.clone() if torch.is_tensor(t) else t
+                   for n, t in cache.items()} for _ in range(2)]
+        n0 = len(calls)
+        ops.paged_attention = held
+        try:
+            out = kernel_step(params, cache, tokens, active, pages)
+        finally:
+            ops.paged_attention = attend
+        frac = sum(c["frac"] for c in calls[n0:]) / (len(calls) - n0)
+        want = gather_step(params, copies[0], tokens, active, pages)[0]
+        ops.paged_attention = lambda *a: _one_step_noise(
+            torch, ref.paged_attention_ref(*a), frac, noise)
+        try:
+            ctrl = noisy_step(params, copies[1], tokens, active, pages)[0]
+        finally:
+            ops.paged_attention = attend
+        # live rows only: a dead row's logits are discarded
+        live = active.bool()
+        got, want, ctrl = (t[live].float() for t in (out[0], want, ctrl))
+        flips = got.argmax(-1) != want.argmax(-1)
+        # how far the gather path's own pick stands above the kernel's
+        # pick where the two differ: a near tie if within the diff
+        gap = (want.amax(-1) - want.gather(
+            -1, got.argmax(-1, keepdim=True))[..., 0])[flips]
+        scale = float(want.abs().max())
+        tf.append(dict(live=int(live.sum()), frac=frac,
+                       rel=float((got - want).abs().max()) / scale,
+                       ctrl=float((ctrl - want).abs().max()) / scale,
+                       flips=int(flips.sum()),
+                       gap=float(gap.max()) if gap.numel() else 0.0,
+                       finite=bool(torch.isfinite(got).all())))
+        return out
+    eng._decode = teacher_forced
+    if held_norm is not None:
+        ops.add_rmsnorm = held_norm
+    try:
+        stats = eng.run(reqs)
+    finally:
+        ops.add_rmsnorm = fused
+        eng._decode = kernel_step
+    return stats, tf, calls
+
+
+def _teacher_forced_gates(what, tf, calls, n_reqs) -> None:
+    """Phase 4's gates on a teacher-forced run: finite logits, a tick with
+    every slot live, every K1 call within the two-rounding bound, and the
+    worst tick's logits within LOGITS_VS_CONTROL x the control's worst."""
+    if not all(t["finite"] for t in tf):
+        raise AssertionError(f"{what}: non-finite logits")
+    if not any(t["live"] == n_reqs for t in tf):
+        raise AssertionError(f"{what}: no tick had all {n_reqs} slots live")
+    if max(c["ratio"] for c in calls) > 1:
+        raise AssertionError(f"{what}: paged_attention differs from its "
+                             f"plain version by more than two bf16 "
+                             f"roundings allow")
+    worst = max(tf, key=lambda t: t["rel"])
+    ctrl = max(t["ctrl"] for t in tf)
+    if worst["rel"] > LOGITS_VS_CONTROL * ctrl:
+        raise AssertionError(f"{what}: teacher-forced logits differ by "
+                             f"{worst['rel']:.4g} of max |logit| on a tick "
+                             f"with {worst['live']} live rows > "
+                             f"{LOGITS_VS_CONTROL} x the control's {ctrl:.4g}")
 
 
 def _one_step_noise(torch, out, frac, gen):
@@ -888,7 +1117,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.core.appspec import AppSpec
+    from repro_torch.core.appspec import AppSpec, parse_appfile
     from repro_torch.core.jobs import JobState
     from repro_torch.core.jobspec import lulesh_example, parse_jobspec
     from repro_torch.core.package import extract_package
@@ -904,6 +1133,7 @@ def main() -> int:
     from repro_torch.core.workflow import run_easey
     from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
     from repro_torch.kernels.sedov_stencil import sedov_step_cuda
+    from repro_torch.launch.serve import serve_main
     from repro_torch.models import lulesh
     from repro_torch import serving
     from repro_torch.serving import (ReplicaRouter, Request, ServeEngine,
@@ -1002,16 +1232,18 @@ def main() -> int:
         k1_err = max(k1_err, d["abs"])
         slots, H, _ = case[0].shape
         Kh = case[1].shape[2]
-        gc = head_chunk(H // Kh)
+        hc = head_chunk(H // Kh)
         pairs = slots * Kh * head_chunks(H // Kh)
         print(f"[kernels] paged_attention {name} (lengths "
-              f"{case[4].tolist()[:8]}, G={H // Kh} in chunks of {gc}, "
+              f"{case[4].tolist()[:8]}, G={H // Kh} in chunks of {hc}, "
               f"{num_splits(pairs, case[3].shape[1], sms)} splits): "
               f"{d['ratio']:.4f} of the two-rounding bound, "
               f"{d['ulps']:.3g} bf16 steps, max abs {d['abs']:.4g}; two calls "
               f"bitwise equal")
-    k1_long, k1_two, k1_g12 = (dict(k1_cases)[c] for c in (
-        "1 slot x 4096", "2 slots", "G=12"))
+    k1_long, k1_two, k1_g12, k1_stablelm, k1_nemotron = (
+        dict(k1_cases)[c] for c in (
+            "1 slot x 4096", "2 slots", "G=12", "stablelm-1.6b (G=1, dh 64)",
+            "nemotron-4-340b (G=12, dh 192)"))
 
     k2_err = 0.0
     d = full.d_model
@@ -1098,20 +1330,56 @@ def main() -> int:
         "cells"]
     tight_kw = dict(target="bench:serve-tight", num_slots=8, max_len=128,
                     seed=0, log=quiet)
+    paged_tight = ServeEngine(arch="deepseek-7b-smoke", kv_kernel="cuda",
+                              **tight_kw)
     cells, cells_s = _timed(
         _router_cells, serving,
         ServeEngine(arch="deepseek-7b-smoke", kv_layout="contiguous",
-                    **tight_kw),
-        ServeEngine(arch="deepseek-7b-smoke", kv_kernel="cuda", **tight_kw))
+                    **tight_kw), paged_tight)
+    # telemetry_overhead: the paged_continuous drain re-run with a Tracer
+    # (benchmarks/serving_throughput.py), on the paged kernel
+    plain_pc = paged_tight.run(trace, policy="continuous", prefill_chunk=0)
+    tel_tracer = serving.Tracer()
+    tel = paged_tight.run(trace, policy="continuous", prefill_chunk=0,
+                          tracer=tel_tracer)
+    if _streams(tel) != _streams(plain_pc):
+        raise AssertionError("telemetry-on streams differ from the "
+                             "tracing-off paged_continuous run")
+    cells["telemetry_overhead"] = {
+        "tokens_per_step": round(tel.generated_tokens / tel.decode_steps, 4),
+        "decode_steps": tel.decode_steps,
+        "generated_tokens": tel.generated_tokens,
+        "trace_spans": len(tel_tracer.spans),
+        "ring_events": tel_tracer.total_events,
+        "mean_ttft_steps": round(tel.mean_ttft_steps, 4)}
+    engine_cells = _engine_cells(serving, kv_bytes_per_token, tight_kw,
+                                 trace)
+    spec_on = engine_cells.pop("paged_spec_on")
+    cells.update(engine_cells)
+    cells["paged_spec_on"] = {k: spec_on[k] for k in SPEC_ON_KEYS}
+    if set(cells) != set(bench_cells):
+        raise AssertionError(f"cells checked {sorted(cells)} != "
+                             f"BENCH_serving.json's {sorted(bench_cells)}")
     for name, got in cells.items():
         want = {k: v for k, v in bench_cells[name].items()
                 if k != "tokens_per_s"}
+        if name == "paged_continuous_kernel":
+            want["kv_kernel"] = "cuda"     # the port's name of the kernel
+        if name == "paged_spec_on":
+            want = {k: want[k] for k in SPEC_ON_KEYS}
         if got != want:
             raise AssertionError(f"smoke cell {name}: {got} != {want}")
-    print(f"[smoke] deepseek-7b-smoke router cells ({', '.join(cells)}): "
-          f"every deterministic key equals BENCH_serving.json's; router x3 "
-          f"streams equal one engine's, shared-prefix streams equal with "
-          f"the prefix cache on and off ({cells_s:.1f} s)")
+    print(f"[smoke] BENCH_serving.json's {len(cells)} cells at smoke size "
+          f"({', '.join(cells)}): every deterministic key equals the "
+          f"file's (paged_spec_on: {', '.join(SPEC_ON_KEYS)}; on the card's "
+          f"own weights it takes {spec_on['decode_steps']} decode steps, "
+          f"{spec_on['accepted_per_verify']} tokens per verify, spec-on "
+          f"streams equal spec-off); router x3 streams equal one engine's, "
+          f"shared-prefix streams equal with the prefix cache on and off, "
+          f"traced streams equal untraced ({cells_s:.1f} s; telemetry_"
+          f"overhead {tel.tokens_per_s:.1f} tokens/s traced, "
+          f"{plain_pc.tokens_per_s:.1f} untraced, not gated)")
+    del paged_tight
 
     # ---- 4. the slice at full width ------------------------------------
     reqs = [Request(rid=i, prompt=prng.randint(1, full.vocab_size - 1,
@@ -1150,20 +1418,13 @@ def main() -> int:
                 not all(0 <= t < full.vocab_size for t in r.tokens):
             raise AssertionError(f"request {r.rid}: {len(r.tokens)} tokens, "
                                  f"range {min(r.tokens)}..{max(r.tokens)}")
-    # teacher forcing: the kernel run again.  Every K1 call is held
-    # against the plain version on its own inputs, and every tick is also
-    # run on copies of the same pool, tokens and page table (a) through
-    # the gather path and (b) through the gather path with one bf16 step
-    # of noise at as many attention outputs as the kernel changed (the
-    # control: how far the model carries rounding-sized differences).
-    # Logit differences cannot compound across ticks.
+    # teacher forcing: the kernel run again (``_teacher_forced_run``), and
+    # every fused add + norm call held as phase 2 holds it
     gather_step = build_decode_step_slots_paged(eng_k.model, use_kernel=False)
     noisy_step = build_decode_step_slots_paged(eng_k.model, use_kernel=True)
     kernel_step = eng_k._decode
-    attend = ops.paged_attention
     fused = ops.add_rmsnorm
     noise = torch.Generator(device="cuda").manual_seed(0)
-    tf, calls = [], []           # one record per decode tick / per K1 call
     k2_held = []                 # one record per fused add + norm call
 
     def held_norm(x, a, w, eps=1e-6, *, norm_of_rounded):
@@ -1171,54 +1432,9 @@ def main() -> int:
                                 f"main path call {len(k2_held)}", x, a, w,
                                 norm_of_rounded))
         return fused(x, a, w, eps, norm_of_rounded=norm_of_rounded)
-
-    def held(*args):
-        got = attend(*args)
-        calls.append(_rounding_diff(torch, ref, args, got))
-        return got
-
-    def teacher_forced(params, cache, tokens, active, pages):
-        copies = [{n: t.clone() if torch.is_tensor(t) else t
-                   for n, t in cache.items()} for _ in range(2)]
-        n0 = len(calls)
-        ops.paged_attention = held
-        try:
-            out = kernel_step(params, cache, tokens, active, pages)
-        finally:
-            ops.paged_attention = attend
-        frac = sum(c["frac"] for c in calls[n0:]) / (len(calls) - n0)
-        want = gather_step(params, copies[0], tokens, active, pages)[0]
-        ops.paged_attention = lambda *a: _one_step_noise(
-            torch, ref.paged_attention_ref(*a), frac, noise)
-        try:
-            ctrl = noisy_step(params, copies[1], tokens, active, pages)[0]
-        finally:
-            ops.paged_attention = attend
-        # live rows only: a dead row's logits are discarded
-        live = active.bool()
-        got, want, ctrl = (t[live].float() for t in (out[0], want, ctrl))
-        flips = got.argmax(-1) != want.argmax(-1)
-        # how far the gather path's own pick stands above the kernel's
-        # pick where the two differ: a near tie if within the diff
-        gap = (want.amax(-1) - want.gather(
-            -1, got.argmax(-1, keepdim=True))[..., 0])[flips]
-        scale = float(want.abs().max())
-        tf.append(dict(live=int(live.sum()), frac=frac,
-                       rel=float((got - want).abs().max()) / scale,
-                       ctrl=float((ctrl - want).abs().max()) / scale,
-                       flips=int(flips.sum()),
-                       gap=float(gap.max()) if gap.numel() else 0.0,
-                       finite=bool(torch.isfinite(got).all())))
-        return out
-    eng_k._decode = teacher_forced
-    ops.add_rmsnorm = held_norm
-    try:
-        st_tf = eng_k.run(reqs)
-    finally:
-        ops.add_rmsnorm = fused
-        eng_k._decode = kernel_step
-    if not all(t["finite"] for t in tf):
-        raise AssertionError("non-finite logits")
+    st_tf, tf, calls = _teacher_forced_run(
+        torch, ref, ops, eng_k, reqs, gather_step, noisy_step, noise,
+        held_norm)
     full_ticks = sum(t["live"] == len(reqs) for t in tf)
     same = [r.tokens for r in st_tf.results] == \
         [r.tokens for r in st_k.results]
@@ -1249,19 +1465,7 @@ def main() -> int:
           f"{max(h['share'] for h in k2_held):.4f} of one bf16 step (max abs "
           f"{max(h['abs'] for h in k2_held):.4g}), two calls bitwise equal")
     k2f_err = max(k2f_err, *(h["abs"] for h in k2_held))
-    if not full_ticks:
-        raise AssertionError(f"no tick had all {len(reqs)} slots live")
-    if max(c["ratio"] for c in calls) > 1:
-        raise AssertionError("paged_attention on the main path differs from "
-                             "its plain version by more than two bf16 "
-                             "roundings allow")
-    worst = max(tf, key=lambda t: t["rel"])
-    ctrl = max(t["ctrl"] for t in tf)
-    if worst["rel"] > LOGITS_VS_CONTROL * ctrl:
-        raise AssertionError(f"teacher-forced logits differ by "
-                             f"{worst['rel']:.4g} of max |logit| on a tick "
-                             f"with {worst['live']} live rows > "
-                             f"{LOGITS_VS_CONTROL} x the control's {ctrl:.4g}")
+    _teacher_forced_gates("deepseek-7b main path", tf, calls, len(reqs))
 
     eng_g = make_engine(kv_kernel="gather")
     st_g = eng_g.run(reqs)
@@ -1290,6 +1494,13 @@ def main() -> int:
 
     k1_g12n = _k1_numbers(torch, ref, paged_attention_cuda, card,
                           "G=12 (mistral-large-123b widths)", k1_g12, flush)
+    k1_new = {name: _k1_numbers(torch, ref, paged_attention_cuda, card,
+                                what, case, flush)
+              for name, what, case in (
+                  ("stablelm-1.6b", "stablelm-1.6b widths (G=1, dh 64)",
+                   k1_stablelm),
+                  ("nemotron-4-340b", "nemotron-4-340b widths (G=12, dh "
+                   "192)", k1_nemotron))}
 
     def unfused(x, a, w, eps=1e-6, *, norm_of_rounded):
         """The residual add and the norm as the model launched them before
@@ -1726,11 +1937,13 @@ def main() -> int:
     eng_r._decode = host_timed("decode", steps_r[0])
     eng_r._chunk = host_timed("chunk", steps_r[1])
     runs, r_counts, r_inside = {}, {}, {}
+    tr12 = serving.Tracer()          # the cached run is traced
     try:
         for cached in (False, True):
             inside.clear()
             reset_counts()
-            runs[cached] = fleet.run(trace12(), prefix_cache=cached)
+            runs[cached] = fleet.run(trace12(), prefix_cache=cached,
+                                     tracer=tr12 if cached else None)
             r_counts[cached] = counts()
             r_inside[cached] = dict(inside)
     finally:
@@ -1767,6 +1980,16 @@ def main() -> int:
                              f"{hot.prefill_tokens_saved} tokens saved, "
                              f"{hot.prefill_chunks} chunk steps against "
                              f"{cold.prefill_chunks} cold")
+    # the traced cached run keeps the untraced cached run's schedule:
+    # 124 decode ticks, 108 chunk steps, 45 rounds
+    hot_counts = (sum(x.decode_steps for x in hot.replica_stats),
+                  hot.prefill_chunks,
+                  max(x.decode_steps for x in hot.replica_stats))
+    if hot_counts != (124, 108, 45):
+        raise AssertionError(f"traced cached run: (ticks, chunk steps, "
+                             f"rounds) {hot_counts} != (124, 108, 45)")
+    tel12 = _trace_checks(serving, tr12, hot, Path(tempfile.mkdtemp(
+        prefix="chip_smoke_trace_")))
     ll = ReplicaRouter([eng_r] * 3, policy="least_loaded", log=quiet).run(
         reqs)
     if _streams(ll) != p4_streams:
@@ -1800,22 +2023,185 @@ def main() -> int:
           f" GB (construction's peak {peak_built / 1e9:.1f} GB), the "
           f"serving runs' peak {torch.cuda.max_memory_allocated() / 1e9:.1f}"
           f" GB")
+    print(f"[router] {card} the cached run traced: {tel12['spans']} spans "
+          f"({', '.join(tel12['phases'])}), {tel12['ring']} ring events, "
+          f"Chrome trace {tel12['bytes']} bytes / {tel12['events']} events, "
+          f"byte-identical serialized twice, processes {tel12['pids']}; "
+          f"ticks, chunk steps, rounds {hot_counts} as untraced; "
+          f"metrics keys = ROUTER_SCHEMA's")
     router_k1 = r_counts[True]["paged_attention"]
-    del eng_r, fleet
+    # the steps' model holds per-layer views of the engine's weights
+    del eng_r, fleet, runs, cold, hot, ll, steps_r
+    gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- 13. the serving app through EASEY at full width ----------------
+    t13 = time.perf_counter()
+    mem13 = []              # (what, GB allocated after it, its peak GB)
+
+    def mark13(what):
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem13.append((what, round(torch.cuda.memory_allocated() / 1e9, 1),
+                      round(torch.cuda.max_memory_allocated() / 1e9, 1)))
+        torch.cuda.reset_peak_memory_stats()
+    mark13("before phase 13")
+    work13 = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    serve_kw = dict(kv_layout="paged", batch=8, max_len=512, requests=8,
+                    prefill_len=256, decode_tokens=32, log=quiet)
+    cmd13 = ("serve --arch deepseek-7b --kv-layout paged --batch 8 "
+             "--max-len 512 --requests 8 --prefill 256 --decode 32 "
+             "--trace-out trace.json --metrics-out metrics.json "
+             "--prom-out metrics.prom")
+    app13 = parse_appfile(f"FROM arch:deepseek-7b\nSHAPE decode_32k\n"
+                          f"###include_local_kernels###\nRUN {cmd13}\n")
+    spec13 = parse_jobspec({"job": {"name": "serve-deepseek-7b"},
+                            "execution": [{"serial": {"command": cmd13}}]})
+    reset_counts()
+    (mw13, jid13, res13), easey_s = _timed(run_easey, app13, "nvidia:h100",
+                                           spec13, storage=work13)
+    easey_counts = counts()
+    if mw13.status(jid13) is not JobState.FINISHED:
+        raise AssertionError(f"serving job {mw13.status(jid13).value}: "
+                             f"{mw13.logs(jid13)[1][-3000:]}")
+    if (res13.step_name, res13.program["arch"], sorted(res13.built)) != \
+            ("decode_step", "sm_90a", ["paged_attention", "rmsnorm"]) or \
+            not all(_build.library_path(n).exists() for n in res13.built):
+        raise AssertionError(f"serving build: {res13.step_name}, "
+                             f"{res13.program['arch']}, built {res13.built}")
+    out13 = mw13.scheduler.result(jid13)[0]
+    st13 = out13["stats"]
+    ticks13, chunks13 = st13.decode_steps, st13.prefill_chunks
+    want = {"paged_attention": nl * ticks13, "rmsnorm": ticks13 + chunks13,
+            "add_rmsnorm": 2 * nl * (ticks13 + chunks13),
+            "sedov_stencil": 0, "flash_attention": 0}
+    if (out13["kv_kernel"], easey_counts) != ("cuda", want):
+        raise AssertionError(f"EASEY serve ({out13['kv_kernel']}): launches "
+                             f"{easey_counts} != {want}")
+    if len(st13.results) != 8 or any(
+            len(r.tokens) != 32 or
+            not all(0 <= x < full.vocab_size for x in r.tokens)
+            for r in st13.results):
+        raise AssertionError("EASEY serve: not every request complete")
+    job13 = work13 / "cluster" / spec13.job_id
+    trace13 = json.loads((job13 / "trace.json").read_text())
+    metrics13 = json.loads((job13 / "metrics.json").read_text())
+    prom13 = (job13 / "metrics.prom").read_text()
+    spans13 = [ev for ev in trace13["traceEvents"] if ev["ph"] == "X"]
+    per_phase = {}
+    for ev in spans13:
+        per_phase.setdefault(ev["name"], []).append(ev["args"]["rid"])
+    rids = sorted(r.rid for r in st13.results)
+    # the phases this run goes through: each request queued once, its
+    # prompt in chunks, one decode span; no preemption, cache or spec
+    if set(per_phase) != {"queued", "prefill_chunk", "decode"} or \
+            sorted(per_phase["queued"]) != rids or \
+            sorted(per_phase["decode"]) != rids or \
+            sorted(set(per_phase["prefill_chunk"])) != rids or \
+            len(per_phase["prefill_chunk"]) != chunks13:
+        raise AssertionError(f"EASEY serve trace spans: "
+                             f"{ {k: len(v) for k, v in per_phase.items()} }")
+    if metrics13["serve_decode_steps"] != ticks13 or \
+            metrics13["serve_requests_completed"] != 8 or \
+            "# TYPE serve_generated_tokens counter" not in prom13:
+        raise AssertionError("EASEY serve metrics files")
+    easey_streams = _streams(st13)
+    easey_tps = st13.tokens_per_s
+    built13 = dict(res13.built)
+    del mw13, res13, out13, st13
+    mark13("deepseek-7b EASEY job")
+    plain13 = serve_main(arch="deepseek-7b", **serve_kw)
+    if _streams(plain13["stats"]) != easey_streams:
+        raise AssertionError("the EASEY-deployed serve streams differ from "
+                             "the same serve_main call untraced")
+    print(f"[easey-serve] {card} run_easey(deepseek-7b serving Appfile, "
+          f"nvidia:h100): build {built13} for {_build.ARCH}, job "
+          f"finished in {easey_s:.1f} s with the build and the engine; "
+          f"{ticks13} decode ticks, {chunks13} prefill chunks, launches "
+          f"{easey_counts}; trace {len(spans13)} spans "
+          f"({ {k: len(v) for k, v in per_phase.items()} }), "
+          f"{len(metrics13)} metrics, Prometheus {len(prom13)} bytes; "
+          f"streams equal the untraced serve_main call; tokens/s traced "
+          f"{easey_tps:.2f}, untraced {plain13['decode_tok_per_s']:.2f} (not "
+          f"gated)")
+    del plain13
+    mark13("deepseek-7b serve_main")
+
+    st_cfg = get_config("stablelm-1.6b")
+    reset_counts()
+    out_st = serve_main(arch="stablelm-1.6b",
+                        trace_out=str(work13 / "stablelm_trace.json"),
+                        **serve_kw)
+    st_counts = counts()
+    st_stats = out_st["stats"]
+    want = {"paged_attention": st_cfg.num_layers * st_stats.decode_steps,
+            "rmsnorm": 0, "add_rmsnorm": 0, "sedov_stencil": 0,
+            "flash_attention": 0}
+    if (out_st["kv_kernel"], st_counts) != ("cuda", want):
+        raise AssertionError(f"stablelm-1.6b serve ({out_st['kv_kernel']}): "
+                             f"launches {st_counts} != {want}")
+    st_streams = _streams(st_stats)
+    del out_st, st_stats
+    mark13("stablelm-1.6b serve_main")
+    eng_st = ServeEngine(arch="stablelm-1.6b", kv_layout="paged",
+                         kv_kernel="cuda", num_slots=8, max_len=512, seed=0,
+                         log=quiet)
+    reqs13 = serving.uniform_trace(8, st_cfg.vocab_size, prompt_len=256,
+                                   max_new=32, seed=0)
+    if _streams(eng_st.run(reqs13)) != st_streams:
+        raise AssertionError("stablelm-1.6b: the engine's streams differ "
+                             "from serve_main's on the same trace")
+    st_tf, tf13, calls13 = _teacher_forced_run(
+        torch, ref, ops, eng_st, reqs13,
+        build_decode_step_slots_paged(eng_st.model, use_kernel=False),
+        build_decode_step_slots_paged(eng_st.model, use_kernel=True),
+        torch.Generator(device="cuda").manual_seed(0))
+    _teacher_forced_gates("stablelm-1.6b", tf13, calls13, len(reqs13))
+    tps13 = {"on": [], "off": []}
+    for label in ("on", "off", "off", "on"):
+        s = eng_st.run(reqs13, tracer=serving.Tracer() if label == "on"
+                       else None)
+        tps13[label].append(s.tokens_per_s)
+    t13 = time.perf_counter() - t13
+    del eng_st, st_tf
+    mark13("stablelm-1.6b engine, teacher-forced and timed runs")
+    print(f"[easey-serve] {card} stablelm-1.6b at full width "
+          f"({st_cfg.num_layers} "
+          f"layers, d {st_cfg.d_model}, {st_cfg.num_heads} heads of "
+          f"{st_cfg.head_dim}, layernorm), serve_main paged 8 slots x 512, "
+          f"8 requests of 256 + 32: {st_counts['paged_attention']} K1 "
+          f"launches = {st_cfg.num_layers} x every decode tick, no K2 (a "
+          f"layernorm config); teacher-forced {len(tf13)} ticks: K1 vs "
+          f"plain max {max(c['ratio'] for c in calls13):.4g} of the "
+          f"two-rounding bound over {len(calls13)} calls; logits vs gather "
+          f"max {max(t['rel'] for t in tf13):.4g} of max |logit|, control "
+          f"{max(t['ctrl'] for t in tf13):.4g}; tokens/s traced "
+          f"{[round(v, 2) for v in tps13['on']]}, untraced "
+          f"{[round(v, 2) for v in tps13['off']]} (in turns, not gated); "
+          f"phase 13 took {t13:.1f} s; memory (GB allocated after, peak "
+          f"during) {mem13}")
 
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:197",
          "launches": launches["paged_attention"],
-         "router_launches": router_k1, "max_abs_err": k1_err,
+         "router_launches": router_k1,
+         "easey_serve_launches": easey_counts["paged_attention"],
+         "stablelm_launches": st_counts["paged_attention"],
+         "max_abs_err": k1_err,
          "ms": k1["ms"], "plain_ms": k1["plain"], "bound_ms": k1["bound"],
-         "bound_by": k1["bound_by"], "library_ms": k1["lib"]},
+         "bound_by": k1["bound_by"], "library_ms": k1["lib"],
+         # the two attention shapes this slice's configs add (phase 2)
+         "shapes": {n: {"ms": r["ms"], "plain_ms": r["plain"],
+                        "bound_ms": r["bound"], "library_ms": r["lib"]}
+                    for n, r in k1_new.items()}},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:38",
-         "launches": launches["rmsnorm"], "max_abs_err": k2_err,
+         "launches": launches["rmsnorm"],
+         "easey_serve_launches": easey_counts["rmsnorm"],
+         "max_abs_err": k2_err,
          "ms": k2[8]["ms"], "plain_ms": k2[8]["plain"],
          "bound_ms": k2[8]["bound"], "bound_by": "bytes",
          "library_ms": k2[8]["lib"]},
@@ -1825,7 +2211,9 @@ def main() -> int:
         {"name": "add_rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:38",
-         "launches": launches["add_rmsnorm"], "max_abs_err": k2f_err,
+         "launches": launches["add_rmsnorm"],
+         "easey_serve_launches": easey_counts["add_rmsnorm"],
+         "max_abs_err": k2f_err,
          "ms": k2f[8]["ms"], "plain_ms": k2f[8]["plain"],
          "bound_ms": k2f[8]["bound"], "bound_by": "bytes",
          "library_ms": None},

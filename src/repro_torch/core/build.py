@@ -13,6 +13,11 @@ timed run never pays a compile), and to record a description of the
 program: the step, the sha256 of each kernel source and the flags it was
 built with (``"reference"`` on the CPU target, which builds nothing).
 
+An LM's ``decode`` and ``prefill`` shapes are the serving app: their
+step is the paged serving engine's, whose hand-written kernels are the
+paged-decode kernel (decode only) and the RMSNorm kernel (rmsnorm
+configs).  The ``train`` shape waits for training (ROADMAP slice E).
+
 The ``###include_local_kernels###`` directive selects the target's kernel
 library vs the plain PyTorch versions for LM plans, as in the reference.
 """
@@ -66,6 +71,19 @@ def program_description(step_name: str, kernels: str,
         for name in sources}}
 
 
+def _lm_sources(cfg, kind: str) -> tuple[str, ...]:
+    """The kernel sources a served LM's step launches: the paged-decode
+    kernel on every decode tick, the RMSNorm kernel on every norm of an
+    rmsnorm config."""
+    from repro_torch.serving.engine import SERVABLE_FAMILIES
+    if cfg.family not in SERVABLE_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not served by the port yet "
+            f"(ROADMAP slices D, F)")
+    norm = ("rmsnorm",) if cfg.norm == "rmsnorm" else ()
+    return (("paged_attention",) if kind == "decode" else ()) + norm
+
+
 class BuildService:
     """Stateless builder; all outputs are in the BuildResult."""
 
@@ -83,13 +101,18 @@ class BuildService:
         if "###include_local_kernels###" not in appspec.directives:
             plan.kernels = "reference"
             plan.notes.append("local-kernel directive absent -> reference ops")
-        if lower:
-            raise NotImplementedError(
-                f"building the {shape.kind} step of an LM is not ported yet "
-                f"(ROADMAP slice E); lower=False gives the plan")
-        return BuildResult(appspec=appspec, target=target, plan=plan,
-                           step_name=f"{shape.kind}_step",
-                           timings={"tune_s": tune_s})
+        step_name = f"{shape.kind}_step"
+        sources = _lm_sources(cfg, shape.kind) if plan.kernels == "cuda" \
+            else ()
+        result = BuildResult(
+            appspec=appspec, target=target, plan=plan, step_name=step_name,
+            program=program_description(step_name, plan.kernels, sources),
+            timings={"tune_s": tune_s})
+        if lower and sources:
+            from repro_torch.kernels import _build
+            _, result.timings["build_s"] = _timed(_build.build, sources)
+            result.built = {n: _build.library_path(n).name for n in sources}
+        return result
 
     def _build_stencil(self, appspec: AppSpec, target: TargetSpec,
                        lower: bool) -> BuildResult:

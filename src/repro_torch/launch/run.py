@@ -2,11 +2,24 @@
 ``repro/launch/run.py`` (paper §3: execution commands are 'bash (serial)
 or mpi-based'; ours are train/serve/lulesh).
 
-``lulesh`` runs where the build's plan says: on the device of the build's
-target, through the hand-written stencil kernel when the plan's kernels
-are ``"cuda"`` and through the plain step otherwise.  Without a build
-result it runs on the card with the kernel, or on the CPU with the plain
-step when asked (``device="cpu"``).
+Both ported commands run where the build's plan says: on the device of
+the build's target, through its hand-written kernels when the plan's
+kernels are ``"cuda"`` and through the plain versions otherwise.
+
+* ``serve ...`` (``launch/serve.serve_main``, the reference's keywords
+  plus ``--trace-out`` / ``--metrics-out`` / ``--prom-out``) serves on
+  the build target's device with
+  the target's tuner plan; the paged layout decodes through the
+  paged-decode kernel under a ``"cuda"`` plan and through the gather
+  path under a ``"reference"`` one (no local-kernel directive).
+  Relative ``--trace-out`` / ``--metrics-out`` / ``--prom-out`` paths
+  land in the job's working directory.
+* ``lulesh ...`` runs the Sedov step, through the stencil kernel under a
+  ``"cuda"`` plan.
+
+Without a build result a command runs on the card with the kernels, or
+on the CPU with the plain versions when asked (``device="cpu"``).
+``train`` waits for training (ROADMAP slice E).
 """
 
 from __future__ import annotations
@@ -36,25 +49,73 @@ def run_command(command: str, job=None, workdir: Path | None = None,
         raise NotImplementedError("the train command is not ported yet "
                                   "(ROADMAP slice E)")
     if name.startswith("serve"):
-        raise NotImplementedError("the serve command is not ported yet "
-                                  "(ROADMAP slice A, left-out item 8: "
-                                  "launch/serve.py)")
+        return _serve(_parse_kw(argv[1:]), log, workdir, build_result,
+                      device)
     if "lulesh" in name:
         return _lulesh(_parse_kw(argv[1:]), log, build_result, device)
     raise ValueError(f"unknown EASEY command: {command!r}")
 
 
-def _lulesh(kw: dict, log, build_result, device) -> dict:
-    from repro_torch.models import lulesh
+def _placement(build_result, device) -> tuple[torch.device, str, str]:
+    """(device, target name, kernels) a command runs with: the build's
+    target and plan, or the device's own target without a build."""
     if build_result is not None:
         run_on = device_for(build_result.target)
         if device is not None and torch.device(device) != run_on:
             raise ValueError(f"device {device!r} but the build is for "
                              f"{build_result.target.name} ({run_on})")
-        kernels = build_result.plan.kernels
-    else:
-        run_on = resolve_device(device)
-        kernels = get_target(default_target(run_on)).kernels
+        return run_on, build_result.target.name, build_result.plan.kernels
+    run_on = resolve_device(device)
+    target = default_target(run_on)
+    return run_on, target, get_target(target).kernels
+
+
+def _serve(kw: dict, log, workdir, build_result, device) -> dict:
+    from repro_torch.launch.serve import serve_main
+    run_on, target, kernels = _placement(build_result, device)
+    kv_layout = kw.get("kv-layout", "contiguous")
+    # the plan names the paged decode attention (a contiguous pool has none)
+    kv_kernel = "auto" if "paged" not in kv_layout else \
+        "cuda" if kernels == "cuda" else "gather"
+
+    def out_path(key):
+        path = kw.get(key)
+        if path is None or workdir is None:
+            return path
+        return str(Path(workdir) / path)
+
+    return serve_main(
+        arch=kw.get("arch", _arch_from(build_result, "deepseek-7b-smoke")),
+        batch=int(kw.get("batch", 4)),
+        prefill_len=int(kw.get("prefill", 64)),
+        decode_tokens=int(kw.get("decode", 8)),
+        target=target, mode=kw.get("mode", "continuous"),
+        requests=int(kw.get("requests", 0)),
+        max_len=int(kw.get("max-len", 0)),
+        kv_layout=kv_layout,
+        page_size=int(kw.get("page-size", 0)),
+        temperature=float(kw.get("temperature", 0.0)),
+        top_k=int(kw.get("top-k", 0)),
+        replicas=int(kw.get("replicas", 1)),
+        route_policy=kw.get("route-policy", "least_loaded"),
+        prefix_cache=str(kw.get("prefix-cache", "")).lower()
+        in ("true", "1", "yes"),
+        kv_kernel=kv_kernel, trace=kw.get("trace", "uniform"),
+        trace_out=out_path("trace-out"),
+        metrics_out=out_path("metrics-out"),
+        prom_out=out_path("prom-out"),
+        log=log, device=run_on)
+
+
+def _arch_from(build_result, default: str) -> str:
+    if build_result is not None:
+        return build_result.appspec.arch
+    return default
+
+
+def _lulesh(kw: dict, log, build_result, device) -> dict:
+    from repro_torch.models import lulesh
+    run_on, _, kernels = _placement(build_result, device)
     iters = int(kw.get("i", kw.get("iters", 10)))
     size = int(kw.get("s", kw.get("size", 16)))
     cfg = lulesh.LuleshConfig(grid=size, iters=iters)

@@ -3,10 +3,11 @@
 Plain functions over parameter dicts whose tensors have the reference's
 shapes.  Every rounding point of the reference is kept, so on the same
 weights the port agrees with it bit for bit in almost every element:
-bf16 projections, the f32 RMSNorm, f32 RoPE, attention with f32 scores
-and probabilities rounded to bf16 before the PV product, and a SiLU
-whose steps each round to bf16 the way XLA rounds the reference's
-``jax.nn.silu`` on bf16.
+bf16 projections, the f32 RMSNorm and LayerNorm, f32 RoPE, attention
+with f32 scores and probabilities rounded to bf16 before the PV product,
+a SiLU whose steps each round to bf16 the way XLA rounds the reference's
+``jax.nn.silu`` on bf16, and a squared ReLU rounded once, after the
+square.
 
 Attention runs in three modes: ``prefill`` (causal, returns fresh K/V),
 ``decode`` (slot-wise: one token per row, or a speculative verify burst
@@ -37,20 +38,43 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     return ops.rmsnorm(x, scale, eps, out_dtype=out_dtype)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5,
+              out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """LayerNorm in f32 with scale and bias, cast to ``out_dtype``
+    (default: x's dtype) — plain PyTorch on every device (the RMSNorm
+    kernel does not compute it)."""
+    dt = out_dtype or x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
 def add_norm(p: dict, x: torch.Tensor, a: torch.Tensor | None, kind: str,
              *, norm_of_rounded: bool = True
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The residual add ``x + a`` and the norm of the sum, in one kernel on
-    the card: ``(stream, normed)``, the sum rounded to x's dtype and its
-    norm in x's dtype.  The norm reads the rounded sum, or with
+    """The residual add ``x + a`` and the norm of the sum:
+    ``(stream, normed)``, the sum rounded to x's dtype and its norm in
+    x's dtype.  The norm reads the rounded sum, or with
     ``norm_of_rounded=False`` the unrounded f32 sum.  ``a=None``: x is
-    the stream as it is, and only the norm runs."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {kind!r} is not ported yet (ROADMAP: other arch configs)")
+    the stream as it is, and only the norm runs.  RMSNorm runs as one
+    kernel on the card; LayerNorm is a plain add, then the norm."""
+    if kind == "rmsnorm":
+        if a is None:
+            return x, rmsnorm(x, p["scale"])
+        return ops.add_rmsnorm(x, a, p["scale"],
+                               norm_of_rounded=norm_of_rounded)
+    if kind != "layernorm":
+        raise ValueError(f"norm kind {kind!r}")
     if a is None:
-        return x, rmsnorm(x, p["scale"])
-    return ops.add_rmsnorm(x, a, p["scale"], norm_of_rounded=norm_of_rounded)
+        return x, layernorm(x, p["scale"], p["bias"])
+    total = x.float() + a.float()
+    stream = total.to(x.dtype)
+    normed = layernorm(stream if norm_of_rounded else total, p["scale"],
+                       p["bias"], out_dtype=x.dtype)
+    return stream, normed
 
 
 def norm_defs(d_model: int, kind: str) -> dict:
@@ -317,14 +341,24 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def sq_relu(x: torch.Tensor) -> torch.Tensor:
+    """relu(x)², rounded once to x's dtype after the square, as XLA
+    evaluates the reference's ``jnp.square(jax.nn.relu(h))`` on bf16."""
+    r = torch.relu(x)
+    return r * r
+
+
 def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    if cfg.activation != "silu":
+    if cfg.activation not in ("silu", "sq_relu"):
         raise NotImplementedError(
             f"activation {cfg.activation!r} is not ported yet "
             f"(ROADMAP: other arch configs)")
     h = torch.einsum("bse,ef->bsf", x, p["wi"])
-    h = silu(torch.einsum("bse,ef->bsf", x, p["wg"])) * h \
-        if "wg" in p else silu(h)
+    if cfg.activation == "sq_relu":
+        h = sq_relu(h)
+    else:
+        h = silu(torch.einsum("bse,ef->bsf", x, p["wg"])) * h \
+            if "wg" in p else silu(h)
     return torch.einsum("bsf,fe->bse", h, p["wo"])
 
 

@@ -6,7 +6,9 @@ page-pressure preemption, keyed sampling, draft-then-verify speculation)
 + ``ServeEngine`` (tuner-sized pool, steps, kernel choice) +
 ``ReplicaRouter`` (N engines behind one admission queue: routing
 policies, overflow re-routing, open-loop arrivals, SLO admission and
-``AutoscalePolicy`` fleet autoscaling).  Tracing is a later slice."""
+``AutoscalePolicy`` fleet autoscaling) + ``Tracer`` / ``MetricsRegistry``
+(vstep-clocked request spans and ring events, the metric schemas and
+their Prometheus and Chrome-trace exporters)."""
 
 from repro_torch.serving.engine import (KV_KERNELS, KV_LAYOUTS,
                                         SERVABLE_FAMILIES, ServeEngine)
@@ -24,6 +26,12 @@ from repro_torch.serving.scheduler import (Request, RequestResult, Scheduler,
                                            ServeStats, VirtualClock,
                                            percentile_steps)
 from repro_torch.serving.spec import Drafter, NGramDrafter
+from repro_torch.serving.telemetry import (EVENT_KINDS, PHASES, ROUTER_SCHEMA,
+                                           SERVE_SCHEMA, MetricSpec,
+                                           MetricsRegistry, Span, TraceEvent,
+                                           Tracer, chrome_trace,
+                                           json_sanitize, prometheus_text,
+                                           write_chrome_trace)
 from repro_torch.serving.trace import (ARRIVAL_MODES, bursty_arrivals,
                                        longprompt_trace, poisson_arrivals,
                                        repetitive_trace, sharedprefix_trace,
@@ -41,4 +49,7 @@ __all__ = ["ServeEngine", "SERVABLE_FAMILIES", "KV_LAYOUTS", "KV_KERNELS",
            "Drafter", "NGramDrafter", "ARRIVAL_MODES", "poisson_arrivals",
            "bursty_arrivals", "with_arrivals", "longprompt_trace",
            "repetitive_trace", "sharedprefix_trace", "trace_repetitiveness",
-           "uniform_trace", "zipf_trace"]
+           "uniform_trace", "zipf_trace", "Tracer", "Span", "TraceEvent",
+           "MetricSpec", "MetricsRegistry", "SERVE_SCHEMA", "ROUTER_SCHEMA",
+           "PHASES", "EVENT_KINDS", "prometheus_text", "chrome_trace",
+           "write_chrome_trace", "json_sanitize"]

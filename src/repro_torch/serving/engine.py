@@ -44,8 +44,9 @@ prompt prefix is resident reuses the cached page run and prefills only
 the cold suffix.  Cached and cold streams are equal: the cache changes
 where prefix KV comes from, not what it holds.
 
-Not ported yet: tracing (``tracer=`` raises ``NotImplementedError``
-naming its ROADMAP item).
+``run(..., tracer=Tracer())`` records the drain's request spans and ring
+events on the virtual step clock (``serving/telemetry.py``); tracing on
+and off give the same streams and counts.
 """
 
 from __future__ import annotations
@@ -266,9 +267,10 @@ class ServeEngine:
         cache on or off for this run (None: the engine's setting);
         ``slo_*_steps`` set the virtual-step deadlines goodput is judged
         by.  Requests with an ``arrival_vstep`` are admitted open-loop,
-        once the virtual clock reaches it."""
-        if tracer is not None:
-            raise NotImplementedError("tracing (ROADMAP: telemetry)")
+        once the virtual clock reaches it.  ``tracer`` (a
+        ``serving.telemetry.Tracer``) records per-request spans and ring
+        events on the virtual clock — host-side only, behind None-guards,
+        so tracing cannot change a single token."""
         chunk = self.prefill_chunk if prefill_chunk is None else prefill_chunk
         k = self.spec_k if spec_k is None else spec_k
         sched = Scheduler(self.make_pool(prefix_cache=prefix_cache),
@@ -280,7 +282,7 @@ class ServeEngine:
                           spec_k=k, drafter=self.drafter,
                           vocab_size=self.cfg.vocab_size,
                           slo_ttft_steps=slo_ttft_steps,
-                          slo_e2e_steps=slo_e2e_steps)
+                          slo_e2e_steps=slo_e2e_steps, tracer=tracer)
         stats = sched.run(list(requests))
         self.log(f"[serve:{self.kv_layout}:{policy}] {stats.summary()}")
         return stats

@@ -1,5 +1,5 @@
 """PrefillManager — chunked prompt ingestion as its own schedulable stage
-(port of ``repro/serving/prefill.py`` without the tracer).
+(port of ``repro/serving/prefill.py``).
 
 A prompt is cut into fixed-size chunks (the tuner's
 ``plan.serve_prefill_chunk``), each padded to a power-of-two bucket, and
@@ -18,6 +18,10 @@ installs the cached page run into the slot by pointer copy and starts
 the ingest cursor past the shared prefix, so only the cold suffix is cut
 into chunks.  The final chunk of every prompt registers its whole pages
 back into the cache.
+
+With a ``tracer`` (``serving/telemetry.Tracer``) each chunk is recorded
+as a ``prefill_chunk`` span of one virtual step, and each admission to a
+cached pool as a zero-width ``cache_attach`` span — host-side only.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ class PrefillJob:
     prompt: np.ndarray             # (n,) int32 pending prefix
     slot: int
     done: int = 0                  # tokens already written into the pool
+    chunks: int = 0                # chunk steps run for this job
     admit_step: int = 0            # scheduler step at SUBMISSION (the
     #                                preemption-age stamp)
 
@@ -61,12 +66,16 @@ class PrefillManager:
     blocking degenerate, driven via ``drain``).
     """
 
-    def __init__(self, pool, chunk_step, chunk_tokens: int = 0):
+    def __init__(self, pool, chunk_step, chunk_tokens: int = 0,
+                 tracer=None, vclock=None, replica_id: int = 0):
         if chunk_tokens < 0:
             raise ValueError(f"chunk_tokens {chunk_tokens} < 0")
         self.pool = pool
         self.chunk_step = chunk_step   # (cache, toks, slot, off, n, bound, *x)
         self.chunk_tokens = chunk_tokens
+        self.tracer = tracer           # None = off
+        self.vclock = vclock
+        self.replica_id = int(replica_id)
         self.jobs: deque[PrefillJob] = deque()
         self.chunks_run = 0
         self.tokens_ingested = 0
@@ -104,6 +113,12 @@ class PrefillManager:
             self.pool.set_length(slot, cached)
         job = PrefillJob(entry=entry, st=st, prompt=prompt, slot=slot,
                          done=cached)
+        if self.tracer is not None and self.pool.prefix_cache is not None:
+            # zero-width: the probe and the pointer copies take no step
+            t = self.vclock.t if self.vclock is not None else 0
+            self.tracer.span("cache_attach", st.rid, t, t,
+                             replica=self.replica_id, slot=slot,
+                             hit=bool(cached), tokens_cached=int(cached))
         self.jobs.append(job)
         self.queue_peak = max(self.queue_peak, len(self.jobs))
         return job
@@ -128,6 +143,14 @@ class PrefillManager:
             self.pool.cache, to_device(toks, self.pool.device), job.slot,
             job.done, c, bound, *self.pool.chunk_extras(job.slot))
         self.pool.adopt(new_cache)
+        if self.tracer is not None:
+            # one virtual step: tick()/drain() advance the clock after this
+            t = self.vclock.t if self.vclock is not None else 0
+            self.tracer.span("prefill_chunk", job.st.rid, t, t + 1,
+                             replica=self.replica_id, slot=job.slot,
+                             index=job.chunks, tokens=c, bucket=bucket,
+                             offset=job.done)
+        job.chunks += 1
         job.done += c
         self.chunks_run += 1
         self.tokens_ingested += c

@@ -107,11 +107,18 @@ class PrefixCache:
         self.tokens_saved = 0         # prefill tokens skipped via hits
         self.inserts = 0
         self.evictions = 0
+        # telemetry hook, bound by the scheduler (bind_tracer); None = off
+        self.tracer = None
+        self.vclock = None
+        self.replica_id = 0
         pool.prefix_cache = self
 
     def bind_tracer(self, tracer, vclock=None, replica_id: int = 0) -> None:
-        raise NotImplementedError(
-            "tracing is not ported yet (ROADMAP: telemetry)")
+        """Attach the serving tracer so reclaims show up as ring events.
+        The scheduler calls this at reset; a None tracer unbinds."""
+        self.tracer = tracer
+        self.vclock = vclock
+        self.replica_id = int(replica_id)
 
     def __len__(self) -> int:
         return len(self._cells)
@@ -219,4 +226,10 @@ class PrefixCache:
             self.pool.unpin_page(victim[1].page)
             self.evictions += 1
             freed += 1
+        if freed and self.tracer is not None:
+            self.tracer.instant(
+                "prefix_reclaim",
+                self.vclock.t if self.vclock is not None else 0,
+                replica=self.replica_id, pages=freed,
+                asked=n_pages, cells_left=len(self._cells))
         return freed

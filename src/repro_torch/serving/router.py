@@ -1,5 +1,5 @@
 """ReplicaRouter — N serving engines behind one admission queue (port of
-``repro/serving/router.py`` without the tracer).
+``repro/serving/router.py``).
 
 The router fronts N ``ServeEngine`` replicas (mixed KV layouts allowed —
 e.g. two paged and one contiguous) and owns admission:
@@ -77,10 +77,17 @@ transition resizes the fleet's admission cap through
 ``runtime/elastic.rebalance_batch_size`` (the same resize scaffolding
 training elasticity uses) and is recorded as an ``AutoscaleEvent``.
 
+**Tracing** (``run(..., tracer=Tracer())``, ``serving/telemetry.py``):
+each request's router wait (``queued``) and its spans on the replica
+that serves it, one Chrome-trace process per replica, plus ring events
+for reroutes, SLO rejections and autoscale transitions — host-side,
+behind ``is not None`` guards, so a traced run's streams and counts
+equal an untraced one's.
+
 ``RouterStats.to_metrics()`` flattens a drain into one flat dict of
-gauge/counter snapshots a dashboard could scrape, with the reference's
-keys in the reference's order (``ROUTER_METRICS``; all values plain
-numbers, virtual-step gauges NaN when nothing completed):
+gauge/counter snapshots a dashboard could scrape, a view over
+``telemetry.ROUTER_SCHEMA`` (all values plain numbers, virtual-step
+gauges NaN when nothing completed):
 
 =============================  =======  ================================
 key                            kind     meaning
@@ -130,21 +137,10 @@ from repro_torch.serving.sampling import K_CAP
 from repro_torch.serving.scheduler import (RoundClock, Scheduler,
                                            VirtualClock, _Entry,
                                            percentile_steps)
+from repro_torch.serving.telemetry import ROUTER_SCHEMA, MetricsRegistry
 
 ROUTE_POLICIES = ("round_robin", "least_loaded", "prefix_affinity")
 ADMISSION_MODES = ("queue", "reject")
-# the keys of RouterStats.to_metrics(), in order (replica{i}_* once per
-# replica, replica after replica)
-ROUTER_METRICS = tuple("router_" + k for k in (
-    "requests_completed", "generated_tokens", "goodput_tokens",
-    "slo_ttft_steps", "slo_e2e_steps", "ttft_p50_steps", "ttft_p99_steps",
-    "e2e_p50_steps", "e2e_p99_steps", "mean_ttft_steps", "total_vsteps",
-    "wall_s", "tokens_per_s", "requests_rejected", "peak_in_flight",
-    "peak_replicas", "reroutes", "autoscale_grows", "autoscale_drains",
-    "load_imbalance"))
-REPLICA_METRICS = ("generated_tokens", "decode_steps", "peak_resident_kv",
-                   "preemptions", "occupancy")
-
 
 @dataclasses.dataclass
 class RejectedRequest:
@@ -188,7 +184,7 @@ class _Autoscaler:
     keep-the-global-batch resize semantics training elasticity uses.
     """
 
-    def __init__(self, pol: AutoscalePolicy, scheds, shared):
+    def __init__(self, pol: AutoscalePolicy, scheds, shared, tracer=None):
         n = len(scheds)
         self.max_r = pol.max_replicas or n
         if not 1 <= pol.min_replicas <= self.max_r <= n:
@@ -202,6 +198,7 @@ class _Autoscaler:
                       for i in range(n)]
         self.fleet_slots = sum(s.pool.num_slots for s in scheds)
         self.events: list[AutoscaleEvent] = []
+        self.tracer = tracer
         # a fresh fleet may scale immediately; cooldown gates *subsequent*
         # moves so one burst cannot slam the fleet to max in one round
         self.rounds_since_scale = pol.cooldown_rounds
@@ -229,6 +226,10 @@ class _Autoscaler:
         self.events.append(AutoscaleEvent(
             vstep=self.shared.t, action=action, replica=idx,
             serving=self.serving, per_replica_cap=self.per_cap))
+        if self.tracer is not None:
+            self.tracer.instant(f"autoscale_{action}", self.shared.t,
+                                replica=idx, serving=self.serving,
+                                per_replica_cap=self.per_cap)
         self.rounds_since_scale = 0
 
     def try_grow(self) -> bool:
@@ -256,6 +257,10 @@ class _Autoscaler:
                 self.events.append(AutoscaleEvent(
                     vstep=self.shared.t, action="stop", replica=i,
                     serving=self.serving, per_replica_cap=self.per_cap))
+                if self.tracer is not None:
+                    self.tracer.instant("autoscale_stop", self.shared.t,
+                                        replica=i, serving=self.serving,
+                                        per_replica_cap=self.per_cap)
         if self.rounds_since_scale < self.pol.cooldown_rounds:
             return
         if queue_depth:
@@ -390,26 +395,38 @@ class RouterStats:
         return sum(1 for e in self.autoscale_events if e.action == "drain")
 
     def to_metrics(self) -> dict:
-        """Flat gauge/counter snapshot (the module docstring's key table,
-        in ``ROUTER_METRICS`` order, then ``REPLICA_METRICS`` per
-        replica) — plain numbers only, ready for a metrics scrape.  The
-        wall-clock figures are advisory: never gate on them."""
-        values = (len(self.results), self.generated_tokens,
-                  self.goodput_tokens, self.slo_ttft_steps,
-                  self.slo_e2e_steps, self.p50_ttft_steps,
-                  self.p99_ttft_steps, self.p50_e2e_steps,
-                  self.p99_e2e_steps, self.mean_ttft_steps,
-                  self.total_vsteps, self.wall_s, self.tokens_per_s,
-                  len(self.rejected), self.peak_in_flight,
-                  self.peak_replicas, self.reroutes, self.autoscale_grows,
-                  self.autoscale_drains, self.imbalance)
-        out = dict(zip(ROUTER_METRICS, values))
+        """Flat gauge/counter snapshot (the module docstring's key table),
+        a view over ``telemetry.ROUTER_SCHEMA``: a key the schema does not
+        declare, or a declared key left unset, raises.  The wall-clock
+        figures are advisory: never gate on them."""
+        reg = MetricsRegistry(ROUTER_SCHEMA)
+        reg.set("router_requests_completed", len(self.results))
+        reg.set("router_requests_rejected", len(self.rejected))
+        reg.set("router_generated_tokens", self.generated_tokens)
+        reg.set("router_goodput_tokens", self.goodput_tokens)
+        reg.set("router_slo_ttft_steps", self.slo_ttft_steps)
+        reg.set("router_slo_e2e_steps", self.slo_e2e_steps)
+        reg.set("router_ttft_p50_steps", self.p50_ttft_steps)
+        reg.set("router_ttft_p99_steps", self.p99_ttft_steps)
+        reg.set("router_e2e_p50_steps", self.p50_e2e_steps)
+        reg.set("router_e2e_p99_steps", self.p99_e2e_steps)
+        reg.set("router_mean_ttft_steps", self.mean_ttft_steps)
+        reg.set("router_total_vsteps", self.total_vsteps)
+        reg.set("router_peak_in_flight", self.peak_in_flight)
+        reg.set("router_peak_replicas", self.peak_replicas)
+        reg.set("router_reroutes", self.reroutes)
+        reg.set("router_autoscale_grows", self.autoscale_grows)
+        reg.set("router_autoscale_drains", self.autoscale_drains)
+        reg.set("router_load_imbalance", self.imbalance)
+        reg.set("router_wall_s", self.wall_s)
+        reg.set("router_tokens_per_s", self.tokens_per_s)
         for i, s in enumerate(self.replica_stats):
-            out.update(zip((f"replica{i}_{k}" for k in REPLICA_METRICS),
-                           (s.generated_tokens, s.decode_steps,
-                            s.peak_resident_tokens, s.preemptions,
-                            s.occupancy)))
-        return out
+            reg.set(f"replica{i}_generated_tokens", s.generated_tokens)
+            reg.set(f"replica{i}_decode_steps", s.decode_steps)
+            reg.set(f"replica{i}_peak_resident_kv", s.peak_resident_tokens)
+            reg.set(f"replica{i}_preemptions", s.preemptions)
+            reg.set(f"replica{i}_occupancy", s.occupancy)
+        return reg.snapshot()
 
     @property
     def imbalance(self) -> float:
@@ -714,7 +731,7 @@ class ReplicaRouter:
 
     def _reject_slo(self, queue: deque, scheds, accepting, shared,
                     rejected: list, slo_ttft_steps: int,
-                    slo_e2e_steps: int) -> None:
+                    slo_e2e_steps: int, tracer=None) -> None:
         """Reject-with-reason every queued FRESH request whose predicted
         TTFT/e2e blows its deadline (preempted or rerouted entries
         already emitted tokens — those are never rejected; they resume).
@@ -749,6 +766,11 @@ class ReplicaRouter:
                 rejected.append(RejectedRequest(
                     rid=en.req.rid, reason=reason, v_reject=shared.t,
                     predicted_ttft_steps=predicted))
+                if tracer is not None:
+                    tracer.end("queued", en.req.rid, shared.t,
+                               rejected=True)
+                    tracer.instant("reject", shared.t, rid=en.req.rid,
+                                   predicted_ttft_steps=predicted)
         queue.extend(kept)
 
     # -- main loop -----------------------------------------------------------
@@ -789,10 +811,12 @@ class ReplicaRouter:
         replica lifecycle to an ``AutoscalePolicy`` (grow on queue
         depth / SLO headroom, drain when quiet) — continuous policy
         only, since a draining replica must keep stepping while closed
-        to admission.  ``tracer`` is not ported yet and raises."""
-        if tracer is not None:
-            raise NotImplementedError(
-                "tracing is not ported yet (ROADMAP: telemetry)")
+        to admission.
+
+        ``tracer`` (a ``serving.telemetry.Tracer``) records per-request
+        spans (one Chrome-trace "process" per replica, one "thread" per
+        slot) and fleet ring events — host-side only, behind None-guards,
+        so tracing cannot perturb a single token."""
         requests = list(requests)
         if admission not in ADMISSION_MODES:
             raise ValueError(
@@ -821,7 +845,8 @@ class ReplicaRouter:
                             vocab_size=e.cfg.vocab_size,
                             slo_ttft_steps=slo_ttft_steps,
                             slo_e2e_steps=slo_e2e_steps,
-                            vclock=RoundClock(shared), replica_id=i)
+                            vclock=RoundClock(shared), replica_id=i,
+                            tracer=tracer)
                   for i, e in enumerate(self.engines)]
         self._validate(requests, scheds)
         all_greedy = all(r.temperature <= 0 or r.top_k == 1
@@ -831,7 +856,7 @@ class ReplicaRouter:
             s.all_greedy = all_greedy
             s.reset(t0)
         auto = None if autoscale is None else \
-            _Autoscaler(autoscale, scheds, shared)
+            _Autoscaler(autoscale, scheds, shared, tracer=tracer)
         # open loop: stable arrival sort — ties (and the all-zero closed
         # loop) keep trace order, so closed-loop behaviour is unchanged
         pending: deque = deque(sorted(
@@ -847,7 +872,13 @@ class ReplicaRouter:
                 any(s.active or s.prefill_backlog for s in scheds):
             # release every request whose arrival the clock has reached
             while pending and pending[0].req.arrival_vstep <= shared.t:
-                queue.append(pending.popleft())
+                en = pending.popleft()
+                if tracer is not None:
+                    # the router wait starts at the arrival and ends when a
+                    # replica admits it (or SLO admission rejects it)
+                    tracer.begin("queued", en.req.rid, en.req.arrival_vstep,
+                                 prompt_len=len(en.req.prompt))
+                queue.append(en)
             if auto is not None:
                 accepting = auto.accepting()
                 if policy == "static":      # unreachable (validated above)
@@ -862,7 +893,8 @@ class ReplicaRouter:
                              if not (s.active or s.prefill_backlog)]
             if admission == "reject" and queue:
                 self._reject_slo(queue, scheds, accepting, shared,
-                                 rejected, slo_ttft_steps, slo_e2e_steps)
+                                 rejected, slo_ttft_steps, slo_e2e_steps,
+                                 tracer=tracer)
             progressed = self._dispatch(
                 queue, scheds, accepting,
                 cap=auto.per_cap if auto is not None else None)
@@ -892,6 +924,11 @@ class ReplicaRouter:
                 for en in reversed(s.step(evict_on_starvation=True)):
                     en.rerouted = True
                     reroutes += 1
+                    if tracer is not None:
+                        tracer.instant("reroute", shared.t,
+                                       replica=s.replica_id,
+                                       rid=en.req.rid,
+                                       tokens=len(en.st.tokens))
                     queue.appendleft(en)
                 # ordinary preemptions also resume through the router, so
                 # a request squeezed out of one replica may land on another
@@ -918,6 +955,8 @@ class ReplicaRouter:
                     shared.advance(nxt - shared.t)
 
         wall = self.clock() - t0
+        if tracer is not None:
+            tracer.close(shared.t)
         stats = [s.stats() for s in scheds]
         replica_of = {r.rid: i for i, s in enumerate(stats)
                       for r in s.results}

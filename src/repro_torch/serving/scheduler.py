@@ -45,8 +45,12 @@ drains a whole trace, and every phase is also exposed step-wise
 ``stats``) so a ``ReplicaRouter`` can drive N schedulers in lockstep on
 one shared clock (``RoundClock``), routing at admission and taking back
 a request that starves its replica alone
-(``step(evict_on_starvation=True)``).  Tracing is a later slice
-(``ServeEngine`` raises on it).
+(``step(evict_on_starvation=True)``).
+
+An optional ``tracer`` (``serving/telemetry.Tracer``) records each
+request's spans (queued, decode, spec_verify, resume) and ring events
+(preemptions) on the virtual clock; every site is guarded by ``if
+tracer is not None``, so tracing cannot change a token or a count.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from repro_torch.serving.pool import PoolExhausted, to_device
 from repro_torch.serving.prefill import PrefillManager
 from repro_torch.serving.sampling import K_CAP, effective_top_k
 from repro_torch.serving.spec import NGramDrafter
+from repro_torch.serving.telemetry import SERVE_SCHEMA, MetricsRegistry
 
 
 def percentile_steps(values, q: float) -> float:
@@ -153,6 +158,10 @@ class RequestResult:
         return self.t_done - self.t_submit
 
     @property
+    def ttft_s(self) -> float:
+        return self.t_first - self.t_submit
+
+    @property
     def ttft_steps(self) -> int:
         return self.v_first - self.v_submit
 
@@ -213,6 +222,40 @@ class ServeStats:
     @property
     def tokens_per_s(self) -> float:
         return self.generated_tokens / max(self.wall_s, 1e-9)
+
+    def to_metrics(self) -> dict:
+        """Flat ``{key: number}`` snapshot of the drain, a view over
+        ``telemetry.SERVE_SCHEMA`` (the registry raises on a missing or
+        undeclared key).  The wall-clock figures are advisory."""
+        reg = MetricsRegistry(SERVE_SCHEMA)
+        reg.set("serve_requests_completed", len(self.results))
+        reg.set("serve_generated_tokens", self.generated_tokens)
+        reg.set("serve_goodput_tokens", self.goodput_tokens)
+        reg.set("serve_slo_ttft_steps", self.slo_ttft_steps)
+        reg.set("serve_slo_e2e_steps", self.slo_e2e_steps)
+        reg.set("serve_ttft_p50_steps", self.p50_ttft_steps)
+        reg.set("serve_ttft_p99_steps", self.p99_ttft_steps)
+        reg.set("serve_e2e_p50_steps", self.p50_e2e_steps)
+        reg.set("serve_e2e_p99_steps", self.p99_e2e_steps)
+        reg.set("serve_mean_ttft_steps", self.mean_ttft_steps)
+        reg.set("serve_total_vsteps", self.total_vsteps)
+        reg.set("serve_wall_s", self.wall_s)
+        reg.set("serve_tokens_per_s", self.tokens_per_s)
+        reg.set("serve_decode_steps", self.decode_steps)
+        reg.set("serve_occupancy", self.occupancy)
+        reg.set("serve_peak_active", self.peak_active)
+        reg.set("serve_peak_resident_kv", self.peak_resident_tokens)
+        reg.set("serve_preemptions", self.preemptions)
+        reg.set("serve_prefill_chunks", self.prefill_chunks)
+        reg.set("serve_prefill_tokens", self.prefill_tokens)
+        reg.set("serve_prefix_hits", self.prefix_hits)
+        reg.set("serve_prefix_misses", self.prefix_misses)
+        reg.set("serve_prefill_tokens_saved", self.prefill_tokens_saved)
+        reg.set("serve_prefix_evictions", self.prefix_evictions)
+        reg.set("serve_spec_verify_steps", self.spec_verify_steps)
+        reg.set("serve_spec_drafted_tokens", self.spec_drafted_tokens)
+        reg.set("serve_spec_accepted_tokens", self.spec_accepted_tokens)
+        return reg.snapshot()
 
     @property
     def accepted_per_verify(self) -> float:
@@ -299,7 +342,7 @@ class Scheduler:
                  verify_fn=None, spec_k: int = 0, drafter=None,
                  vocab_size: int | None = None,
                  slo_ttft_steps: int = 0, slo_e2e_steps: int = 0,
-                 vclock=None, replica_id: int = 0):
+                 vclock=None, replica_id: int = 0, tracer=None):
         if policy not in ("continuous", "static"):
             raise ValueError(policy)
         if prefill_chunk < 0 or prefill_chunk_unit < 1:
@@ -328,6 +371,9 @@ class Scheduler:
         self.all_greedy = False
         self.slo_ttft_steps = int(slo_ttft_steps)
         self.slo_e2e_steps = int(slo_e2e_steps)
+        # telemetry hook: host-side bookkeeping behind `is not None`
+        # guards, never read by a step
+        self.tracer = tracer
         self.reset()
 
     # -- state ---------------------------------------------------------------
@@ -353,7 +399,12 @@ class Scheduler:
         self._t0 = self.clock() if t0 is None else t0
         self._v0 = self.vclock.t
         self._mgr = PrefillManager(self.pool, self.chunk_step_fn,
-                                   self.prefill_chunk)
+                                   self.prefill_chunk, tracer=self.tracer,
+                                   vclock=self.vclock,
+                                   replica_id=self.replica_id)
+        if self.pool.prefix_cache is not None:
+            self.pool.prefix_cache.bind_tracer(self.tracer, self.vclock,
+                                               self.replica_id)
 
     @property
     def has_work(self) -> bool:
@@ -495,6 +546,11 @@ class Scheduler:
     def _admit(self, entry: _Entry) -> None:
         now = self.clock()
         req = entry.req
+        if self.tracer is not None:
+            # close the wait this request was in: "queued" (fresh) or
+            # "resume" (after a preemption, perhaps on another replica)
+            self.tracer.end_any(("resume", "queued"), req.rid, self.vclock.t,
+                                pending_tokens=int(entry.pending_len))
         if req.top_k:
             # what the sampler will apply (a small vocabulary caps it)
             self._eff_topk[req.rid] = effective_top_k(
@@ -540,6 +596,11 @@ class Scheduler:
         self.active[job.slot] = _Active(req, st, job.admit_step)
         self._last_tokens[job.slot, 0] = tok
         self._active_mask[job.slot] = 1
+        if self.tracer is not None:
+            self.tracer.begin("decode", req.rid, self.vclock.t,
+                              replica=self.replica_id, slot=job.slot,
+                              resident_tokens=int(
+                                  self.pool.lengths[job.slot]))
 
     # -- preemption --------------------------------------------------------
     def _evict(self, slot: int) -> _Entry:
@@ -547,6 +608,15 @@ class Scheduler:
         en = self.active.pop(slot)
         en.st.slot = -1
         en.st.preemptions += 1
+        if self.tracer is not None:
+            v = self.vclock.t
+            self.tracer.end("decode", en.st.rid, v, preempted=True,
+                            tokens=len(en.st.tokens))
+            self.tracer.instant("preempt", v, replica=self.replica_id,
+                                rid=en.st.rid, slot=slot,
+                                tokens=len(en.st.tokens))
+            self.tracer.begin("resume", en.st.rid, v,
+                              replica=self.replica_id)
         self._active_mask[slot] = 0
         self._last_tokens[slot, 0] = 0
         self.pool.free(slot)                 # returns its pages
@@ -564,6 +634,13 @@ class Scheduler:
         if st is not None:
             st.slot = -1
             st.preemptions += 1
+        if self.tracer is not None:
+            rid = job.entry.req.rid
+            v = self.vclock.t
+            self.tracer.instant("preempt", v, replica=self.replica_id,
+                                rid=rid, mid_prefill=True,
+                                ingested=int(job.done))
+            self.tracer.begin("resume", rid, v, replica=self.replica_id)
         self.queue.appendleft(_Entry(job.entry.req, st))
         self._preemptions += 1
 
@@ -644,6 +721,9 @@ class Scheduler:
                 self._active_mask[slot] = 0
                 self._last_tokens[slot, 0] = 0
                 self.pool.free(slot)
+                if self.tracer is not None:
+                    self.tracer.end("decode", st.rid, vnow,
+                                    tokens=len(st.tokens))
         return evicted
 
     # -- speculative decode -------------------------------------------------
@@ -711,6 +791,11 @@ class Scheduler:
             self._spec_verifies += 1
             self._spec_drafted += k
             self._spec_accepted += emitted - 1
+            if self.tracer is not None:
+                self.tracer.span("spec_verify", st.rid, vnow - 1, vnow,
+                                 replica=self.replica_id, slot=slot,
+                                 k=k, emitted=emitted,
+                                 accepted=emitted - 1, backed=cap)
             self.pool.set_length(slot,
                                  int(self.pool.lengths[slot]) + emitted)
             if finished:
@@ -721,6 +806,9 @@ class Scheduler:
                 self._active_mask[slot] = 0
                 self._last_tokens[slot, 0] = 0
                 self.pool.free(slot)
+                if self.tracer is not None:
+                    self.tracer.end("decode", st.rid, vnow,
+                                    tokens=len(st.tokens))
             else:
                 self._last_tokens[slot, 0] = int(toks[slot, emitted - 1])
         self.pool.sync_index()
@@ -784,7 +872,15 @@ class Scheduler:
         while pending or self.has_work:
             while pending and self._v0 + pending[0].req.arrival_vstep \
                     <= self.vclock.t:
-                self.queue.append(pending.popleft())
+                en = pending.popleft()
+                if self.tracer is not None:
+                    # the wait starts at the arrival, not the release
+                    self.tracer.begin(
+                        "queued", en.req.rid,
+                        self._v0 + en.req.arrival_vstep,
+                        replica=self.replica_id,
+                        prompt_len=len(en.req.prompt))
+                self.queue.append(en)
             if self.policy == "continuous" or \
                     not (self.active or self._mgr.has_jobs):
                 self.admit_from_queue()
@@ -800,4 +896,6 @@ class Scheduler:
                     self.vclock.advance(nxt - self.vclock.t)
                 continue
             self.step()
+        if self.tracer is not None:
+            self.tracer.close(self.vclock.t)
         return self.stats()

@@ -255,8 +255,13 @@ def test_lm_build_gives_the_serve_plan_and_refuses_lowering():
     plan = BuildService().build(bare, "nvidia:h100", lower=False).plan
     assert plan.kernels == "reference"
     assert "local-kernel directive absent -> reference ops" in plan.notes
-    with pytest.raises(NotImplementedError, match="slice E"):
-        BuildService().build(app, "nvidia:h100", lower=True)
+    # lowering the serving app: the decode step's kernels (K1, K2) on the
+    # card, nothing to build on the CPU or without the directive
+    assert set(res.program["kernels"]) == {"paged_attention", "rmsnorm"}
+    assert res.step_name == "decode_step" and res.built == {}
+    cpu = BuildService().build(app, "local:cpu", lower=True)
+    assert (cpu.program["arch"], cpu.built) == ("reference", {})
+    assert BuildService().build(bare, "nvidia:h100", lower=True).built == {}
     with pytest.raises(NotImplementedError, match="slice E"):
         BuildService().build(appspec.AppSpec("deepseek-7b", "train_4k"),
                              "nvidia:h100", lower=False)
@@ -350,8 +355,9 @@ def test_run_command_rejects_what_it_does_not_run(monkeypatch):
         run_command("frobnicate --now", device="cpu")
     with pytest.raises(NotImplementedError, match="slice E"):
         run_command("train --steps 3", device="cpu")
-    with pytest.raises(NotImplementedError, match="launch/serve.py"):
-        run_command("serve --arch deepseek-7b-smoke", device="cpu")
+    out = run_command("serve --arch deepseek-7b-smoke --batch 2 --prefill 8 "
+                      "--decode 2", device="cpu")
+    assert (out["requests"], out["device"]) == (2, "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_command(f"{PAPER_CMD} -i 1 -s 4")

@@ -42,6 +42,10 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
             "import repro_torch.serving.router\n"
             "import repro_torch.serving.prefix_cache\n"
             "import repro_torch.runtime.elastic\n"
+            "import repro_torch.serving.telemetry, repro_torch.launch.serve\n"
+            "import repro_torch.configs.stablelm_1_6b\n"
+            "import repro_torch.configs.mistral_large_123b\n"
+            "import repro_torch.configs.nemotron_4_340b\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"

@@ -43,8 +43,8 @@ from repro_torch.configs import get_config
 from repro_torch.models.params import params_from_jax
 from repro_torch.models.transformer import model_for
 from repro_torch.serving import (KVCachePool, PagedKVCachePool, PrefixCache,
-                                 ReplicaRouter, ServeEngine, prefix_key,
-                                 sharedprefix_trace)
+                                 ReplicaRouter, ServeEngine, Tracer,
+                                 prefix_key, sharedprefix_trace)
 
 ARCH = "deepseek-7b-smoke"
 TIGHT = "bench:serve-tight"
@@ -297,9 +297,12 @@ def test_prefix_cache_requires_paged_layout(pkgs):
                       kv_layout="contiguous", device="cpu")
     with pytest.raises(ValueError, match="paged"):
         eng.make_pool(prefix_cache=True)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        PrefixCache(PagedKVCachePool(port.model, 2, 32, device="cpu")) \
-            .bind_tracer(object())
+    cache = PrefixCache(PagedKVCachePool(port.model, 2, 32, device="cpu"))
+    tracer = Tracer()
+    cache.bind_tracer(tracer, replica_id=2)
+    assert (cache.tracer, cache.replica_id) == (tracer, 2)
+    cache.bind_tracer(None)
+    assert cache.tracer is None
 
 
 # ---------------------------------------------------------------------------

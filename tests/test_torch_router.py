@@ -45,7 +45,7 @@ from repro_torch.serving import (AutoscalePolicy, PoolExhausted,
                                  ReplicaRouter, Request, ServeEngine,
                                  prefix_replica, replay_peak_replicas,
                                  with_arrivals, zipf_trace)
-from repro_torch.serving.router import REPLICA_METRICS, ROUTER_METRICS
+from repro_torch.serving.telemetry import ROUTER_SCHEMA, Tracer
 
 ARCH = "deepseek-7b-smoke"
 SLOTS, MAX_LEN = 4, 64
@@ -154,8 +154,9 @@ def test_router_validates_fleet_and_policy():
                            log=quiet, device="cpu")
     with pytest.raises(ValueError, match="seed"):
         ReplicaRouter([e, reseeded], log=quiet)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        ReplicaRouter([e], log=quiet).run([], tracer=object())
+    tracer = Tracer()
+    empty = ReplicaRouter([e], log=quiet).run([], tracer=tracer)
+    assert (empty.results, tracer.spans, tracer.total_events) == ([], [], 0)
     with pytest.raises(ValueError, match="admission"):
         ReplicaRouter([e], log=quiet).run([], admission="drop")
 
@@ -379,8 +380,10 @@ def test_autoscale_beats_fixed_and_metrics_keys_match_reference():
         autoscale=AutoscalePolicy(min_replicas=1, max_replicas=3), **slo)
     got, ref_m = auto.to_metrics(), want.to_metrics()
     assert list(got) == list(ref_m)
-    assert list(got) == list(ROUTER_METRICS) + [
-        f"replica{i}_{k}" for i in range(3) for k in REPLICA_METRICS]
+    assert list(got) == [s.key for s in ROUTER_SCHEMA
+                         if "{i}" not in s.key] + [
+        s.key.replace("{i}", str(i)) for i in range(3)
+        for s in ROUTER_SCHEMA if "{i}" in s.key]
     for key, value in ref_m.items():
         if key not in ("router_wall_s", "router_tokens_per_s"):
             assert got[key] == value or (got[key] != got[key] and

@@ -36,7 +36,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ARCHS, SHAPES
 from repro_torch.core.tuning import tune
 from repro_torch.models.params import params_from_jax
-from repro_torch.serving import Request, ServeEngine, zipf_trace
+from repro_torch.serving import Request, ServeEngine, Tracer, zipf_trace
 
 ARCH = "deepseek-7b-smoke"
 TIGHT = "bench:serve-tight"
@@ -229,7 +229,10 @@ def test_unported_options_raise():
     assert eng.run([sampled]).generated_tokens == 2
     with pytest.raises(ValueError, match="top_k"):
         eng.run([dataclasses.replace(sampled, top_k=65)])
-    with pytest.raises(NotImplementedError):
-        eng.run([], tracer=object())
+    tracer = Tracer()
+    traced = eng.run([sampled], tracer=tracer)
+    assert traced.results[0].tokens == eng.run([sampled]).results[0].tokens
+    assert [s.phase for s in tracer.spans] == ["queued", "prefill_chunk",
+                                               "decode"]
     assert eng.run([dataclasses.replace(sampled, top_k=1)]).generated_tokens \
         == 2
