@@ -25,12 +25,16 @@ Phases, each of which raises on failure:
    G = 12 is ``mistral-large-123b``'s 96 heads over 8 kv heads, three
    chunks of 4 heads a block, and G = 11 ends in a short chunk of 3), and
    the attention shapes of ``stablelm-1.6b`` (32 heads over 32 kv heads
-   of 64, G = 1) and ``nemotron-4-340b`` (96 over 8 of 192, G = 12);
-   then the fused residual add + RMSNorm
+   of 64, G = 1), ``nemotron-4-340b`` (96 over 8 of 192, G = 12),
+   ``granite-moe-3b-a800m`` (24 over 8 of 64, G = 3) and ``dbrx-132b``
+   (48 over 8 of 128, G = 6); then the fused residual add + RMSNorm
    (``add_rmsnorm_cuda``) at rows 1, 8, 40, 128 and 1000 by widths 64,
-   4096, 12288 and 18432, both forms: the residual bitwise equal to the
-   plain version's, the norm within one bf16 step of it, two calls
-   bitwise equal (``_k2_hold``);
+   1536, 4096, 12288 and 18432, both forms: the residual bitwise equal
+   to the plain version's, the norm within one bf16 step of it, two
+   calls bitwise equal (``_k2_hold``); then the MoE router's
+   ``route_tokens`` on the card (``_route_checks``: rows of exact ties
+   and saturated rows with denormal probabilities, bit for bit equal to
+   the CPU's result and to ``lax.top_k``'s choice);
 3. stream identity at smoke size: ``deepseek-7b-smoke`` served through
    ``ServeEngine`` on the serving benchmark's trace (continuous and
    static batching, blocking and chunked prefill) and on a scarce-page
@@ -47,7 +51,11 @@ Phases, each of which raises on failure:
    prefix cache on and off, and ``telemetry_overhead``: the
    ``paged_continuous`` drain re-run with a ``Tracer`` (31 decode steps,
    6.2581 tokens per step, 32 spans, 0 ring events, mean TTFT 18.9167
-   steps), its streams equal to the untraced run's;
+   steps), its streams equal to the untraced run's; then the MoE family,
+   ``granite-moe-3b-a800m-smoke`` and ``dbrx-132b-smoke``, on the trace
+   of the reference's MoE serving tests (6 requests, 3 slots x 48):
+   identical streams paged (page 8) on the kernel and on the gather
+   path, contiguous, and chunked (chunk 4) against blocking;
 4. the slice at full width: ``deepseek-7b`` (random weights from a seed)
    on one card, 8 greedy requests through the paged engine built with
    its defaults, with the kernels on every step, counted (the fused
@@ -146,7 +154,21 @@ Phases, each of which raises on failure:
    (``_teacher_forced_run``: every K1 call within the two-rounding
    bound, logits against the gather path within LOGITS_VS_CONTROL x the
    one-step-noise control); tokens/s traced and untraced, in turns, and
-   the peak memory printed, not gated.
+   the peak memory printed, not gated;
+14. the MoE family at full width through EASEY: ``run_easey`` deploys a
+   ``granite-moe-3b-a800m`` serving Appfile (``RUN serve --kv-layout
+   paged --batch 8 --max-len 512 --requests 8 --prefill 256 --decode
+   32``; 32 layers, 40 experts top-8, d 1536, random weights from the
+   seed) to ``nvidia:h100``: the build compiles K1 and K2, the job ends
+   ``finished``, K1 runs on every decode tick and K2 on every norm
+   (counted); an engine on the same trace repeats the job's streams,
+   and its run teacher-forced as phase 4's is (``_teacher_forced_run``:
+   every K1 call within the two-rounding bound, logits against the
+   gather path within LOGITS_VS_CONTROL x the one-step-noise control),
+   printing per tick the first layer whose routing parts from the gather
+   path's; the assignments dropped past capacity per chunk step, the
+   decode tick and the chunk step (CUDA events and the profiler),
+   tokens/s and the memory printed, not gated.
 
 The second-to-last line of output is the card's ``name, power.limit``;
 before it a JSON line lists every kernel with its launches on its path's
@@ -230,9 +252,10 @@ FLASH_FULL = {"deepseek-7b": (1, 4096, 4096, 32, 32, 128),
               "nemotron-4-340b": (1, 4096, 4096, 96, 8, 192)}
 # the fused residual add + RMSNorm's gate: decode (1, 8 rows), a verify
 # burst (8 x 5), a prefill chunk, a long prefill; the smoke configs'
-# width and deepseek-7b's, mistral-large's and nemotron-4's
+# width and granite-moe-3b-a800m's, deepseek-7b's, mistral-large's and
+# nemotron-4's
 K2_ROWS = (1, 8, 40, 128, 1000)
-K2_WIDTHS = (64, 4096, 12288, 18432)
+K2_WIDTHS = (64, 1536, 4096, 12288, 18432)
 SAMPLED = dict(temperature=0.7, top_k=16, top_p=0.9)
 # the stencil kernel (f32, built with -fmad=false) against its plain
 # version: each zone of every field within this rtol, with no absolute
@@ -499,7 +522,8 @@ def _k1_cases(torch, rng, K, dh, page_size, sms, num_splits):
     block; G = 11 (88 heads over 8), whose last chunk holds 3; and on 8
     slots the attention shapes of ``stablelm-1.6b`` (32 heads over 32 kv
     heads of 64, G = 1) and of ``nemotron-4-340b`` (96 heads over 8 kv
-    heads of 192, G = 12)."""
+    heads of 192, G = 12), ``granite-moe-3b-a800m`` (24 heads over 8 kv
+    heads of 64, G = 3) and ``dbrx-132b`` (48 over 8 of 128, G = 6)."""
     one = num_splits(K, 64, sms)
     whole = 2 * one * page_size              # 2 pages per split
     # split i of a run of P live pages takes pages [i P / n, (i + 1) P / n)
@@ -528,6 +552,10 @@ def _k1_cases(torch, rng, K, dh, page_size, sms, num_splits):
          _paged_case(torch, rng, lens8, page_size, 32, 32, 1, 64)),
         ("nemotron-4-340b (G=12, dh 192)",
          _paged_case(torch, rng, lens8, page_size, 32, 8, 12, 192)),
+        ("granite-moe-3b-a800m (G=3, dh 64)",
+         _paged_case(torch, rng, lens8, page_size, 32, 8, 3, 64)),
+        ("dbrx-132b (G=6, dh 128)",
+         _paged_case(torch, rng, lens8, page_size, 32, 8, 6, 128)),
     ]
 
 
@@ -550,6 +578,90 @@ def _k1_hold(torch, ref, attend, name, case) -> dict:
 
 def _streams(stats) -> list:
     return [r.tokens for r in sorted(stats.results, key=lambda r: r.rid)]
+
+
+def _route_checks(torch, moe) -> dict:
+    """``route_tokens`` on the card against its CPU result on the same
+    logits, ``slot``, ``keep`` and ``gates`` bit for bit, and against the
+    choice ``lax.top_k`` makes: rows of exact ties (every expert equal:
+    token t takes experts 0..k-1 in order, at position t of each) and
+    saturated rows (one logit of 87.8 over the rest in -52..-3.7, whose
+    other probabilities are denormal in an unflushed f32 softmax and
+    flushed to zero: the hot expert first, then the others by index).
+    Returns the number of denormal probabilities the unflushed softmax
+    kept, on the CPU and on the card."""
+    gen = torch.Generator().manual_seed(0)
+    denormal = {"cpu": 0, "cuda": 0}
+    cases = []
+    for E, k in ((40, 8), (16, 4)):
+        ties = torch.zeros((2, 6, E))
+        want = (torch.arange(k) * 8)[None, :] + torch.arange(6)[:, None]
+        cases.append((f"ties E={E} k={k}", ties, k, 8,
+                      want.reshape(1, -1).expand(2, -1)))
+        hot = torch.randint(0, E, (2, 64), generator=gen)
+        sat = -(3.7 + 48.3 * torch.rand((2, 64, E), generator=gen))
+        sat.scatter_(-1, hot[..., None], 87.8)
+        rest = torch.arange(E).expand(2, 64, E)
+        rest = rest[rest != hot[..., None]].reshape(2, 64, E - 1)
+        order = torch.cat([hot[..., None], rest], -1)[..., :k]
+        want = torch.zeros((2, 64 * k), dtype=torch.int64)
+        for b in range(2):               # slots in token order per row
+            taken = [0] * E
+            for i, e in enumerate(order[b].reshape(-1).tolist()):
+                want[b, i] = e * 64 + taken[e]
+                taken[e] += 1
+        cases.append((f"saturated E={E} k={k}", sat, k, 64, want))
+        for dev in denormal:
+            p = torch.softmax(sat.to(dev), -1)
+            denormal[dev] += int(((p > 0) & (p < torch.finfo(p.dtype).tiny)
+                                  ).sum())
+    if denormal["cpu"] == 0:
+        raise AssertionError("route_tokens: the saturated rows hold no "
+                             "denormal probability")
+    for name, logits, k, C, want_slot in cases:
+        cpu = moe.route_tokens(logits, k, C)
+        dev = moe.route_tokens(logits.cuda(), k, C)
+        for what, a, b in zip(("slot", "gates", "keep"), cpu[:3], dev[:3]):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"route_tokens {name}: {what} on the "
+                                     f"card differs from the CPU's")
+        if not (torch.equal(cpu[0], want_slot.to(torch.int32)) and
+                bool(cpu[2].all())):
+            raise AssertionError(f"route_tokens {name}: not lax.top_k's "
+                                 f"choice")
+    return denormal
+
+
+class _RouteLog:
+    """Stands in for ``moe.route_tokens`` inside a ``with`` block and
+    keeps each call's logits shape, ``slot`` and ``keep``."""
+
+    def __init__(self, moe):
+        self.moe, self.route = moe, moe.route_tokens
+        self.calls = []
+
+    def __call__(self, logits, k, capacity):
+        out = self.route(logits, k, capacity)
+        self.calls.append((tuple(logits.shape), out[0], out[2]))
+        return out
+
+    def __enter__(self):
+        self.moe.route_tokens = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route_tokens = self.route
+
+    def chunk_drops(self, layers: int) -> list:
+        """Assignments dropped past capacity per chunk step (a (1, s > 1)
+        call a layer), summed over its ``layers`` calls."""
+        d = [int((~keep).sum()) for shape, _, keep in self.calls
+             if shape[0] == 1 and shape[1] > 1]
+        return [sum(d[i:i + layers]) for i in range(0, len(d), layers)]
+
+    def decode_slots(self) -> list:
+        """``slot`` of each single-token (decode) call, in call order."""
+        return [slot for shape, slot, _ in self.calls if shape[1] == 1]
 
 
 def _router_cells(serving, cont, paged) -> dict:
@@ -1134,7 +1246,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
     from repro_torch.kernels.sedov_stencil import sedov_step_cuda
     from repro_torch.launch.serve import serve_main
-    from repro_torch.models import lulesh
+    from repro_torch.models import lulesh, moe
     from repro_torch import serving
     from repro_torch.serving import (ReplicaRouter, Request, ServeEngine,
                                      repetitive_trace, sharedprefix_trace,
@@ -1240,10 +1352,11 @@ def main() -> int:
               f"{d['ratio']:.4f} of the two-rounding bound, "
               f"{d['ulps']:.3g} bf16 steps, max abs {d['abs']:.4g}; two calls "
               f"bitwise equal")
-    k1_long, k1_two, k1_g12, k1_stablelm, k1_nemotron = (
-        dict(k1_cases)[c] for c in (
+    k1_long, k1_two, k1_g12, k1_stablelm, k1_nemotron, k1_granite, \
+        k1_dbrx = (dict(k1_cases)[c] for c in (
             "1 slot x 4096", "2 slots", "G=12", "stablelm-1.6b (G=1, dh 64)",
-            "nemotron-4-340b (G=12, dh 192)"))
+            "nemotron-4-340b (G=12, dh 192)",
+            "granite-moe-3b-a800m (G=3, dh 64)", "dbrx-132b (G=6, dh 128)"))
 
     k2_err = 0.0
     d = full.d_model
@@ -1276,6 +1389,13 @@ def main() -> int:
           f"the norm of the f32 sum and of the rounded one): residual "
           f"bitwise equal, norm within {k2f_share:.4f} of one bf16 step "
           f"(max abs {k2f_err:.4g}), two calls bitwise equal")
+    denormal = _route_checks(torch, moe)
+    print(f"[kernels] route_tokens on the card (no kernel of its own): on "
+          f"rows of exact ties (E 40, k 8; E 16, k 4) and saturated rows "
+          f"({denormal['cpu']} denormal probabilities in an unflushed "
+          f"softmax on the CPU, {denormal['cuda']} on the card, flushed), "
+          f"slot, keep and gates equal the CPU's bit for bit and lax.top_k's "
+          f"choice")
 
     # ---- 3. stream identity at smoke size ------------------------------
     smoke = get_config("deepseek-7b-smoke")
@@ -1380,6 +1500,41 @@ def main() -> int:
           f"overhead {tel.tokens_per_s:.1f} tokens/s traced, "
           f"{plain_pc.tokens_per_s:.1f} untraced, not gated)")
     del paged_tight
+    # the MoE family at smoke size, on the trace of the reference's MoE
+    # serving tests (3 slots x 48): paged (page 8) on the kernel and on the
+    # gather path, contiguous, and chunked (chunk 4) against blocking
+    moe_counts = {}
+    for arch in ("granite-moe-3b-a800m-smoke", "dbrx-132b-smoke"):
+        mreqs = zipf_trace(6, get_config(arch).vocab_size, max_prompt=16,
+                           max_new=10, seed=1)
+        kw = dict(arch=arch, num_slots=3, max_len=48, seed=0, log=quiet)
+        paged = {kk: ServeEngine(kv_layout="paged", page_size=8,
+                                 kv_kernel=kk, **kw)
+                 for kk in ("cuda", "gather")}
+        contiguous = ServeEngine(kv_layout="contiguous", **kw)
+        runs = {"paged, kernel": paged["cuda"].run(mreqs),
+                "paged, gather": paged["gather"].run(mreqs),
+                "contiguous": contiguous.run(mreqs),
+                "paged, kernel, chunk 4": paged["cuda"].run(
+                    mreqs, prefill_chunk=4),
+                "paged, kernel, blocking": paged["cuda"].run(
+                    mreqs, prefill_chunk=0)}
+        want = _streams(runs["paged, kernel"])
+        for what, st in runs.items():
+            if _streams(st) != want:
+                raise AssertionError(f"{arch}: {what} streams differ from "
+                                     f"the paged kernel's")
+            asked = {r.rid: r.max_new_tokens for r in mreqs}
+            if len(st.results) != 6 or any(len(r.tokens) != asked[r.rid]
+                                           for r in st.results):
+                raise AssertionError(f"{arch} ({what}): not every request "
+                                     f"complete")
+        moe_counts[arch] = {w: (st.decode_steps, st.prefill_chunks)
+                            for w, st in runs.items()}
+    print(f"[smoke] MoE family, 6 zipf requests of up to 16 + 10 tokens, "
+          f"3 slots x 48: identical greedy streams paged (kernel and "
+          f"gather) and contiguous, chunked (chunk 4) and blocking; (decode "
+          f"steps, chunk steps) {moe_counts}")
 
     # ---- 4. the slice at full width ------------------------------------
     reqs = [Request(rid=i, prompt=prng.randint(1, full.vocab_size - 1,
@@ -1500,7 +1655,10 @@ def main() -> int:
                   ("stablelm-1.6b", "stablelm-1.6b widths (G=1, dh 64)",
                    k1_stablelm),
                   ("nemotron-4-340b", "nemotron-4-340b widths (G=12, dh "
-                   "192)", k1_nemotron))}
+                   "192)", k1_nemotron),
+                  ("granite-moe-3b-a800m", "granite-moe-3b-a800m widths "
+                   "(G=3, dh 64)", k1_granite),
+                  ("dbrx-132b", "dbrx-132b widths (G=6, dh 128)", k1_dbrx))}
 
     def unfused(x, a, w, eps=1e-6, *, norm_of_rounded):
         """The residual add and the norm as the model launched them before
@@ -1518,46 +1676,52 @@ def main() -> int:
     k2, k2f = {}, {}
     rms_norm = getattr(torch.nn.functional, "rms_norm", None)
     floor = _graph_ms(torch, empty_cuda, 100)
-    for rows in (8, 40, 128):
-        x = torch.randn((rows, d), device="cuda").to(torch.bfloat16)
-        a = torch.randn((rows, d), device="cuda").to(torch.bfloat16)
-        fns = {"ms": lambda: rmsnorm_cuda(x, w),
-               "plain": lambda: ref.rmsnorm_ref(x, w)}
+    # deepseek-7b's width, and granite-moe-3b-a800m's as its tick calls it
+    d_gr = get_config("granite-moe-3b-a800m").d_model
+    for rows, dk in ((8, d), (40, d), (128, d), (8, d_gr)):
+        x = torch.randn((rows, dk), device="cuda").to(torch.bfloat16)
+        a = torch.randn((rows, dk), device="cuda").to(torch.bfloat16)
+        wk = w if dk == d else \
+            (1 + 0.1 * torch.randn(dk, device="cuda")).to(torch.bfloat16)
+        fns = {"ms": lambda: rmsnorm_cuda(x, wk),
+               "plain": lambda: ref.rmsnorm_ref(x, wk)}
         if rms_norm:
-            fns["lib"] = lambda: rms_norm(x, (d,), w, 1e-6)
-        k2[rows] = {k: _graph_ms(torch, fn, 100) for k, fn in fns.items()}
-        k2[rows].setdefault("lib", None)
-        k2[rows]["host"] = _events_ms(torch, fns["ms"], 200)
-        k2[rows]["bound"] = max((2 * rows * d * 2 + d * 2) / HBM_BYTES_PER_S,
-                                4 * rows * d / F32_FLOPS) * 1e3
+            fns["lib"] = lambda: rms_norm(x, (dk,), wk, 1e-6)
+        shape = (rows, dk)
+        k2[shape] = {k: _graph_ms(torch, fn, 100) for k, fn in fns.items()}
+        k2[shape].setdefault("lib", None)
+        k2[shape]["host"] = _events_ms(torch, fns["ms"], 200)
+        k2[shape]["bound"] = max(
+            (2 * rows * dk * 2 + dk * 2) / HBM_BYTES_PER_S,
+            4 * rows * dk / F32_FLOPS) * 1e3
         # the fused entry: x and a read, r and y written, w read
         f = {}
         for rounded in (False, True):
             ffns = {"ms": lambda: add_rmsnorm_cuda(
-                        x, a, w, norm_of_rounded=rounded),
+                        x, a, wk, norm_of_rounded=rounded),
                     "plain": lambda: ref.add_rmsnorm_ref(
-                        x, a, w, norm_of_rounded=rounded),
-                    "chain": lambda: unfused(x, a, w,
+                        x, a, wk, norm_of_rounded=rounded),
+                    "chain": lambda: unfused(x, a, wk,
                                              norm_of_rounded=rounded)}
             f[rounded] = {k: _graph_ms(torch, fn, 100)
                           for k, fn in ffns.items()}
             f[rounded]["host"] = _events_ms(torch, ffns["ms"], 200)
-        k2f[rows] = dict(f[True], bound=max(
-            (4 * rows * d * 2 + d * 2) / HBM_BYTES_PER_S,
-            5 * rows * d / F32_FLOPS) * 1e3)
-        print(f"[numbers] {card} rmsnorm ({rows}, {d}) bf16, device ms per "
-              f"call in a CUDA graph: kernel {k2[rows]['ms']:.5f} ms, plain "
-              f"{k2[rows]['plain']:.5f} ms, F.rms_norm {k2[rows]['lib']} ms, "
-              f"bound {k2[rows]['bound']:.5f} ms, empty kernel {floor:.5f} "
+        k2f[shape] = dict(f[True], bound=max(
+            (4 * rows * dk * 2 + dk * 2) / HBM_BYTES_PER_S,
+            5 * rows * dk / F32_FLOPS) * 1e3)
+        print(f"[numbers] {card} rmsnorm ({rows}, {dk}) bf16, device ms per "
+              f"call in a CUDA graph: kernel {k2[shape]['ms']:.5f} ms, plain "
+              f"{k2[shape]['plain']:.5f} ms, F.rms_norm {k2[shape]['lib']} ms, "
+              f"bound {k2[shape]['bound']:.5f} ms, empty kernel {floor:.5f} "
               f"ms; kernel call back to back from the host "
-              f"{k2[rows]['host']:.5f} ms")
+              f"{k2[shape]['host']:.5f} ms")
         for rounded in (False, True):
             g = f[rounded]
-            print(f"[numbers] {card} add_rmsnorm ({rows}, {d}) bf16, "
+            print(f"[numbers] {card} add_rmsnorm ({rows}, {dk}) bf16, "
                   f"norm_of_rounded={rounded}, device ms per call in a CUDA "
                   f"graph: kernel {g['ms']:.5f} ms ({g['ms'] / floor:.3f}x "
                   f"the empty kernel's {floor:.5f}), bound "
-                  f"{k2f[rows]['bound']:.5f} ms ({k2f[rows]['bound'] / g['ms']:.4f}"
+                  f"{k2f[shape]['bound']:.5f} ms ({k2f[shape]['bound'] / g['ms']:.4f}"
                   f" of it), plain {g['plain']:.5f} ms, the unfused chain it "
                   f"replaces (add, norm kernel{'' if rounded else ', cast'}) "
                   f"{g['chain']:.5f} ms; kernel call back to back from the "
@@ -2181,6 +2345,149 @@ def main() -> int:
           f"phase 13 took {t13:.1f} s; memory (GB allocated after, peak "
           f"during) {mem13}")
 
+    # ---- 14. the MoE family at full width through EASEY ------------------
+    t14 = time.perf_counter()
+    mem14 = []              # (what, GB allocated after it, its peak GB)
+
+    def mark14(what):
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem14.append((what, round(torch.cuda.memory_allocated() / 1e9, 1),
+                      round(torch.cuda.max_memory_allocated() / 1e9, 1)))
+        torch.cuda.reset_peak_memory_stats()
+    mark14("before phase 14")
+    gr = get_config("granite-moe-3b-a800m")
+    gl = gr.num_layers
+    cmd14 = ("serve --arch granite-moe-3b-a800m --kv-layout paged --batch 8 "
+             "--max-len 512 --requests 8 --prefill 256 --decode 32")
+    app14 = parse_appfile(f"FROM arch:granite-moe-3b-a800m\nSHAPE "
+                          f"decode_32k\n###include_local_kernels###\nRUN "
+                          f"{cmd14}\n")
+    spec14 = parse_jobspec({"job": {"name": "serve-granite-moe"},
+                            "execution": [{"serial": {"command": cmd14}}]})
+    reset_counts()
+    (mw14, jid14, res14), easey14_s = _timed(run_easey, app14, "nvidia:h100",
+                                             spec14, storage=work13)
+    moe_launches = counts()
+    if mw14.status(jid14) is not JobState.FINISHED:
+        raise AssertionError(f"MoE serving job {mw14.status(jid14).value}: "
+                             f"{mw14.logs(jid14)[1][-3000:]}")
+    if (res14.step_name, res14.program["arch"], sorted(res14.built)) != \
+            ("decode_step", "sm_90a", ["paged_attention", "rmsnorm"]):
+        raise AssertionError(f"MoE serving build: {res14.step_name}, "
+                             f"{res14.program['arch']}, built {res14.built}")
+    out14 = mw14.scheduler.result(jid14)[0]
+    st14 = out14["stats"]
+    ticks14, chunks14 = st14.decode_steps, st14.prefill_chunks
+    # per step: layer 0's first norm alone, then 2 fused add + norms a layer
+    want = {"paged_attention": gl * ticks14, "rmsnorm": ticks14 + chunks14,
+            "add_rmsnorm": 2 * gl * (ticks14 + chunks14),
+            "sedov_stencil": 0, "flash_attention": 0}
+    if (out14["kv_kernel"], moe_launches) != ("cuda", want):
+        raise AssertionError(f"MoE serve ({out14['kv_kernel']}): launches "
+                             f"{moe_launches} != {want}")
+    if len(st14.results) != 8 or any(
+            len(r.tokens) != 32 or
+            not all(0 <= x < gr.vocab_size for x in r.tokens)
+            for r in st14.results):
+        raise AssertionError("MoE serve: not every request complete")
+    easey14 = (_streams(st14), st14.tokens_per_s, dict(res14.built))
+    del mw14, res14, out14, st14
+    mark14("granite-moe-3b-a800m EASEY job")
+
+    eng14 = ServeEngine(arch="granite-moe-3b-a800m", kv_layout="paged",
+                        kv_kernel="cuda", num_slots=8, max_len=512, seed=0,
+                        log=quiet)
+    eng14_chunk = eng14.prefill_chunk
+    reqs14 = serving.uniform_trace(8, gr.vocab_size, prompt_len=256,
+                                   max_new=32, seed=0)
+    with _RouteLog(moe) as log14:
+        if _streams(eng14.run(reqs14)) != easey14[0]:
+            raise AssertionError("granite-moe-3b-a800m: the engine's streams "
+                                 "differ from the EASEY job's on the same "
+                                 "trace")
+    drops_per_step = log14.chunk_drops(gl)
+    # teacher forcing, with each decode call's routing recorded: the kernel
+    # step, then the gather and the control steps, gl calls each a tick
+    with _RouteLog(moe) as log14:
+        st_tf, tf14, calls14 = _teacher_forced_run(
+            torch, ref, ops, eng14, reqs14,
+            build_decode_step_slots_paged(eng14.model, use_kernel=False),
+            build_decode_step_slots_paged(eng14.model, use_kernel=True),
+            torch.Generator(device="cuda").manual_seed(0))
+    routed = log14.decode_slots()
+    # per tick, the first layer whose routing (of all 8 rows) parts from
+    # the gather path's
+    parts = []
+    for t, rec in enumerate(tf14):
+        k_, g_ = routed[3 * gl * t:3 * gl * t + gl], \
+            routed[3 * gl * t + gl:3 * gl * t + 2 * gl]
+        parts.append(next((i for i in range(gl)
+                           if not torch.equal(k_[i], g_[i])), None))
+    per_layer = [round(max(c["ratio"] for c in calls14[i::gl]), 3)
+                 for i in range(gl)]
+    print(f"[moe] {card} granite-moe-3b-a800m teacher-forced, {len(tf14)} "
+          f"ticks: K1 vs plain max {max(c['ratio'] for c in calls14):.4g} of "
+          f"the two-rounding bound over {len(calls14)} calls (per layer "
+          f"{per_layer}); logits vs gather per tick "
+          f"{[round(t['rel'], 4) for t in tf14]}, control "
+          f"{[round(t['ctrl'], 4) for t in tf14]}; "
+          f"{sum(t['flips'] for t in tf14)} of "
+          f"{sum(t['live'] for t in tf14)} greedy picks differ; first layer "
+          f"whose routing parts from the gather path's, per tick: {parts}")
+    _teacher_forced_gates("granite-moe-3b-a800m", tf14, calls14, len(reqs14))
+    del st_tf, routed, log14
+
+    # the decode tick and the chunk step at full width, on a pool
+    # mid-generation (phase 5's lengths)
+    pool14 = eng14.make_pool()
+    for n in main_lens:
+        slot = pool14.alloc()
+        pool14.reserve_prefix(slot, n)
+        pool14.set_length(slot, n - 1)
+    pool14.cache["index"].copy_(torch.as_tensor(pool14.lengths,
+                                                dtype=torch.int32))
+    pages14 = torch.as_tensor(pool14.page_table, device="cuda")
+    ctoks14 = torch.ones((1, eng14.prefill_chunk), dtype=torch.int32,
+                         device="cuda")
+    row14 = pages14[0].contiguous()
+
+    def tick14():
+        return eng14.decode_fn(pool14.cache, tok, act, pages14)
+
+    def chunk14():
+        return eng14.chunk_fn(pool14.cache, ctoks14, 0, 0,
+                              eng14.prefill_chunk, eng14.prefill_chunk,
+                              row14)
+    tick14_ms = _events_ms(torch, tick14, 10)
+    chunk14_ms = _events_ms(torch, chunk14, 10)
+    prof14 = (_profile_ticks(torch, card, "granite-moe-3b-a800m decode tick",
+                             tick14, n=5),
+              _profile_ticks(torch, card, "granite-moe-3b-a800m chunk step",
+                             chunk14, n=3))
+    del pool14
+    tps14 = [eng14.run(reqs14).tokens_per_s for _ in range(2)]
+    t14 = time.perf_counter() - t14
+    peak14 = torch.cuda.max_memory_allocated() / 1e9
+    del eng14
+    mark14("granite-moe-3b-a800m engine, teacher-forced and timed runs")
+    print(f"[moe] {card} run_easey(granite-moe-3b-a800m serving Appfile, "
+          f"nvidia:h100): build {easey14[2]} for {_build.ARCH}, job finished "
+          f"in {easey14_s:.1f} s; {gl} layers, {gr.num_experts} experts "
+          f"top-{gr.experts_per_token}, d {gr.d_model}, "
+          f"{param_count_estimate(gr) / 1e9:.3f} B parameters; {ticks14} "
+          f"decode ticks, {chunks14} chunk steps, launches {moe_launches} "
+          f"(K1 = {gl} x every tick, K2 on every norm); the engine's streams "
+          f"equal the job's; assignments dropped past capacity per chunk "
+          f"step ({eng14_chunk} tokens, capacity "
+          f"{moe.expert_capacity(gr, eng14_chunk)} per expert): "
+          f"{drops_per_step}; decode tick (8 slots, {sum(main_lens)} held "
+          f"tokens) {tick14_ms:.3f} ms, chunk step {chunk14_ms:.3f} ms (CUDA "
+          f"events), profiler: tick {prof14[0]}, chunk step {prof14[1]}; "
+          f"tokens/s EASEY {easey14[1]:.2f}, engine {[round(v, 2) for v in tps14]}"
+          f" (not gated); phase 14 took {t14:.1f} s; peak memory "
+          f"{peak14:.1f} GB; memory (GB allocated after, peak during) {mem14}")
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -2189,10 +2496,11 @@ def main() -> int:
          "router_launches": router_k1,
          "easey_serve_launches": easey_counts["paged_attention"],
          "stablelm_launches": st_counts["paged_attention"],
+         "granite_moe_launches": moe_launches["paged_attention"],
          "max_abs_err": k1_err,
          "ms": k1["ms"], "plain_ms": k1["plain"], "bound_ms": k1["bound"],
          "bound_by": k1["bound_by"], "library_ms": k1["lib"],
-         # the two attention shapes this slice's configs add (phase 2)
+         # the attention shapes of the configs ported since (phase 2)
          "shapes": {n: {"ms": r["ms"], "plain_ms": r["plain"],
                         "bound_ms": r["bound"], "library_ms": r["lib"]}
                     for n, r in k1_new.items()}},
@@ -2201,10 +2509,15 @@ def main() -> int:
          "replaces": "src/repro/kernels/rmsnorm.py:38",
          "launches": launches["rmsnorm"],
          "easey_serve_launches": easey_counts["rmsnorm"],
+         "granite_moe_launches": moe_launches["rmsnorm"],
          "max_abs_err": k2_err,
-         "ms": k2[8]["ms"], "plain_ms": k2[8]["plain"],
-         "bound_ms": k2[8]["bound"], "bound_by": "bytes",
-         "library_ms": k2[8]["lib"]},
+         "ms": k2[8, d]["ms"], "plain_ms": k2[8, d]["plain"],
+         "bound_ms": k2[8, d]["bound"], "bound_by": "bytes",
+         "library_ms": k2[8, d]["lib"],
+         "shapes": {"granite-moe-3b-a800m (8, 1536)": {
+             "ms": k2[8, d_gr]["ms"], "plain_ms": k2[8, d_gr]["plain"],
+             "bound_ms": k2[8, d_gr]["bound"],
+             "library_ms": k2[8, d_gr]["lib"]}}},
         # the fused entry of the same kernel (norm_of_rounded=True) at
         # (8, 4096); its plain version is the eager add and norm, and no
         # one PyTorch call computes it: library_ms is null
@@ -2213,10 +2526,14 @@ def main() -> int:
          "replaces": "src/repro/kernels/rmsnorm.py:38",
          "launches": launches["add_rmsnorm"],
          "easey_serve_launches": easey_counts["add_rmsnorm"],
+         "granite_moe_launches": moe_launches["add_rmsnorm"],
          "max_abs_err": k2f_err,
-         "ms": k2f[8]["ms"], "plain_ms": k2f[8]["plain"],
-         "bound_ms": k2f[8]["bound"], "bound_by": "bytes",
-         "library_ms": None},
+         "ms": k2f[8, d]["ms"], "plain_ms": k2f[8, d]["plain"],
+         "bound_ms": k2f[8, d]["bound"], "bound_by": "bytes",
+         "library_ms": None,
+         "shapes": {"granite-moe-3b-a800m (8, 1536)": {
+             "ms": k2f[8, d_gr]["ms"], "plain_ms": k2f[8, d_gr]["plain"],
+             "bound_ms": k2f[8, d_gr]["bound"], "library_ms": None}}},
         # no one PyTorch call computes the fused step: library_ms is null
         {"name": "sedov_stencil", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sedov_stencil.cu",

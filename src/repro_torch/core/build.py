@@ -79,7 +79,7 @@ def _lm_sources(cfg, kind: str) -> tuple[str, ...]:
     if cfg.family not in SERVABLE_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not served by the port yet "
-            f"(ROADMAP slices D, F)")
+            f"(ROADMAP slice F)")
     norm = ("rmsnorm",) if cfg.norm == "rmsnorm" else ()
     return (("paged_attention",) if kind == "decode" else ()) + norm
 

@@ -64,6 +64,18 @@ def param_count_estimate(cfg: ModelConfig) -> int:
     return param_count(model_for(cfg).param_table())
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: only the top-k experts)."""
+    total = param_count_estimate(cfg)
+    if cfg.family != "moe":
+        return total
+    gated = 3 if cfg.activation in ("silu", "geglu") else 2
+    per_expert = gated * cfg.d_model * cfg.d_ff
+    inactive = (cfg.num_experts - cfg.experts_per_token) * per_expert * \
+        cfg.num_layers
+    return total - inactive
+
+
 def kv_bytes_per_token(cfg: ModelConfig) -> int:
     """Device bytes one KV-cache token costs (k+v, all layers) — the unit
     the serve-mode budget is denominated in."""
@@ -135,7 +147,7 @@ def _plan_serve(plan: DeploymentPlan, cfg: ModelConfig, shape: ShapeConfig,
     expected_len = max(int(shape.seq_len * SERVE_EXPECTED_LEN_FRACTION), 1)
     # chunked-prefill grain: one chunk's FLOPs fit in one decode tick
     # (bandwidth-bound on the weights), power-of-two bucketed
-    flops_tok = 2 * P                        # dense: every param is active
+    flops_tok = 2 * active_param_count(cfg)
     t_tick = max(param_bytes / chips / target.hbm_bw,
                  plan.serve_slots * flops_tok / target.peak_flops)
     c_raw = t_tick * target.peak_flops / max(flops_tok, 1)

@@ -2,7 +2,7 @@
 ``repro/launch/serve.py`` — a thin CLI over the continuous-batching
 ``ServeEngine`` and the ``ReplicaRouter`` (``repro_torch/serving/``).
 
-The dense family goes through the engine: a KV-cache pool sized by the
+Dense and MoE families go through the engine: a KV-cache pool sized by the
 tuner's serve-mode branch (``--kv-layout contiguous`` reserves
 slots x max_len worst cases; ``--kv-layout paged`` buys a page pool with
 the same budget and admits by actual tokens), slot-wise decode with

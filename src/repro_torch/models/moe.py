@@ -1,0 +1,153 @@
+"""Token-choice top-k Mixture-of-Experts, granite-moe and dbrx (port of
+``repro/models/moe.py``).
+
+Dispatch is the reference's: GShard capacity per batch row, a token's k
+choices ranked in ``lax.top_k``'s order, slots assigned in token order,
+assignments past an expert's capacity ``C`` dropped to the sentinel slot
+``E·C``; a slot -> token scatter, a row gather with a zero pad row, the
+three expert products, and the gate-weighted combine.  The layer runs
+chunked over the sequence as the reference's does.
+
+Rounding follows XLA's CPU compilation of the reference (its HLO): the
+router product and the softmax in f32, each expert product rounded once
+to bf16, the SiLU rounded step by step (``layers.silu``), and the gates
+rounded to bf16 before an f32 weighted sum over the k choices, itself
+rounded once.  Two things torch would otherwise do differently:
+
+* XLA's CPU flushes denormals to zero; torch keeps them.  A saturated
+  router row leaves probabilities such as 1e-40, whose order would then
+  decide which zero-weight experts a token takes — and those still
+  take capacity from later tokens.  ``route_tokens`` flushes them.
+* ``torch.topk`` breaks ties in no fixed order; ``lax.top_k`` ranks the
+  larger value first and a tie by the lower index, which a stable
+  descending sort gives.
+
+The expert and router products are plain matrix products (the
+reference computes them as XLA einsums outside any Pallas kernel).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.params import ParamDef
+from repro_torch.models.transformer import DenseLM
+
+_MOE_SEQ_CHUNK = 2048
+_F32_TINY = torch.finfo(torch.float32).tiny
+
+
+def moe_defs(cfg) -> dict:
+    E, m, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    d = {
+        "router": ParamDef((m, E), ("embed", "experts")),
+        "wi": ParamDef((E, m, f), ("experts", "embed", "mlp")),
+        "wo": ParamDef((E, f, m), ("experts", "mlp", "embed")),
+    }
+    if cfg.activation in ("silu", "geglu"):
+        d["wg"] = ParamDef((E, m, f), ("experts", "embed", "mlp"))
+    return d
+
+
+def expert_capacity(cfg, S: int) -> int:
+    """Slots per expert for a chunk of S tokens a batch row: the
+    capacity factor's share, at least 1, rounded up to a multiple of 8."""
+    C = max(int(cfg.capacity_factor * cfg.experts_per_token * S
+                / cfg.num_experts), 1)
+    return -(-C // 8) * 8
+
+
+def route_tokens(router_logits: torch.Tensor, k: int, capacity: int):
+    """router_logits: (b, s, E) f32.  Returns (slot, gates, keep, aux).
+
+    slot: (b, s*k) int32 in [0, E*C]; E*C is the drop sentinel.
+    Position-in-expert is assigned in token order per batch row (GShard).
+    gates: (b, s, k) f32, renormalized over the k choices; keep: (b, s*k)
+    bool; aux: the Switch load-balance loss E * sum_e f_e * P_e.
+    """
+    b, s, E = router_logits.shape
+    probs = L._softmax(router_logits)
+    probs = probs.masked_fill(probs < _F32_TINY, 0.0)   # XLA's flush
+    ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = ranked[..., :k], order[..., :k]
+    # summed in rank order, as XLA's reduce loop does: the same bits on
+    # every device (a tree sum of 8 x f32(1/40) is 0.2, in order 0.20000002)
+    total = gate_vals[..., 0]
+    for i in range(1, k):
+        total = total + gate_vals[..., i]
+    gate_vals = gate_vals / total.clamp_min(1e-9)[..., None]
+    flat_e = expert_idx.reshape(b, s * k)
+    experts = torch.arange(E, device=flat_e.device)
+    oh = (flat_e[..., None] == experts).to(torch.int32)  # (b, s*k, E)
+    pos = oh.cumsum(1, dtype=torch.int32) - oh           # rank within expert
+    pos_in_e = pos.gather(-1, flat_e[..., None])[..., 0]
+    keep = pos_in_e < capacity
+    slot = torch.where(keep, flat_e * capacity + pos_in_e,
+                       E * capacity).to(torch.int32)
+    frac = oh.reshape(b, s, k, E).sum(2).float().mean((0, 1)) / k
+    aux = E * (frac * probs.mean((0, 1))).sum()
+    return slot, gate_vals, keep, aux
+
+
+def moe_mlp_chunk(p: dict, x: torch.Tensor, cfg):
+    """x: (b, S, m) one sequence chunk.  Returns (y, aux)."""
+    b, S, m = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    C = expert_capacity(cfg, S)
+    logits = torch.einsum("bsm,me->bse", x.float(), p["router"].float())
+    slot, gates, keep, aux = route_tokens(logits, k, C)
+
+    # slot -> token scatter (column E*C takes every dropped assignment and
+    # is cut off), then the row gather; row S of x_pad is the zero pad
+    rows = torch.arange(b, device=x.device)[:, None]
+    tok_ids = (torch.arange(S * k, device=x.device) // k).expand(b, S * k)
+    slot_tok = torch.full((b, E * C + 1), S, dtype=torch.int64,
+                          device=x.device)
+    slot_tok.scatter_(1, slot.long(), tok_ids)
+    x_pad = torch.cat([x, x.new_zeros(b, 1, m)], dim=1)
+    ex = x_pad[rows, slot_tok[:, :E * C]].reshape(b, E, C, m)
+
+    h = torch.einsum("becm,emf->becf", ex, p["wi"])
+    if "wg" in p:
+        h = L.silu(torch.einsum("becm,emf->becf", ex, p["wg"])) * h
+    elif cfg.activation == "sq_relu":
+        h = L.sq_relu(h)
+    else:
+        raise NotImplementedError(
+            f"activation {cfg.activation!r} is not ported yet "
+            f"(ROADMAP: other arch configs)")
+    ye = torch.einsum("becf,efm->becm", h, p["wo"])
+
+    ye_pad = torch.cat([ye.reshape(b, E * C, m), ye.new_zeros(b, 1, m)],
+                       dim=1)
+    y_assign = ye_pad[rows, slot.long()].reshape(b, S, k, m)
+    w = (gates * keep.reshape(b, S, k)).to(x.dtype)
+    y = torch.einsum("bskm,bsk->bsm", y_assign.float(), w.float())
+    return y.to(x.dtype), aux
+
+
+def moe_mlp(p: dict, x: torch.Tensor, cfg):
+    """Chunked over the sequence; returns (y, mean aux loss)."""
+    b, s, m = x.shape
+    chunk = min(_MOE_SEQ_CHUNK, s)
+    if s <= chunk:
+        return moe_mlp_chunk(p, x, cfg)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the MoE chunk "
+                         f"{chunk}")
+    ys, auxs = zip(*(moe_mlp_chunk(p, x[:, i:i + chunk], cfg)
+                     for i in range(0, s, chunk)))
+    return torch.cat(ys, dim=1), torch.stack(auxs).mean()
+
+
+class MoELM(DenseLM):
+    """Dense attention + MoE FFN.  The aux loss of the last MoE layer run
+    stays on ``_last_aux`` for training's loss (ROADMAP slice E)."""
+
+    def mlp_defs(self) -> dict:
+        return moe_defs(self.cfg)
+
+    def mlp_apply(self, p, h):
+        y, self._last_aux = moe_mlp(p, h, self.cfg)
+        return y

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense family (port of
-``repro/models/transformer.py``).
+"""Decoder-only transformer LM, dense family, and the model of each
+family (port of ``repro/models/transformer.py``).
 
 The parameter table is the reference's: per-block weights carry a
 leading ``layers`` axis.  A Python loop over per-layer views of those
@@ -52,7 +52,10 @@ class DenseLM:
         return {"ln1": L.norm_defs(cfg.d_model, cfg.norm),
                 "attn": L.attention_defs(cfg),
                 "ln2": L.norm_defs(cfg.d_model, cfg.norm),
-                "mlp": L.mlp_defs(cfg)}
+                "mlp": self.mlp_defs()}
+
+    def mlp_defs(self) -> dict:
+        return L.mlp_defs(self.cfg)
 
     def param_table(self) -> dict:
         cfg = self.cfg
@@ -79,7 +82,10 @@ class DenseLM:
         # residual stream itself is rounded; both are mirrored here
         x, h = L.add_norm(p["ln2"], x, attn_out, cfg.norm,
                           norm_of_rounded=False)
-        return x, L.mlp(p["mlp"], h, cfg), new_cache
+        return x, self.mlp_apply(p["mlp"], h), new_cache
+
+    def mlp_apply(self, p, h):
+        return L.mlp(p, h, self.cfg)
 
     def layer_params(self, params) -> list[dict]:
         """Per-layer views of the stacked block weights, built once per
@@ -175,8 +181,11 @@ class DenseLM:
 
 
 def model_for(cfg: ModelConfig) -> DenseLM:
-    """The model of ``cfg.family`` (dense only so far)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP slices D, F)")
-    return DenseLM(cfg)
+    """The model of ``cfg.family`` (dense and MoE so far)."""
+    if cfg.family == "dense":
+        return DenseLM(cfg)
+    if cfg.family == "moe":
+        from repro_torch.models.moe import MoELM
+        return MoELM(cfg)
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet (ROADMAP slice F)")

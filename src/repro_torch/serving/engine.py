@@ -70,7 +70,7 @@ from repro_torch.training.steps import (build_decode_step_slots,
                                         build_verify_step_slots,
                                         build_verify_step_slots_paged)
 
-SERVABLE_FAMILIES = ("dense",)
+SERVABLE_FAMILIES = ("dense", "moe")
 KV_LAYOUTS = ("contiguous", "paged")
 KV_KERNELS = ("auto", "gather", "cuda")
 
@@ -119,7 +119,7 @@ class ServeEngine:
         if cfg.family not in SERVABLE_FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not served by the port yet "
-                f"(ROADMAP slices D, F)")
+                f"(ROADMAP slice F)")
         if cfg.window:
             raise NotImplementedError(
                 "slot-wise decode does not support sliding-window attention")

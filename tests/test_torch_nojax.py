@@ -46,6 +46,9 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
             "import repro_torch.configs.stablelm_1_6b\n"
             "import repro_torch.configs.mistral_large_123b\n"
             "import repro_torch.configs.nemotron_4_340b\n"
+            "import repro_torch.models.moe\n"
+            "import repro_torch.configs.granite_moe_3b_a800m\n"
+            "import repro_torch.configs.dbrx_132b\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
