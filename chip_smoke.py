@@ -34,7 +34,13 @@ Phases, each of which raises on failure:
    calls bitwise equal (``_k2_hold``); then the MoE router's
    ``route_tokens`` on the card (``_route_checks``: rows of exact ties
    and saturated rows with denormal probabilities, bit for bit equal to
-   the CPU's result and to ``lax.top_k``'s choice);
+   the CPU's result and to ``lax.top_k``'s choice); then K2's gradient
+   (``_k2_grad_hold``) at (8, 4096) and (4096, 4096) bf16, both entries
+   and both forms of the fused one: the ``torch.autograd.Function``'s
+   forward bit-equal to the direct kernel call, its dx/da/dw bitwise
+   equal to the plain backward on the same inputs, and within one bf16
+   step of each value plus 2^-8 of the largest of autograd through the
+   plain version, the backward's time printed beside the forward's;
 3. stream identity at smoke size: ``deepseek-7b-smoke`` served through
    ``ServeEngine`` on the serving benchmark's trace (continuous and
    static batching, blocking and chunked prefill) and on a scarce-page
@@ -55,7 +61,21 @@ Phases, each of which raises on failure:
    ``granite-moe-3b-a800m-smoke`` and ``dbrx-132b-smoke``, on the trace
    of the reference's MoE serving tests (6 requests, 3 slots x 48):
    identical streams paged (page 8) on the kernel and on the gather
-   path, contiguous, and chunked (chunk 4) against blocking;
+   path, contiguous, and chunked (chunk 4) against blocking; then
+   training at smoke size through the BuildService's train step, as
+   ``train_main`` builds it (``_train_smoke``): ``deepseek-7b-smoke``
+   and ``granite-moe-3b-a800m-smoke``, 6 steps, ``adamw`` and
+   ``adamw8bit``, 1 and 2 microbatches, ``ef_int8`` on and off, each
+   under remat ``none``, ``dots`` and ``full`` with bitwise equal losses
+   and states and K2 on every norm of every forward and recompute
+   (counted); ``deepseek-7b-smoke``'s step-0 gradients per leaf
+   (``_smoke_grads``): the kernel path against the plain path, and the
+   card against the CPU's plain path, each within LOGITS_VS_CONTROL x
+   its control, the control at most GRAD_CONTROL_MAX; through
+   ``train_main``, a run failing at step 3 restarts from its
+   checkpoint to the uninterrupted run's state bit for bit, a second run
+   from the seed repeats the loss bits, and ``run_easey`` of a smoke
+   training Appfile to ``nvidia:h100`` ends ``finished`` with K2 built;
 4. the slice at full width: ``deepseek-7b`` (random weights from a seed)
    on one card, 8 greedy requests through the paged engine built with
    its defaults, with the kernels on every step, counted (the fused
@@ -168,7 +188,21 @@ Phases, each of which raises on failure:
    printing per tick the first layer whose routing parts from the gather
    path's; the assignments dropped past capacity per chunk step, the
    decode tick and the chunk step (CUDA events and the profiler),
-   tokens/s and the memory printed, not gated.
+   tokens/s and the memory printed, not gated;
+15. training at full width (``_train_full``): ``deepseek-7b`` (30
+   layers, d 4096, 6.91 B parameters, random weights from the seed),
+   ``seq_len`` 1024 x batch 4 under the tuner's plan (``adamw8bit``, f32
+   accumulation, ``dots`` remat, 1 microbatch): step 0's per-token
+   losses and per-leaf gradients on the kernel path within
+   LOGITS_VS_CONTROL x the control's distance from the plain path (the
+   control: every norm of the rounded sum; the block weights drawn at
+   their layers' fan-in, the control at most GRAD_CONTROL_MAX), K2 counted in the forward (61) and in the remat
+   recompute (60), the kernel path's step 0 repeated bit for bit; the
+   optimizer's update timed and one step profiled;
+   then 4 steps of ``train_main`` with K2 on every norm (counted per
+   step), every loss and grad norm finite, the loss curve printed beside
+   the plain path's, ms per step, tokens/s and the peak memory printed,
+   not gated.
 
 The second-to-last line of output is the card's ``name, power.limit``;
 before it a JSON line lists every kernel with its launches on its path's
@@ -179,13 +213,16 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -268,6 +305,26 @@ STENCIL_TOL_1, STENCIL_TOL_10 = 1e-5, 1e-4
 STENCIL_FIELDS = ("rho", "e", "v", "t")
 # the LULESH run: the paper's Listing 1.5 at a single-GPU grid
 LULESH_ITERS, LULESH_GRID = 1000, 256
+# K2's gradient (phase 2): the Function's against autograd through the
+# plain version, each element within K2_GRAD_RTOL of its value plus
+# K2_GRAD_ATOL of the largest: the Function rounds the norm's input
+# cotangent to bf16 before it meets the stream's (the reference's VJP),
+# autograd adds the two in f32 and rounds once
+K2_GRAD_SHAPES = ((8, 4096), (4096, 4096))
+K2_GRAD_RTOL, K2_GRAD_ATOL = 2.0 ** -7, 2.0 ** -8
+# the training phases: smoke-size runs (phase 3) and the full-width
+# deepseek-7b run (phase 15, the tuner's plan at seq 1024 x batch 4)
+TRAIN_SMOKE_ARCHS = ("deepseek-7b-smoke", "granite-moe-3b-a800m-smoke")
+TRAIN_SMOKE_STEPS = 6
+TRAIN_GRAD_SMOKE = "deepseek-7b-smoke"
+TRAIN_FULL = dict(arch="deepseek-7b", seq_len=1024, global_batch=4, steps=4)
+# the step-0 gradient gates (phases 3 and 15) draw each stacked block
+# weight at its layer's own fan-in (``_fan_in_draw``), and each holds the
+# control's per-leaf reading (relative L2 from the plain path) at or
+# under GRAD_CONTROL_MAX: then LOGITS_VS_CONTROL x the control stays
+# under 1.0, the reading of a zero gradient (2.0 for one of flipped
+# sign), so the gate fails either
+GRAD_CONTROL_MAX = 0.25
 # f32 operations of one fused step per zone (sedov_stencil.cu, counted
 # once per zone: EOS 2, div 8, q 4, pq 1, 1/rho 2, momentum 15, div 8,
 # energy 5, mass 4)
@@ -382,6 +439,43 @@ def _graph_pairs_ms(torch, fn, flush, n: int) -> float:
     neither the host's launch delay nor the flush is in the time."""
     return _graph_ms(torch, lambda: (flush(), fn()), n) - \
         _graph_ms(torch, flush, n)
+
+
+def _host_us(torch, fn, n: int = 2000) -> float:
+    """Host microseconds per call of ``fn`` (the device drained before and
+    after, so the launches are what is timed)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / n
+
+
+def _host_us_per_call(torch, layers, cfg) -> dict:
+    """The host cost, under no_grad at a decode tick's shapes, of the
+    model's one-path SiLU (its autograd Function) and embedding gather
+    (indexing), each against the plain expression it replaced
+    (``x * (1 / (1 + exp(-x)))``, ``index_select``), timed in turns
+    (A, B, B, A): name -> (one path, replaced)."""
+    x = torch.randn(8, 1, cfg.d_ff, device="cuda", dtype=torch.bfloat16)
+    table = torch.randn(cfg.vocab_size, cfg.d_model, device="cuda",
+                        dtype=torch.bfloat16)
+    ids = torch.randint(0, cfg.vocab_size, (8,), device="cuda")
+    pairs = {"silu": (lambda: layers.silu(x),
+                      lambda: x * (1 / (1 + torch.exp(-x)))),
+             "embed": (lambda: table[ids],
+                       lambda: table.index_select(0, ids))}
+    out = {}
+    with torch.no_grad():
+        for name, (a, b) in pairs.items():
+            ta = _host_us(torch, a)
+            tb = _host_us(torch, b) + _host_us(torch, b)
+            ta += _host_us(torch, a)
+            out[name] = (ta / 2, tb / 2)
+    return out
 
 
 def _profile_ticks(torch, card: str, what: str, tick, n: int) -> dict:
@@ -1221,6 +1315,534 @@ def _flash_full(torch, ref, flash_cuda, card, b, s, t, H, K, dh) -> dict:
             flops / BF16_TENSOR_FLOPS else "operations", "err": err}
 
 
+def _k2_grad_hold(torch, ref, ops, rmsnorm_cuda, add_rmsnorm_cuda, rows,
+                  d, gen) -> dict:
+    """K2's ``torch.autograd.Function`` (``ops.rmsnorm``, ``ops.add_rmsnorm``
+    under grad) at (rows, d) bf16, each entry and both forms of the fused
+    one: its forward bit-equal to the direct kernel call, its gradients
+    (dx, da, dw) bitwise equal to the plain backward fed the same saved
+    inputs and cotangents (the backward is that function), and within
+    K2_GRAD_RTOL of each value plus K2_GRAD_ATOL of the largest of
+    autograd through the plain version.  Returns the largest share of
+    that tolerance and the forward's and backward's device ms."""
+    def rnd(scale=1.0, shape=(rows, d)):
+        return (scale * torch.randn(shape, device=gen.device, generator=gen)
+                ).to(torch.bfloat16)
+    x, a, gr, gy = rnd(3.0), rnd(), rnd(), rnd()
+    w = (1 + 0.1 * torch.randn(d, device=gen.device, generator=gen)
+         ).to(torch.bfloat16)
+    share, times = 0.0, {}
+    for form in ("rmsnorm", False, True):
+        leaves = [t.clone().requires_grad_() for t in (x, a, w)]
+        plain = [t.clone().requires_grad_() for t in (x, a, w)]
+        if form == "rmsnorm":
+            xs, _, ws = leaves
+            y = ops.rmsnorm(xs, ws)
+            direct = rmsnorm_cuda(x, w)
+            outs, cots, want_direct = [y], [gy], [direct]
+            ref.rmsnorm_ref(plain[0], plain[2]).backward(gy)
+            want = ref.rmsnorm_bwd_ref(x, w, gy)
+            got = (xs, ws)
+            plain_g = (plain[0].grad, plain[2].grad)
+            fwd = lambda: rmsnorm_cuda(x, w)  # noqa: E731
+            bwd = lambda: ref.rmsnorm_bwd_ref(x, w, gy)  # noqa: E731
+        else:
+            xs, as_, ws = leaves
+            outs = list(ops.add_rmsnorm(xs, as_, ws, norm_of_rounded=form))
+            cots = [gr, gy]
+            want_direct = list(add_rmsnorm_cuda(x, a, w,
+                                                norm_of_rounded=form))
+            torch.autograd.backward(list(ref.add_rmsnorm_ref(
+                *plain, norm_of_rounded=form)), cots)
+            d_, dw = ref.add_rmsnorm_bwd_ref(x, a, w, gr, gy,
+                                             norm_of_rounded=form)
+            want = (d_, d_, dw)
+            got = (xs, as_, ws)
+            plain_g = tuple(t.grad for t in plain)
+            fwd = lambda: add_rmsnorm_cuda(  # noqa: E731
+                x, a, w, norm_of_rounded=form)
+            bwd = lambda: ref.add_rmsnorm_bwd_ref(  # noqa: E731
+                x, a, w, gr, gy, norm_of_rounded=form)
+        name = f"K2 Function ({rows}, {d}) {form}"
+        if not all(torch.equal(o, dd) for o, dd in zip(outs, want_direct)):
+            raise AssertionError(f"{name}: forward differs from the direct "
+                                 f"kernel call")
+        if type(outs[-1].grad_fn).__name__ not in ("_RMSNormBackward",
+                                                   "_AddRMSNormBackward"):
+            raise AssertionError(f"{name}: not through the Function")
+        torch.autograd.backward(outs, cots)
+        for t, wnt, pg in zip(got, want, plain_g):
+            if not torch.equal(t.grad, wnt):
+                raise AssertionError(f"{name}: gradient differs from the "
+                                     f"plain backward on the same inputs")
+            pf = pg.float()
+            lim = K2_GRAD_RTOL * pf.abs() + K2_GRAD_ATOL * pf.abs().max()
+            share = max(share, float(((t.grad.float() - pf).abs() /
+                                      lim.clamp_min(1e-30)).max()))
+        times[form] = (_graph_ms(torch, fwd, 20), _graph_ms(torch, bwd, 20))
+    if share > 1:
+        raise AssertionError(f"K2 Function ({rows}, {d}): gradients "
+                             f"{share:.4g} of the tolerance from autograd "
+                             f"through the plain version")
+    return {"share": share, "ms": times}
+
+
+class _PlainNorms:
+    """Within the block, K2's forward on CUDA tensors is its plain version
+    (``ref``), the Function and its backward unchanged: the plain path of
+    the training gates.  ``rounded`` also makes every fused norm read the
+    rounded sum (``layers.add_norm``): the control."""
+
+    def __init__(self, ops, ref, layers, rounded=False):
+        self.ops, self.ref, self.layers, self.rounded = ops, ref, layers, \
+            rounded
+
+    def __enter__(self):
+        ops, ref, layers = self.ops, self.ref, self.layers
+        self.saved = (ops.rmsnorm_cuda, ops.add_rmsnorm_cuda,
+                      layers.add_norm)
+        ops.rmsnorm_cuda = lambda x, w, *, eps=1e-6, out_dtype=None: \
+            ref.rmsnorm_ref(x, w, eps=eps, out_dtype=out_dtype)
+        ops.add_rmsnorm_cuda = lambda x, a, w, *, eps=1e-6, \
+            norm_of_rounded: ref.add_rmsnorm_ref(
+                x, a, w, eps=eps, norm_of_rounded=norm_of_rounded)
+        if self.rounded:
+            plain = layers.add_norm
+            layers.add_norm = lambda p, x, a, kind, norm_of_rounded=True: \
+                plain(p, x, a, kind, norm_of_rounded=True)
+        return self
+
+    def __exit__(self, *exc):
+        (self.ops.rmsnorm_cuda, self.ops.add_rmsnorm_cuda,
+         self.layers.add_norm) = self.saved
+        return False
+
+
+def _leaf_grads(torch, leaves) -> dict:
+    """path -> list of gradients (one per layer of a stacked leaf)."""
+    out = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], path + (k,))
+        else:
+            out.setdefault("/".join(path), []).append(tree.grad)
+    for k, v in leaves.items():
+        for layer in (v if isinstance(v, list) else [v]):
+            walk(layer, (k,))
+    return out
+
+
+def _grad_errs(torch, got: dict, want: dict) -> dict:
+    """Relative L2 distance of each leaf's gradient (over all its layers)."""
+    errs = {}
+    for path, ws in want.items():
+        num = sum(float((g.float() - w.float()).square().sum())
+                  for g, w in zip(got[path], ws))
+        den = sum(float(w.float().square().sum()) for w in ws)
+        errs[path] = (num / max(den, 1e-30)) ** 0.5
+    return errs
+
+
+def _same_state(torch, a, b, what: str, path="") -> None:
+    """Two train states bitwise equal, leaf by leaf."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{what}: state keys {sorted(a)} != "
+                                 f"{sorted(b)} at {path or '/'}")
+        for k in a:
+            _same_state(torch, a[k], b[k], what, f"{path}/{k}")
+    elif not torch.equal(a, b):
+        raise AssertionError(f"{what}: {path} differs")
+
+
+def _fan_in_draw(m, params) -> None:
+    """Redraw, in place, every stacked block matrix at its own layer's
+    fan-in.  The init law (the reference's) takes a stacked weight's
+    fan-in from its layer axis: at 30 layers every block weight is drawn
+    at 1/sqrt(30), attention saturates, and one bf16 step of the forward
+    decorrelates the block gradients (relative L2 ~1.3 from the plain
+    path for the kernel path and the control alike), so no gate could
+    tell a right gradient from a wrong one.  The contracted axes are the
+    embedding for wq, wk and wv, and all but the layer and output axes
+    for the others."""
+    for path, w in m.leaf_items(params["blocks"]):
+        if w.dim() < 3:
+            continue                    # the norms' per-layer scales
+        fan_in = w.shape[1] if path[-1] in ("wq", "wk", "wv") \
+            else math.prod(w.shape[1:-1])
+        w.mul_(math.sqrt(w.shape[0] / fan_in))
+
+
+def _step0(torch, m, model, params, batch, plain=False, rounded=False,
+           counted=None):
+    """Step 0 on the kernel path: (the loss, each token's loss, the
+    per-leaf gradients, launches); with ``plain`` K2's plain forward (the
+    Function and its backward as they are), with ``rounded`` also every
+    norm of the rounded sum (the control).  With ``counted`` (a function
+    that reads and resets the launch counts) the launches are (the
+    forward's, the backward's), else None."""
+    leaves = model.train_leaves(params)
+    with _PlainNorms(m.ops, m.ref, m.layers, rounded) if plain \
+            else contextlib.nullcontext():
+        if counted:
+            counted()
+        logits, _ = model.full_forward(leaves, batch["tokens"])
+        # the model's loss: the mean of the per-token losses below
+        loss = m.layers.softmax_xent(logits, batch["labels"],
+                                     batch.get("loss_mask"))
+        with torch.no_grad():
+            f = logits.float()
+            per_token = torch.logsumexp(f, dim=-1) - f.gather(
+                -1, batch["labels"][..., None].long())[..., 0]
+        del logits, f
+        fwd = counted() if counted else None
+        loss.backward()
+        launches = (fwd, counted()) if counted else None
+    return float(loss.detach()), per_token, _leaf_grads(torch, leaves), \
+        launches
+
+
+def _rel_l2(torch, got, want) -> float:
+    return float((got.float() - want.float()).norm() /
+                 want.float().norm().clamp_min(1e-30))
+
+
+def _hold_grads(what: str, tok_k, tok_c, err_k, err_c) -> None:
+    """The step-0 gate: every reading finite; the kernel path's per-token
+    losses (``tok_k``, and ``tok_c`` the control's: relative L2 from the
+    plain path's)
+    and each leaf's gradient within LOGITS_VS_CONTROL x the control's
+    distance from the plain path, and each of the control's gradient
+    readings at most GRAD_CONTROL_MAX.  Per-token losses, not their
+    mean: the mean's difference is one draw of a sum of rounding noise,
+    and one such draw exceeds twice another of the same size about 3
+    times in 10 (2/pi x atan(1/2)); the relative L2 over every token
+    does not swing so."""
+    if not all(map(math.isfinite, (tok_k, tok_c, *err_k.values(),
+                                   *err_c.values()))):
+        raise AssertionError(f"{what}: a loss or gradient is not finite")
+    if tok_k > LOGITS_VS_CONTROL * tok_c:
+        raise AssertionError(f"{what} per-token losses: kernel {tok_k} "
+                             f"from the plain path's, beyond "
+                             f"{LOGITS_VS_CONTROL} x the control's {tok_c}")
+    loose = {k: v for k, v in err_c.items() if v > GRAD_CONTROL_MAX}
+    if loose:
+        raise AssertionError(f"{what}: the control reads {loose}, over "
+                             f"{GRAD_CONTROL_MAX}: the gate would not "
+                             f"discriminate")
+    over = {k: (err_k[k], err_c[k]) for k in err_k
+            if err_k[k] > LOGITS_VS_CONTROL * err_c[k]}
+    if over:
+        raise AssertionError(f"{what} gradients beyond {LOGITS_VS_CONTROL}"
+                             f" x the control's: {over}")
+
+
+def _smoke_grads(torch, m, card) -> dict:
+    """Phase 3's step-0 gradient gate at TRAIN_GRAD_SMOKE's width on the
+    card, under ``dots`` (phase 15's policy), its block weights drawn at
+    their layers' fan-in: the kernel path against the plain path with the
+    control of ``_hold_grads``; then the card's kernel path against the
+    CPU's plain path (remat ``none``) from the same weights and batch,
+    which holds what is not K2 (the remat policy, the SiLU's and the
+    embedding's backward, the per-layer leaves) within LOGITS_VS_CONTROL
+    x the CPU's own control.  Returns the readings."""
+    cfg = m.get_config(TRAIN_GRAD_SMOKE)
+    shape = dataclasses.replace(m.SHAPES["train_4k"], seq_len=64,
+                                global_batch=4)
+    model = m.model_for(cfg, remat="dots")
+    params = m.init_params(model.param_table(),
+                           torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    _fan_in_draw(m, params)
+    batch = m.DataPipeline(model, shape, seed=0, device="cuda").batch_at(0)
+    loss_k, tok_k, g_k, _ = _step0(torch, m, model, params, batch)
+    loss_p, tok_p, g_p, _ = _step0(torch, m, model, params, batch,
+                                   plain=True)
+    loss_c, tok_c, g_c, _ = _step0(torch, m, model, params, batch,
+                                   plain=True, rounded=True)
+    err_k, err_c = _grad_errs(torch, g_k, g_p), _grad_errs(torch, g_c, g_p)
+    tok = (_rel_l2(torch, tok_k, tok_p), _rel_l2(torch, tok_c, tok_p))
+    _hold_grads(f"{TRAIN_GRAD_SMOKE} step 0 on the card", *tok, err_k,
+                err_c)
+    # the same step on the CPU's plain path, and its control
+    cpu_model = m.model_for(cfg, remat="none")
+    cpu_params = m.tree_map(lambda t: t.cpu(), params)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    loss_h, tok_h, g_h, _ = _step0(torch, m, cpu_model, cpu_params,
+                                   cpu_batch)
+    loss_hc, tok_hc, g_hc, _ = _step0(torch, m, cpu_model, cpu_params,
+                                      cpu_batch, plain=True, rounded=True)
+    err_kh = _grad_errs(torch, {k: [g.cpu() for g in v]
+                                for k, v in g_k.items()}, g_h)
+    err_hc = _grad_errs(torch, g_hc, g_h)
+    tok_h = (_rel_l2(torch, tok_k.cpu(), tok_h), _rel_l2(torch, tok_hc,
+                                                         tok_h))
+    _hold_grads(f"{TRAIN_GRAD_SMOKE} step 0, card vs CPU", *tok_h, err_kh,
+                err_hc)
+    r6 = lambda d: {k: round(v, 6) for k, v in d.items()}  # noqa: E731
+    print(f"[smoke] {card} {TRAIN_GRAD_SMOKE} step 0 (4 x 64 tokens, remat "
+          f"dots, block weights at their layers' fan-in): loss kernel "
+          f"{loss_k:.6f}, plain {loss_p:.6f}, control {loss_c:.6f}, CPU "
+          f"{loss_h:.6f}, CPU control {loss_hc:.6f}; per-token losses rel "
+          f"L2, kernel vs plain {tok[0]:.4g}, control vs plain {tok[1]:.4g},"
+          f" card kernel vs CPU plain {tok_h[0]:.4g}, CPU control vs CPU "
+          f"{tok_h[1]:.4g}; per-leaf gradient rel L2, kernel vs plain "
+          f"{r6(err_k)}, control vs plain {r6(err_c)}; card kernel vs CPU "
+          f"plain {r6(err_kh)}, CPU control vs CPU {r6(err_hc)} (each <= "
+          f"{LOGITS_VS_CONTROL} x its control, each gradient control <= "
+          f"{GRAD_CONTROL_MAX})")
+    return {"kernel": err_k, "control": err_c, "card_vs_cpu": err_kh,
+            "cpu_control": err_hc}
+
+
+def _smoke_run(torch, m, arch: str, over: dict):
+    """TRAIN_SMOKE_STEPS steps of ``arch`` (4 x 64 tokens, weights and
+    batches from seed 0) on the card, under the tuner's ``nvidia:h100``
+    plan with the plan fields ``over``: built by the BuildService and
+    stepped by its train step, as ``train_main`` builds and steps it.
+    Returns (plan, per-step losses, final state)."""
+    app = m.AppSpec(arch=arch, shape="train_4k",
+                    shape_overrides={"seq_len": 64, "global_batch": 4},
+                    run=f"train --steps {TRAIN_SMOKE_STEPS}")
+    res = m.BuildService().build(app, "nvidia:h100", overrides=over,
+                                 lower=False)
+    plan = res.plan
+    model = m.model_for(app.model_config, remat=plan.remat_policy)
+    params = m.init_params(res.tables["params"],
+                           torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    state = m.init_train_state(model, m.make_optimizer(plan.optimizer),
+                               params, plan)
+    pipeline = m.DataPipeline(model, app.shape_config, seed=0,
+                              device="cuda")
+    losses = []
+    for step in range(TRAIN_SMOKE_STEPS):
+        state, metrics = res.step_fn(state, pipeline.batch_at(step))
+        losses.append(float(metrics["loss"]))
+    return plan, losses, state
+
+
+def _train_smoke(torch, m, counts, reset_counts) -> dict:
+    """Phase 3's training at smoke size: every (optimizer, microbatches,
+    ef_int8) under remat none, dots and full, whose losses and final
+    states must be bitwise equal, with K2 on every norm of every forward
+    and of every recompute: per microbatch, layer 0's first norm
+    (``rmsnorm``) and 2 L fused add + norms (``add_rmsnorm``: the blocks'
+    norms and ``ln_f``) in the forward, and all but ``ln_f`` again in a
+    remat recompute."""
+    per_step, final = {}, {}
+    for arch in TRAIN_SMOKE_ARCHS:
+        L = m.get_config(arch).num_layers
+        for opt in ("adamw", "adamw8bit"):
+            for micro in (1, 2):
+                for ef in ("none", "ef_int8"):
+                    runs = {}
+                    for remat in ("none", "dots", "full"):
+                        over = dict(optimizer=opt, microbatches=micro,
+                                    grad_compression=ef, remat_policy=remat)
+                        reset_counts()
+                        plan, losses, state = _smoke_run(torch, m, arch,
+                                                         over)
+                        got = counts()
+                        r = int(remat != "none")
+                        want = dict(got, rmsnorm=micro * (1 + r) *
+                                    TRAIN_SMOKE_STEPS,
+                                    add_rmsnorm=micro * (2 * L + r * (
+                                        2 * L - 1)) * TRAIN_SMOKE_STEPS)
+                        name = f"{arch} {over}"
+                        if got != want or got["paged_attention"]:
+                            raise AssertionError(f"{name}: launches {got} "
+                                                 f"!= {want}")
+                        if (plan.optimizer, plan.microbatches,
+                                plan.grad_compression, plan.remat_policy) != \
+                                (opt, micro, ef, remat) or \
+                                not all(map(math.isfinite, losses)):
+                            raise AssertionError(f"{name}: plan {plan}, "
+                                                 f"losses {losses}")
+                        runs[remat] = (losses, state)
+                        per_step[(arch, micro, remat)] = {
+                            k: v // TRAIN_SMOKE_STEPS for k, v in got.items()
+                            if v}
+                    for remat in ("dots", "full"):
+                        if runs[remat][0] != runs["none"][0]:
+                            raise AssertionError(
+                                f"{arch} {opt} x{micro} {ef}: remat {remat} "
+                                f"losses {runs[remat][0]} != none's "
+                                f"{runs['none'][0]}")
+                        _same_state(torch, runs["none"][1], runs[remat][1],
+                                    f"{arch} {opt} x{micro} {ef} remat "
+                                    f"{remat} vs none")
+                    final[(arch, opt, micro, ef)] = round(
+                        runs["none"][0][-1], 4)
+    return {"k2_per_step": per_step, "final": final}
+
+
+def _train_full(torch, m, card, counts, reset_counts, quiet) -> dict:
+    """Phase 15: TRAIN_FULL's model trained on one card, as ``train_main``
+    runs it under the tuner's plan (``adamw8bit``, f32 accumulation,
+    ``dots``, 1 microbatch).  Step 0's per-token losses and per-leaf
+    gradients on the kernel path against the plain path's (K2's plain forward, the same
+    Function and backward), each within LOGITS_VS_CONTROL x the control's
+    (the plain path with every norm of the rounded sum), the block weights
+    drawn at their layers' fan-in (``_fan_in_draw``) so that the control
+    reads at most GRAD_CONTROL_MAX (``_hold_grads``), K2's launches in
+    the forward and in the recompute counted, the kernel path's repeated
+    bit for bit; the optimizer's update timed; one step profiled; then
+    ``TRAIN_FULL["steps"]`` steps of ``train_main`` on the kernel path
+    (K2 counted per step, every loss and grad norm finite) beside the
+    plain path's.  Returns K2's launches per step."""
+    t15 = time.perf_counter()
+    mem15 = []              # (what, GB allocated after it, its peak GB)
+
+    def mark15(what):
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem15.append((what, round(torch.cuda.memory_allocated() / 1e9, 1),
+                      round(torch.cuda.max_memory_allocated() / 1e9, 1)))
+        torch.cuda.reset_peak_memory_stats()
+    mark15("before phase 15")
+    ds = m.get_config(TRAIN_FULL["arch"])
+    shape15 = dataclasses.replace(m.SHAPES["train_4k"],
+                                  seq_len=TRAIN_FULL["seq_len"],
+                                  global_batch=TRAIN_FULL["global_batch"])
+    plan15 = m.tune(ds, shape15, m.get_target("nvidia:h100"))
+    if (plan15.optimizer, plan15.grad_accum_dtype, plan15.remat_policy,
+            plan15.microbatches) != ("adamw8bit", "float32", "dots", 1):
+        raise AssertionError(f"deepseek-7b train plan: {plan15.report()}")
+    tokens15 = TRAIN_FULL["seq_len"] * TRAIN_FULL["global_batch"]
+    model15 = m.model_for(ds, remat=plan15.remat_policy)
+    params15 = m.init_params(model15.param_table(),
+                             torch.Generator(device="cuda").manual_seed(0),
+                             "cuda")
+    # the gradient gate's weights: each block matrix at its layer's fan-in
+    _fan_in_draw(m, params15)
+    batch15 = m.DataPipeline(model15, shape15, seed=0,
+                             device="cuda").batch_at(0)
+
+    def counted():
+        got = counts()
+        reset_counts()
+        return got
+    loss_k, tok_k, g_k, (fwd15, rec15) = _step0(
+        torch, m, model15, params15, batch15, counted=counted)
+    mark15("step 0 on the kernel path")
+    # repeated, bit for bit (the embedding's backward sums a repeated
+    # token's rows in a fixed order)
+    loss_k2, _, g_k2, _ = _step0(torch, m, model15, params15, batch15)
+    for path, gs in g_k.items():
+        if loss_k2 != loss_k or not all(map(torch.equal, gs, g_k2[path])):
+            raise AssertionError(f"deepseek-7b step 0 repeated: {path} "
+                                 f"differs (loss {loss_k} then {loss_k2})")
+    del g_k2
+    mark15("step 0 on the kernel path, repeated")
+    loss_p, tok_p, g_p, _ = _step0(torch, m, model15, params15, batch15,
+                                   plain=True)
+    err_k = _grad_errs(torch, g_k, g_p)
+    del g_k
+    mark15("step 0 on the plain path")
+    loss_c, tok_c, g_c, _ = _step0(torch, m, model15, params15, batch15,
+                                   plain=True, rounded=True)
+    err_c = _grad_errs(torch, g_c, g_p)
+    del g_c
+    tok15 = (_rel_l2(torch, tok_k, tok_p), _rel_l2(torch, tok_c, tok_p))
+    mark15("step 0 on the control")
+    # per microbatch: layer 0's first norm, then the fused add + norms of
+    # the blocks and ln_f; the remat recompute runs all but ln_f again
+    nl15 = ds.num_layers
+    r15 = int(plan15.remat_policy != "none")
+    want_fwd = {"rmsnorm": 1, "add_rmsnorm": 2 * nl15}
+    want_rec = {"rmsnorm": 1, "add_rmsnorm": 2 * nl15 - 1} if r15 else {}
+    got_fwd = {k: v for k, v in fwd15.items() if v}
+    got_rec = {k: v for k, v in rec15.items() if v}
+    print(f"[train] {card} deepseek-7b step 0 (seq {TRAIN_FULL['seq_len']} "
+          f"x batch {TRAIN_FULL['global_batch']}, remat "
+          f"{plan15.remat_policy}, block weights at their layers' fan-in): "
+          f"K2 launches in the forward {got_fwd} (predicted {1 + 2 * nl15}),"
+          f" in the backward's recompute {got_rec} (predicted {2 * nl15}); "
+          f"loss kernel {loss_k:.6f}, plain {loss_p:.6f}, control "
+          f"{loss_c:.6f}; per-token losses rel L2 vs plain, kernel "
+          f"{tok15[0]:.4g}, control {tok15[1]:.4g}; per-leaf gradient rel "
+          f"L2 vs plain, kernel "
+          f"{({k: round(v, 6) for k, v in err_k.items()})}, control "
+          f"{({k: round(v, 6) for k, v in err_c.items()})} (kernel <= "
+          f"{LOGITS_VS_CONTROL} x control, control <= {GRAD_CONTROL_MAX})")
+    if (got_fwd, got_rec) != (want_fwd, want_rec):
+        raise AssertionError(f"deepseek-7b step 0: K2 launches forward "
+                             f"{got_fwd} != {want_fwd} or recompute "
+                             f"{got_rec} != {want_rec}")
+    _hold_grads("deepseek-7b step 0", *tok15, err_k, err_c)
+    # the optimizer's update alone (plain gradients, 8-bit moments), and
+    # one whole step under the profiler
+    opt15 = m.make_optimizer(plan15.optimizer)
+    state15 = m.init_train_state(model15, opt15, params15, plan15)
+    grads_tree = {}
+    for path, gs in g_p.items():
+        node = grads_tree
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = gs if path.startswith("blocks/") else gs[0]
+    lr15 = torch.tensor(3e-4, device="cuda")
+    update_ms = _events_ms(torch, lambda: opt15.update(
+        grads_tree, state15["opt"], params15, lr15), 2)
+    del grads_tree, g_p
+    mark15("optimizer update timed")
+    step15 = m.build_train_step(model15, opt15, plan15)
+    prof15 = _profile_ticks(torch, card, "deepseek-7b train step",
+                            lambda: step15(state15, batch15), n=1)
+    del state15, params15, step15, model15
+    mark15("one step profiled")
+
+    # train_main at full width: the kernel path, then the plain path
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run15 = m.train_main(**TRAIN_FULL, log=quiet)
+    train_counts = counts()
+    peak15 = torch.cuda.max_memory_allocated() / 1e9
+    if run15["plan"].remat_policy != plan15.remat_policy or \
+            run15["plan"].optimizer != plan15.optimizer or \
+            run15["device"] != "cuda":
+        raise AssertionError(f"train_main: {run15['plan'].report()}")
+    per_step15 = {k: want_fwd[k] + want_rec.get(k, 0) for k in want_fwd}
+    got15 = {k: v for k, v in train_counts.items() if v}
+    if got15 != {k: v * TRAIN_FULL["steps"] for k, v in per_step15.items()}:
+        raise AssertionError(f"train_main: K2 launches {got15} in "
+                             f"{TRAIN_FULL['steps']} steps, not "
+                             f"{per_step15} each")
+    if not all(map(math.isfinite, run15["losses"] + run15["grad_norms"])):
+        raise AssertionError(f"train_main: losses {run15['losses']}, grad "
+                             f"norms {run15['grad_norms']}")
+    del run15["state"]
+    mark15("train_main, kernel path")
+    with _PlainNorms(m.ops, m.ref, m.layers):
+        run15p = m.train_main(**TRAIN_FULL, log=quiet)
+    del run15p["state"]
+    mark15("train_main, plain path")
+    step_ms = [round(1e3 * v, 3) for v in run15["step_s"]]
+    steady = run15["step_s"][1:] or run15["step_s"]
+    tps15 = tokens15 * len(steady) / sum(steady)
+    t15 = time.perf_counter() - t15
+    print(f"[train] {card} train_main(deepseek-7b, {ds.num_layers} layers, "
+          f"d {ds.d_model}, {ds.num_heads} heads of {ds.head_dim}, vocab "
+          f"{ds.vocab_size}, {m.param_count_estimate(ds) / 1e9:.3f} B "
+          f"parameters, random weights from seed 0; plan "
+          f"{plan15.optimizer}, {plan15.grad_accum_dtype} accumulation, "
+          f"remat {plan15.remat_policy}, {plan15.microbatches} microbatch), "
+          f"{TRAIN_FULL['steps']} steps of {tokens15} tokens: losses "
+          f"kernel path {[round(v, 5) for v in run15['losses']]}, plain "
+          f"path {[round(v, 5) for v in run15p['losses']]}; grad norms "
+          f"{[round(v, 4) for v in run15['grad_norms']]}; K2 launches per "
+          f"step {per_step15}; ms per step {step_ms} (host clock, device "
+          f"drained), steps 1.. {tokens15 * len(steady)} tokens in "
+          f"{sum(steady):.3f} s = {tps15:.1f} tokens/s; the optimizer's "
+          f"update {update_ms:.3f} ms (CUDA events); profiler {prof15}; "
+          f"peak memory {peak15:.1f} GB (predicted 55-60); phase 15 took "
+          f"{t15:.1f} s; memory (GB allocated after, peak during) {mem15}")
+    return per_step15
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1251,7 +1873,16 @@ def main() -> int:
     from repro_torch.serving import (ReplicaRouter, Request, ServeEngine,
                                      repetitive_trace, sharedprefix_trace,
                                      zipf_trace)
-    from repro_torch.training.steps import build_decode_step_slots_paged
+    from repro_torch.training.steps import (build_decode_step_slots_paged,
+                                            build_train_step,
+                                            init_train_state)
+    from repro_torch.launch.train import train_main
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.models import layers
+    from repro_torch.models.params import init_params, leaf_items, tree_map
+    from repro_torch.core.build import BuildService
+    from repro_torch.models.transformer import model_for
+    from repro_torch.optim import make_optimizer
 
     wrappers = {"paged_attention": paged_attention_cuda,
                 "rmsnorm": rmsnorm_cuda, "add_rmsnorm": add_rmsnorm_cuda,
@@ -1396,6 +2027,21 @@ def main() -> int:
           f"softmax on the CPU, {denormal['cuda']} on the card, flushed), "
           f"slot, keep and gates equal the CPU's bit for bit and lax.top_k's "
           f"choice")
+    k2g = {shape: _k2_grad_hold(torch, ref, ops, rmsnorm_cuda,
+                                add_rmsnorm_cuda, *shape,
+                                torch.Generator(device="cuda").manual_seed(2))
+           for shape in K2_GRAD_SHAPES}
+    for shape, h in k2g.items():
+        print(f"[kernels] K2's gradient at {shape} bf16 (ops.rmsnorm and "
+              f"ops.add_rmsnorm under grad, both forms): forward bit-equal "
+              f"to the direct kernel call, dx/da/dw bitwise equal to the "
+              f"plain backward on the same inputs, within "
+              f"{h['share']:.4f} of the tolerance (rtol {K2_GRAD_RTOL:.4g}, "
+              f"atol {K2_GRAD_ATOL:.4g} of the largest) from autograd "
+              f"through the plain version; device ms (forward kernel, "
+              f"backward) rmsnorm {h['ms']['rmsnorm']}, fused of the f32 sum "
+              f"{h['ms'][False]}, of the rounded sum {h['ms'][True]} "
+              f"(CUDA graphs)")
 
     # ---- 3. stream identity at smoke size ------------------------------
     smoke = get_config("deepseek-7b-smoke")
@@ -1535,6 +2181,76 @@ def main() -> int:
           f"3 slots x 48: identical greedy streams paged (kernel and "
           f"gather) and contiguous, chunked (chunk 4) and blocking; (decode "
           f"steps, chunk steps) {moe_counts}")
+    mt = types.SimpleNamespace(
+        get_config=get_config, tune=tune, get_target=get_target,
+        SHAPES=SHAPES, model_for=model_for, init_params=init_params,
+        DataPipeline=DataPipeline, ops=ops, ref=ref, layers=layers,
+        make_optimizer=make_optimizer, init_train_state=init_train_state,
+        build_train_step=build_train_step, train_main=train_main,
+        param_count_estimate=param_count_estimate, AppSpec=AppSpec,
+        BuildService=BuildService, tree_map=tree_map, leaf_items=leaf_items)
+    train_smoke, train_s = _timed(_train_smoke, torch, mt, counts,
+                                  reset_counts)
+    print(f"[smoke] training {TRAIN_SMOKE_ARCHS}, {TRAIN_SMOKE_STEPS} steps "
+          f"of 4 x 64 tokens through the BuildService's train step on the "
+          f"card ({train_s:.1f} "
+          f"s): adamw and adamw8bit, 1 and 2 microbatches, ef_int8 on and "
+          f"off, each under remat none, dots and full with bitwise equal "
+          f"losses and states, K2 on every norm of every forward and "
+          f"recompute (per step {train_smoke['k2_per_step']}); final losses "
+          f"{train_smoke['final']}")
+    _smoke_grads(torch, mt, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tdir:
+        kw = dict(arch="deepseek-7b-smoke", steps=TRAIN_SMOKE_STEPS,
+                  seq_len=64, global_batch=4, ckpt_every=2,
+                  async_ckpt=False, log=quiet)
+        clean = train_main(ckpt_dir=f"{tdir}/a", **kw)
+        faulty = train_main(ckpt_dir=f"{tdir}/b", fail_at=(3,), **kw)
+        again = train_main(**kw)
+        if (clean["restarts"], faulty["restarts"]) != (0, 1):
+            raise AssertionError(f"restarts {clean['restarts']}, "
+                                 f"{faulty['restarts']} != 0, 1")
+        _same_state(torch, clean["state"], faulty["state"],
+                    "a run restarted from its checkpoint")
+        if again["losses"] != clean["losses"]:
+            raise AssertionError(f"two runs from one seed: losses "
+                                 f"{again['losses']} != {clean['losses']}")
+        _same_state(torch, clean["state"], again["state"],
+                    "a second run from the same seed")
+        del clean, faulty, again
+        cmd = "train --steps 4 --seq-len 64 --global-batch 4"
+        app = parse_appfile(f"FROM arch:deepseek-7b-smoke\nSHAPE train_4k\n"
+                            f"###include_local_kernels###\nRUN {cmd}\n")
+        spec = parse_jobspec({"job": {"name": "train-smoke"}, "execution": [
+            {"serial": {"command": cmd}}]})
+        reset_counts()
+        mw3, jid3, res3 = run_easey(app, "nvidia:h100", spec,
+                                    storage=f"{tdir}/easey")
+        easey_train = counts()
+        if mw3.status(jid3) is not JobState.FINISHED:
+            raise AssertionError(f"training job {mw3.status(jid3).value}: "
+                                 f"{mw3.logs(jid3)[1][-3000:]}")
+        out3 = mw3.scheduler.result(jid3)[0]
+        if (res3.step_name, sorted(res3.built), list(
+                res3.program["kernels"])) != ("train_step", ["rmsnorm"],
+                                              ["rmsnorm"]):
+            raise AssertionError(f"training build: {res3.step_name}, "
+                                 f"built {res3.built}, program "
+                                 f"{res3.program['kernels']}")
+        if easey_train["add_rmsnorm"] == 0 or out3["steps"] != 4 or \
+                out3["device"] != "cuda" or \
+                not np.isfinite(out3["losses"]).all():
+            raise AssertionError(f"training job: launches {easey_train}, "
+                                 f"{out3['steps']} steps on "
+                                 f"{out3['device']}, losses "
+                                 f"{out3['losses']}")
+        del mw3, out3
+    print(f"[smoke] deepseek-7b-smoke, {TRAIN_SMOKE_STEPS} steps with "
+          f"checkpoints every 2: a run failing at step 3 restarts once "
+          f"from its checkpoint and ends in the uninterrupted run's state "
+          f"bit for bit; a second run from the same seed repeats its loss "
+          f"bits and state; run_easey(smoke training Appfile, nvidia:h100) "
+          f"finished, build {sorted(res3.built)}, K2 launches {easey_train}")
 
     # ---- 4. the slice at full width ------------------------------------
     reqs = [Request(rid=i, prompt=prng.randint(1, full.vocab_size - 1,
@@ -1789,6 +2505,14 @@ def main() -> int:
           f"unfused, fused): fused {[round(v, 2) for v in e2e['fused']]}, "
           f"unfused {[round(v, 2) for v in e2e['unfused']]} tokens/s; peak "
           f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    host = _host_us_per_call(torch, layers, full)
+    print(f"[numbers] {card} host us per call under no_grad, in turns "
+          f"(one path, the expression it replaced): SiLU Function "
+          f"{host['silu'][0]:.2f} vs {host['silu'][1]:.2f} at (8, 1, "
+          f"{full.d_ff}), {full.num_layers} calls a tick = "
+          f"{full.num_layers * (host['silu'][0] - host['silu'][1]) / 1e3:.4f}"
+          f" ms more; the embedding by indexing {host['embed'][0]:.2f} vs "
+          f"index_select {host['embed'][1]:.2f}, 1 call a tick")
 
     # ---- 6. the stencil against its plain version ------------------------
     grids = (1, 2, 3, 5, 8, 13, 16, 24, 32, 33, 64, 70, 100, LULESH_GRID)
@@ -2488,6 +3212,9 @@ def main() -> int:
           f" (not gated); phase 14 took {t14:.1f} s; peak memory "
           f"{peak14:.1f} GB; memory (GB allocated after, peak during) {mem14}")
 
+    # ---- 15. training at full width ----------------------------------
+    per_step15 = _train_full(torch, mt, card, counts, reset_counts, quiet)
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -2510,6 +3237,10 @@ def main() -> int:
          "launches": launches["rmsnorm"],
          "easey_serve_launches": easey_counts["rmsnorm"],
          "granite_moe_launches": moe_launches["rmsnorm"],
+         # deepseek-7b training (phase 15): per step, forward + recompute
+         "train_launches_per_step": per_step15["rmsnorm"],
+         "backward_ms": {f"{r}x{c}": k2g[(r, c)]["ms"]["rmsnorm"][1]
+                         for r, c in K2_GRAD_SHAPES},
          "max_abs_err": k2_err,
          "ms": k2[8, d]["ms"], "plain_ms": k2[8, d]["plain"],
          "bound_ms": k2[8, d]["bound"], "bound_by": "bytes",
@@ -2527,6 +3258,9 @@ def main() -> int:
          "launches": launches["add_rmsnorm"],
          "easey_serve_launches": easey_counts["add_rmsnorm"],
          "granite_moe_launches": moe_launches["add_rmsnorm"],
+         "train_launches_per_step": per_step15["add_rmsnorm"],
+         "backward_ms": {f"{r}x{c}": k2g[(r, c)]["ms"][True][1]
+                         for r, c in K2_GRAD_SHAPES},
          "max_abs_err": k2f_err,
          "ms": k2f[8, d]["ms"], "plain_ms": k2f[8, d]["plain"],
          "bound_ms": k2f[8, d]["bound"], "bound_by": "bytes",

@@ -1,0 +1,181 @@
+"""Atomic, async-capable checkpointing (port of
+``repro/checkpoint/checkpointer.py``; the archive is the reference's).
+
+* atomic: write to ``step_K.tmp/`` then ``os.rename`` — a crash mid-write
+  never corrupts the latest checkpoint.
+* async: a writer thread drains a queue; the train loop hands over a
+  host snapshot (taken before ``save`` returns, since training updates
+  its tensors in place) and keeps stepping.
+* device-agnostic: leaves are stored as whole host numpy arrays keyed by
+  the reference's paths (``params/blocks/attn/wq``,
+  ``opt/moments/.../m_q``, ``step``), stacked leaves stacked, so either
+  package restores the other's archive.
+* keep-last-k with a manifest for discovery.
+* deterministic bytes: sorted members, fixed zip timestamps, bf16 stored
+  as ``uint16`` with a ``"bfloat16"`` sidecar, and an injectable clock
+  (``now=``) for the metadata — with a fixed clock the archive of a
+  state is byte-identical to the reference's for the same state.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import queue
+import shutil
+import threading
+import time
+import zipfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.models.params import get_path, leaf_items, tree_map
+
+# zip entries need a DOS timestamp; pin the epoch so identical arrays
+# produce identical bytes
+_ZIP_EPOCH = (1980, 1, 1, 0, 0, 0)
+
+
+def _savez_deterministic(path, arrays: dict) -> None:
+    """``np.savez`` minus the wall clock: sorted members, fixed zip
+    timestamps, no compression (np.load reads it like any npz)."""
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+        for key in sorted(arrays):
+            buf = io.BytesIO()
+            np.lib.format.write_array(
+                buf, np.ascontiguousarray(arrays[key]), allow_pickle=False)
+            info = zipfile.ZipInfo(key + ".npy", date_time=_ZIP_EPOCH)
+            info.external_attr = 0o644 << 16
+            zf.writestr(info, buf.getvalue())
+
+
+def _snapshot(state) -> tuple[dict, dict]:
+    """(arrays, dtypes sidecar): a host copy of every tensor, bf16 as its
+    raw ``uint16`` bits."""
+    arrays, meta = {}, {}
+    for path, t in leaf_items(state):
+        key = "/".join(path)
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            arrays[key] = t.view(torch.int16).numpy().view(np.uint16).copy()
+            meta[key] = "bfloat16"
+        else:
+            arrays[key] = t.numpy().copy()
+    return arrays, meta
+
+
+def _rebuild(template, blob, meta):
+    """A tree like ``template`` of the archive's tensors, each on its
+    template's device and in its dtype."""
+    out = tree_map(lambda t: t, template)
+    for path, t in leaf_items(template):
+        key = "/".join(path)
+        arr = blob[key]
+        got = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16) \
+            if meta.get(key) == "bfloat16" else torch.from_numpy(arr)
+        # the writer's ascontiguousarray stores a 0-d leaf as shape (1,)
+        get_path(out, path[:-1])[path[-1]] = got.reshape(t.shape).to(
+            device=t.device, dtype=t.dtype)
+    return out
+
+
+class Checkpointer:
+    def __init__(self, directory: str | Path, keep: int = 3,
+                 async_writes: bool = False,
+                 # advisory default — anything needing byte-identical
+                 # checkpoints injects a fixed clock (tests do)
+                 now=time.time):  # easeylint: allow[wall-clock]
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self.now = now
+        self.async_writes = async_writes
+        self._q: queue.Queue | None = None
+        self._thread = None
+        self._error: BaseException | None = None
+        if async_writes:
+            self._q = queue.Queue(maxsize=2)
+            self._thread = threading.Thread(target=self._drain, daemon=True)
+            self._thread.start()
+
+    # -- public API --
+    def save(self, step: int, state) -> None:
+        snap = _snapshot(state)   # host snapshot taken synchronously
+        if self.async_writes:
+            self._raise_pending()
+            self._q.put((step, snap))
+        else:
+            self._write(step, snap)
+
+    def wait(self) -> None:
+        if self.async_writes:
+            self._q.join()
+            self._raise_pending()
+
+    def latest_step(self) -> int | None:
+        m = self.dir / "manifest.json"
+        if not m.exists():
+            return None
+        steps = json.loads(m.read_text()).get("steps", [])
+        return max(steps) if steps else None
+
+    def restore(self, template, step: int | None = None):
+        """Restore into the structure, dtypes and devices of ``template``
+        (e.g. a freshly initialized state): returns (state, step)."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        d = self.dir / f"step_{step}"
+        meta = json.loads((d / "meta.json").read_text())["dtypes"]
+        with np.load(d / "arrays.npz", allow_pickle=False) as blob:
+            return _rebuild(template, blob, meta), step
+
+    # -- internals --
+    def _write(self, step: int, snap: tuple[dict, dict]):
+        arrays, meta = snap
+        tmp = self.dir / f"step_{step}.tmp"
+        final = self.dir / f"step_{step}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir()
+        _savez_deterministic(tmp / "arrays.npz", arrays)
+        (tmp / "meta.json").write_text(json.dumps(
+            {"step": step, "dtypes": meta, "time": self.now()},
+            sort_keys=True))
+        if final.exists():
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        self._update_manifest(step)
+
+    def _update_manifest(self, step: int):
+        m = self.dir / "manifest.json"
+        steps = []
+        if m.exists():
+            steps = json.loads(m.read_text()).get("steps", [])
+        steps = sorted(set(steps + [step]))
+        while len(steps) > self.keep:
+            victim = steps.pop(0)
+            vdir = self.dir / f"step_{victim}"
+            if vdir.exists():
+                shutil.rmtree(vdir)
+        tmp = self.dir / "manifest.json.tmp"
+        tmp.write_text(json.dumps({"steps": steps}))
+        os.rename(tmp, m)
+
+    def _drain(self):
+        while True:
+            step, snap = self._q.get()
+            try:
+                self._write(step, snap)
+            except BaseException as e:  # surfaced on next save()/wait()
+                self._error = e
+            finally:
+                self._q.task_done()
+
+    def _raise_pending(self):
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e

@@ -16,7 +16,11 @@ built with (``"reference"`` on the CPU target, which builds nothing).
 An LM's ``decode`` and ``prefill`` shapes are the serving app: their
 step is the paged serving engine's, whose hand-written kernels are the
 paged-decode kernel (decode only) and the RMSNorm kernel (rmsnorm
-configs).  The ``train`` shape waits for training (ROADMAP slice E).
+configs).  The ``train`` shape's step is ``training.steps.
+build_train_step`` under the plan (optimizer, microbatches, remat,
+accumulation dtype), returned as ``step_fn`` with its state and batch
+tables; its kernel is the RMSNorm kernel (rmsnorm configs), on every
+norm of the forward and of the remat recompute.
 
 The ``###include_local_kernels###`` directive selects the target's kernel
 library vs the plain PyTorch versions for LM plans, as in the reference.
@@ -27,6 +31,8 @@ from __future__ import annotations
 import dataclasses
 import re
 import time
+from typing import Callable
+
 from repro_torch.core.appspec import AppSpec
 from repro_torch.core.plan import DeploymentPlan
 from repro_torch.core.target import TargetSpec, get_target
@@ -47,6 +53,10 @@ class BuildResult:
     # kernel name -> built library, for the kernels built by this build
     built: dict = dataclasses.field(default_factory=dict)
     timings: dict = dataclasses.field(default_factory=dict)
+    # the train shape's step (state, batch) -> (state, metrics), and its
+    # declarative tables: "state", "batch", "params"
+    step_fn: Callable | None = None
+    tables: dict = dataclasses.field(default_factory=dict)
 
 
 def _timed(fn, *args, **kw):
@@ -72,16 +82,29 @@ def program_description(step_name: str, kernels: str,
 
 
 def _lm_sources(cfg, kind: str) -> tuple[str, ...]:
-    """The kernel sources a served LM's step launches: the paged-decode
-    kernel on every decode tick, the RMSNorm kernel on every norm of an
-    rmsnorm config."""
+    """The kernel sources an LM's step launches: the paged-decode kernel
+    on every decode tick, the RMSNorm kernel on every norm of an rmsnorm
+    config (in training, of the forward and of its remat recompute)."""
     from repro_torch.serving.engine import SERVABLE_FAMILIES
     if cfg.family not in SERVABLE_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not served by the port yet "
-            f"(ROADMAP slice F)")
+            f"family {cfg.family!r} is not ported yet (ROADMAP slice F)")
     norm = ("rmsnorm",) if cfg.norm == "rmsnorm" else ()
     return (("paged_attention",) if kind == "decode" else ()) + norm
+
+
+def _train_step(result: BuildResult, cfg, shape) -> None:
+    """The train step under the plan, and its tables."""
+    from repro_torch.models.transformer import model_for
+    from repro_torch.optim import make_optimizer
+    from repro_torch.training.steps import build_train_step, train_state_table
+    plan = result.plan
+    model = model_for(cfg, remat=plan.remat_policy)
+    opt = make_optimizer(plan.optimizer)
+    result.step_fn = build_train_step(model, opt, plan)
+    result.tables = {"state": train_state_table(model, opt, plan),
+                     "batch": model.batch_table(shape),
+                     "params": model.param_table()}
 
 
 class BuildService:
@@ -108,6 +131,8 @@ class BuildService:
             appspec=appspec, target=target, plan=plan, step_name=step_name,
             program=program_description(step_name, plan.kernels, sources),
             timings={"tune_s": tune_s})
+        if shape.kind == "train":
+            _train_step(result, cfg, shape)
         if lower and sources:
             from repro_torch.kernels import _build
             _, result.timings["build_s"] = _timed(_build.build, sources)

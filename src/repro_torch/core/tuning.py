@@ -1,13 +1,15 @@
-"""AutoTuner, serve branch (port of ``repro/core/tuning.py`` from its
-non-train branch on).
+"""AutoTuner (port of ``repro/core/tuning.py``).
 
 Given (ModelConfig, ShapeConfig, TargetSpec) it derives a DeploymentPlan
-from the target's memory and compute budget: the KV pool in both
-layouts, the chunked-prefill grain, SLO deadlines, the prefix-cache pin
-quota, the speculative draft length and the paged decode kernel.  Every
-``serve_*`` field is computed exactly as the reference computes it, so
-the two packages' plans agree on a shared target.  The reference's
-napkin strings and training shapes wait for later slices (ROADMAP).
+from the target's memory and compute budget.  A train shape gets the
+optimizer variant (f32 vs int8 moments), the gradient accumulation
+dtype and the microbatch / remat / sequence-parallel escalation ladder,
+with the reference's napkin figures and notes.  A serve shape gets the
+KV pool in both layouts, the chunked-prefill grain, SLO deadlines, the
+prefix-cache pin quota, the speculative draft length and the paged
+decode kernel (every ``serve_*`` field as the reference computes it; its
+napkin strings are not ported).  The two packages' plans agree on a
+shared target.
 """
 
 from __future__ import annotations
@@ -94,17 +96,17 @@ def prefix_cache_quota(num_pages: int) -> int:
 
 def tune(cfg: ModelConfig, shape: ShapeConfig, target: TargetSpec,
          overrides: dict | None = None) -> DeploymentPlan:
-    if shape.kind == "train":
-        raise NotImplementedError(
-            "training plans are not ported yet (ROADMAP slice E)")
     plan = DeploymentPlan(
         arch=cfg.name, shape=shape.name, target=target.name,
         mesh_shape=target.mesh_shape, mesh_axes=target.mesh_axes,
         kernels=target.kernels, microbatches=1, remat_policy="none")
-    if cfg.family in ("dense", "moe", "vlm", "encdec"):
+    if shape.kind == "train":
+        _plan_train(plan, cfg, shape, target)
+    elif cfg.family in ("dense", "moe", "vlm", "encdec"):
         _plan_serve(plan, cfg, shape, target)
     # long-context sequence parallelism
-    if shape.seq_len >= 131072 and shape.global_batch < \
+    if shape.kind != "train" and shape.seq_len >= 131072 and \
+            shape.global_batch < \
             dict(zip(target.mesh_axes, target.mesh_shape)).get("data", 1):
         plan.sequence_parallel = True
         plan.notes.append("batch smaller than data axis at long context -> "
@@ -112,6 +114,95 @@ def tune(cfg: ModelConfig, shape: ShapeConfig, target: TargetSpec,
     for k, v in (overrides or {}).items():
         setattr(plan, k, v)
     return plan
+
+
+def _plan_train(plan: DeploymentPlan, cfg: ModelConfig, shape: ShapeConfig,
+                target: TargetSpec) -> None:
+    """Optimizer variant, gradient accumulation dtype, then the cheapest
+    (remat, microbatches, sequence parallel, bf16 grads) that fits the
+    activations in the headroom (the reference's ladder; its temp factor
+    is ~6 x the stacked layer inputs under ``dots``, ~3.5 under full
+    remat)."""
+    chips = target.num_chips
+    P = param_count_estimate(cfg)
+    param_bytes = 2 * P  # bf16
+    plan.napkin["params"] = f"{P/1e9:.2f}B"
+    plan.napkin["param_bytes_per_chip"] = f"{param_bytes/chips/1e9:.3f} GB"
+    budget = 0.85 * target.hbm_bytes
+    fixed = param_bytes / chips
+    grad_fp32 = 4 * P / chips
+    opt_fp32 = 8 * P / chips
+    plan.napkin["opt_fp32_per_chip"] = f"{opt_fp32/1e9:.2f} GB"
+    axes = dict(zip(target.mesh_axes, target.mesh_shape))
+    batch_shards = axes.get("pod", 1) * axes.get("data", 1)
+    model_size = axes.get("model", 1)
+    max_micro = max(int(shape.global_batch // batch_shards), 1)
+    L_eff = cfg.num_layers + cfg.num_encoder_layers
+    width = cfg.d_model if cfg.family not in ("ssm_xlstm", "hybrid_mamba") \
+        else (cfg.ssm_expand + 1) * cfg.d_model
+    tokens_local = shape.global_batch * shape.seq_len / batch_shards
+    # minimum activation footprint (full remat, max microbatches) decides
+    # the optimizer variant up front
+    min_act = 3.5 * (tokens_local / max_micro) * L_eff * width * 2
+    if fixed + opt_fp32 + grad_fp32 + min_act > budget:
+        plan.optimizer = "adamw8bit"
+        opt_bytes = (2 * P + 8 * max(P // 128, 1)) / chips
+        plan.notes.append(
+            "fp32 Adam moments + activations exceed HBM -> int8 moments")
+    else:
+        plan.optimizer = "adamw"
+        opt_bytes = opt_fp32
+    # grad accumulation dtype (the ladder may escalate it)
+    if fixed + opt_bytes + grad_fp32 > budget:
+        plan.grad_accum_dtype = "bfloat16"
+        grad_bytes = 2 * P / chips
+        plan.notes.append("fp32 grad accumulator exceeds budget -> bf16")
+    else:
+        grad_bytes = grad_fp32
+    headroom = budget - fixed - opt_bytes - grad_bytes
+    plan.napkin["headroom_for_activations"] = f"{headroom/1e9:.2f} GB"
+    headroom_bf16_grads = budget - fixed - opt_bytes - 2 * P / chips
+
+    def est_temp(micro, factor, seq_shards=1):
+        saved = (tokens_local / micro) * L_eff * width * 2
+        return factor * saved / seq_shards
+
+    # cheapest knob first, microbatches the inner loop; no sequence
+    # parallelism for MoE (expert dispatch reshards per chunk)
+    ladder = [("dots", 6.0, False, False), ("full", 3.5, False, False),
+              ("dots", 6.0, False, True), ("full", 3.5, False, True)]
+    if cfg.family != "moe":
+        ladder += [("dots", 6.0, True, False), ("full", 3.5, True, False),
+                   ("dots", 6.0, True, True), ("full", 3.5, True, True)]
+    chosen = None
+    for remat, factor, sp, bf16g in ladder:
+        room = headroom_bf16_grads if bf16g else headroom
+        shards = model_size if sp else 1
+        micro = 1
+        while micro <= max_micro:
+            if shape.global_batch % micro == 0 and \
+                    est_temp(micro, factor, shards) <= room:
+                chosen = (remat, micro, sp, bf16g)
+                break
+            micro *= 2
+        if chosen:
+            break
+    if not chosen:
+        chosen = ("full", max_micro, cfg.family != "moe", True)
+        plan.notes.append("I2: memory estimate exceeds HBM even at the "
+                          "top of the escalation ladder")
+    plan.remat_policy, plan.microbatches, plan.sequence_parallel, bf16g = \
+        chosen
+    if bf16g and plan.grad_accum_dtype != "bfloat16":
+        plan.grad_accum_dtype = "bfloat16"
+        plan.notes.append("I2: bf16 grad accumulation (ladder escalation)")
+    if chosen[2]:
+        plan.notes.append("I2: sequence-parallel activations "
+                          "(saved tensors shard over the model axis)")
+    factor = 6.0 if plan.remat_policy == "dots" else 3.5
+    shards = model_size if plan.sequence_parallel else 1
+    plan.napkin["est_temp_per_chip"] = (
+        f"{est_temp(plan.microbatches, factor, shards) / 1e9:.2f} GB")
 
 
 def _plan_serve(plan: DeploymentPlan, cfg: ModelConfig, shape: ShapeConfig,

@@ -1,0 +1,63 @@
+"""Deterministic, restart-safe data pipeline (port of
+``repro/data/pipeline.py``).
+
+Batches are a pure function of (seed, step): after a failure the training
+loop resumes from checkpoint step k and regenerates batch k+1 bit for
+bit.  ``SyntheticSource`` draws the reference's numpy arrays exactly
+(the same ``RandomState`` stream over the same declarative batch table);
+``DataPipeline`` moves them to the training device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.models.params import ParamDef, _map_table
+
+
+@dataclasses.dataclass
+class SyntheticSource:
+    """Language-modeling stream: labels are tokens shifted by one."""
+    vocab_size: int
+    seed: int = 0
+
+    def batch(self, table: dict, step: int) -> dict:
+        """Numpy arrays for ``table`` at ``step`` (the reference's)."""
+        rng = np.random.RandomState((self.seed * 1_000_003 + step)
+                                    % (2**31 - 1))
+
+        def gen(d: ParamDef):
+            if d.dtype != torch.int32:
+                raise NotImplementedError(
+                    f"{d.dtype} inputs come with the other families "
+                    f"(ROADMAP slice F)")
+            hi = max(self.vocab_size - 1, 2)
+            return rng.randint(1, hi, size=d.shape).astype(np.int32)
+
+        out = _map_table(table, gen)
+        # make labels the next-token shift of tokens (real LM objective)
+        if "tokens" in out and "labels" in out:
+            t = out["tokens"]
+            out["labels"] = np.concatenate(
+                [t[:, 1:], np.ones_like(t[:, :1])], axis=1)
+        return out
+
+
+class DataPipeline:
+    """Pipeline facade used by the training driver: the model's batch
+    table for ``shape``, drawn by ``SyntheticSource`` and put on
+    ``device``."""
+
+    def __init__(self, model, shape: ShapeConfig, seed: int = 0,
+                 device: torch.device | str = "cpu"):
+        self.table = model.batch_table(shape)
+        self.source = SyntheticSource(model.cfg.vocab_size or 256, seed)
+        self.device = torch.device(device)
+
+    def batch_at(self, step: int) -> dict:
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in self.source.batch(self.table, step).items()}

@@ -3,6 +3,13 @@
 A CUDA tensor goes to the hand-written kernel (which raises on anything
 it does not take); a CPU tensor goes to the kernel's plain PyTorch
 version in ``kernels/ref.py``.  There is no other fallback.
+
+The RMSNorm entries are differentiable: under grad mode, with an input
+that requires grad, they run through a ``torch.autograd.Function``
+whose forward is the same dispatch (the kernel on the card) and whose
+backward is the plain ``ref.rmsnorm_bwd_ref`` / ``add_rmsnorm_bwd_ref``
+on every device.  Otherwise (serving) they call the forward directly:
+``Function.apply`` costs host time on each of a decode tick's norms.
 """
 
 from __future__ import annotations
@@ -50,14 +57,71 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return ref.paged_attention_ref(q, k_pages, v_pages, page_table, kv_len)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
-            out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Row-wise RMSNorm over the last axis, output in ``out_dtype``
-    (default: x's dtype; see kernels/rmsnorm.py)."""
+def _rmsnorm_fwd(x, w, eps, out_dtype):
     if x.is_cuda:
         return rmsnorm_cuda(x, w, eps=eps, out_dtype=out_dtype)
     _check_cpu(x)
     return ref.rmsnorm_ref(x, w, eps=eps, out_dtype=out_dtype)
+
+
+def _add_rmsnorm_fwd(x, a, w, eps, norm_of_rounded):
+    if x.is_cuda:
+        return add_rmsnorm_cuda(x, a, w, eps=eps,
+                                norm_of_rounded=norm_of_rounded)
+    _check_cpu(x)
+    return ref.add_rmsnorm_ref(x, a, w, eps=eps,
+                               norm_of_rounded=norm_of_rounded)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """``rmsnorm`` with a gradient: saves x and w only."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, out_dtype):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rmsnorm_fwd(x, w, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        dx, dw = ref.rmsnorm_bwd_ref(x, w, gy, eps=ctx.eps)
+        return dx, dw, None, None
+
+
+class _AddRMSNorm(torch.autograd.Function):
+    """``add_rmsnorm`` with a gradient: saves x, a and w only.  The
+    kernel's r and y are two views of one allocation; autograd takes
+    them as two outputs of this node (nothing writes to them in place)."""
+
+    @staticmethod
+    def forward(ctx, x, a, w, eps, norm_of_rounded):
+        ctx.save_for_backward(x, a, w)
+        ctx.eps, ctx.norm_of_rounded = eps, norm_of_rounded
+        ctx.set_materialize_grads(False)
+        return _add_rmsnorm_fwd(x, a, w, eps, norm_of_rounded)
+
+    @staticmethod
+    def backward(ctx, gr, gy):
+        x, a, w = ctx.saved_tensors
+        if gy is None:
+            return gr, gr, None, None, None
+        d, dw = ref.add_rmsnorm_bwd_ref(x, a, w, gr, gy, eps=ctx.eps,
+                                        norm_of_rounded=ctx.norm_of_rounded)
+        return d, d, dw, None, None
+
+
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+            out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Row-wise RMSNorm over the last axis, output in ``out_dtype``
+    (default: x's dtype; see kernels/rmsnorm.py)."""
+    if _wants_grad(x, w):
+        return _RMSNorm.apply(x, w, eps, out_dtype)
+    return _rmsnorm_fwd(x, w, eps, out_dtype)
 
 
 def add_rmsnorm(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor,
@@ -66,12 +130,9 @@ def add_rmsnorm(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor,
     """The residual add ``x + a`` fused into the RMSNorm of the sum:
     ``(r, y)``, the sum rounded to x's dtype and the norm of the f32 sum
     (``norm_of_rounded=False``) or of r (True); see kernels/rmsnorm.py."""
-    if x.is_cuda:
-        return add_rmsnorm_cuda(x, a, w, eps=eps,
-                                norm_of_rounded=norm_of_rounded)
-    _check_cpu(x)
-    return ref.add_rmsnorm_ref(x, a, w, eps=eps,
-                               norm_of_rounded=norm_of_rounded)
+    if _wants_grad(x, a, w):
+        return _AddRMSNorm.apply(x, a, w, eps, norm_of_rounded)
+    return _add_rmsnorm_fwd(x, a, w, eps, norm_of_rounded)
 
 
 def sedov_step_kernel(state: dict, cfg=None, *, dx: float = 1.0) -> dict:

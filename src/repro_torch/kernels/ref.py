@@ -13,7 +13,9 @@ model's own (``models/lulesh.py``, re-exported here) in plain PyTorch on
 every device, leaving ``dt`` on the device.  ``attention_ref`` is the
 reference's full-softmax oracle, whose causal mask is aligned otherwise
 than the flash kernel's (see its docstring); the flash kernel's plain
-version is ``flash_attention_ref``.
+version is ``flash_attention_ref``.  ``rmsnorm_bwd_ref`` and
+``add_rmsnorm_bwd_ref`` are the RMSNorm kernel's backward on every device
+(the reference has no backward kernel: XLA differentiates its norm).
 """
 
 from __future__ import annotations
@@ -149,6 +151,43 @@ def add_rmsnorm_ref(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor, *,
         return r, rmsnorm_ref(r, w, eps=eps)
     s = x.float() + a.float()
     return s.to(x.dtype), rmsnorm_ref(s, w, eps=eps, out_dtype=x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, gy: torch.Tensor, *,
+                    eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients ``(dx, dw)`` of ``rmsnorm_ref(x, w)`` for the output
+    cotangent ``gy``, as the reference differentiates its norm: f32 math
+    (``rsqrt(ms + eps)`` recomputed from x, nothing saved but x and w),
+    rsqrt's derivative in its JVP's form ``-0.5 * r / (ms + eps)``, dx
+    cast to x's dtype (``layers._match_dgrad_dtype``) and dw summed over
+    the rows in f32, cast to w's dtype.  The backward of both devices:
+    the kernel has no backward of its own."""
+    xf, wf, gf = x.float(), w.float(), gy.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True) + eps
+    r = torch.rsqrt(var)
+    rows = tuple(range(x.dim() - 1))
+    dw = (gf * (xf * r)).sum(dim=rows) if rows else gf * (xf * r)
+    dyhat = gf * wf
+    dvar = (dyhat * xf).sum(dim=-1, keepdim=True) * (-0.5 * (r / var))
+    dx = dyhat * r + xf * (dvar * (2.0 / x.shape[-1]))
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def add_rmsnorm_bwd_ref(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor,
+                        gr: torch.Tensor | None, gy: torch.Tensor, *,
+                        eps: float = 1e-6, norm_of_rounded: bool
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients ``(dx_or_da, dw)`` of ``add_rmsnorm_ref(x, a, w)`` for
+    the cotangents ``gr`` of the stream (None: unused) and ``gy`` of the
+    norm: the norm's input cotangent (f32, of the sum it read) cast to
+    x's dtype, then added to ``gr`` in x's dtype, as the reference adds
+    the residual's and the norm's cotangents of its bf16 stream.  x and a
+    receive the same gradient."""
+    s = x.float() + a.float()
+    dn, dw = rmsnorm_bwd_ref(s.to(x.dtype) if norm_of_rounded else s, w, gy,
+                             eps=eps)
+    dn = dn.to(x.dtype)
+    return (dn if gr is None else gr + dn), dw
 
 
 def sedov_step_ref(state: dict, dt: torch.Tensor, *, dx: float = 1.0) -> dict:

@@ -2,9 +2,14 @@
 ``repro/launch/run.py`` (paper §3: execution commands are 'bash (serial)
 or mpi-based'; ours are train/serve/lulesh).
 
-Both ported commands run where the build's plan says: on the device of
-the build's target, through its hand-written kernels when the plan's
-kernels are ``"cuda"`` and through the plain versions otherwise.
+The commands run where the build's plan says: on the device of the
+build's target, through its hand-written kernels when the plan's kernels
+are ``"cuda"`` and through the plain versions otherwise.
+
+* ``train ...`` (``launch/train.train_main``, the reference's keywords)
+  trains on the build target's device under the target's tuner plan,
+  checkpointing into the job's working directory (``ckpt/``) unless
+  ``--ckpt-dir`` names another.
 
 * ``serve ...`` (``launch/serve.serve_main``, the reference's keywords
   plus ``--trace-out`` / ``--metrics-out`` / ``--prom-out``) serves on
@@ -19,7 +24,6 @@ kernels are ``"cuda"`` and through the plain versions otherwise.
 
 Without a build result a command runs on the card with the kernels, or
 on the CPU with the plain versions when asked (``device="cpu"``).
-``train`` waits for training (ROADMAP slice E).
 """
 
 from __future__ import annotations
@@ -46,8 +50,8 @@ def run_command(command: str, job=None, workdir: Path | None = None,
     name = Path(argv[0]).name if argv else ""
 
     if name.startswith("train"):
-        raise NotImplementedError("the train command is not ported yet "
-                                  "(ROADMAP slice E)")
+        return _train(_parse_kw(argv[1:]), log, workdir, build_result,
+                      device)
     if name.startswith("serve"):
         return _serve(_parse_kw(argv[1:]), log, workdir, build_result,
                       device)
@@ -68,6 +72,21 @@ def _placement(build_result, device) -> tuple[torch.device, str, str]:
     run_on = resolve_device(device)
     target = default_target(run_on)
     return run_on, target, get_target(target).kernels
+
+
+def _train(kw: dict, log, workdir, build_result, device) -> dict:
+    from repro_torch.launch.train import train_main
+    run_on, target, _ = _placement(build_result, device)
+    ckpt = kw.get("ckpt-dir")
+    if ckpt is None and workdir is not None:
+        ckpt = str(Path(workdir) / "ckpt")
+    return train_main(
+        arch=kw.get("arch", _arch_from(build_result, "deepseek-7b-smoke")),
+        steps=int(kw.get("steps", 10)),
+        seq_len=int(kw.get("seq-len", 64)),
+        global_batch=int(kw.get("global-batch", 4)),
+        ckpt_dir=ckpt, ckpt_every=int(kw.get("ckpt-every", 5)),
+        target=target, log=log, device=run_on)
 
 
 def _serve(kw: dict, log, workdir, build_result, device) -> dict:

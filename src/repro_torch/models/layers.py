@@ -9,12 +9,18 @@ a SiLU whose steps each round to bf16 the way XLA rounds the reference's
 ``jax.nn.silu`` on bf16, and a squared ReLU rounded once, after the
 square.
 
-Attention runs in three modes: ``prefill`` (causal, returns fresh K/V),
-``decode`` (slot-wise: one token per row, or a speculative verify burst
-of s tokens, over a paged or a contiguous pool) and ``chunk`` (chunked
-prefill written straight into the pool).  Decode and chunk write K/V
-**in place** into the pool's storage: a functional copy of the pool per
-layer and tick would cost more than the tick itself.
+Attention runs in four modes: ``full`` (training: causal, no cache),
+``prefill`` (causal, returns fresh K/V), ``decode`` (slot-wise: one
+token per row, or a speculative verify burst of s tokens, over a paged
+or a contiguous pool) and ``chunk`` (chunked prefill written straight
+into the pool).  Decode and chunk write K/V **in place** into the pool's
+storage: a functional copy of the pool per layer and tick would cost
+more than the tick itself.
+
+Everything is differentiable for training: the RMSNorm kernel through
+its ``torch.autograd.Function`` (``kernels/ops.py``), the rest through
+autograd.  Under grad the embedding gathers by indexing, whose backward
+sums a repeated token's gradients in a fixed order on the card.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models.params import ParamDef
@@ -72,9 +79,26 @@ def add_norm(p: dict, x: torch.Tensor, a: torch.Tensor | None, kind: str,
         return x, layernorm(x, p["scale"], p["bias"])
     total = x.float() + a.float()
     stream = total.to(x.dtype)
-    normed = layernorm(stream if norm_of_rounded else total, p["scale"],
+    normed = layernorm(stream if norm_of_rounded else
+                       _GradIn.apply(total, x.dtype), p["scale"],
                        p["bias"], out_dtype=x.dtype)
     return stream, normed
+
+
+class _GradIn(torch.autograd.Function):
+    """The identity, whose backward rounds the gradient to ``dtype``: the
+    norm of the f32 sum hands back its input's gradient in the stream's
+    dtype before it meets the stream's own, as the reference's norms do
+    (``_match_dgrad_dtype``)."""
+
+    @staticmethod
+    def forward(ctx, t, dtype):
+        ctx.dtype = dtype
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).to(g.dtype), None
 
 
 def norm_defs(d_model: int, kind: str) -> dict:
@@ -170,12 +194,20 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m & (kv_pos <= q_pos[None, :, None] + _rows(q_offset))
         return m
 
-    outs = []
-    for start in range(0, s, q_chunk):
+    def one(start):
         stop = min(start + q_chunk, s)
         q_pos = torch.arange(start, stop, device=q.device)
-        outs.append(_attn_one_chunk(qg[:, :, :, start:stop], k, v,
-                                    mask_for(q_pos), scale))
+        return _attn_one_chunk(qg[:, :, :, start:stop], k, v,
+                               mask_for(q_pos), scale)
+
+    # under grad, a chunk's (q_chunk x t) scores are recomputed in the
+    # backward instead of kept for every chunk, as the reference
+    # checkpoints its chunk body
+    if s > q_chunk and torch.is_grad_enabled():
+        outs = [checkpoint(one, start, use_reentrant=False)
+                for start in range(0, s, q_chunk)]
+    else:
+        outs = [one(start) for start in range(0, s, q_chunk)]
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=3)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, H, dh)
 
@@ -290,11 +322,12 @@ def _chunk(q, k, v, cache):
 
 def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
               mode: str, cache: dict | None = None):
-    """mode: 'prefill' (causal, returns the fresh K/V), 'decode'
-    (slot-wise, one token or a verify burst per row, through the page
-    table or the slot rows as the pool's ``cache["layout"]`` says;
-    in-place pool write), 'chunk' (chunked prefill into the pool,
-    in-place).  Returns (out, fresh_cache or None)."""
+    """mode: 'full' (training: causal, no cache), 'prefill' (causal,
+    returns the fresh K/V), 'decode' (slot-wise, one token or a verify
+    burst per row, through the page table or the slot rows as the pool's
+    ``cache["layout"]`` says; in-place pool write), 'chunk' (chunked
+    prefill into the pool, in-place).  Returns (out, fresh_cache or
+    None)."""
     q = torch.einsum("bse,ehd->bshd", x, p["wq"])
     k = torch.einsum("bte,ekd->btkd", x, p["wk"])
     v = torch.einsum("bte,ekd->btkd", x, p["wv"])
@@ -313,9 +346,10 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
             if cache["layout"] == "paged" else _slot_decode(q, k, v, cache)
     elif mode == "chunk":
         out = _chunk(q, k, v, cache)
-    elif mode == "prefill":
+    elif mode in ("prefill", "full"):
         out = dot_attention(q, k, v, causal=cfg.causal)
-        new_cache = {"k": k, "v": v}
+        if mode == "prefill":
+            new_cache = {"k": k, "v": v}
     else:
         raise ValueError(f"attention mode {mode!r}")
     y = torch.einsum("bshd,hde->bse", out, p["wo"])
@@ -335,10 +369,28 @@ def mlp_defs(cfg) -> dict:
     return d
 
 
+class _SiLU(torch.autograd.Function):
+    """SiLU with the reference's gradient: with s the sigmoid of the
+    forward, ``g * s + (g * x) * (s * (1 - s))``, each step rounded to
+    x's dtype, as XLA evaluates the transpose of ``jax.nn.silu``'s JVP on
+    bf16 (autograd through the forward's steps rounds otherwise)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * (1 / (1 + torch.exp(-x)))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        s = 1 / (1 + torch.exp(-x))
+        return g * s + (g * x) * (s * (1 - s))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """x * 1 / (1 + exp(-x)), each step rounded to x's dtype — how XLA
     evaluates the reference's ``jax.nn.silu`` on bf16."""
-    return x * (1 / (1 + torch.exp(-x)))
+    return _SiLU.apply(x)
 
 
 def sq_relu(x: torch.Tensor) -> torch.Tensor:
@@ -379,7 +431,10 @@ def embed(p: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
         raise NotImplementedError(
             f"position embedding {cfg.pos!r} is not ported yet "
             f"(ROADMAP: other arch configs)")
-    flat = p["embedding"].index_select(0, tokens.reshape(-1).long())
+    # indexing, not index_select: index_select's backward adds a repeated
+    # token's rows with atomics on the card, in no fixed order; indexing's
+    # sorts them first
+    flat = p["embedding"][tokens.reshape(-1).long()]
     return flat.reshape(*tokens.shape, -1).to(cfg.activation_dtype)
 
 
@@ -387,3 +442,18 @@ def unembed(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.tie_embeddings:
         return torch.einsum("bse,ve->bsv", x, p["embedding"].to(x.dtype))
     return torch.einsum("bse,ev->bsv", x, p["unembed"])
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean per-token cross entropy in f32 (``logsumexp`` of the f32
+    logits less the label's logit); with ``mask``, the mean over the
+    tokens it keeps.  labels: integer (b, s)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -142,8 +142,10 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg):
 
 
 class MoELM(DenseLM):
-    """Dense attention + MoE FFN.  The aux loss of the last MoE layer run
-    stays on ``_last_aux`` for training's loss (ROADMAP slice E)."""
+    """Dense attention + MoE FFN.  Each MoE layer's aux loss is left on
+    ``_last_aux``; the training forward hands it out of each block and
+    its loss adds ``router_aux_coef`` times the mean over the layers, as
+    the reference's ``full`` mode does."""
 
     def mlp_defs(self) -> dict:
         return moe_defs(self.cfg)
@@ -151,3 +153,14 @@ class MoELM(DenseLM):
     def mlp_apply(self, p, h):
         y, self._last_aux = moe_mlp(p, h, self.cfg)
         return y
+
+    def _full_block(self, p, x, delta, positions):
+        x, out, _ = super()._full_block(p, x, delta, positions)
+        return x, out, self._last_aux
+
+    def loss(self, leaves, batch):
+        logits, aux_sum = self.full_forward(leaves, batch["tokens"])
+        loss = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+        aux = aux_sum / self.cfg.num_layers
+        total = loss + self.cfg.router_aux_coef * aux
+        return total, {"loss": total, "aux_loss": aux}

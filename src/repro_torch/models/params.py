@@ -51,6 +51,34 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of one or more trees of dicts and lists of
+    the same structure, as ``jax.tree.map``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def leaf_items(tree, is_leaf=lambda x: not isinstance(x, dict),
+               path=()) -> list:
+    """(path, leaf) pairs of a tree of dicts in sorted-key order, the
+    order of ``jax.tree.leaves`` and of the reference's global norm."""
+    if is_leaf(tree):
+        return [(path, tree)]
+    return [item for k in sorted(tree)
+            for item in leaf_items(tree[k], is_leaf, path + (k,))]
+
+
+def get_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def param_count(table: ParamTable) -> int:
     return sum(_leaves(_map_table(table, lambda d: d.size)))
 

@@ -12,17 +12,56 @@ Each residual add runs fused into the norm that reads its sum
 the block's second norm, and the MLP's add into the next block's first
 norm, or into ``ln_f`` after the last block.  So a block hands on its
 stream and its MLP output unsummed, and the layer loops carry the pair.
+
+Training (``loss``) runs the ``full`` forward over ``train_leaves``: one
+autograd leaf per weight and per layer of a stacked weight, each sharing
+its storage with the stacked tensor, so each layer has its own ``.grad``
+and an in-place update of a leaf is an update of the stacked weight that
+serving and checkpoints read.  Each block runs under the remat policy
+(``remat_wrap``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import layers as L
-from repro_torch.models.params import _map_table
+from repro_torch.models.params import ParamDef, _map_table, tree_map
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the output of every matrix product without batch dimensions
+    (the projections: ``einsum`` runs them as a bmm of batch 1), recompute
+    the rest: JAX's ``dots_with_no_batch_dims_saveable``."""
+    if op == torch.ops.aten.mm.default or (
+            op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat_wrap(fn, policy: str):
+    """``fn`` under a remat policy: ``none`` keeps every activation its
+    backward needs, ``full`` keeps only its inputs and recomputes the rest
+    in the backward, ``dots`` keeps the projections' outputs and
+    recomputes the norms, elementwise chains and attention scores."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=_save_dots)
+    raise ValueError(policy)
 
 
 def stack_defs(defs: dict, n: int) -> dict:
@@ -34,16 +73,12 @@ def stack_defs(defs: dict, n: int) -> dict:
     )
 
 
-def _index_tree(tree: dict, i: int) -> dict:
-    return {k: _index_tree(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
 class DenseLM:
     """Llama-style decoder: RMSNorm, RoPE GQA attention, gated SiLU MLP."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, remat: str = "dots"):
         self.cfg = cfg
+        self.remat = remat
         self._views = (None, [])    # (blocks dict, its per-layer views)
 
     # ---- tables ----
@@ -64,6 +99,17 @@ class DenseLM:
             "blocks": stack_defs(self.block_defs(), cfg.num_layers),
             "ln_f": L.norm_defs(cfg.d_model, cfg.norm),
         }
+
+    def batch_table(self, shape: ShapeConfig) -> dict:
+        """Declarative inputs of a shape: tokens (and labels to train on)."""
+        b, s = shape.global_batch, shape.seq_len
+        tok = ParamDef((b, s), ("act_batch", "act_seq"), torch.int32, "zeros")
+        if shape.kind == "train":
+            return {"tokens": tok, "labels": tok}
+        if shape.kind == "prefill":
+            return {"tokens": tok}
+        return {"tokens": ParamDef((b, 1), ("act_batch", None), torch.int32,
+                                   "zeros")}
 
     # ---- block ----
     def block_apply(self, p, x, delta, positions, mode, cache):
@@ -93,9 +139,51 @@ class DenseLM:
         of every layer)."""
         blocks = params["blocks"]
         if self._views[0] is not blocks:
-            self._views = (blocks, [_index_tree(blocks, i)
+            self._views = (blocks, [tree_map(lambda t: t[i], blocks)
                                     for i in range(self.cfg.num_layers)])
         return self._views[1]
+
+    def train_leaves(self, params) -> dict:
+        """The weights as autograd leaves: each tensor detached (sharing its
+        storage) and set to require grad, the stacked block weights as a
+        list of per-layer trees of such leaves.  Built anew for each step,
+        never from ``layer_params``' views (made under no_grad by serving,
+        they would carry no gradient)."""
+        def leaf(t):
+            return t.detach().requires_grad_()
+        return {k: [tree_map(lambda t: leaf(t[i]), v)
+                    for i in range(self.cfg.num_layers)]
+                if k == "blocks" else tree_map(leaf, v)
+                for k, v in params.items()}
+
+    def _full_block(self, p, x, delta, positions):
+        """One block of the training forward: (stream, mlp_out, aux)."""
+        x, out, _ = self.block_apply(p, x, delta, positions, "full", None)
+        return x, out, None
+
+    def full_forward(self, leaves, tokens):
+        """The training forward over ``train_leaves``: logits (b, s, vocab)
+        and the per-layer aux losses summed in f32 (None for a dense
+        model), each block under the remat policy."""
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        x, delta = L.embed(leaves["embed"], tokens, self.cfg), None
+        block = remat_wrap(self._full_block, self.remat)
+        aux_sum = None
+        for lp in leaves["blocks"]:
+            x, delta, aux = block(lp, x, delta, positions)
+            if aux is not None:
+                aux_sum = (torch.zeros((), dtype=torch.float32,
+                                       device=x.device)
+                           if aux_sum is None else aux_sum) + aux
+        return self.logits_from(leaves, x, delta), aux_sum
+
+    def loss(self, leaves, batch):
+        """Mean next-token cross entropy of ``batch`` (tokens, labels and an
+        optional loss_mask) over ``train_leaves``: (loss, metrics)."""
+        logits, _ = self.full_forward(leaves, batch["tokens"])
+        loss = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+        return loss, {"loss": loss}
 
     # ---- entry points ----
     def logits_from(self, params, x, delta=None):
@@ -180,12 +268,13 @@ class DenseLM:
         return self.logits_from(params, x, delta), new_cache
 
 
-def model_for(cfg: ModelConfig) -> DenseLM:
-    """The model of ``cfg.family`` (dense and MoE so far)."""
+def model_for(cfg: ModelConfig, remat: str = "dots") -> DenseLM:
+    """The model of ``cfg.family`` (dense and MoE so far); ``remat`` is the
+    training forward's policy."""
     if cfg.family == "dense":
-        return DenseLM(cfg)
+        return DenseLM(cfg, remat=remat)
     if cfg.family == "moe":
         from repro_torch.models.moe import MoELM
-        return MoELM(cfg)
+        return MoELM(cfg, remat=remat)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP slice F)")

@@ -2,7 +2,8 @@
 ``repro/runtime/elastic.py``).
 
 The reference module also re-shards training state onto a degraded mesh
-(``reshard_state``); that comes with the training slice.  The serving
+(``reshard_state``); that needs a mesh and comes with the sharding rules
+(ROADMAP slice G).  The serving
 router's autoscaler resizes its per-replica admission cap with the same
 keep-the-global-batch rule training elasticity uses.
 """

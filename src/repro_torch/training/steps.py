@@ -1,7 +1,12 @@
-"""Step builders for serving (port of the serve builders of
-``repro/training/steps.py``).
+"""Step builders: train (gradient accumulation, error-feedback int8
+compression, the schedule, the update), prefill, chunk, decode and
+verify (port of ``repro/training/steps.py``).
 
-Each builder closes over the model and returns a plain function of
+``build_train_step`` takes each microbatch's gradients with autograd
+over the model's per-layer leaves (``DenseLM.train_leaves``) and updates
+the state in place: parameters, moments, error feedback and step.
+
+The serve builders close over the model and return a plain function of
 ``params`` and the step's inputs that runs without autograd.  The decode,
 verify and chunk steps write K/V in place into the pool tensors they are
 given and return the same tensors (the reference donates them instead).
@@ -12,7 +17,149 @@ layout's cache raises.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+from repro_torch.core.plan import DeploymentPlan
+from repro_torch.models.params import (ParamDef, _map_table, leaf_items,
+                                      tree_map)
+from repro_torch.optim.schedule import warmup_cosine
+
+
+def _accum_dtype(plan: DeploymentPlan) -> torch.dtype:
+    return torch.bfloat16 if plan.grad_accum_dtype == "bfloat16" \
+        else torch.float32
+
+
+def _ef_int8(g: torch.Tensor, err: torch.Tensor,
+             amax: torch.Tensor | None = None):
+    """Error-feedback int8 quantization of a gradient contribution (it
+    models a compressed cross-replica reduction): returns (the
+    dequantized f32 gradient, the new error).  ``amax`` is the whole
+    leaf's max |g + err| when g is one slice of it."""
+    x = g.float() + err
+    if amax is None:
+        amax = x.abs().amax()
+    scale = amax.clamp_min(1e-20) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127)
+    deq = q * scale
+    return deq, x - deq
+
+
+def _ef_compress(grads, ef):
+    """``_ef_int8`` over every leaf, a stacked one layer by layer with its
+    whole-leaf amax; ``ef`` (the tree of errors) is updated in place.
+    Returns the gradients dequantized, each leaf as it came (a tensor or a
+    per-layer list)."""
+    if isinstance(grads, dict):
+        return {k: _ef_compress(v, ef[k]) for k, v in grads.items()}
+    if not isinstance(grads, list):
+        deq, new = _ef_int8(grads, ef)
+        ef.copy_(new)
+        return deq
+    amax = torch.stack([(g.float() + ef[i]).abs().amax()
+                        for i, g in enumerate(grads)]).amax()
+    out = []
+    for i, g in enumerate(grads):
+        deq, new = _ef_int8(g, ef[i], amax)
+        ef[i].copy_(new)
+        out.append(deq)
+    return out
+
+
+def _grad(leaf: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(leaf) if leaf.grad is None else leaf.grad
+
+
+def loss_and_grads(model, params, batch):
+    """(loss, metrics, grads) of one batch: autograd over the model's
+    per-layer leaves; grads has the tree of ``params``, a stacked leaf's
+    gradient as a list of per-layer tensors in the parameter's dtype."""
+    leaves = model.train_leaves(params)
+    loss, metrics = model.loss(leaves, batch)
+    loss.backward()
+    # a stacked leaf's per-layer trees -> one tree of per-layer lists
+    grads = {k: tree_map(lambda *ls: list(map(_grad, ls)), *v)
+             if k == "blocks" else tree_map(_grad, v)
+             for k, v in leaves.items()}
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def build_train_step(model, opt, plan: DeploymentPlan,
+                     peak_lr: float = 3e-4, warmup_steps: int = 100,
+                     total_steps: int = 10_000):
+    """Returns train_step(state, batch) -> (state, metrics), which updates
+    ``state = {"params", "opt", "ef" (optional), "step"}`` in place.
+
+    ``plan.microbatches`` > 1 splits the batch into that many equal
+    microbatches along its first axis and accumulates their gradients in
+    ``plan.grad_accum_dtype`` from zeros, then takes their mean in f32;
+    the loss is the f32 mean of theirs.  ``ef_int8`` compression, the
+    warm-up cosine learning rate at ``state["step"]`` and the optimizer's
+    update follow, as in the reference."""
+    M = plan.microbatches
+    use_ef = plan.grad_compression == "ef_int8"
+    acc_dt = _accum_dtype(plan)
+
+    def train_step(state, batch):
+        params = state["params"]
+        if M == 1:
+            loss, metrics, grads = loss_and_grads(model, params, batch)
+        else:
+            b = batch["tokens"].shape[0]
+            if b % M:
+                raise ValueError(f"batch {b} does not split into {M} "
+                                 f"microbatches")
+            n = b // M
+            acc, lsum = None, None
+            for i in range(M):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                l, _, g = loss_and_grads(model, params, mb)
+                if acc is None:
+                    acc = tree_map(lambda t: torch.zeros(
+                        t.shape, dtype=acc_dt, device=t.device), g)
+                    lsum = torch.zeros((), dtype=torch.float32,
+                                       device=l.device)
+                tree_map(lambda a, t: a.add_(t.to(a.dtype)), acc, g)
+                lsum = lsum + l
+            grads = tree_map(lambda t: (t / M).float(), acc)
+            loss = lsum / M
+            metrics = {"loss": loss}
+        if use_ef:
+            grads = _ef_compress(grads, state["ef"])
+        lr = warmup_cosine(state["step"], peak_lr=peak_lr,
+                           warmup_steps=warmup_steps,
+                           total_steps=total_steps)
+        _, _, opt_metrics = opt.update(grads, state["opt"], params, lr)
+        state["step"] = state["step"] + 1
+        return state, dict(metrics, lr=lr, **opt_metrics)
+
+    return train_step
+
+
+def init_train_state(model, opt, params, plan: DeploymentPlan) -> dict:
+    """{"params", "opt", "step"} (+ "ef", f32 zeros, under ef_int8), on
+    the parameters' device."""
+    dev = leaf_items(params)[0][1].device
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if plan.grad_compression == "ef_int8":
+        state["ef"] = tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params)
+    return state
+
+
+def train_state_table(model, opt, plan: DeploymentPlan) -> dict:
+    """Declarative (ParamDef) state table — dry-run path, no allocation."""
+    ptable = model.param_table()
+    t = {"params": ptable, "opt": opt.state_table(ptable),
+         "step": ParamDef((), (), torch.int32, "zeros")}
+    if plan.grad_compression == "ef_int8":
+        t["ef"] = _map_table(ptable, lambda d: dataclasses.replace(
+            d, dtype=torch.float32, init="zeros"))
+    return t
 
 
 def _of_layout(cache: dict, layout: str) -> dict:

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.target import default_target
 from repro_torch.kernels import bench
+from repro_torch.launch.train import train_main
 from repro_torch.serving import PagedKVCachePool, ReplicaRouter, ServeEngine
 from repro_torch.serving.pool import KVCachePool
 
@@ -49,6 +50,10 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
             "import repro_torch.models.moe\n"
             "import repro_torch.configs.granite_moe_3b_a800m\n"
             "import repro_torch.configs.dbrx_132b\n"
+            "import repro_torch.optim, repro_torch.data.pipeline\n"
+            "import repro_torch.checkpoint\n"
+            "import repro_torch.runtime.fault_tolerance\n"
+            "import repro_torch.launch.train, repro_torch.training.steps\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -88,6 +93,19 @@ def test_engine_without_cuda_raises_unless_asked_for_cpu(monkeypatch):
         PagedKVCachePool(eng.model, 2, 32)
     pool = PagedKVCachePool(eng.model, 2, 32, device="cpu")
     assert pool.cache["k"].device.type == "cpu"
+
+
+def test_train_main_refuses_without_cuda_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(steps=1, log=lambda *a, **k: None)
+    with pytest.raises(ValueError, match="runs on"):
+        train_main(steps=1, target="nvidia:h100", device="cpu",
+                   log=lambda *a, **k: None)
+    out = train_main(steps=1, seq_len=8, global_batch=2, device="cpu",
+                     log=lambda *a, **k: None)
+    assert out["device"] == "cpu" and out["plan"].target == "local:cpu"
+    assert out["state"]["params"]["ln_f"]["scale"].device.type == "cpu"
 
 
 def test_router_and_prefix_cache_refuse_without_cuda(monkeypatch):
