@@ -29,13 +29,17 @@ Phases, each of which raises on failure:
    ``granite-moe-3b-a800m`` (24 over 8 of 64, G = 3) and ``dbrx-132b``
    (48 over 8 of 128, G = 6); then the fused residual add + RMSNorm
    (``add_rmsnorm_cuda``) at rows 1, 8, 40, 128 and 1000 by widths 64,
-   1536, 4096, 12288 and 18432, both forms: the residual bitwise equal
-   to the plain version's, the norm within one bf16 step of it, two
-   calls bitwise equal (``_k2_hold``); then the MoE router's
+   1536, 4096, 6144, 7168, 12288 and 18432 (6,144 and 7,168 give each
+   thread two 8-element vectors), and at ``llava-next-34b``'s decode and
+   prefill rows, (4, 7168) and (4352, 7168), both forms: the residual
+   bitwise equal to the plain version's, the norm within one bf16 step of
+   it, two calls bitwise equal (``_k2_hold``; at llava's shapes the
+   ``rmsnorm`` entry too, ``_k2_norm_hold``); then the MoE router's
    ``route_tokens`` on the card (``_route_checks``: rows of exact ties
    and saturated rows with denormal probabilities, bit for bit equal to
    the CPU's result and to ``lax.top_k``'s choice); then K2's gradient
-   (``_k2_grad_hold``) at (8, 4096) and (4096, 4096) bf16, both entries
+   (``_k2_grad_hold``) at (8, 4096), (4096, 4096) and (4352, 7168) bf16,
+   both entries
    and both forms of the fused one: the ``torch.autograd.Function``'s
    forward bit-equal to the direct kernel call, its dx/da/dw bitwise
    equal to the plain backward on the same inputs, and within one bf16
@@ -76,6 +80,10 @@ Phases, each of which raises on failure:
    checkpoint to the uninterrupted run's state bit for bit, a second run
    from the seed repeats the loss bits, and ``run_easey`` of a smoke
    training Appfile to ``nvidia:h100`` ends ``finished`` with K2 built;
+   then the legacy fixed-batch path at smoke size (``_vlm_smoke``:
+   ``llava-next-34b-smoke``, 4 requests of 48 positions, 12 tokens):
+   ``serve_main`` with K2 on every norm (counted), with the plain norm in
+   its place, and ``run_command``, every row's greedy tokens equal;
 4. the slice at full width: ``deepseek-7b`` (random weights from a seed)
    on one card, 8 greedy requests through the paged engine built with
    its defaults, with the kernels on every step, counted (the fused
@@ -90,7 +98,8 @@ Phases, each of which raises on failure:
    slots and at G = 12; both RMSNorm entries at 8, 40 and 128 rows beside
    an empty kernel's launch in the same harness (built here from
    ``EMPTY_KERNEL_CU``: a yardstick, no kernel of the port),
-   ``F.rms_norm`` and the eager composition the fused entry replaces,
+   ``F.rms_norm`` and the eager composition the fused entry replaces, and
+   at ``llava-next-34b``'s (4, 7168) and (4352, 7168),
    and the host's time per call), the full-width decode tick, the chunked-prefill step (each with
    its device launches and busy time from the profiler) and end-to-end
    tokens/s;
@@ -199,10 +208,32 @@ Phases, each of which raises on failure:
    their layers' fan-in, the control at most GRAD_CONTROL_MAX), K2 counted in the forward (61) and in the remat
    recompute (60), the kernel path's step 0 repeated bit for bit; the
    optimizer's update timed and one step profiled;
+   the mean of the per-token loss differences (kernel and control, each
+   from the plain path) within BIAS_SE_MAX standard errors of zero
+   (``_hold_bias``);
    then 4 steps of ``train_main`` with K2 on every norm (counted per
    step), every loss and grad norm finite, the loss curve printed beside
    the plain path's, ms per step, tokens/s and the peak memory printed,
-   not gated.
+   not gated;
+16. the VLM family at full width through the legacy fixed-batch path
+   (``_vlm_full``): with the memory the earlier phases left at most
+   VLM_BASELINE_GB, ``run_easey`` deploys a ``llava-next-34b`` serving
+   Appfile (``RUN serve --arch llava-next-34b --batch 4 --prefill 1088
+   --decode 32``: 60 layers of 7,168, 34.39 B parameters, random
+   weights from the seed, 576 patches + 512 text tokens a request) to
+   ``nvidia:h100``: the build compiles K2 (and no paged-decode kernel),
+   the job ends ``finished``, K2 runs on every norm of the prefill and of
+   the 31 decode steps (32 + 3,840 launches, counted); a direct
+   ``serve_main`` repeats the job's tokens; a free-running run with the
+   plain norm in K2's place is printed beside them, with where each row
+   parts (not gated); then the model step by step, teacher-forced on the
+   kernel path's tokens: every norm call held as phase 2 holds it, and
+   each forward's logits within LOGITS_VS_CONTROL x the control's
+   distance from the plain-norm path's (the control: the plain norm with
+   one bf16 step of noise at as many norm outputs as K2 changed, on
+   copies of the same cache); the prefill and the decode step (CUDA
+   events and the profiler: busy ms, launches, idle share), tokens/s,
+   peak memory and the data-sheet bounds printed, not gated.
 
 The second-to-last line of output is the card's ``name, power.limit``;
 before it a JSON line lists every kernel with its launches on its path's
@@ -289,10 +320,13 @@ FLASH_FULL = {"deepseek-7b": (1, 4096, 4096, 32, 32, 128),
               "nemotron-4-340b": (1, 4096, 4096, 96, 8, 192)}
 # the fused residual add + RMSNorm's gate: decode (1, 8 rows), a verify
 # burst (8 x 5), a prefill chunk, a long prefill; the smoke configs'
-# width and granite-moe-3b-a800m's, deepseek-7b's, mistral-large's and
-# nemotron-4's
+# width and granite-moe-3b-a800m's, deepseek-7b's, dbrx-132b's,
+# llava-next-34b's (6,144 and 7,168: two 8-element vectors a thread),
+# mistral-large's and nemotron-4's; and llava-next-34b's own rows, its
+# decode batch and its prefill (4 x 1,088)
 K2_ROWS = (1, 8, 40, 128, 1000)
-K2_WIDTHS = (64, 1536, 4096, 12288, 18432)
+K2_WIDTHS = (64, 1536, 4096, 6144, 7168, 12288, 18432)
+K2_VLM_SHAPES = ((4, 7168), (4352, 7168))
 SAMPLED = dict(temperature=0.7, top_k=16, top_p=0.9)
 # the stencil kernel (f32, built with -fmad=false) against its plain
 # version: each zone of every field within this rtol, with no absolute
@@ -310,7 +344,7 @@ LULESH_ITERS, LULESH_GRID = 1000, 256
 # K2_GRAD_ATOL of the largest: the Function rounds the norm's input
 # cotangent to bf16 before it meets the stream's (the reference's VJP),
 # autograd adds the two in f32 and rounds once
-K2_GRAD_SHAPES = ((8, 4096), (4096, 4096))
+K2_GRAD_SHAPES = ((8, 4096), (4096, 4096), (4352, 7168))
 K2_GRAD_RTOL, K2_GRAD_ATOL = 2.0 ** -7, 2.0 ** -8
 # the training phases: smoke-size runs (phase 3) and the full-width
 # deepseek-7b run (phase 15, the tuner's plan at seq 1024 x batch 4)
@@ -325,6 +359,22 @@ TRAIN_FULL = dict(arch="deepseek-7b", seq_len=1024, global_batch=4, steps=4)
 # under 1.0, the reading of a zero gradient (2.0 for one of flipped
 # sign), so the gate fails either
 GRAD_CONTROL_MAX = 0.25
+# phase 15's bias gate: the mean of the per-token loss differences (kernel
+# vs plain, control vs plain) within this many standard errors of zero.
+# The relative L2 cannot see a small shift shared by every token; a mean
+# over 4,096 tokens can.  Set from phase 15's first readings on
+# deepseek-7b: the kernel's mean 1.5 standard errors from the plain
+# path's, the control's 0.35 (mean differences 3.40e-4 and 7.9e-5)
+BIAS_SE_MAX = 4.0
+# phase 16: full-width llava-next-34b through the legacy fixed-batch
+# path, 576 patches + 512 text tokens a request, 1 prefill + 31 decode
+# steps; it holds ~70 GiB, so the memory left allocated by the phases
+# before it must be at most VLM_BASELINE_GB
+VLM_FULL = dict(arch="llava-next-34b", batch=4, prefill_len=1088,
+                decode_tokens=32)
+VLM_SMOKE = dict(arch="llava-next-34b-smoke", batch=4, prefill_len=48,
+                 decode_tokens=12)
+VLM_BASELINE_GB = 4.0
 # f32 operations of one fused step per zone (sedov_stencil.cu, counted
 # once per zone: EOS 2, div 8, q 4, pq 1, 1/rho 2, momentum 15, div 8,
 # energy 5, mass 4)
@@ -997,7 +1047,25 @@ def _k2_hold(torch, ref, fused, name, x, a, w, rounded, repeat=True) -> dict:
         r2, y2 = fused(x, a, w, norm_of_rounded=rounded)
         if not (torch.equal(r2, r) and torch.equal(y2, y)):
             raise AssertionError(f"add_rmsnorm {name}: two calls differ")
-    return {"abs": float(err.max()), "share": share}
+    return {"abs": float(err.max()), "share": share,
+            "frac": float((y != y_want).float().mean())}
+
+
+def _k2_norm_hold(torch, ref, norm, name, x, w) -> dict:
+    """The RMSNorm entry ``norm`` on (x, w) against its plain version: each
+    element within one bf16 step of the plain value (as ``_k2_hold``
+    holds the fused entry's norm), a second call bitwise equal."""
+    y, want = norm(x, w), ref.rmsnorm_ref(x, w)
+    err = (y.float() - want.float()).abs()
+    share = float((err / (FLASH_FULL_ATOL + FLASH_FULL_RTOL *
+                          want.float().abs())).max())
+    if share > 1:
+        raise AssertionError(f"rmsnorm {name}: {share:.4g} of one bf16 step "
+                             f"from the plain version's")
+    if not torch.equal(norm(x, w), y):
+        raise AssertionError(f"rmsnorm {name}: two calls differ")
+    return {"abs": float(err.max()), "share": share,
+            "frac": float((y != want).float().mean())}
 
 
 def _k1_numbers(torch, ref, attend, card, what, case, flush) -> dict:
@@ -1488,7 +1556,7 @@ def _step0(torch, m, model, params, batch, plain=False, rounded=False,
             else contextlib.nullcontext():
         if counted:
             counted()
-        logits, _ = model.full_forward(leaves, batch["tokens"])
+        logits, _ = model.full_forward(leaves, batch)
         # the model's loss: the mean of the per-token losses below
         loss = m.layers.softmax_xent(logits, batch["labels"],
                                      batch.get("loss_mask"))
@@ -1502,6 +1570,29 @@ def _step0(torch, m, model, params, batch, plain=False, rounded=False,
         launches = (fwd, counted()) if counted else None
     return float(loss.detach()), per_token, _leaf_grads(torch, leaves), \
         launches
+
+
+def _bias_se(torch, got, want) -> dict:
+    """The mean of the per-token differences ``got - want`` and its
+    distance from zero in standard errors (the differences' standard
+    deviation over the square root of their number; 0 when all are 0)."""
+    diff = (got.double() - want.double()).flatten()
+    se = float(diff.std()) / math.sqrt(diff.numel())
+    mean = float(diff.mean())
+    return {"mean": mean, "se": se, "z": mean / se if se > 0 else 0.0}
+
+
+def _hold_bias(what: str, bias_k: dict, bias_c: dict) -> None:
+    """Phase 15's bias gate: the kernel path's and the control's mean
+    per-token loss difference from the plain path, each within
+    BIAS_SE_MAX standard errors of zero (a shift shared by every token,
+    which the relative L2 of ``_hold_grads`` cannot see)."""
+    over = {name: b for name, b in (("kernel", bias_k), ("control", bias_c))
+            if not abs(b["z"]) <= BIAS_SE_MAX}
+    if over:
+        raise AssertionError(f"{what} per-token losses: mean difference "
+                             f"from the plain path beyond {BIAS_SE_MAX} "
+                             f"standard errors: {over}")
 
 
 def _rel_l2(torch, got, want) -> float:
@@ -1747,6 +1838,7 @@ def _train_full(torch, m, card, counts, reset_counts, quiet) -> dict:
     err_c = _grad_errs(torch, g_c, g_p)
     del g_c
     tok15 = (_rel_l2(torch, tok_k, tok_p), _rel_l2(torch, tok_c, tok_p))
+    bias15 = (_bias_se(torch, tok_k, tok_p), _bias_se(torch, tok_c, tok_p))
     mark15("step 0 on the control")
     # per microbatch: layer 0's first norm, then the fused add + norms of
     # the blocks and ln_f; the remat recompute runs all but ln_f again
@@ -1763,7 +1855,12 @@ def _train_full(torch, m, card, counts, reset_counts, quiet) -> dict:
           f" in the backward's recompute {got_rec} (predicted {2 * nl15}); "
           f"loss kernel {loss_k:.6f}, plain {loss_p:.6f}, control "
           f"{loss_c:.6f}; per-token losses rel L2 vs plain, kernel "
-          f"{tok15[0]:.4g}, control {tok15[1]:.4g}; per-leaf gradient rel "
+          f"{tok15[0]:.4g}, control {tok15[1]:.4g}; their mean difference "
+          f"from the plain path's, kernel {bias15[0]['mean']:.4g} ("
+          f"{bias15[0]['z']:.3f} standard errors of {bias15[0]['se']:.4g}), "
+          f"control {bias15[1]['mean']:.4g} ({bias15[1]['z']:.3f} of "
+          f"{bias15[1]['se']:.4g}; each within {BIAS_SE_MAX}); per-leaf "
+          f"gradient rel "
           f"L2 vs plain, kernel "
           f"{({k: round(v, 6) for k, v in err_k.items()})}, control "
           f"{({k: round(v, 6) for k, v in err_c.items()})} (kernel <= "
@@ -1773,6 +1870,7 @@ def _train_full(torch, m, card, counts, reset_counts, quiet) -> dict:
                              f"{got_fwd} != {want_fwd} or recompute "
                              f"{got_rec} != {want_rec}")
     _hold_grads("deepseek-7b step 0", *tok15, err_k, err_c)
+    _hold_bias("deepseek-7b step 0", *bias15)
     # the optimizer's update alone (plain gradients, 8-bit moments), and
     # one whole step under the profiler
     opt15 = m.make_optimizer(plan15.optimizer)
@@ -1843,6 +1941,338 @@ def _train_full(torch, m, card, counts, reset_counts, quiet) -> dict:
     return per_step15
 
 
+class _StreamLog:
+    """Every token the legacy fixed-batch path generates, row by row: its
+    whole-batch step (``training.steps.build_decode_step``, which the path
+    builds when it runs) wrapped to record the greedy tokens each step is
+    fed and the pick of the last step's logits."""
+
+    def __init__(self, steps):
+        self.steps, self.runs = steps, []
+
+    def __enter__(self):
+        make_step = self.make_step = self.steps.build_decode_step
+        runs = self.runs
+
+        def recording(model):
+            step = make_step(model)
+            fed = []
+            runs.append(fed)
+
+            def decode(params, cache, tokens):
+                logits, cache = step(params, cache, tokens)
+                fed.append((tokens, logits[:, -1].argmax(-1)))
+                return logits, cache
+            return decode
+        self.steps.build_decode_step = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.steps.build_decode_step = self.make_step
+        return False
+
+    def streams(self, i: int = -1) -> list:
+        """Run ``i``'s tokens, one list per row."""
+        fed = self.runs[i]
+        cols = [t[:, 0].tolist() for t, _ in fed] + [fed[-1][1].tolist()]
+        return [list(row) for row in zip(*cols)]
+
+
+def _vlm_smoke(torch, m, counts, reset_counts, quiet) -> dict:
+    """Phase 3's legacy fixed-batch path at smoke size on the card
+    (VLM_SMOKE): ``serve_main`` with K2 on every norm (counted: layer 0's
+    first norm alone and two fused a layer, per forward: the prefill and
+    each decode step), the same call with the plain norm in K2's place,
+    and ``run_command``: every row's greedy tokens equal in all three."""
+    cfg = m.get_config(VLM_SMOKE["arch"])
+    n_fwd = VLM_SMOKE["decode_tokens"]
+    cmd = (f"serve --arch {VLM_SMOKE['arch']} --batch {VLM_SMOKE['batch']} "
+           f"--prefill {VLM_SMOKE['prefill_len']} --decode {n_fwd}")
+    with _StreamLog(m.steps) as log:
+        reset_counts()
+        out = m.serve_main(**VLM_SMOKE, log=quiet)
+        got = counts()
+        with _PlainNorms(m.ops, m.ref, m.layers):
+            plain = m.serve_main(**VLM_SMOKE, log=quiet)
+        via = m.run_command(cmd)
+    want = dict(got, rmsnorm=n_fwd, add_rmsnorm=2 * cfg.num_layers * n_fwd,
+                paged_attention=0)
+    if got != want:
+        raise AssertionError(f"{cmd}: launches {got} != {want}")
+    streams = [log.streams(i) for i in range(3)]
+    if streams[1] != streams[0] or streams[2] != streams[0] or \
+            plain["sample"] != out["sample"] or via["sample"] != out["sample"]:
+        raise AssertionError(f"{cmd}: streams differ, K2 {streams[0]}, "
+                             f"plain {streams[1]}, run_command {streams[2]}")
+    if (out["mode"], len(streams[0]), len(streams[0][0])) != (
+            "legacy-static", VLM_SMOKE["batch"], n_fwd):
+        raise AssertionError(f"{cmd}: {out}")
+    return {"launches": {k: v for k, v in got.items() if v},
+            "sample": out["sample"]}
+
+
+def _vlm_full(torch, m, card, counts, reset_counts, quiet) -> dict:
+    """Phase 16: VLM_FULL (full-width, full-depth ``llava-next-34b``, random
+    weights from seed 0) through the legacy fixed-batch path on one card.
+    (a) ``run_easey`` of its serving Appfile to ``nvidia:h100``: K2 built,
+    the job ``finished``, K2 counted on every norm of the prefill and of
+    every decode step.  (b) A direct ``serve_main`` repeats the job's
+    tokens; a free-running run with the plain norm in K2's place is
+    printed beside them (not gated); then the model driven step by step,
+    teacher-forced on the kernel path's tokens: each forward (the prefill,
+    then each decode step) on the kernel path with every norm call held as
+    phase 2 holds it, on the plain-norm path and on the control (the plain
+    norm with one bf16 step of noise at as many norm outputs as K2
+    changed), each decode step on copies of the same cache, the kernel
+    path's logits within LOGITS_VS_CONTROL x the control's distance from
+    the plain path's.  (c) Printed, not gated: the prefill and the decode
+    step (CUDA events, the profiler), tokens/s, peak memory, and the
+    data-sheet bounds.  Returns the launches of (a)."""
+    t16 = time.perf_counter()
+    mem16 = []              # (what, GB allocated after it, its peak GB)
+
+    def mark16(what):
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem16.append((what, round(torch.cuda.memory_allocated() / 1e9, 1),
+                      round(torch.cuda.max_memory_allocated() / 1e9, 1)))
+        torch.cuda.reset_peak_memory_stats()
+    mark16("before phase 16")
+    if mem16[0][1] > VLM_BASELINE_GB:
+        raise AssertionError(f"phase 16 needs ~70 GiB, but "
+                             f"{mem16[0][1]} GB is still allocated by the "
+                             f"phases before it (at most {VLM_BASELINE_GB})")
+    cfg = m.get_config(VLM_FULL["arch"])
+    nl, b = cfg.num_layers, VLM_FULL["batch"]
+    n_dec = VLM_FULL["decode_tokens"]
+    params_n = m.param_count_estimate(cfg)
+    cmd = (f"serve --arch {VLM_FULL['arch']} --batch {b} --prefill "
+           f"{VLM_FULL['prefill_len']} --decode {n_dec}")
+    app = m.parse_appfile(f"FROM arch:{VLM_FULL['arch']}\nSHAPE "
+                          f"prefill_32k\n###include_local_kernels###\nRUN "
+                          f"{cmd}\n")
+    spec = m.parse_jobspec({"job": {"name": "serve-llava"},
+                            "execution": [{"serial": {"command": cmd}}]})
+    # (a) the EASEY deployment
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vlm_") as tdir, \
+            _StreamLog(m.steps) as log_a:
+        reset_counts()
+        (mw, jid, res), easey_s = _timed(m.run_easey, app, "nvidia:h100",
+                                         spec, storage=tdir)
+        launches = counts()
+        if mw.status(jid) is not m.JobState.FINISHED:
+            raise AssertionError(f"llava serving job "
+                                 f"{mw.status(jid).value}: "
+                                 f"{mw.logs(jid)[1][-3000:]}")
+        out_a = mw.scheduler.result(jid)[0]
+        built = dict(res.built)
+        if (res.step_name, res.program["arch"], sorted(built),
+                list(res.program["kernels"])) != (
+                "prefill_step", "sm_90a", ["rmsnorm"], ["rmsnorm"]):
+            raise AssertionError(f"llava serving build: {res.step_name}, "
+                                 f"{res.program['arch']}, built {built}, "
+                                 f"program {res.program['kernels']}")
+        del mw, res
+    # per forward (1 prefill + n_dec - 1 decode steps): layer 0's first
+    # norm alone, then two fused add + norms a layer
+    want = dict(launches, rmsnorm=n_dec, add_rmsnorm=2 * nl * n_dec,
+                paged_attention=0)
+    if launches != want:
+        raise AssertionError(f"llava serve: launches {launches} != {want}")
+    streams_a = log_a.streams()
+    if len(streams_a) != b or any(
+            len(r) != n_dec or not all(0 <= t < cfg.vocab_size for t in r)
+            for r in streams_a) or out_a["mode"] != "legacy-static":
+        raise AssertionError(f"llava serve: {out_a}, streams {streams_a}")
+    mark16("EASEY job")
+    print(f"[vlm] {card} run_easey(llava-next-34b serving Appfile, "
+          f"nvidia:h100): build {built} for {m.build_arch}, job finished in "
+          f"{easey_s:.1f} s; {nl} layers of {cfg.d_model}, "
+          f"{cfg.num_heads} heads over {cfg.num_kv_heads} of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{params_n / 1e9:.3f} B parameters, {cfg.num_patches} patches + "
+          f"{VLM_FULL['prefill_len'] - cfg.num_patches} text tokens x {b}; "
+          f"launches {({k: v for k, v in launches.items() if v})} (K2 on "
+          f"all {n_dec + 2 * nl * n_dec} norms of 1 prefill + {n_dec - 1} "
+          f"decode steps); prefill {out_a['prefill_s']:.3f} s, decode "
+          f"{out_a['decode_tok_per_s']:.2f} tokens/s; memory (GB "
+          f"allocated after, peak during) {mem16}")
+
+    # (b) the direct call, and the plain norm free-running
+    with _StreamLog(m.steps) as log_b:
+        out_b = m.serve_main(**VLM_FULL, log=quiet)
+        mark16("direct serve_main")
+        with _PlainNorms(m.ops, m.ref, m.layers):
+            m.serve_main(**VLM_FULL, log=quiet)
+        mark16("plain-norm serve_main")
+    if log_b.streams(0) != streams_a or out_b["sample"] != out_a["sample"]:
+        raise AssertionError(f"llava: the direct serve_main's streams "
+                             f"{log_b.streams(0)} differ from the job's "
+                             f"{streams_a}")
+    streams_p = log_b.streams(1)
+    parts = [next((i for i, (x, y) in enumerate(zip(rk, rp)) if x != y),
+                  None) for rk, rp in zip(streams_a, streams_p)]
+    print(f"[vlm] {card} the direct serve_main repeats the job's {b} x "
+          f"{n_dec} tokens ({out_b['decode_tok_per_s']:.2f} tokens/s); "
+          f"free-running with the plain norm in K2's place (not gated): "
+          f"the streams part at token {parts} per row; K2 path "
+          f"{streams_a}, plain path {streams_p}")
+
+    # (b) teacher-forced, step by step
+    model = m.model_for(cfg, remat="none")
+    params = m.init_params(model.param_table(),
+                           torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    shape = dataclasses.replace(m.SHAPES["prefill_32k"],
+                                seq_len=VLM_FULL["prefill_len"],
+                                global_batch=b)
+    req = m.to_device(m.SyntheticSource(cfg.vocab_size, 0).batch(
+        model.batch_table(shape), 0), "cuda")
+    prefill = m.build_prefill_step(model)
+    decode = m.build_decode_step(model)
+    ops, ref = m.ops, m.ref
+    kernel_norm, kernel_fused = ops.rmsnorm_cuda, ops.add_rmsnorm_cuda
+    held, fracs = [], []
+    noise = torch.Generator(device="cuda").manual_seed(0)
+
+    def held_norm(x, w, *, eps=1e-6, out_dtype=None):
+        h = _k2_norm_hold(torch, ref, kernel_norm, f"llava call "
+                          f"{len(held)}", x, w)
+        held.append(h)
+        fracs.append(h["frac"])
+        return kernel_norm(x, w, eps=eps, out_dtype=out_dtype)
+
+    def held_fused(x, a, w, *, eps=1e-6, norm_of_rounded):
+        h = _k2_hold(torch, ref, kernel_fused, f"llava call {len(held)}",
+                     x, a, w, norm_of_rounded)
+        held.append(h)
+        fracs.append(h["frac"])
+        return kernel_fused(x, a, w, eps=eps,
+                            norm_of_rounded=norm_of_rounded)
+
+    def noisy(frac):
+        def norm(x, w, *, eps=1e-6, out_dtype=None):
+            return _one_step_noise(torch, ref.rmsnorm_ref(
+                x, w, eps=eps, out_dtype=out_dtype), frac, noise)
+
+        def fused(x, a, w, *, eps=1e-6, norm_of_rounded):
+            r, y = ref.add_rmsnorm_ref(x, a, w, eps=eps,
+                                       norm_of_rounded=norm_of_rounded)
+            return r, _one_step_noise(torch, y, frac, noise)
+        return norm, fused
+
+    def with_norms(norm, fused, fn, *args):
+        ops.rmsnorm_cuda, ops.add_rmsnorm_cuda = norm, fused
+        try:
+            return fn(*args)
+        finally:
+            ops.rmsnorm_cuda, ops.add_rmsnorm_cuda = kernel_norm, \
+                kernel_fused
+
+    def plain_norm(x, w, *, eps=1e-6, out_dtype=None):
+        return ref.rmsnorm_ref(x, w, eps=eps, out_dtype=out_dtype)
+
+    def plain_fused(x, a, w, *, eps=1e-6, norm_of_rounded):
+        return ref.add_rmsnorm_ref(x, a, w, eps=eps,
+                                   norm_of_rounded=norm_of_rounded)
+
+    def copy(cache):
+        return dict(cache, k=cache["k"].clone(), v=cache["v"].clone())
+
+    tf = []
+
+    def forced(fn, *args, cache=None):
+        """One forward on the three paths; the kernel path's result."""
+        del fracs[:]
+        out = with_norms(held_norm, held_fused, fn, *args)
+        frac = sum(fracs) / len(fracs)
+        rest = args if cache is None else (args[0], copy(cache), args[2])
+        want = with_norms(plain_norm, plain_fused, fn, *rest)[0]
+        rest = args if cache is None else (args[0], copy(cache), args[2])
+        ctrl = with_norms(*noisy(frac), fn, *rest)[0]
+        got, want, ctrl = (t[:, -1].float() for t in (out[0], want, ctrl))
+        scale = float(want.abs().max())
+        tf.append(dict(frac=frac,
+                       rel=float((got - want).abs().max()) / scale,
+                       ctrl=float((ctrl - want).abs().max()) / scale,
+                       flips=int((got.argmax(-1) != want.argmax(-1)).sum()),
+                       finite=bool(torch.isfinite(got).all())))
+        return out
+
+    logits, cache = forced(prefill, params, req)
+    cache = dict(cache, **{
+        key: torch.cat([cache[key], cache[key].new_zeros(
+            cache[key].shape[:2] + (n_dec,) + cache[key].shape[3:])], dim=2)
+        for key in ("k", "v")})
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    tf_tokens = [tok[:, 0].tolist()]
+    for _ in range(n_dec - 1):
+        logits, cache = forced(decode, params, cache, tok, cache=cache)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        tf_tokens.append(tok[:, 0].tolist())
+    tf_streams = [list(r) for r in zip(*tf_tokens)]
+    mark16("teacher-forced run")
+    if not all(t["finite"] for t in tf):
+        raise AssertionError("llava teacher-forced: non-finite logits")
+    if len(held) != n_dec * (1 + 2 * nl):
+        raise AssertionError(f"llava teacher-forced: {len(held)} norm calls "
+                             f"held, not {n_dec * (1 + 2 * nl)}")
+    worst = max(tf, key=lambda t: t["rel"])
+    ctrl = max(t["ctrl"] for t in tf)
+    print(f"[vlm] {card} teacher-forced, 1 prefill + {n_dec - 1} decode "
+          f"steps: every norm call held as phase 2 holds it ({len(held)} "
+          f"calls: residual bitwise equal, norm within "
+          f"{max(h['share'] for h in held):.4f} of one bf16 step, max abs "
+          f"{max(h['abs'] for h in held):.4g}, two calls bitwise equal; "
+          f"norm outputs K2 changed {min(t['frac'] for t in tf):.3g}.."
+          f"{max(t['frac'] for t in tf):.3g} a forward); logits max |diff| / "
+          f"max |logit| per forward, K2 vs plain norm "
+          f"{[round(t['rel'], 4) for t in tf]}, control (plain with one-step "
+          f"noise) vs plain {[round(t['ctrl'], 4) for t in tf]}; "
+          f"{sum(t['flips'] for t in tf)} of {b * n_dec} greedy picks "
+          f"differ; the teacher-forced run repeats the job's streams: "
+          f"{tf_streams == streams_a}")
+    if worst["rel"] > LOGITS_VS_CONTROL * ctrl:
+        raise AssertionError(f"llava teacher-forced logits differ by "
+                             f"{worst['rel']:.4g} of max |logit| > "
+                             f"{LOGITS_VS_CONTROL} x the control's "
+                             f"{ctrl:.4g}")
+
+    # (c) numbers: the prefill and the decode step
+    def one_prefill():
+        return prefill(params, req)
+
+    def one_step():
+        return decode(params, cache, tok)
+    prefill_ms = _events_ms(torch, one_prefill, 2)
+    step_ms = _events_ms(torch, one_step, 10)
+    prof_p = _profile_ticks(torch, card, f"llava-next-34b prefill ({b} x "
+                            f"{VLM_FULL['prefill_len']})", one_prefill, n=1)
+    prof_d = _profile_ticks(torch, card, f"llava-next-34b whole-batch "
+                            f"decode step ({b} rows)", one_step, n=5)
+    held_tokens = b * (VLM_FULL["prefill_len"] + n_dec // 2)
+    step_bound = (2 * params_n + held_tokens * 2 * nl * cfg.num_kv_heads *
+                  cfg.head_dim * 2) / HBM_BYTES_PER_S * 1e3
+    prefill_bound = 2 * params_n * b * VLM_FULL["prefill_len"] / \
+        BF16_TENSOR_FLOPS * 1e3
+    del params, cache, req, logits, model
+    mark16("timed")
+    peak = max(p for _, _, p in mem16)
+    t16 = time.perf_counter() - t16
+    print(f"[vlm] {card} llava-next-34b full width: prefill "
+          f"{prefill_ms:.3f} ms (CUDA events; bound {prefill_bound:.3f} ms "
+          f"from {2 * params_n * b * VLM_FULL['prefill_len']:.4g} FLOP at "
+          f"the dense bf16 rate), decode step {step_ms:.3f} ms (bound "
+          f"{step_bound:.3f} ms: the weights and ~{held_tokens} tokens of "
+          f"KV read once at the memory rate); profiler: prefill {prof_p}, "
+          f"decode step {prof_d}; tokens/s EASEY "
+          f"{out_a['decode_tok_per_s']:.2f}, direct "
+          f"{out_b['decode_tok_per_s']:.2f}; peak memory {peak:.1f} GB; "
+          f"phase 16 took {t16:.1f} s; memory (GB allocated after, peak "
+          f"during) {mem16}")
+    return {k: v for k, v in launches.items() if v}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1866,6 +2296,7 @@ def main() -> int:
                                                       paged_attention_cuda)
     from repro_torch.core.workflow import run_easey
     from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm import plan as _rmsnorm_plan
     from repro_torch.kernels.sedov_stencil import sedov_step_cuda
     from repro_torch.launch.serve import serve_main
     from repro_torch.models import lulesh, moe
@@ -1877,7 +2308,10 @@ def main() -> int:
                                             build_train_step,
                                             init_train_state)
     from repro_torch.launch.train import train_main
-    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.run import run_command
+    from repro_torch.training import steps as port_steps
+    from repro_torch.data.pipeline import (DataPipeline, SyntheticSource,
+                                           to_device)
     from repro_torch.models import layers
     from repro_torch.models.params import init_params, leaf_items, tree_map
     from repro_torch.core.build import BuildService
@@ -2005,9 +2439,10 @@ def main() -> int:
     print(f"[kernels] rmsnorm vs plain (rows 1/8/128/1000 x {d}, bf16 and "
           f"f32 input): max abs err {k2_err:.4g}")
     k2f_err, k2f_share = 0.0, 0.0
+    k2_vlm = {}
     for dk in K2_WIDTHS:
         wk = (1 + 0.1 * torch.randn(dk, device="cuda")).to(torch.bfloat16)
-        for rows in K2_ROWS:
+        for rows in K2_ROWS + tuple(r for r, c in K2_VLM_SHAPES if c == dk):
             xk = (3 * torch.randn((rows, dk), device="cuda")).to(torch.bfloat16)
             ak = torch.randn((rows, dk), device="cuda").to(torch.bfloat16)
             for rounded in (False, True):
@@ -2016,10 +2451,23 @@ def main() -> int:
                              xk, ak, wk, rounded)
                 k2f_err = max(k2f_err, h["abs"])
                 k2f_share = max(k2f_share, h["share"])
+                if (rows, dk) in K2_VLM_SHAPES:
+                    k2_vlm[rows, dk, rounded] = h["share"]
+            if (rows, dk) in K2_VLM_SHAPES:
+                h = _k2_norm_hold(torch, ref, rmsnorm_cuda,
+                                  f"rows={rows} d={dk}", xk, wk)
+                k2_err = max(k2_err, _check_close(
+                    f"rmsnorm rows={rows} d={dk}", rmsnorm_cuda(xk, wk),
+                    ref.rmsnorm_ref(xk, wk), KERNEL_ATOL, KERNEL_RTOL))
+                k2_vlm[rows, dk, "rmsnorm"] = h["share"]
     print(f"[kernels] add_rmsnorm vs plain (rows {K2_ROWS} x d {K2_WIDTHS}, "
-          f"the norm of the f32 sum and of the rounded one): residual "
-          f"bitwise equal, norm within {k2f_share:.4f} of one bf16 step "
-          f"(max abs {k2f_err:.4g}), two calls bitwise equal")
+          f"and rows x d {K2_VLM_SHAPES}, the norm of the f32 sum and of "
+          f"the rounded one): residual bitwise equal, norm within "
+          f"{k2f_share:.4f} of one bf16 step (max abs {k2f_err:.4g}), two "
+          f"calls bitwise equal; at llava-next-34b's shapes (threads, "
+          f"vectors a thread {_rmsnorm_plan(7168)}), share of one bf16 step "
+          f"per (rows, d, form) {({k: round(v, 4) for k, v in k2_vlm.items()})}"
+          f", the rmsnorm entry too")
     denormal = _route_checks(torch, moe)
     print(f"[kernels] route_tokens on the card (no kernel of its own): on "
           f"rows of exact ties (E 40, k 8; E 16, k 4) and saturated rows "
@@ -2188,7 +2636,14 @@ def main() -> int:
         make_optimizer=make_optimizer, init_train_state=init_train_state,
         build_train_step=build_train_step, train_main=train_main,
         param_count_estimate=param_count_estimate, AppSpec=AppSpec,
-        BuildService=BuildService, tree_map=tree_map, leaf_items=leaf_items)
+        BuildService=BuildService, tree_map=tree_map, leaf_items=leaf_items,
+        steps=port_steps, serve_main=serve_main, run_command=run_command,
+        run_easey=run_easey, parse_appfile=parse_appfile,
+        parse_jobspec=parse_jobspec, JobState=JobState,
+        SyntheticSource=SyntheticSource, to_device=to_device,
+        build_prefill_step=port_steps.build_prefill_step,
+        build_decode_step=port_steps.build_decode_step,
+        build_arch=_build.ARCH)
     train_smoke, train_s = _timed(_train_smoke, torch, mt, counts,
                                   reset_counts)
     print(f"[smoke] training {TRAIN_SMOKE_ARCHS}, {TRAIN_SMOKE_STEPS} steps "
@@ -2251,6 +2706,11 @@ def main() -> int:
           f"bit for bit; a second run from the same seed repeats its loss "
           f"bits and state; run_easey(smoke training Appfile, nvidia:h100) "
           f"finished, build {sorted(res3.built)}, K2 launches {easey_train}")
+    vlm3 = _vlm_smoke(torch, mt, counts, reset_counts, quiet)
+    print(f"[smoke] the legacy fixed-batch path, {VLM_SMOKE}: serve_main "
+          f"with K2 on every norm (launches {vlm3['launches']}), with the "
+          f"plain norm in its place, and run_command: every row's greedy "
+          f"tokens equal (sample {vlm3['sample']})")
 
     # ---- 4. the slice at full width ------------------------------------
     reqs = [Request(rid=i, prompt=prng.randint(1, full.vocab_size - 1,
@@ -2392,9 +2852,10 @@ def main() -> int:
     k2, k2f = {}, {}
     rms_norm = getattr(torch.nn.functional, "rms_norm", None)
     floor = _graph_ms(torch, empty_cuda, 100)
-    # deepseek-7b's width, and granite-moe-3b-a800m's as its tick calls it
+    # deepseek-7b's width, granite-moe-3b-a800m's as its tick calls it, and
+    # llava-next-34b's decode step and prefill (phase 16)
     d_gr = get_config("granite-moe-3b-a800m").d_model
-    for rows, dk in ((8, d), (40, d), (128, d), (8, d_gr)):
+    for rows, dk in ((8, d), (40, d), (128, d), (8, d_gr)) + K2_VLM_SHAPES:
         x = torch.randn((rows, dk), device="cuda").to(torch.bfloat16)
         a = torch.randn((rows, dk), device="cuda").to(torch.bfloat16)
         wk = w if dk == d else \
@@ -3215,6 +3676,9 @@ def main() -> int:
     # ---- 15. training at full width ----------------------------------
     per_step15 = _train_full(torch, mt, card, counts, reset_counts, quiet)
 
+    # ---- 16. the VLM family at full width, the legacy path ------------
+    vlm_launches = _vlm_full(torch, mt, card, counts, reset_counts, quiet)
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -3239,16 +3703,20 @@ def main() -> int:
          "granite_moe_launches": moe_launches["rmsnorm"],
          # deepseek-7b training (phase 15): per step, forward + recompute
          "train_launches_per_step": per_step15["rmsnorm"],
+         # llava-next-34b served by the legacy path (phase 16)
+         "llava_launches": vlm_launches["rmsnorm"],
          "backward_ms": {f"{r}x{c}": k2g[(r, c)]["ms"]["rmsnorm"][1]
                          for r, c in K2_GRAD_SHAPES},
          "max_abs_err": k2_err,
          "ms": k2[8, d]["ms"], "plain_ms": k2[8, d]["plain"],
          "bound_ms": k2[8, d]["bound"], "bound_by": "bytes",
          "library_ms": k2[8, d]["lib"],
-         "shapes": {"granite-moe-3b-a800m (8, 1536)": {
-             "ms": k2[8, d_gr]["ms"], "plain_ms": k2[8, d_gr]["plain"],
-             "bound_ms": k2[8, d_gr]["bound"],
-             "library_ms": k2[8, d_gr]["lib"]}}},
+         "shapes": {f"{n} {shape}": {
+             "ms": k2[shape]["ms"], "plain_ms": k2[shape]["plain"],
+             "bound_ms": k2[shape]["bound"], "library_ms": k2[shape]["lib"]}
+             for n, shape in (("granite-moe-3b-a800m", (8, d_gr)),
+                              *(("llava-next-34b", sh)
+                                for sh in K2_VLM_SHAPES))}},
         # the fused entry of the same kernel (norm_of_rounded=True) at
         # (8, 4096); its plain version is the eager add and norm, and no
         # one PyTorch call computes it: library_ms is null
@@ -3259,15 +3727,19 @@ def main() -> int:
          "easey_serve_launches": easey_counts["add_rmsnorm"],
          "granite_moe_launches": moe_launches["add_rmsnorm"],
          "train_launches_per_step": per_step15["add_rmsnorm"],
+         "llava_launches": vlm_launches["add_rmsnorm"],
          "backward_ms": {f"{r}x{c}": k2g[(r, c)]["ms"][True][1]
                          for r, c in K2_GRAD_SHAPES},
          "max_abs_err": k2f_err,
          "ms": k2f[8, d]["ms"], "plain_ms": k2f[8, d]["plain"],
          "bound_ms": k2f[8, d]["bound"], "bound_by": "bytes",
          "library_ms": None,
-         "shapes": {"granite-moe-3b-a800m (8, 1536)": {
-             "ms": k2f[8, d_gr]["ms"], "plain_ms": k2f[8, d_gr]["plain"],
-             "bound_ms": k2f[8, d_gr]["bound"], "library_ms": None}}},
+         "shapes": {f"{n} {shape}": {
+             "ms": k2f[shape]["ms"], "plain_ms": k2f[shape]["plain"],
+             "bound_ms": k2f[shape]["bound"], "library_ms": None}
+             for n, shape in (("granite-moe-3b-a800m", (8, d_gr)),
+                              *(("llava-next-34b", sh)
+                                for sh in K2_VLM_SHAPES))}},
         # no one PyTorch call computes the fused step: library_ms is null
         {"name": "sedov_stencil", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sedov_stencil.cu",

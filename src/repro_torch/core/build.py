@@ -16,7 +16,8 @@ built with (``"reference"`` on the CPU target, which builds nothing).
 An LM's ``decode`` and ``prefill`` shapes are the serving app: their
 step is the paged serving engine's, whose hand-written kernels are the
 paged-decode kernel (decode only) and the RMSNorm kernel (rmsnorm
-configs).  The ``train`` shape's step is ``training.steps.
+configs); a VLM's is the legacy fixed-batch path's, the RMSNorm kernel
+alone.  The ``train`` shape's step is ``training.steps.
 build_train_step`` under the plan (optimizer, microbatches, remat,
 accumulation dtype), returned as ``step_fn`` with its state and batch
 tables; its kernel is the RMSNorm kernel (rmsnorm configs), on every
@@ -81,16 +82,24 @@ def program_description(step_name: str, kernels: str,
         for name in sources}}
 
 
+# the LM families the port runs: the engine's, and the VLM, which the
+# legacy fixed-batch serve path serves
+LM_FAMILIES = ("dense", "moe", "vlm")
+
+
 def _lm_sources(cfg, kind: str) -> tuple[str, ...]:
     """The kernel sources an LM's step launches: the paged-decode kernel
-    on every decode tick, the RMSNorm kernel on every norm of an rmsnorm
-    config (in training, of the forward and of its remat recompute)."""
+    on every decode tick of the engine's families (the legacy path
+    decodes over a contiguous whole-batch cache, without it), the RMSNorm
+    kernel on every norm of an rmsnorm config (in training, of the
+    forward and of its remat recompute)."""
     from repro_torch.serving.engine import SERVABLE_FAMILIES
-    if cfg.family not in SERVABLE_FAMILIES:
+    if cfg.family not in LM_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP slice F)")
+    paged = kind == "decode" and cfg.family in SERVABLE_FAMILIES
     norm = ("rmsnorm",) if cfg.norm == "rmsnorm" else ()
-    return (("paged_attention",) if kind == "decode" else ()) + norm
+    return (("paged_attention",) if paged else ()) + norm
 
 
 def _train_step(result: BuildResult, cfg, shape) -> None:

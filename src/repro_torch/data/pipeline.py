@@ -3,9 +3,9 @@
 
 Batches are a pure function of (seed, step): after a failure the training
 loop resumes from checkpoint step k and regenerates batch k+1 bit for
-bit.  ``SyntheticSource`` draws the reference's numpy arrays exactly
-(the same ``RandomState`` stream over the same declarative batch table);
-``DataPipeline`` moves them to the training device.
+bit.  ``SyntheticSource`` draws the reference's arrays exactly (the
+same ``RandomState`` stream over the same declarative batch table, in
+its insertion order); ``DataPipeline`` moves them to the training device.
 """
 
 from __future__ import annotations
@@ -26,17 +26,21 @@ class SyntheticSource:
     seed: int = 0
 
     def batch(self, table: dict, step: int) -> dict:
-        """Numpy arrays for ``table`` at ``step`` (the reference's)."""
+        """The reference's arrays for ``table`` at ``step``: numpy for an
+        int32 leaf, a CPU tensor for a float one (numpy has no bf16)."""
         rng = np.random.RandomState((self.seed * 1_000_003 + step)
                                     % (2**31 - 1))
 
         def gen(d: ParamDef):
-            if d.dtype != torch.int32:
-                raise NotImplementedError(
-                    f"{d.dtype} inputs come with the other families "
-                    f"(ROADMAP slice F)")
-            hi = max(self.vocab_size - 1, 2)
-            return rng.randint(1, hi, size=d.shape).astype(np.int32)
+            if d.dtype == torch.int32:
+                hi = max(self.vocab_size - 1, 2)
+                return rng.randint(1, hi, size=d.shape).astype(np.int32)
+            if not d.dtype.is_floating_point:
+                raise ValueError(f"no synthetic draw for {d.dtype} inputs")
+            # float64 draws rounded to f32, then to the leaf's dtype: the
+            # reference's ``astype`` (ml_dtypes rounds through f32 too)
+            x = torch.from_numpy(rng.randn(*d.shape) * 0.02)
+            return x.to(torch.float32).to(d.dtype)
 
         out = _map_table(table, gen)
         # make labels the next-token shift of tokens (real LM objective)
@@ -59,5 +63,11 @@ class DataPipeline:
         self.device = torch.device(device)
 
     def batch_at(self, step: int) -> dict:
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in self.source.batch(self.table, step).items()}
+        return to_device(self.source.batch(self.table, step), self.device)
+
+
+def to_device(batch: dict, device) -> dict:
+    """A ``SyntheticSource`` batch (numpy arrays and tensors) on
+    ``device``."""
+    return {k: (v if torch.is_tensor(v) else torch.from_numpy(v)).to(device)
+            for k, v in batch.items()}

@@ -18,8 +18,13 @@ hand-written paged-decode kernel; ``local:cpu``: the plain versions).
     python -m repro_torch.launch.serve --device cpu \\
         --arch deepseek-7b-smoke --kv-layout paged --trace-out t.json
 
-The reference's fixed-batch path for families the engine cannot serve
-(SSM, hybrid, enc-dec, VLM) comes with those families (ROADMAP slice F).
+Families the engine cannot serve take the reference's legacy
+fixed-batch path (``_legacy_serve_main``): one batch prefilled at once,
+then greedy whole-batch decode steps.  The VLM family is ported; the
+SSM, hybrid and enc-dec families raise (ROADMAP slice F).
+
+    python -m repro_torch.launch.serve --device cpu \\
+        --arch llava-next-34b-smoke --batch 2 --prefill 32 --decode 8
 """
 
 from __future__ import annotations
@@ -29,9 +34,12 @@ import json
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import get_config
-from repro_torch.core.target import default_target, resolve_device
+from repro_torch.core.target import (default_target, device_for, get_target,
+                                     resolve_device)
+from repro_torch.models.params import init_params
 
 # synthetic request mixes the engine/router paths can serve
 TRACES = ("uniform", "zipf", "longprompt", "sharedprefix", "repetitive")
@@ -128,6 +136,10 @@ def serve_main(arch: str = "deepseek-7b-smoke", batch: int = 4,
     ``metrics_out`` the flat ``to_metrics()`` snapshot as JSON (NaN ->
     null), ``prom_out`` the same snapshot in Prometheus text format.
 
+    A family the engine cannot serve takes the legacy fixed-batch path
+    (``_legacy_serve_main``), with the reference's refusals of the flags
+    it has no use for.
+
     ``device``: the card unless ``"cpu"``; ``target`` defaults to the
     device's own."""
     cfg = get_config(arch)
@@ -158,9 +170,10 @@ def serve_main(arch: str = "deepseek-7b-smoke", batch: int = 4,
                 f"--replicas needs an engine-servable family "
                 f"{SERVABLE_FAMILIES}; {arch} ({cfg.family}) is served by "
                 f"the legacy static path")
-        raise NotImplementedError(
-            f"{arch} ({cfg.family}) is served by the legacy fixed-batch "
-            f"path, which is not ported yet (ROADMAP slice F)")
+        dev = resolve_device(device)
+        return _legacy_serve_main(arch, batch, prefill_len, decode_tokens,
+                                  target or default_target(dev), seed, log,
+                                  device=dev)
 
     dev = resolve_device(device)
     target = target or default_target(dev)
@@ -369,6 +382,77 @@ def _write_telemetry(metrics, tracer, trace_out, metrics_out, prom_out,
             f"events; load in Perfetto / chrome://tracing) -> {trace_out}")
 
 
+def _legacy_serve_main(arch: str, batch: int, prefill_len: int,
+                       decode_tokens: int, target: str, seed: int,
+                       log, device: torch.device) -> dict:
+    """Fixed-batch prefill-all/decode-all (the pre-engine behaviour):
+    ``batch`` synthetic requests of ``prefill_len`` positions (a VLM's
+    patches included), prefilled at once; then the cache's sequence axis
+    padded by ``decode_tokens`` and ``decode_tokens - 1`` greedy
+    whole-batch steps.  Weights drawn from ``seed`` (``init_params``), the
+    request from ``SyntheticSource(vocab, seed)``; on ``device`` (the card:
+    the RMSNorm kernel on every norm), which must be ``target``'s.
+    Returns the reference's keys."""
+    from repro_torch.core.appspec import AppSpec
+    from repro_torch.core.build import BuildService
+    from repro_torch.data.pipeline import SyntheticSource, to_device
+    from repro_torch.launch.run import _timed
+    from repro_torch.models.transformer import model_for
+    from repro_torch.training.steps import (build_decode_step,
+                                            build_prefill_step)
+
+    dev = device
+    tgt = get_target(target)
+    if device_for(tgt) != dev:
+        raise ValueError(f"target {tgt.name} runs on {device_for(tgt)}, "
+                         f"not {dev}")
+    app = AppSpec(arch=arch, shape="prefill_32k",
+                  shape_overrides={"seq_len": prefill_len,
+                                   "global_batch": batch},
+                  run=f"serve --decode {decode_tokens}")
+    BuildService().build(app, tgt, lower=False)
+    cfg = app.model_config
+    model = model_for(cfg, remat="none")
+    prefill = build_prefill_step(model)
+    decode = build_decode_step(model)
+    params = init_params(model.param_table(),
+                         torch.Generator(device=dev).manual_seed(seed), dev)
+    req = to_device(SyntheticSource(cfg.vocab_size, seed).batch(
+        model.batch_table(app.shape_config), 0), dev)
+
+    (logits, cache), t_prefill = _timed(lambda: prefill(params, req), dev)
+    if "k" in cache:  # dense-family cache: pad seq axis for decode growth
+        for key in ("k", "v"):
+            c = cache[key]
+            cache[key] = torch.cat(
+                [c, c.new_zeros(c.shape[:2] + (decode_tokens,) +
+                                c.shape[3:])], dim=2)
+
+    def greedy(logits):
+        return logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+    generated = [greedy(logits)]
+
+    def steps(cache):
+        for _ in range(decode_tokens - 1):
+            logits, cache = decode(params, cache, generated[-1])
+            generated.append(greedy(logits))
+
+    _, t_decode = _timed(lambda: steps(cache), dev)
+    toks = torch.cat(generated, dim=1).cpu().numpy()
+    out = {
+        "arch": arch, "batch": batch, "prefill_len": prefill_len,
+        "decode_tokens": decode_tokens, "mode": "legacy-static",
+        "prefill_s": t_prefill, "decode_s": t_decode,
+        "decode_tok_per_s": batch * (decode_tokens - 1) / max(t_decode, 1e-9),
+        "sample": toks[0][:8].tolist(),
+    }
+    log(f"[serve] prefill {prefill_len}x{batch} in {t_prefill:.3f}s; "
+        f"decode {decode_tokens} tokens: "
+        f"{out['decode_tok_per_s']:.1f} tok/s")
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     p.add_argument("--arch", default="deepseek-7b-smoke")
@@ -379,7 +463,8 @@ def main(argv=None):
                    help="deployment target the tuner sizes for (default: "
                         "the device's own, nvidia:h100 or local:cpu)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--batch", type=int, default=4, help="KV pool slots")
+    p.add_argument("--batch", type=int, default=4,
+                   help="KV pool slots (engine) / batch size (legacy)")
     p.add_argument("--prefill", type=int, default=64)
     p.add_argument("--decode", type=int, default=16)
     p.add_argument("--mode", choices=("continuous", "static"),

@@ -12,8 +12,9 @@ square.
 Attention runs in four modes: ``full`` (training: causal, no cache),
 ``prefill`` (causal, returns fresh K/V), ``decode`` (slot-wise: one
 token per row, or a speculative verify burst of s tokens, over a paged
-or a contiguous pool) and ``chunk`` (chunked prefill written straight
-into the pool).  Decode and chunk write K/V **in place** into the pool's
+or a contiguous pool; or the whole batch at one length, over a prefill's
+padded cache) and ``chunk`` (chunked prefill written straight into the
+pool).  Decode and chunk write K/V **in place** into the pool's
 storage: a functional copy of the pool per layer and tick would cost
 more than the tick itself.
 
@@ -283,6 +284,19 @@ def _slot_decode(q, k, v, cache):
     return dot_attention(q, ck, cv, causal=True, q_offset=idx, kv_len=idx + s)
 
 
+def _batch_decode(q, k, v, cache):
+    """Whole-batch decode at one length (a 0-d index, on the host): every
+    row's s new K/V land at positions ``index .. index + s - 1`` (the
+    reference's ``dynamic_update_slice``, whose start is clamped so the
+    write fits), then each row attends its prefix causally."""
+    at, ck, cv = int(cache["index"]), cache["k"], cache["v"]
+    s = q.shape[1]
+    start = min(max(at, 0), ck.shape[1] - s)
+    ck[:, start:start + s] = k
+    cv[:, start:start + s] = v
+    return dot_attention(q, ck, cv, causal=True, q_offset=at, kv_len=at + s)
+
+
 def _chunk(q, k, v, cache):
     """Chunked prefill straight into the pool: the chunk's K/V land at
     their final positions, then the chunk attends causally over the
@@ -325,9 +339,9 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     """mode: 'full' (training: causal, no cache), 'prefill' (causal,
     returns the fresh K/V), 'decode' (slot-wise, one token or a verify
     burst per row, through the page table or the slot rows as the pool's
-    ``cache["layout"]`` says; in-place pool write), 'chunk' (chunked
-    prefill into the pool, in-place).  Returns (out, fresh_cache or
-    None)."""
+    ``cache["layout"]`` says, or the whole batch at a 0-d index; in-place
+    write), 'chunk' (chunked prefill into the pool, in-place).  Returns
+    (out, fresh_cache or None)."""
     q = torch.einsum("bse,ehd->bshd", x, p["wq"])
     k = torch.einsum("bte,ekd->btkd", x, p["wk"])
     v = torch.einsum("bte,ekd->btkd", x, p["wv"])
@@ -342,8 +356,12 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                        theta=cfg.rope_theta)
     new_cache = None
     if mode == "decode":
-        out = _paged_decode(q, k, v, cache) \
-            if cache["layout"] == "paged" else _slot_decode(q, k, v, cache)
+        if cache["layout"] == "paged":
+            out = _paged_decode(q, k, v, cache)
+        elif cache["index"].dim() == 0:
+            out = _batch_decode(q, k, v, cache)
+        else:
+            out = _slot_decode(q, k, v, cache)
     elif mode == "chunk":
         out = _chunk(q, k, v, cache)
     elif mode in ("prefill", "full"):

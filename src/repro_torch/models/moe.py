@@ -159,7 +159,7 @@ class MoELM(DenseLM):
         return x, out, self._last_aux
 
     def loss(self, leaves, batch):
-        logits, aux_sum = self.full_forward(leaves, batch["tokens"])
+        logits, aux_sum = self.full_forward(leaves, batch)
         loss = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
         aux = aux_sum / self.cfg.num_layers
         total = loss + self.cfg.router_aux_coef * aux

@@ -87,9 +87,15 @@ def init_params(table: ParamTable, generator: torch.Generator,
                 device: torch.device | str, dtype=None):
     """Materialize weights on ``device`` from a seeded ``generator`` (which
     must live on the same device).  The init law is the reference's
-    (normal x fan-in scale, embed 0.02, ones, zeros); the draws are
-    torch's own, so they differ from the reference's bits — parity tests
-    load the reference's weights instead (``params_from_jax``)."""
+    (normal x fan-in scale, embed 0.02, ones, zeros), the fan-in taken
+    from the whole leaf's ``shape[0]`` (a stacked leaf's layer count);
+    the draws are torch's own, so they differ from the reference's bits —
+    parity tests load the reference's weights instead (``params_from_jax``).
+
+    A stacked leaf (leading ``layers`` axis) is drawn one layer at a time
+    in f32, straight into its slice of the leaf, so the peak is the
+    weights plus one layer's f32 draw (a whole-leaf f32 draw of a 34 B
+    model's MLP leaves alone would be 33 GiB)."""
 
     def one(d: ParamDef):
         dt = dtype or d.dtype
@@ -104,9 +110,13 @@ def init_params(table: ParamTable, generator: torch.Generator,
         else:
             fan_in = d.shape[0] if len(d.shape) >= 2 else max(d.shape[-1], 1)
             scale = 1.0 / math.sqrt(fan_in)
-        w = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return w.mul_(scale).to(dt)
+        w = torch.empty(d.shape, dtype=dt, device=device)
+        stacked = d.logical_axes[:1] == ("layers",)
+        for part in (w.unbind(0) if stacked else (w,)):
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   dtype=torch.float32,
+                                   device=device).mul_(scale))
+        return w
 
     return _map_table(table, one)
 

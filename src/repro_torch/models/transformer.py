@@ -19,6 +19,10 @@ its storage with the stacked tensor, so each layer has its own ``.grad``
 and an in-place update of a leaf is an update of the stacked weight that
 serving and checkpoints read.  Each block runs under the remat policy
 (``remat_wrap``).
+
+Decode takes a pool's slot-wise cache (a ``(slots,)`` index) or, on the
+legacy fixed-batch serve path, the cache ``prefill`` returns: the whole
+batch at one length, a 0-d index kept on the host.
 """
 
 from __future__ import annotations
@@ -161,13 +165,15 @@ class DenseLM:
         x, out, _ = self.block_apply(p, x, delta, positions, "full", None)
         return x, out, None
 
-    def full_forward(self, leaves, tokens):
-        """The training forward over ``train_leaves``: logits (b, s, vocab)
-        and the per-layer aux losses summed in f32 (None for a dense
-        model), each block under the remat policy."""
-        b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-        x, delta = L.embed(leaves["embed"], tokens, self.cfg), None
+    def full_forward(self, leaves, batch):
+        """The training forward of ``batch`` over ``train_leaves``: logits
+        (b, s, vocab) of the positions the loss reads (``loss_from``) and
+        the per-layer aux losses summed in f32 (None for a dense model),
+        each block under the remat policy."""
+        x = self.embed_inputs(leaves, batch)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        delta = None
         block = remat_wrap(self._full_block, self.remat)
         aux_sum = None
         for lp in leaves["blocks"]:
@@ -176,16 +182,24 @@ class DenseLM:
                 aux_sum = (torch.zeros((), dtype=torch.float32,
                                        device=x.device)
                            if aux_sum is None else aux_sum) + aux
-        return self.logits_from(leaves, x, delta), aux_sum
+        pick = slice(self.loss_from, s)
+        return self.logits_from(leaves, *_at(pick, x, delta)), aux_sum
 
     def loss(self, leaves, batch):
         """Mean next-token cross entropy of ``batch`` (tokens, labels and an
         optional loss_mask) over ``train_leaves``: (loss, metrics)."""
-        logits, _ = self.full_forward(leaves, batch["tokens"])
+        logits, _ = self.full_forward(leaves, batch)
         loss = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
         return loss, {"loss": loss}
 
     # ---- entry points ----
+    # the first position the loss reads (a VLM's patches come before it)
+    loss_from = 0
+
+    def embed_inputs(self, params, batch):
+        """The residual stream's input: the tokens' embeddings."""
+        return L.embed(params["embed"], batch["tokens"], self.cfg)
+
     def logits_from(self, params, x, delta=None):
         """Logits of the stream ``x + delta`` (the last block's pair)."""
         _, h = L.add_norm(params["ln_f"], x, delta, self.cfg.norm)
@@ -193,12 +207,13 @@ class DenseLM:
 
     def prefill(self, params, batch):
         """Whole-prompt forward: returns last-position logits and a fresh
-        (layers, b, s, K, dh) cache.  ``batch["last"]`` picks the true final
-        position of a right-padded prompt."""
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-        x, delta = L.embed(params["embed"], tokens, self.cfg), None
+        contiguous (layers, b, s, K, dh) cache whose 0-d index (s, on the
+        host) is the whole batch's length.  ``batch["last"]`` picks the
+        true final position of a right-padded prompt."""
+        x = self.embed_inputs(params, batch)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        delta = None
         ks, vs = [], []
         for lp in self.layer_params(params):
             x, delta, nc = self.block_apply(lp, x, delta, positions,
@@ -208,8 +223,9 @@ class DenseLM:
         last = batch.get("last")
         pick = slice(s - 1, s) if last is None else slice(last, last + 1)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-                 "index": torch.tensor(s, dtype=torch.int32)}
-        return self.logits_from(params, x[:, pick], delta[:, pick]), cache
+                 "index": torch.tensor(s, dtype=torch.int32),
+                 "layout": "contiguous"}
+        return self.logits_from(params, *_at(pick, x, delta)), cache
 
     def chunk_prefill(self, params, cache, tokens, slot: int, offset: int,
                       n_valid: int, kv_bound: int,
@@ -250,10 +266,18 @@ class DenseLM:
         ``cache`` holds the (layers, ...) K/V, the (slots,) index and the
         pool's ``layout``, plus for a paged pool the (slots, max_pages)
         page table and ``use_kernel``, which selects the CUDA paged-decode
-        kernel over the gather path for single tokens."""
+        kernel over the gather path for single tokens.  A 0-d index (a
+        contiguous cache from ``prefill``, its sequence axis padded) is the
+        whole batch's length: every row writes and attends at it."""
         b, s = tokens.shape
         idx = cache["index"]
-        positions = idx[:, None] + torch.arange(s, device=idx.device)[None, :]
+        if idx.dim() == 0:
+            at = int(idx)
+            positions = torch.arange(at, at + s,
+                                     device=tokens.device).expand(b, s)
+        else:
+            positions = idx[:, None] + torch.arange(
+                s, device=idx.device)[None, :]
         x, delta = L.embed(params["embed"], tokens, self.cfg), None
         paged = {"pages": cache["pages"],
                  "use_kernel": cache.get("use_kernel", False)} \
@@ -268,13 +292,22 @@ class DenseLM:
         return self.logits_from(params, x, delta), new_cache
 
 
+def _at(pick: slice, *ts):
+    """The positions ``pick`` of each (b, s, d) tensor, contiguous (the
+    RMSNorm kernel reads whole rows)."""
+    return tuple(t[:, pick].contiguous() for t in ts)
+
+
 def model_for(cfg: ModelConfig, remat: str = "dots") -> DenseLM:
-    """The model of ``cfg.family`` (dense and MoE so far); ``remat`` is the
-    training forward's policy."""
+    """The model of ``cfg.family`` (dense, MoE and VLM so far); ``remat``
+    is the training forward's policy."""
     if cfg.family == "dense":
         return DenseLM(cfg, remat=remat)
     if cfg.family == "moe":
         from repro_torch.models.moe import MoELM
         return MoELM(cfg, remat=remat)
+    if cfg.family == "vlm":
+        from repro_torch.models.vlm import VLM
+        return VLM(cfg, remat=remat)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP slice F)")

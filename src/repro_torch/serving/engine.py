@@ -118,8 +118,8 @@ class ServeEngine:
         cfg = app.model_config
         if cfg.family not in SERVABLE_FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not served by the port yet "
-                f"(ROADMAP slice F)")
+                f"ServeEngine needs a slot-indexable attention KV cache; "
+                f"family {cfg.family!r} is served by the legacy static path")
         if cfg.window:
             raise NotImplementedError(
                 "slot-wise decode does not support sliding-window attention")

@@ -12,7 +12,8 @@ verify and chunk steps write K/V in place into the pool tensors they are
 given and return the same tensors (the reference donates them instead).
 Each comes for the contiguous slot pool and for the paged pool
 (``_paged``); a pool's cache names its layout, and a step given another
-layout's cache raises.
+layout's cache raises.  ``build_decode_step`` is the legacy fixed-batch
+path's: the whole batch at one length, over a prefill's cache.
 """
 
 from __future__ import annotations
@@ -209,6 +210,23 @@ def build_prefill_chunk_step_paged(model):
                                    tokens, slot, offset, n_valid, kv_bound,
                                    pages_row)
     return chunk_step
+
+
+def build_decode_step(model):
+    """Whole-batch decode, the legacy fixed-batch serve path's step:
+    ``cache`` is a prefill's contiguous cache, its sequence axis padded
+    for the tokens to come and its 0-d index the whole batch's length;
+    each row's token is written at that index in place.  Returns the
+    logits and the cache with the index advanced."""
+    @torch.no_grad()
+    def decode_step(params, cache, tokens):
+        if cache["index"].dim() != 0:
+            raise ValueError("the whole-batch step takes a 0-d index; a "
+                             "pool's slot-wise cache goes to "
+                             "build_decode_step_slots")
+        return model.decode_step(params, _of_layout(cache, "contiguous"),
+                                 tokens)
+    return decode_step
 
 
 def build_decode_step_slots(model):

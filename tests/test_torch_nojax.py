@@ -54,9 +54,11 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
             "import repro_torch.checkpoint\n"
             "import repro_torch.runtime.fault_tolerance\n"
             "import repro_torch.launch.train, repro_torch.training.steps\n"
+            "import repro_torch.models.vlm, repro_torch.configs.llava_next_34b\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
-            "m.startswith('repro.'))\n"
+            "m.startswith('repro.') or m == 'ml_dtypes' or "
+            "m.startswith('ml_dtypes.'))\n"
             "print(bad)\n"
             "assert not bad, bad\n")
     out = _run(["-c", code], tmp_path)

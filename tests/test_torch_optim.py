@@ -405,10 +405,26 @@ def test_batches_equal_reference(arch, seed, step):
 
 
 def test_source_refuses_float_inputs():
+    """Float inputs are no longer refused: an f32 leaf is the reference's
+    draw bit for bit, in the stream after the int leaves before it (the
+    bf16 patches are held in tests/test_torch_vlm.py).  A dtype that is
+    neither int32 nor float is refused."""
+    from repro.models.params import ParamDef as RefDef
+    from repro.data.pipeline import SyntheticSource as RefSource
     from repro_torch.models.params import ParamDef
-    with pytest.raises(NotImplementedError, match="slice F"):
+    got = SyntheticSource(256, 3).batch(
+        {"tokens": ParamDef((2, 4), (None, None), torch.int32),
+         "frames": ParamDef((2, 5), (None, None), torch.float32)}, 1)
+    want = RefSource(256, 3).batch(
+        {"tokens": RefDef((2, 4), (None, None), jnp.int32),
+         "frames": RefDef((2, 5), (None, None), jnp.float32)}, 1)
+    assert got["frames"].dtype == torch.float32
+    assert np.array_equal(got["frames"].numpy().view(np.int32),
+                          want["frames"].view(np.int32))
+    assert np.array_equal(got["tokens"], want["tokens"])
+    with pytest.raises(ValueError, match="no synthetic draw"):
         SyntheticSource(256).batch(
-            {"frames": ParamDef((2, 4), (None, None), torch.float32)}, 0)
+            {"mask": ParamDef((2, 4), (None, None), torch.bool)}, 0)
 
 
 # ------------------------------------------------------------ checkpoints
