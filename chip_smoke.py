@@ -31,10 +31,12 @@ Phases, each of which raises on failure:
    (``add_rmsnorm_cuda``) at rows 1, 8, 40, 128 and 1000 by widths 64,
    1536, 4096, 6144, 7168, 12288 and 18432 (6,144 and 7,168 give each
    thread two 8-element vectors), and at ``llava-next-34b``'s decode and
-   prefill rows, (4, 7168) and (4352, 7168), both forms: the residual
+   prefill rows, (4, 7168) and (4352, 7168), and ``zamba2-7b``'s, (4,
+   3584) and (4096, 3584), both forms: the residual
    bitwise equal to the plain version's, the norm within one bf16 step of
-   it, two calls bitwise equal (``_k2_hold``; at llava's shapes the
-   ``rmsnorm`` entry too, ``_k2_norm_hold``); then the MoE router's
+   it, two calls bitwise equal (``_k2_hold``; at llava's and zamba's
+   shapes the ``rmsnorm`` entry too, ``_k2_norm_hold``); then the MoE
+   router's
    ``route_tokens`` on the card (``_route_checks``: rows of exact ties
    and saturated rows with denormal probabilities, bit for bit equal to
    the CPU's result and to ``lax.top_k``'s choice); then K2's gradient
@@ -80,8 +82,14 @@ Phases, each of which raises on failure:
    checkpoint to the uninterrupted run's state bit for bit, a second run
    from the seed repeats the loss bits, and ``run_easey`` of a smoke
    training Appfile to ``nvidia:h100`` ends ``finished`` with K2 built;
-   then the legacy fixed-batch path at smoke size (``_vlm_smoke``:
-   ``llava-next-34b-smoke``, 4 requests of 48 positions, 12 tokens):
+   the same under remat none, dots and full (bitwise equal losses and
+   states) for ``xlstm-1.3b-smoke`` (no K2: LayerNorm) and
+   ``zamba2-7b-smoke`` (K2 counted on every norm: two a Mamba2 block, the
+   shared block's two, ``ln_f``, and the Mamba2 blocks' again in a remat
+   recompute), ``adamw`` with one microbatch; then the legacy
+   fixed-batch path at smoke size (``_legacy_smoke``:
+   ``llava-next-34b-smoke``, ``xlstm-1.3b-smoke`` and
+   ``zamba2-7b-smoke``, 4 requests of 48 positions, 12 tokens):
    ``serve_main`` with K2 on every norm (counted), with the plain norm in
    its place, and ``run_command``, every row's greedy tokens equal;
 4. the slice at full width: ``deepseek-7b`` (random weights from a seed)
@@ -233,7 +241,35 @@ Phases, each of which raises on failure:
    one bf16 step of noise at as many norm outputs as K2 changed, on
    copies of the same cache); the prefill and the decode step (CUDA
    events and the profiler: busy ms, launches, idle share), tokens/s,
-   peak memory and the data-sheet bounds printed, not gated.
+   peak memory and the data-sheet bounds printed, not gated;
+17. the xLSTM family at full width (``_ssm_full``): ``run_easey`` deploys
+   ``RUN serve --arch xlstm-1.3b --batch 4 --prefill 1024 --decode 32``
+   (48 blocks of 2,048, 1.85 B parameters, random weights from the seed)
+   to ``nvidia:h100``: the build compiles no kernel (LayerNorm), the job
+   ends ``finished`` with no kernel launched, a direct ``serve_main``
+   repeats its tokens; ``mlstm_chunkwise`` against ``mlstm_recurrent``
+   at full-width shapes (dk 512, dv 1,024, 1,024 positions, chunk 256,
+   f32) within MLSTM_TOL; the prefill of 1,025 tokens against the
+   prefill of 1,024 and one decode step within the reference's decode
+   test's bound; SSM_TRAIN's 4 steps (4 x 128 tokens) of ``train_main``,
+   every loss and
+   grad norm finite and a second run's step 0 bit for bit the first's;
+   the decode step and the sLSTM time loop alone profiled, ms per
+   training step, tokens/s and peak memory printed, not gated;
+18. the Zamba2 hybrid at full width (``_hybrid_full``): ``run_easey``
+   deploys ``RUN serve --arch zamba2-7b --batch 4 --prefill 1024
+   --decode 32`` (81 Mamba2 layers of 3,584 and one shared attention +
+   MLP block applied 13 times, 6.75 B parameters) to ``nvidia:h100``:
+   the build compiles K2 alone, the job ends ``finished``, K2 runs on
+   every norm of the prefill and the 31 decode steps (5,632 + 416
+   launches, counted), a direct ``serve_main`` repeats its tokens; the
+   model teacher-forced on the job's tokens as phase 16 does it (every
+   norm call held, logits within LOGITS_VS_CONTROL x the control); one
+   request of 8,192 tokens (twice the window) through prefill, the first
+   and last windowed shared attentions within WINDOW_TOL of dense
+   attention under the same band; the prefill, the decode step and the
+   SSD chunkwise scan alone profiled, tokens/s and peak memory printed,
+   not gated.
 
 The second-to-last line of output is the card's ``name, power.limit``;
 before it a JSON line lists every kernel with its launches on its path's
@@ -327,6 +363,9 @@ FLASH_FULL = {"deepseek-7b": (1, 4096, 4096, 32, 32, 128),
 K2_ROWS = (1, 8, 40, 128, 1000)
 K2_WIDTHS = (64, 1536, 4096, 6144, 7168, 12288, 18432)
 K2_VLM_SHAPES = ((4, 7168), (4352, 7168))
+# zamba2-7b's decode and prefill rows at its width (its gated norm's
+# 7,168 is in K2_WIDTHS)
+K2_ZAMBA_SHAPES = ((4, 3584), (4096, 3584))
 SAMPLED = dict(temperature=0.7, top_k=16, top_p=0.9)
 # the stencil kernel (f32, built with -fmad=false) against its plain
 # version: each zone of every field within this rtol, with no absolute
@@ -375,6 +414,31 @@ VLM_FULL = dict(arch="llava-next-34b", batch=4, prefill_len=1088,
 VLM_SMOKE = dict(arch="llava-next-34b-smoke", batch=4, prefill_len=48,
                  decode_tokens=12)
 VLM_BASELINE_GB = 4.0
+# slices F-2 and F-3: xLSTM and the Zamba2 hybrid through the legacy path
+SSM_SMOKE = dict(arch="xlstm-1.3b-smoke", batch=4, prefill_len=48,
+                 decode_tokens=12)
+HYBRID_SMOKE = dict(arch="zamba2-7b-smoke", batch=4, prefill_len=48,
+                    decode_tokens=12)
+# the new families' smoke training: the default optimizer and one
+# microbatch, under the three remat policies
+TRAIN_SMOKE_NEW = ("xlstm-1.3b-smoke", "zamba2-7b-smoke")
+SSM_FULL = dict(arch="xlstm-1.3b", batch=4, prefill_len=1024,
+                decode_tokens=32)
+# 4 x 128 tokens a step: the sLSTM time loop runs through autograd a
+# launch at a time (34-44 s a step at 4 x 1,024 on an NVIDIA H100 80GB
+# HBM3, 9.5-11 s at 4 x 256)
+SSM_TRAIN = dict(arch="xlstm-1.3b", seq_len=128, global_batch=4, steps=4)
+HYBRID_FULL = dict(arch="zamba2-7b", batch=4, prefill_len=1024,
+                   decode_tokens=32)
+# one request twice the shared attention's window, through prefill
+HYBRID_LONG = 8192
+# the windowed shared attention against dense attention under the same
+# band: each element within two bf16 steps of the largest entry (the two
+# sum their probabilities over different spans, then round to bf16)
+WINDOW_TOL = 2.0 ** -7
+# mlstm_chunkwise against mlstm_recurrent at full-width shapes: the
+# reference's own tolerance (tests/test_ssm_equivalence.py)
+MLSTM_TOL = 2e-4
 # f32 operations of one fused step per zone (sedov_stencil.cu, counted
 # once per zone: EOS 2, div 8, q 4, pq 1, 1/rho 2, momentum 15, div 8,
 # energy 5, mass 4)
@@ -1715,58 +1779,75 @@ def _smoke_run(torch, m, arch: str, over: dict):
     return plan, losses, state
 
 
+def _train_norms(m, cfg, r: int) -> dict:
+    """K2's launches a microbatch of a training step, by entry: the
+    forward's (``_norms_per_forward``) and, under remat (``r``), those of
+    the recomputed blocks: a dense or MoE model's all but ``ln_f``, a
+    Zamba2 hybrid's Mamba2 blocks (the shared block is not rematted, as
+    in the reference)."""
+    fwd = _norms_per_forward(m, cfg)
+    if cfg.norm != "rmsnorm":
+        return fwd
+    if cfg.family == "hybrid_mamba":
+        return dict(fwd, rmsnorm=fwd["rmsnorm"] + r * 2 * cfg.num_layers)
+    return {"rmsnorm": fwd["rmsnorm"] * (1 + r),
+            "add_rmsnorm": fwd["add_rmsnorm"] + r * (fwd["add_rmsnorm"] - 1)}
+
+
 def _train_smoke(torch, m, counts, reset_counts) -> dict:
     """Phase 3's training at smoke size: every (optimizer, microbatches,
-    ef_int8) under remat none, dots and full, whose losses and final
-    states must be bitwise equal, with K2 on every norm of every forward
-    and of every recompute: per microbatch, layer 0's first norm
-    (``rmsnorm``) and 2 L fused add + norms (``add_rmsnorm``: the blocks'
-    norms and ``ln_f``) in the forward, and all but ``ln_f`` again in a
-    remat recompute."""
+    ef_int8) of TRAIN_SMOKE_ARCHS, and the default optimizer with one
+    microbatch of TRAIN_SMOKE_NEW, each under remat none, dots and
+    full, whose losses and final states must be bitwise equal, with K2 on
+    every norm of every forward and of every recompute (``_train_norms``:
+    per microbatch of a dense model, layer 0's first norm (``rmsnorm``)
+    and 2 L fused add + norms (``add_rmsnorm``: the blocks' norms and
+    ``ln_f``) in the forward, and all but ``ln_f`` again in a remat
+    recompute; none on xLSTM, a LayerNorm model)."""
     per_step, final = {}, {}
-    for arch in TRAIN_SMOKE_ARCHS:
-        L = m.get_config(arch).num_layers
-        for opt in ("adamw", "adamw8bit"):
-            for micro in (1, 2):
-                for ef in ("none", "ef_int8"):
-                    runs = {}
-                    for remat in ("none", "dots", "full"):
-                        over = dict(optimizer=opt, microbatches=micro,
-                                    grad_compression=ef, remat_policy=remat)
-                        reset_counts()
-                        plan, losses, state = _smoke_run(torch, m, arch,
-                                                         over)
-                        got = counts()
-                        r = int(remat != "none")
-                        want = dict(got, rmsnorm=micro * (1 + r) *
-                                    TRAIN_SMOKE_STEPS,
-                                    add_rmsnorm=micro * (2 * L + r * (
-                                        2 * L - 1)) * TRAIN_SMOKE_STEPS)
-                        name = f"{arch} {over}"
-                        if got != want or got["paged_attention"]:
-                            raise AssertionError(f"{name}: launches {got} "
-                                                 f"!= {want}")
-                        if (plan.optimizer, plan.microbatches,
-                                plan.grad_compression, plan.remat_policy) != \
-                                (opt, micro, ef, remat) or \
-                                not all(map(math.isfinite, losses)):
-                            raise AssertionError(f"{name}: plan {plan}, "
-                                                 f"losses {losses}")
-                        runs[remat] = (losses, state)
-                        per_step[(arch, micro, remat)] = {
-                            k: v // TRAIN_SMOKE_STEPS for k, v in got.items()
-                            if v}
-                    for remat in ("dots", "full"):
-                        if runs[remat][0] != runs["none"][0]:
-                            raise AssertionError(
-                                f"{arch} {opt} x{micro} {ef}: remat {remat} "
-                                f"losses {runs[remat][0]} != none's "
-                                f"{runs['none'][0]}")
-                        _same_state(torch, runs["none"][1], runs[remat][1],
-                                    f"{arch} {opt} x{micro} {ef} remat "
-                                    f"{remat} vs none")
-                    final[(arch, opt, micro, ef)] = round(
-                        runs["none"][0][-1], 4)
+    grid = [(a, o, mi, e) for a in TRAIN_SMOKE_ARCHS
+            for o in ("adamw", "adamw8bit") for mi in (1, 2)
+            for e in ("none", "ef_int8")] + \
+        [(a, "adamw", 1, "none") for a in TRAIN_SMOKE_NEW]
+    for arch, opt, micro, ef in grid:
+        cfg = m.get_config(arch)
+        runs = {}
+        for remat in ("none", "dots", "full"):
+            over = dict(optimizer=opt, microbatches=micro,
+                        grad_compression=ef, remat_policy=remat)
+            reset_counts()
+            plan, losses, state = _smoke_run(torch, m, arch,
+                                             over)
+            got = counts()
+            r = int(remat != "none")
+            want = dict(got, **{
+                k: v * micro * TRAIN_SMOKE_STEPS for k, v in
+                _train_norms(m, cfg, r).items()})
+            name = f"{arch} {over}"
+            if got != want or got["paged_attention"]:
+                raise AssertionError(f"{name}: launches {got} "
+                                     f"!= {want}")
+            if (plan.optimizer, plan.microbatches,
+                    plan.grad_compression, plan.remat_policy) != \
+                    (opt, micro, ef, remat) or \
+                    not all(map(math.isfinite, losses)):
+                raise AssertionError(f"{name}: plan {plan}, "
+                                     f"losses {losses}")
+            runs[remat] = (losses, state)
+            per_step[(arch, micro, remat)] = {
+                k: v // TRAIN_SMOKE_STEPS for k, v in got.items()
+                if v}
+        for remat in ("dots", "full"):
+            if runs[remat][0] != runs["none"][0]:
+                raise AssertionError(
+                    f"{arch} {opt} x{micro} {ef}: remat {remat} "
+                    f"losses {runs[remat][0]} != none's "
+                    f"{runs['none'][0]}")
+            _same_state(torch, runs["none"][1], runs[remat][1],
+                        f"{arch} {opt} x{micro} {ef} remat "
+                        f"{remat} vs none")
+        final[(arch, opt, micro, ef)] = round(
+            runs["none"][0][-1], 4)
     return {"k2_per_step": per_step, "final": final}
 
 
@@ -1785,14 +1866,7 @@ def _train_full(torch, m, card, counts, reset_counts, quiet) -> dict:
     (K2 counted per step, every loss and grad norm finite) beside the
     plain path's.  Returns K2's launches per step."""
     t15 = time.perf_counter()
-    mem15 = []              # (what, GB allocated after it, its peak GB)
-
-    def mark15(what):
-        gc.collect()
-        torch.cuda.empty_cache()
-        mem15.append((what, round(torch.cuda.memory_allocated() / 1e9, 1),
-                      round(torch.cuda.max_memory_allocated() / 1e9, 1)))
-        torch.cuda.reset_peak_memory_stats()
+    mem15, mark15 = _mem_marks(torch)
     mark15("before phase 15")
     ds = m.get_config(TRAIN_FULL["arch"])
     shape15 = dataclasses.replace(m.SHAPES["train_4k"],
@@ -1978,25 +2052,40 @@ class _StreamLog:
         return [list(row) for row in zip(*cols)]
 
 
-def _vlm_smoke(torch, m, counts, reset_counts, quiet) -> dict:
-    """Phase 3's legacy fixed-batch path at smoke size on the card
-    (VLM_SMOKE): ``serve_main`` with K2 on every norm (counted: layer 0's
-    first norm alone and two fused a layer, per forward: the prefill and
+def _norms_per_forward(m, cfg) -> dict:
+    """K2's launches in one forward of the legacy path's model, by entry:
+    a dense or VLM model's first norm alone, then two fused add + norms a
+    layer (``ln_f`` the last); a Zamba2 hybrid's two norms a Mamba2 block
+    (its input norm and the gated norm), the shared block's first and
+    ``ln_f`` on the ``rmsnorm`` entry and the shared block's second
+    fused; none for a LayerNorm model (xLSTM)."""
+    if cfg.norm != "rmsnorm":
+        return {"rmsnorm": 0, "add_rmsnorm": 0}
+    if cfg.family == "hybrid_mamba":
+        _, segs, _ = m.model_for(cfg)._layout()
+        return {"rmsnorm": 2 * cfg.num_layers + segs + 1, "add_rmsnorm": segs}
+    return {"rmsnorm": 1, "add_rmsnorm": 2 * cfg.num_layers}
+
+
+def _legacy_smoke(torch, m, counts, reset_counts, quiet, kw) -> dict:
+    """Phase 3's legacy fixed-batch path at smoke size on the card (``kw``:
+    VLM_SMOKE, SSM_SMOKE, HYBRID_SMOKE): ``serve_main`` with K2 on every
+    norm (counted per forward, ``_norms_per_forward``: the prefill and
     each decode step), the same call with the plain norm in K2's place,
     and ``run_command``: every row's greedy tokens equal in all three."""
-    cfg = m.get_config(VLM_SMOKE["arch"])
-    n_fwd = VLM_SMOKE["decode_tokens"]
-    cmd = (f"serve --arch {VLM_SMOKE['arch']} --batch {VLM_SMOKE['batch']} "
-           f"--prefill {VLM_SMOKE['prefill_len']} --decode {n_fwd}")
+    cfg = m.get_config(kw["arch"])
+    n_fwd = kw["decode_tokens"]
+    cmd = (f"serve --arch {kw['arch']} --batch {kw['batch']} "
+           f"--prefill {kw['prefill_len']} --decode {n_fwd}")
     with _StreamLog(m.steps) as log:
         reset_counts()
-        out = m.serve_main(**VLM_SMOKE, log=quiet)
+        out = m.serve_main(**kw, log=quiet)
         got = counts()
         with _PlainNorms(m.ops, m.ref, m.layers):
-            plain = m.serve_main(**VLM_SMOKE, log=quiet)
+            plain = m.serve_main(**kw, log=quiet)
         via = m.run_command(cmd)
-    want = dict(got, rmsnorm=n_fwd, add_rmsnorm=2 * cfg.num_layers * n_fwd,
-                paged_attention=0)
+    want = dict(got, paged_attention=0, **{
+        k: v * n_fwd for k, v in _norms_per_forward(m, cfg).items()})
     if got != want:
         raise AssertionError(f"{cmd}: launches {got} != {want}")
     streams = [log.streams(i) for i in range(3)]
@@ -2005,7 +2094,7 @@ def _vlm_smoke(torch, m, counts, reset_counts, quiet) -> dict:
         raise AssertionError(f"{cmd}: streams differ, K2 {streams[0]}, "
                              f"plain {streams[1]}, run_command {streams[2]}")
     if (out["mode"], len(streams[0]), len(streams[0][0])) != (
-            "legacy-static", VLM_SMOKE["batch"], n_fwd):
+            "legacy-static", kw["batch"], n_fwd):
         raise AssertionError(f"{cmd}: {out}")
     return {"launches": {k: v for k, v in got.items() if v},
             "sample": out["sample"]}
@@ -2029,14 +2118,7 @@ def _vlm_full(torch, m, card, counts, reset_counts, quiet) -> dict:
     step (CUDA events, the profiler), tokens/s, peak memory, and the
     data-sheet bounds.  Returns the launches of (a)."""
     t16 = time.perf_counter()
-    mem16 = []              # (what, GB allocated after it, its peak GB)
-
-    def mark16(what):
-        gc.collect()
-        torch.cuda.empty_cache()
-        mem16.append((what, round(torch.cuda.memory_allocated() / 1e9, 1),
-                      round(torch.cuda.max_memory_allocated() / 1e9, 1)))
-        torch.cuda.reset_peak_memory_stats()
+    mem16, mark16 = _mem_marks(torch)
     mark16("before phase 16")
     if mem16[0][1] > VLM_BASELINE_GB:
         raise AssertionError(f"phase 16 needs ~70 GiB, but "
@@ -2273,6 +2355,493 @@ def _vlm_full(torch, m, card, counts, reset_counts, quiet) -> dict:
     return {k: v for k, v in launches.items() if v}
 
 
+def _mem_marks(torch):
+    """(marks, mark): ``mark(what)`` frees what is unreferenced and
+    appends (what, GB allocated after it, the peak GB since the last
+    mark)."""
+    marks = []
+
+    def mark(what):
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks.append((what, round(torch.cuda.memory_allocated() / 1e9, 1),
+                      round(torch.cuda.max_memory_allocated() / 1e9, 1)))
+        torch.cuda.reset_peak_memory_stats()
+    return marks, mark
+
+
+def _clone_tree(torch, tree):
+    """A copy of a cache: every tensor cloned, other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(torch, v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _legacy_job(torch, m, card, counts, reset_counts, quiet, kw, name):
+    """``run_easey`` of a serving Appfile ``RUN serve --arch ...`` of
+    ``kw`` to ``nvidia:h100`` (the job must end ``finished``), then a
+    direct ``serve_main`` that must repeat the job's greedy tokens.
+    Returns (job result, its build, K2 launches, streams, direct result,
+    the job's seconds)."""
+    cmd = (f"serve --arch {kw['arch']} --batch {kw['batch']} --prefill "
+           f"{kw['prefill_len']} --decode {kw['decode_tokens']}")
+    app = m.parse_appfile(f"FROM arch:{kw['arch']}\nSHAPE prefill_32k\n"
+                          f"###include_local_kernels###\nRUN {cmd}\n")
+    spec = m.parse_jobspec({"job": {"name": name},
+                            "execution": [{"serial": {"command": cmd}}]})
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as tdir, \
+            _StreamLog(m.steps) as log_a:
+        reset_counts()
+        (mw, jid, res), easey_s = _timed(m.run_easey, app, "nvidia:h100",
+                                         spec, storage=tdir)
+        launches = counts()
+        if mw.status(jid) is not m.JobState.FINISHED:
+            raise AssertionError(f"{name} job {mw.status(jid).value}: "
+                                 f"{mw.logs(jid)[1][-3000:]}")
+        out_a = mw.scheduler.result(jid)[0]
+        build = (res.step_name, res.program["arch"], sorted(res.built),
+                 list(res.program["kernels"]))
+        del mw, res
+    streams = log_a.streams()
+    n_dec = kw["decode_tokens"]
+    vocab = m.get_config(kw["arch"]).vocab_size
+    if len(streams) != kw["batch"] or out_a["mode"] != "legacy-static" or \
+            any(len(r) != n_dec or not all(0 <= t < vocab for t in r)
+                for r in streams):
+        raise AssertionError(f"{name}: {out_a}, streams {streams}")
+    with _StreamLog(m.steps) as log_b:
+        out_b = m.serve_main(**kw, log=quiet)
+    if log_b.streams() != streams or out_b["sample"] != out_a["sample"]:
+        raise AssertionError(f"{name}: the direct serve_main's streams "
+                             f"{log_b.streams()} differ from the job's "
+                             f"{streams}")
+    return out_a, build, launches, streams, out_b, easey_s
+
+
+def _ssm_full(torch, m, card, counts, reset_counts, quiet) -> None:
+    """Phase 17: full-width, full-depth ``xlstm-1.3b`` (48 blocks of 2,048,
+    random weights from seed 0) on one card.  (a) ``run_easey`` of SSM_FULL's
+    serving Appfile to ``nvidia:h100``: the build compiles no kernel (a
+    LayerNorm model), the job ends ``finished`` with no kernel launched,
+    and a direct ``serve_main`` repeats its tokens.  (b) At full-width
+    shapes (dk 512, dv 1,024, 1,024 positions, chunk 256, f32 inputs)
+    ``mlstm_chunkwise`` against ``mlstm_recurrent`` within MLSTM_TOL.
+    (c) The prefill of s + 1 tokens against the prefill of s and one
+    decode step, within tests/test_models_decode.py's bound (5% of max
+    |logit| + 0.05, the top token on half the rows).  (d) Printed, not
+    gated: the decode step (CUDA events, the profiler) and the sLSTM time
+    loop alone (host and device).  (e) SSM_TRAIN's steps of
+    ``train_main``: every loss and grad norm finite, a second run's step 0
+    bit for bit the first's; ms per step, tokens/s and peak memory
+    printed."""
+    t17 = time.perf_counter()
+    mem, mark = _mem_marks(torch)
+    mark("before phase 17")
+    cfg = m.get_config(SSM_FULL["arch"])
+    b, n_dec, P = (SSM_FULL[k] for k in ("batch", "decode_tokens",
+                                         "prefill_len"))
+    out_a, build, launches, streams, out_b, easey_s = _legacy_job(
+        torch, m, card, counts, reset_counts, quiet, SSM_FULL, "serve-xlstm")
+    if build != ("prefill_step", m.build_arch, [], []) or any(
+            launches.values()):
+        raise AssertionError(f"xlstm serving build {build}, launches "
+                             f"{launches}: a LayerNorm model builds and "
+                             f"launches no kernel")
+    mark("EASEY job and direct serve_main")
+    print(f"[ssm] {card} run_easey(xlstm-1.3b serving Appfile, "
+          f"nvidia:h100): build {build[2]} (no kernel: LayerNorm), job "
+          f"finished in {easey_s:.1f} s; {cfg.num_layers} blocks of "
+          f"{cfg.d_model} ({cfg.num_layers // cfg.slstm_every} sLSTM), "
+          f"{m.param_count_estimate(cfg) / 1e9:.3f} B parameters; {b} x "
+          f"{P} prompt tokens, {n_dec} tokens each; prefill "
+          f"{out_a['prefill_s']:.3f} s, decode {out_a['decode_tok_per_s']:.2f}"
+          f" tokens/s EASEY, {out_b['decode_tok_per_s']:.2f} direct (the "
+          f"direct serve_main repeats the job's {b} x {n_dec} tokens)")
+
+    # (b) the chunkwise form against the recurrence at full width
+    ssm = m.ssm
+    H = cfg.ssm_heads
+    dk, dv = cfg.ssm_head_dim, cfg.ssm_expand * cfg.d_model // H
+    g = torch.Generator(device="cuda").manual_seed(17)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    q, k, v = rn(1, H, P, dk), rn(1, H, P, dk), rn(1, H, P, dv)
+    li, lf = 2 * rn(1, H, P), -rn(1, H, P).abs()
+    yc, sc = ssm.mlstm_chunkwise(q, k, v, li, lf,
+                                 ssm.mlstm_zero_state(1, H, dk, dv, "cuda"),
+                                 cfg.ssm_chunk)
+    yr, sr = ssm.mlstm_recurrent(q, k, v, li, lf,
+                                 ssm.mlstm_zero_state(1, H, dk, dv, "cuda"))
+    worst = 0.0
+    for name, got, want in (("hidden", yc, yr), ("C", sc[0], sr[0]),
+                            ("n", sc[1], sr[1]), ("m", sc[2], sr[2])):
+        share = float(((got - want).abs() / (MLSTM_TOL + MLSTM_TOL *
+                                              want.abs())).max())
+        worst = max(worst, share)
+        if share > 1:
+            raise AssertionError(f"mlstm_chunkwise {name} at full width: "
+                                 f"{share:.4g} of rtol = atol = {MLSTM_TOL} "
+                                 f"from mlstm_recurrent")
+    print(f"[ssm] {card} mlstm_chunkwise vs mlstm_recurrent at (1, {H}, {P}"
+          f", dk {dk}, dv {dv}), chunk {cfg.ssm_chunk}, f32: within "
+          f"{worst:.4f} of rtol = atol = {MLSTM_TOL}")
+    del q, k, v, li, lf, yc, sc, yr, sr
+
+    # (c) prefill(s + 1) against prefill(s) + one decode step
+    model = m.model_for(cfg, remat="none")
+    params = m.init_params(model.param_table(),
+                           torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    prefill, decode = m.build_prefill_step(model), m.build_decode_step(model)
+    shape = dataclasses.replace(m.SHAPES["prefill_32k"], seq_len=P + 1,
+                                global_batch=b)
+    req = m.to_device(m.SyntheticSource(cfg.vocab_size, 0).batch(
+        model.batch_table(shape), 0), "cuda")
+    want, _ = prefill(params, req)
+    _, cache = prefill(params, {"tokens": req["tokens"][:, :-1]})
+    got, cache = decode(params, cache, req["tokens"][:, -1:])
+    a, c_ = want[:, -1].float(), got[:, -1].float()
+    gap = float((a - c_).abs().max())
+    top = float((a.argmax(-1) == c_.argmax(-1)).float().mean())
+    if not (gap < 0.05 * (float(a.abs().max()) + 1) and top >= 0.5):
+        raise AssertionError(f"xlstm prefill({P + 1}) vs prefill({P}) + "
+                             f"decode: max |diff| {gap:.4g}, top-1 {top}")
+    print(f"[ssm] {card} prefill of {P + 1} tokens vs prefill of {P} + one "
+          f"decode step: max |diff| {gap:.4g} ({gap / float(a.abs().max()):.4g}"
+          f" of max |logit|; bound 5% + 0.05), top-1 equal on {top:.2f} of "
+          f"the rows")
+
+    # (d) numbers: the prefill, the decode step, the sLSTM loop
+    tok = got[:, -1].argmax(-1).to(torch.int32)[:, None]
+    step_ms = _events_ms(torch, lambda: decode(params, cache, tok), 5)
+    prof_d = _profile_ticks(torch, card, f"xlstm-1.3b whole-batch decode "
+                            f"step ({b} rows)",
+                            lambda: decode(params, cache, tok), n=3)
+    dh = cfg.d_model // H
+    gx = rn(b, P, 4, H, dh).to(torch.bfloat16)
+    R = (0.05 * rn(4, H, dh, dh)).to(torch.bfloat16)
+    zero = ssm.slstm_zero_state(b, H, dh, "cuda")
+    prof_s = _profile_ticks(torch, card, f"sLSTM time loop ({b} x {P} "
+                            f"steps, {H} heads of {dh})",
+                            lambda: ssm.slstm_scan(gx, R, zero), n=1)
+    del params, cache, model, want, got, req, gx, prefill, decode
+    mark("prefill, decode and numbers")
+    print(f"[ssm] {card} xlstm-1.3b full width: decode step {step_ms:.3f} ms "
+          f"(CUDA events); profiler: decode step {prof_d}, sLSTM loop "
+          f"{prof_s} (the prefill, ~190,000 launches, is timed by the "
+          f"job's host clock: prefill {out_a['prefill_s']:.3f} s)")
+
+    # (e) training
+    res = m.train_main(**SSM_TRAIN, log=quiet)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses, norms = res["losses"], res["grad_norms"]
+    plan, step_s = res["plan"], res["step_s"]
+    del res
+    mark("train_main")
+    again = m.train_main(**dict(SSM_TRAIN, steps=1), log=quiet)
+    if not (all(map(math.isfinite, losses + norms)) and
+            len(losses) == SSM_TRAIN["steps"]):
+        raise AssertionError(f"xlstm training: losses {losses}, grad norms "
+                             f"{norms}")
+    if (again["losses"][0], again["grad_norms"][0]) != (losses[0], norms[0]):
+        raise AssertionError(f"xlstm training: a second run's step 0 "
+                             f"({again['losses'][0]}, "
+                             f"{again['grad_norms'][0]}) != the first's "
+                             f"({losses[0]}, {norms[0]})")
+    del again
+    mark("a second run's step 0")
+    tokens = SSM_TRAIN["seq_len"] * SSM_TRAIN["global_batch"]
+    print(f"[ssm] {card} train_main(xlstm-1.3b, {SSM_TRAIN['global_batch']}"
+          f" x {SSM_TRAIN['seq_len']}, {SSM_TRAIN['steps']} steps; plan "
+          f"{plan.optimizer}, remat {plan.remat_policy}, "
+          f"{plan.microbatches} microbatch(es)): losses {losses}, grad norms "
+          f"{norms}, all finite; a second run repeats step 0 bit for bit; "
+          f"ms per step {[round(t * 1e3, 1) for t in step_s]} (host clock, "
+          f"device drained), {tokens / (sum(step_s[1:]) / max(len(step_s) - 1, 1)):.1f}"
+          f" tokens/s after step 0; peak memory {peak:.1f} GB")
+    t17 = time.perf_counter() - t17
+    print(f"[ssm] {card} phase 17 took {t17:.1f} s; memory (GB allocated "
+          f"after, peak during) {mem}")
+
+
+def _band_dense(torch, layers, q, k, v, window):
+    """Dense attention under the sliding window's band: every key of the
+    sequence, masked to i - window < j <= i (q-chunks of 1,024 against
+    all t keys)."""
+    b, s, H, dh = q.shape
+    K = k.shape[2]
+    qg = q.reshape(b, s, K, H // K, dh).permute(0, 2, 3, 1, 4)
+    kv_pos = torch.arange(s, device=q.device)[None, :]
+    outs = []
+    for start in range(0, s, 1024):
+        q_pos = torch.arange(start, min(start + 1024, s),
+                             device=q.device)[:, None]
+        band = (kv_pos <= q_pos) & (kv_pos > q_pos - window)
+        outs.append(layers._attn_one_chunk(
+            qg[:, :, :, start:start + 1024], k, v, band[None],
+            1.0 / math.sqrt(dh)))
+    return torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4).reshape(b, s, H,
+                                                                 dh)
+
+
+def _hybrid_full(torch, m, card, counts, reset_counts, quiet) -> dict:
+    """Phase 18: full-width, full-depth ``zamba2-7b`` (81 Mamba2 layers of
+    3,584 and one shared attention + MLP block applied 13 times, 6.75 B
+    parameters, random weights from seed 0) on one card.  (a)
+    ``run_easey`` of HYBRID_FULL's serving Appfile to ``nvidia:h100``:
+    the build compiles K2 alone, the job ends ``finished``, K2 counted on
+    every norm of the prefill and of every decode step
+    (``_norms_per_forward``), and a direct ``serve_main`` repeats its
+    tokens.  (b) The model step by step, teacher-forced on the job's
+    tokens as phase 16 does it: every norm call held as phase 2 holds it,
+    each forward's logits within LOGITS_VS_CONTROL x the control's
+    distance from the plain-norm path's.  (c) One request of HYBRID_LONG
+    tokens (twice the window) through prefill: each application of the
+    shared block's windowed attention held against dense attention under
+    the same band (``_band_dense``) within WINDOW_TOL of the largest
+    entry, and shown to differ from unbanded causal attention.  (d)
+    Printed, not gated: the prefill and the decode step (CUDA events, the
+    profiler: busy ms, launches, idle share), the SSD chunkwise scan
+    alone, tokens/s and peak memory.  Returns the job's launches."""
+    t18 = time.perf_counter()
+    mem, mark = _mem_marks(torch)
+    mark("before phase 18")
+    cfg = m.get_config(HYBRID_FULL["arch"])
+    b, n_dec, P = (HYBRID_FULL[k] for k in ("batch", "decode_tokens",
+                                            "prefill_len"))
+    params_n = m.param_count_estimate(cfg)
+    out_a, build, launches, streams_a, out_b, easey_s = _legacy_job(
+        torch, m, card, counts, reset_counts, quiet, HYBRID_FULL,
+        "serve-zamba")
+    per_fwd = _norms_per_forward(m, cfg)
+    want = dict(launches, paged_attention=0,
+                **{k: v * n_dec for k, v in per_fwd.items()})
+    if build != ("prefill_step", m.build_arch, ["rmsnorm"], ["rmsnorm"]) \
+            or launches != want:
+        raise AssertionError(f"zamba serving build {build}, launches "
+                             f"{launches} != {want}")
+    mark("EASEY job and direct serve_main")
+    print(f"[hybrid] {card} run_easey(zamba2-7b serving Appfile, "
+          f"nvidia:h100): build {build[2]}, job finished in {easey_s:.1f} s; "
+          f"{cfg.num_layers} Mamba2 layers of {cfg.d_model} (d_inner "
+          f"{cfg.ssm_expand * cfg.d_model}, {cfg.ssm_heads} heads, state "
+          f"{cfg.ssm_state}), the shared block ({cfg.num_heads} heads, d_ff "
+          f"{cfg.d_ff}, window {cfg.window}) applied "
+          f"{m.model_for(cfg)._layout()[1]} times, {params_n / 1e9:.3f} B "
+          f"parameters; {b} x {P} prompt tokens, {n_dec} tokens each; "
+          f"launches {({k: v for k, v in launches.items() if v})} (K2 on all "
+          f"{sum(per_fwd.values())} norms of each of 1 prefill + {n_dec - 1} "
+          f"decode steps); prefill {out_a['prefill_s']:.3f} s, decode "
+          f"{out_a['decode_tok_per_s']:.2f} tokens/s EASEY, "
+          f"{out_b['decode_tok_per_s']:.2f} direct (the direct serve_main "
+          f"repeats the job's tokens)")
+
+    # (b) teacher-forced on the job's tokens
+    model = m.model_for(cfg, remat="none")
+    params = m.init_params(model.param_table(),
+                           torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    shape = dataclasses.replace(m.SHAPES["prefill_32k"], seq_len=P,
+                                global_batch=b)
+    req = m.to_device(m.SyntheticSource(cfg.vocab_size, 0).batch(
+        model.batch_table(shape), 0), "cuda")
+    prefill, decode = m.build_prefill_step(model), m.build_decode_step(model)
+    ops, ref = m.ops, m.ref
+    kernel_norm, kernel_fused = ops.rmsnorm_cuda, ops.add_rmsnorm_cuda
+    held, fracs = [], []
+    noise = torch.Generator(device="cuda").manual_seed(0)
+
+    def held_norm(x, w, *, eps=1e-6, out_dtype=None):
+        h = _k2_norm_hold(torch, ref, kernel_norm, f"zamba call "
+                          f"{len(held)}", x, w)
+        held.append(h)
+        fracs.append(h["frac"])
+        return kernel_norm(x, w, eps=eps, out_dtype=out_dtype)
+
+    def held_fused(x, a, w, *, eps=1e-6, norm_of_rounded):
+        h = _k2_hold(torch, ref, kernel_fused, f"zamba call {len(held)}",
+                     x, a, w, norm_of_rounded)
+        held.append(h)
+        fracs.append(h["frac"])
+        return kernel_fused(x, a, w, eps=eps,
+                            norm_of_rounded=norm_of_rounded)
+
+    def noisy(frac):
+        def norm(x, w, *, eps=1e-6, out_dtype=None):
+            return _one_step_noise(torch, ref.rmsnorm_ref(
+                x, w, eps=eps, out_dtype=out_dtype), frac, noise)
+
+        def fused(x, a, w, *, eps=1e-6, norm_of_rounded):
+            r, y = ref.add_rmsnorm_ref(x, a, w, eps=eps,
+                                       norm_of_rounded=norm_of_rounded)
+            return r, _one_step_noise(torch, y, frac, noise)
+        return norm, fused
+
+    def plain_norm(x, w, *, eps=1e-6, out_dtype=None):
+        return ref.rmsnorm_ref(x, w, eps=eps, out_dtype=out_dtype)
+
+    def plain_fused(x, a, w, *, eps=1e-6, norm_of_rounded):
+        return ref.add_rmsnorm_ref(x, a, w, eps=eps,
+                                   norm_of_rounded=norm_of_rounded)
+
+    def with_norms(norm, fused, fn, *args):
+        ops.rmsnorm_cuda, ops.add_rmsnorm_cuda = norm, fused
+        try:
+            return fn(*args)
+        finally:
+            ops.rmsnorm_cuda, ops.add_rmsnorm_cuda = kernel_norm, \
+                kernel_fused
+
+    tf = []
+
+    def forced(fn, *args, cache=None):
+        """One forward on the three paths (each decode step on copies of
+        the same cache); the kernel path's result."""
+        rest = [args if cache is None else
+                (args[0], _clone_tree(torch, cache), args[2])
+                for _ in range(2)]
+        del fracs[:]
+        out = with_norms(held_norm, held_fused, fn, *args)
+        frac = sum(fracs) / len(fracs)
+        want = with_norms(plain_norm, plain_fused, fn, *rest[0])[0]
+        ctrl = with_norms(*noisy(frac), fn, *rest[1])[0]
+        got, want, ctrl = (t[:, -1].float() for t in (out[0], want, ctrl))
+        scale = float(want.abs().max())
+        tf.append(dict(frac=frac,
+                       rel=float((got - want).abs().max()) / scale,
+                       ctrl=float((ctrl - want).abs().max()) / scale,
+                       flips=int((got.argmax(-1) != want.argmax(-1)).sum()),
+                       finite=bool(torch.isfinite(got).all())))
+        return out
+
+    logits, cache = forced(prefill, params, req)
+    cache = m.grow_kv(cache, n_dec)
+    tf_tokens = [logits[:, -1].argmax(-1).tolist()]
+    for i in range(n_dec - 1):
+        # teacher-forced: each step is fed the job's token
+        tok = torch.tensor([r[i] for r in streams_a], dtype=torch.int32,
+                           device="cuda")[:, None]
+        logits, cache = forced(decode, params, cache, tok, cache=cache)
+        tf_tokens.append(logits[:, -1].argmax(-1).tolist())
+    mark("teacher-forced run")
+    n_norms = sum(per_fwd.values())
+    if not all(t["finite"] for t in tf) or len(held) != n_dec * n_norms:
+        raise AssertionError(f"zamba teacher-forced: finite "
+                             f"{[t['finite'] for t in tf]}, {len(held)} norm "
+                             f"calls held, not {n_dec * n_norms}")
+    worst = max(tf, key=lambda t: t["rel"])
+    ctrl = max(t["ctrl"] for t in tf)
+    print(f"[hybrid] {card} teacher-forced on the job's tokens, 1 prefill + "
+          f"{n_dec - 1} decode steps: every norm call held as phase 2 holds "
+          f"it ({len(held)} calls: residual bitwise equal, norm within "
+          f"{max(h['share'] for h in held):.4f} of one bf16 step, max abs "
+          f"{max(h['abs'] for h in held):.4g}, two calls bitwise equal; norm "
+          f"outputs K2 changed {min(t['frac'] for t in tf):.3g}.."
+          f"{max(t['frac'] for t in tf):.3g} a forward); logits max |diff| / "
+          f"max |logit| per forward, K2 vs plain norm "
+          f"{[round(t['rel'], 4) for t in tf]}, control (plain with one-step "
+          f"noise) vs plain {[round(t['ctrl'], 4) for t in tf]}; "
+          f"{sum(t['flips'] for t in tf)} of {b * n_dec} greedy picks differ; "
+          f"the kernel path's picks repeat the job's: "
+          f"{[list(r) for r in zip(*tf_tokens)] == streams_a}")
+    if worst["rel"] > LOGITS_VS_CONTROL * ctrl:
+        raise AssertionError(f"zamba teacher-forced logits differ by "
+                             f"{worst['rel']:.4g} of max |logit| > "
+                             f"{LOGITS_VS_CONTROL} x the control's "
+                             f"{ctrl:.4g}")
+
+    # (d) numbers: the prefill, the decode step, the SSD scan
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    prefill_ms = _events_ms(torch, lambda: prefill(params, req), 2)
+    step_ms = _events_ms(torch, lambda: decode(params, cache, tok), 5)
+    prof_p = _profile_ticks(torch, card, f"zamba2-7b prefill ({b} x {P})",
+                            lambda: prefill(params, req), n=1)
+    prof_d = _profile_ticks(torch, card, f"zamba2-7b whole-batch decode "
+                            f"step ({b} rows)",
+                            lambda: decode(params, cache, tok), n=3)
+    del cache, logits
+    di = cfg.ssm_expand * cfg.d_model
+    H, n = cfg.ssm_heads, cfg.ssm_state
+    g = torch.Generator(device="cuda").manual_seed(18)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    ssd_args = (rn(b, P, H, di // H), 0.5 * rn(b, P, H).abs() + 0.01,
+                -rn(H).abs() - 0.1, 0.5 * rn(b, P, n), 0.5 * rn(b, P, n),
+                rn(H), None, cfg.ssm_chunk)
+    ssd_ms = _events_ms(torch, lambda: m.mamba.ssd_chunkwise(*ssd_args), 3)
+    prof_s = _profile_ticks(torch, card, f"SSD chunkwise scan ({b} x {P}, "
+                            f"{H} heads of {di // H}, state {n}, chunk "
+                            f"{cfg.ssm_chunk})",
+                            lambda: m.mamba.ssd_chunkwise(*ssd_args), n=3)
+    del ssd_args
+    mark("timed")
+
+    # (c) one request of twice the window through prefill
+    seen = []
+    windowed = m.layers._windowed_attention
+
+    _, segs, _ = model._layout()
+
+    def recording(q, k, v, window):
+        out = windowed(q, k, v, window)
+        seen.append((q, k, v, out) if len(seen) in (0, segs - 1) else None)
+        return out
+    m.layers._windowed_attention = recording
+    try:
+        long_req = {"tokens": m.to_device(m.SyntheticSource(
+            cfg.vocab_size, 1).batch(model.batch_table(dataclasses.replace(
+                shape, seq_len=HYBRID_LONG, global_batch=1)), 0),
+            "cuda")["tokens"]}
+        (long_logits, long_cache), long_s = _timed(
+            lambda: (prefill(params, long_req), torch.cuda.synchronize())[0])
+    finally:
+        m.layers._windowed_attention = windowed
+    if len(seen) != segs or not bool(torch.isfinite(long_logits).all()):
+        raise AssertionError(f"zamba long prefill: {len(seen)} windowed "
+                             f"attentions, not {segs}")
+    long_kv = tuple(long_cache["shared_kv"]["k"].shape)
+    del long_cache, long_logits
+    band = []
+    for q, k, v, out in (x for x in seen if x is not None):
+        dense = _band_dense(torch, m.layers, q, k, v, cfg.window)
+        share = float((out.float() - dense.float()).abs().max()) / (
+            WINDOW_TOL * float(dense.float().abs().max()))
+        causal = m.layers.dot_attention(q[:, -1024:], k, v, causal=True,
+                                        q_offset=HYBRID_LONG - 1024)
+        moved = float((causal.float() - out[:, -1024:].float()).abs().max())
+        band.append((round(share, 4), round(moved, 4)))
+        if share > 1 or moved == 0.0:
+            raise AssertionError(f"zamba windowed attention at "
+                                 f"{HYBRID_LONG} tokens: {share:.4g} of "
+                                 f"the tolerance from dense attention "
+                                 f"under its band; unbanded causal moves "
+                                 f"the last 1,024 queries by {moved}")
+        del dense, causal
+    del seen
+    mark(f"prefill of {HYBRID_LONG} tokens")
+    del params, model, req, prefill, decode
+    mark("freed")
+    peak = max(p for _, _, p in mem)
+    t18 = time.perf_counter() - t18
+    print(f"[hybrid] {card} one request of {HYBRID_LONG} tokens (window "
+          f"{cfg.window}) through prefill in {long_s:.3f} s (host clock), "
+          f"shared K/V {long_kv}: the first and last of the {segs} windowed "
+          f"attentions against dense attention under the same band, "
+          f"(share of {WINDOW_TOL} x max |dense|, max |diff| of unbanded "
+          f"causal attention on the last 1,024 queries) {band}")
+    print(f"[hybrid] {card} zamba2-7b full width: prefill ({b} x {P}) "
+          f"{prefill_ms:.3f} ms, decode step {step_ms:.3f} ms (CUDA events); "
+          f"profiler: prefill {prof_p}, decode step {prof_d}; SSD chunkwise "
+          f"scan alone {ssd_ms:.3f} ms (events), {prof_s}; tokens/s EASEY "
+          f"{out_a['decode_tok_per_s']:.2f}, direct "
+          f"{out_b['decode_tok_per_s']:.2f}; peak memory {peak:.1f} GB; "
+          f"phase 18 took {t18:.1f} s; memory (GB allocated after, peak "
+          f"during) {mem}")
+    return {k: v for k, v in launches.items() if v}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2298,7 +2867,8 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
     from repro_torch.kernels.rmsnorm import plan as _rmsnorm_plan
     from repro_torch.kernels.sedov_stencil import sedov_step_cuda
-    from repro_torch.launch.serve import serve_main
+    from repro_torch.launch.serve import grow_kv, serve_main
+    from repro_torch.models import mamba, ssm
     from repro_torch.models import lulesh, moe
     from repro_torch import serving
     from repro_torch.serving import (ReplicaRouter, Request, ServeEngine,
@@ -2468,6 +3038,28 @@ def main() -> int:
           f"vectors a thread {_rmsnorm_plan(7168)}), share of one bf16 step "
           f"per (rows, d, form) {({k: round(v, 4) for k, v in k2_vlm.items()})}"
           f", the rmsnorm entry too")
+    k2_zamba = {}
+    for rows, dk in K2_ZAMBA_SHAPES:
+        wk = (1 + 0.1 * torch.randn(dk, device="cuda")).to(torch.bfloat16)
+        xk = (3 * torch.randn((rows, dk), device="cuda")).to(torch.bfloat16)
+        ak = torch.randn((rows, dk), device="cuda").to(torch.bfloat16)
+        for rounded in (False, True):
+            h = _k2_hold(torch, ref, add_rmsnorm_cuda,
+                         f"rows={rows} d={dk} norm_of_rounded={rounded}",
+                         xk, ak, wk, rounded)
+            k2f_err = max(k2f_err, h["abs"])
+            k2_zamba[rows, dk, rounded] = h["share"]
+        h = _k2_norm_hold(torch, ref, rmsnorm_cuda, f"rows={rows} d={dk}",
+                          xk, wk)
+        k2_err = max(k2_err, _check_close(
+            f"rmsnorm rows={rows} d={dk}", rmsnorm_cuda(xk, wk),
+            ref.rmsnorm_ref(xk, wk), KERNEL_ATOL, KERNEL_RTOL))
+        k2_zamba[rows, dk, "rmsnorm"] = h["share"]
+    print(f"[kernels] rmsnorm and add_rmsnorm at zamba2-7b's decode and "
+          f"prefill rows x its width {K2_ZAMBA_SHAPES} (threads, vectors a "
+          f"thread {_rmsnorm_plan(3584)}), held as above: share of one bf16 "
+          f"step per (rows, d, form) "
+          f"{({k: round(v, 4) for k, v in k2_zamba.items()})}")
     denormal = _route_checks(torch, moe)
     print(f"[kernels] route_tokens on the card (no kernel of its own): on "
           f"rows of exact ties (E 40, k 8; E 16, k 4) and saturated rows "
@@ -2643,7 +3235,7 @@ def main() -> int:
         SyntheticSource=SyntheticSource, to_device=to_device,
         build_prefill_step=port_steps.build_prefill_step,
         build_decode_step=port_steps.build_decode_step,
-        build_arch=_build.ARCH)
+        build_arch=_build.ARCH, ssm=ssm, mamba=mamba, grow_kv=grow_kv)
     train_smoke, train_s = _timed(_train_smoke, torch, mt, counts,
                                   reset_counts)
     print(f"[smoke] training {TRAIN_SMOKE_ARCHS}, {TRAIN_SMOKE_STEPS} steps "
@@ -2706,11 +3298,12 @@ def main() -> int:
           f"bit for bit; a second run from the same seed repeats its loss "
           f"bits and state; run_easey(smoke training Appfile, nvidia:h100) "
           f"finished, build {sorted(res3.built)}, K2 launches {easey_train}")
-    vlm3 = _vlm_smoke(torch, mt, counts, reset_counts, quiet)
-    print(f"[smoke] the legacy fixed-batch path, {VLM_SMOKE}: serve_main "
-          f"with K2 on every norm (launches {vlm3['launches']}), with the "
-          f"plain norm in its place, and run_command: every row's greedy "
-          f"tokens equal (sample {vlm3['sample']})")
+    for kw3 in (VLM_SMOKE, SSM_SMOKE, HYBRID_SMOKE):
+        leg3 = _legacy_smoke(torch, mt, counts, reset_counts, quiet, kw3)
+        print(f"[smoke] the legacy fixed-batch path, {kw3}: serve_main "
+              f"with K2 on every norm (launches {leg3['launches']}), with "
+              f"the plain norm in its place, and run_command: every row's "
+              f"greedy tokens equal (sample {leg3['sample']})")
 
     # ---- 4. the slice at full width ------------------------------------
     reqs = [Request(rid=i, prompt=prng.randint(1, full.vocab_size - 1,
@@ -2855,7 +3448,8 @@ def main() -> int:
     # deepseek-7b's width, granite-moe-3b-a800m's as its tick calls it, and
     # llava-next-34b's decode step and prefill (phase 16)
     d_gr = get_config("granite-moe-3b-a800m").d_model
-    for rows, dk in ((8, d), (40, d), (128, d), (8, d_gr)) + K2_VLM_SHAPES:
+    for rows, dk in ((8, d), (40, d), (128, d), (8, d_gr)) + \
+            K2_VLM_SHAPES + K2_ZAMBA_SHAPES:
         x = torch.randn((rows, dk), device="cuda").to(torch.bfloat16)
         a = torch.randn((rows, dk), device="cuda").to(torch.bfloat16)
         wk = w if dk == d else \
@@ -3679,6 +4273,13 @@ def main() -> int:
     # ---- 16. the VLM family at full width, the legacy path ------------
     vlm_launches = _vlm_full(torch, mt, card, counts, reset_counts, quiet)
 
+    # ---- 17. xLSTM at full width: serving, its cells, training ---------
+    _ssm_full(torch, mt, card, counts, reset_counts, quiet)
+
+    # ---- 18. the Zamba2 hybrid at full width, K2 on every norm --------
+    zamba_launches = _hybrid_full(torch, mt, card, counts, reset_counts,
+                                  quiet)
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -3705,6 +4306,8 @@ def main() -> int:
          "train_launches_per_step": per_step15["rmsnorm"],
          # llava-next-34b served by the legacy path (phase 16)
          "llava_launches": vlm_launches["rmsnorm"],
+         # zamba2-7b served by the legacy path (phase 18)
+         "zamba_launches": zamba_launches["rmsnorm"],
          "backward_ms": {f"{r}x{c}": k2g[(r, c)]["ms"]["rmsnorm"][1]
                          for r, c in K2_GRAD_SHAPES},
          "max_abs_err": k2_err,
@@ -3716,7 +4319,9 @@ def main() -> int:
              "bound_ms": k2[shape]["bound"], "library_ms": k2[shape]["lib"]}
              for n, shape in (("granite-moe-3b-a800m", (8, d_gr)),
                               *(("llava-next-34b", sh)
-                                for sh in K2_VLM_SHAPES))}},
+                                for sh in K2_VLM_SHAPES),
+                              *(("zamba2-7b", sh)
+                                for sh in K2_ZAMBA_SHAPES))}},
         # the fused entry of the same kernel (norm_of_rounded=True) at
         # (8, 4096); its plain version is the eager add and norm, and no
         # one PyTorch call computes it: library_ms is null
@@ -3728,6 +4333,7 @@ def main() -> int:
          "granite_moe_launches": moe_launches["add_rmsnorm"],
          "train_launches_per_step": per_step15["add_rmsnorm"],
          "llava_launches": vlm_launches["add_rmsnorm"],
+         "zamba_launches": zamba_launches["add_rmsnorm"],
          "backward_ms": {f"{r}x{c}": k2g[(r, c)]["ms"][True][1]
                          for r, c in K2_GRAD_SHAPES},
          "max_abs_err": k2f_err,
@@ -3739,7 +4345,9 @@ def main() -> int:
              "bound_ms": k2f[shape]["bound"], "library_ms": None}
              for n, shape in (("granite-moe-3b-a800m", (8, d_gr)),
                               *(("llava-next-34b", sh)
-                                for sh in K2_VLM_SHAPES))}},
+                                for sh in K2_VLM_SHAPES),
+                              *(("zamba2-7b", sh)
+                                for sh in K2_ZAMBA_SHAPES))}},
         # no one PyTorch call computes the fused step: library_ms is null
         {"name": "sedov_stencil", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sedov_stencil.cu",

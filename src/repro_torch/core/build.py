@@ -82,9 +82,9 @@ def program_description(step_name: str, kernels: str,
         for name in sources}}
 
 
-# the LM families the port runs: the engine's, and the VLM, which the
-# legacy fixed-batch serve path serves
-LM_FAMILIES = ("dense", "moe", "vlm")
+# the LM families the port runs: the engine's, and those the legacy
+# fixed-batch serve path serves (the VLM, xLSTM and the Zamba2 hybrid)
+LM_FAMILIES = ("dense", "moe", "vlm", "ssm_xlstm", "hybrid_mamba")
 
 
 def _lm_sources(cfg, kind: str) -> tuple[str, ...]:

@@ -20,11 +20,11 @@ hand-written paged-decode kernel; ``local:cpu``: the plain versions).
 
 Families the engine cannot serve take the reference's legacy
 fixed-batch path (``_legacy_serve_main``): one batch prefilled at once,
-then greedy whole-batch decode steps.  The VLM family is ported; the
-SSM, hybrid and enc-dec families raise (ROADMAP slice F).
+then greedy whole-batch decode steps.  The VLM, xLSTM and Zamba2 hybrid
+families are ported; the enc-dec family raises (ROADMAP slice F).
 
     python -m repro_torch.launch.serve --device cpu \\
-        --arch llava-next-34b-smoke --batch 2 --prefill 32 --decode 8
+        --arch zamba2-7b-smoke --batch 2 --prefill 32 --decode 8
 """
 
 from __future__ import annotations
@@ -382,14 +382,39 @@ def _write_telemetry(metrics, tracer, trace_out, metrics_out, prom_out,
             f"events; load in Perfetto / chrome://tracing) -> {trace_out}")
 
 
+def grow_kv(cache: dict, n: int) -> dict:
+    """A prefill's cache with every attention K/V grown by ``n`` zero
+    positions along its sequence axis (axis 2 of a stacked (layers, b, s,
+    K, dh) cache, else axis 1), nested caches included: the hybrid
+    family's shared-block K/V lives in ``cache["shared_kv"]``.  The
+    reference's legacy path grows only a top-level ``"k"``, so its decode
+    writes into a hybrid's ungrown K/V clamp onto the last prompt position
+    (or, under a window, evict the ring's oldest); its own decode test
+    grows them all, as here.  A recurrent state has no K/V and stays as
+    it is."""
+    out = {}
+    for key, v in cache.items():
+        if isinstance(v, dict):
+            out[key] = grow_kv(v, n)
+        elif key in ("k", "v") and isinstance(v, torch.Tensor) and \
+                v.dim() >= 3:
+            axis = 2 if v.dim() == 5 else 1
+            shape = list(v.shape)
+            shape[axis] = n
+            out[key] = torch.cat([v, v.new_zeros(shape)], dim=axis)
+        else:
+            out[key] = v
+    return out
+
+
 def _legacy_serve_main(arch: str, batch: int, prefill_len: int,
                        decode_tokens: int, target: str, seed: int,
                        log, device: torch.device) -> dict:
     """Fixed-batch prefill-all/decode-all (the pre-engine behaviour):
     ``batch`` synthetic requests of ``prefill_len`` positions (a VLM's
-    patches included), prefilled at once; then the cache's sequence axis
-    padded by ``decode_tokens`` and ``decode_tokens - 1`` greedy
-    whole-batch steps.  Weights drawn from ``seed`` (``init_params``), the
+    patches included), prefilled at once; then every K/V of the cache
+    grown by ``decode_tokens`` (``grow_kv``; a recurrent state decodes as
+    it is) and ``decode_tokens - 1`` greedy whole-batch steps.  Weights drawn from ``seed`` (``init_params``), the
     request from ``SyntheticSource(vocab, seed)``; on ``device`` (the card:
     the RMSNorm kernel on every norm), which must be ``target``'s.
     Returns the reference's keys."""
@@ -421,12 +446,7 @@ def _legacy_serve_main(arch: str, batch: int, prefill_len: int,
         model.batch_table(app.shape_config), 0), dev)
 
     (logits, cache), t_prefill = _timed(lambda: prefill(params, req), dev)
-    if "k" in cache:  # dense-family cache: pad seq axis for decode growth
-        for key in ("k", "v"):
-            c = cache[key]
-            cache[key] = torch.cat(
-                [c, c.new_zeros(c.shape[:2] + (decode_tokens,) +
-                                c.shape[3:])], dim=2)
+    cache = grow_kv(cache, decode_tokens)
 
     def greedy(logits):
         return logits[:, -1].argmax(-1).to(torch.int32)[:, None]

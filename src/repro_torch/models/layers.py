@@ -86,6 +86,11 @@ def add_norm(p: dict, x: torch.Tensor, a: torch.Tensor | None, kind: str,
     return stream, normed
 
 
+def apply_norm(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The norm of ``kind`` over x (RMSNorm: the kernel on the card)."""
+    return add_norm(p, x, None, kind)[1]
+
+
 class _GradIn(torch.autograd.Function):
     """The identity, whose backward rounds the gradient to ``dtype``: the
     norm of the f32 sum hands back its input's gradient in the stream's
@@ -284,16 +289,28 @@ def _slot_decode(q, k, v, cache):
     return dot_attention(q, ck, cv, causal=True, q_offset=idx, kv_len=idx + s)
 
 
-def _batch_decode(q, k, v, cache):
+def _batch_decode(q, k, v, cache, window=None):
     """Whole-batch decode at one length (a 0-d index, on the host): every
-    row's s new K/V land at positions ``index .. index + s - 1`` (the
-    reference's ``dynamic_update_slice``, whose start is clamped so the
-    write fits), then each row attends its prefix causally."""
+    row's s new K/V land at positions ``index .. index + s - 1``, then
+    each row attends its prefix causally.  With a ``window`` at least the
+    cache's length, the cache is a ring buffer of the last t positions:
+    the write lands at ``index mod t`` and every valid position is
+    attended (keys carry their RoPE phase from write time, so order in
+    the ring does not matter), the reference's branch.  A write past the
+    cache's end raises: the reference's ``dynamic_update_slice`` would
+    clamp it onto the last positions, overwriting them silently (the
+    legacy path grows the cache by the tokens it decodes)."""
     at, ck, cv = int(cache["index"]), cache["k"], cache["v"]
-    s = q.shape[1]
-    start = min(max(at, 0), ck.shape[1] - s)
+    s, t = q.shape[1], ck.shape[1]
+    ring = window is not None and t <= window
+    start = at % t if ring else at
+    if start + s > t:
+        raise ValueError(f"decode write at {start}..{start + s - 1} falls "
+                         f"past a cache of {t} positions")
     ck[:, start:start + s] = k
     cv[:, start:start + s] = v
+    if ring:
+        return dot_attention(q, ck, cv, causal=False, kv_len=min(at + s, t))
     return dot_attention(q, ck, cv, causal=True, q_offset=at, kv_len=at + s)
 
 
@@ -334,14 +351,55 @@ def _chunk(q, k, v, cache):
     return dot_attention(q, kg, vg, causal=True, q_offset=off, kv_len=off + s)
 
 
+def _windowed_attention(q, k, v, window: int) -> torch.Tensor:
+    """Sliding-window causal attention by q-chunks: each chunk of
+    ``min(_Q_CHUNK, s)`` queries attends only the kv slice [chunk start -
+    window, chunk end), query i the keys j with i - window < j <= i.
+    Under grad a chunk's scores are recomputed in the backward, as
+    ``dot_attention`` does."""
+    b, s, H, dh = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(dh)
+    qc = min(_Q_CHUNK, s)
+    assert s % qc == 0, (s, qc)
+    span = qc + window
+    qg = q.reshape(b, s, K, G, dh).permute(0, 2, 3, 1, 4)    # b,K,G,s,dh
+    pad = k.new_zeros((b, window) + k.shape[2:])
+    k_pad, v_pad = torch.cat([pad, k], dim=1), torch.cat([pad, v], dim=1)
+    rel = torch.arange(span, device=q.device)[None, :] - window
+
+    def one(start):
+        # in padded coordinates the chunk's window begins at ``start``
+        q_pos = start + torch.arange(qc, device=q.device)[:, None]
+        kv_pos = start + rel
+        m = (kv_pos <= q_pos) & (kv_pos > q_pos - window) & (kv_pos >= 0)
+        return _attn_one_chunk(qg[:, :, :, start:start + qc],
+                               k_pad[:, start:start + span],
+                               v_pad[:, start:start + span], m[None], scale)
+
+    if torch.is_grad_enabled():
+        outs = [checkpoint(one, start, use_reentrant=False)
+                for start in range(0, s, qc)]
+    else:
+        outs = [one(start) for start in range(0, s, qc)]
+    out = torch.cat(outs, dim=3)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, H, dh)
+
+
 def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-              mode: str, cache: dict | None = None):
+              mode: str, cache: dict | None = None,
+              window: int | None = None):
     """mode: 'full' (training: causal, no cache), 'prefill' (causal,
     returns the fresh K/V), 'decode' (slot-wise, one token or a verify
     burst per row, through the page table or the slot rows as the pool's
     ``cache["layout"]`` says, or the whole batch at a 0-d index; in-place
-    write), 'chunk' (chunked prefill into the pool, in-place).  Returns
-    (out, fresh_cache or None)."""
+    write), 'chunk' (chunked prefill into the pool, in-place).  A
+    ``window`` (sliding-window attention) applies where the reference
+    applies it: a full or prefill pass longer than the window attends by
+    q-chunks over its band (``_windowed_attention``), and a whole-batch
+    decode over a cache no longer than the window treats it as a ring
+    buffer.  Returns (out, fresh_cache or None)."""
     q = torch.einsum("bse,ehd->bshd", x, p["wq"])
     k = torch.einsum("bte,ekd->btkd", x, p["wk"])
     v = torch.einsum("bte,ekd->btkd", x, p["wv"])
@@ -359,13 +417,16 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         if cache["layout"] == "paged":
             out = _paged_decode(q, k, v, cache)
         elif cache["index"].dim() == 0:
-            out = _batch_decode(q, k, v, cache)
+            out = _batch_decode(q, k, v, cache, window)
         else:
             out = _slot_decode(q, k, v, cache)
     elif mode == "chunk":
         out = _chunk(q, k, v, cache)
     elif mode in ("prefill", "full"):
-        out = dot_attention(q, k, v, causal=cfg.causal)
+        if window is not None and q.shape[1] > window and cfg.causal:
+            out = _windowed_attention(q, k, v, window)
+        else:
+            out = dot_attention(q, k, v, causal=cfg.causal)
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
     else:

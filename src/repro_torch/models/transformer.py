@@ -77,6 +77,19 @@ def stack_defs(defs: dict, n: int) -> dict:
     )
 
 
+def token_batch_table(shape: ShapeConfig) -> dict:
+    """Declarative inputs of a shape: tokens (and labels to train on); a
+    decode step's single token."""
+    b, s = shape.global_batch, shape.seq_len
+    tok = ParamDef((b, s), ("act_batch", "act_seq"), torch.int32, "zeros")
+    if shape.kind == "train":
+        return {"tokens": tok, "labels": tok}
+    if shape.kind == "prefill":
+        return {"tokens": tok}
+    return {"tokens": ParamDef((b, 1), ("act_batch", None), torch.int32,
+                               "zeros")}
+
+
 class DenseLM:
     """Llama-style decoder: RMSNorm, RoPE GQA attention, gated SiLU MLP."""
 
@@ -105,15 +118,7 @@ class DenseLM:
         }
 
     def batch_table(self, shape: ShapeConfig) -> dict:
-        """Declarative inputs of a shape: tokens (and labels to train on)."""
-        b, s = shape.global_batch, shape.seq_len
-        tok = ParamDef((b, s), ("act_batch", "act_seq"), torch.int32, "zeros")
-        if shape.kind == "train":
-            return {"tokens": tok, "labels": tok}
-        if shape.kind == "prefill":
-            return {"tokens": tok}
-        return {"tokens": ParamDef((b, 1), ("act_batch", None), torch.int32,
-                                   "zeros")}
+        return token_batch_table(shape)
 
     # ---- block ----
     def block_apply(self, p, x, delta, positions, mode, cache):
@@ -298,9 +303,9 @@ def _at(pick: slice, *ts):
     return tuple(t[:, pick].contiguous() for t in ts)
 
 
-def model_for(cfg: ModelConfig, remat: str = "dots") -> DenseLM:
-    """The model of ``cfg.family`` (dense, MoE and VLM so far); ``remat``
-    is the training forward's policy."""
+def model_for(cfg: ModelConfig, remat: str = "dots"):
+    """The model of ``cfg.family`` (dense, MoE, VLM, xLSTM and the Zamba2
+    hybrid so far); ``remat`` is the training forward's policy."""
     if cfg.family == "dense":
         return DenseLM(cfg, remat=remat)
     if cfg.family == "moe":
@@ -309,5 +314,11 @@ def model_for(cfg: ModelConfig, remat: str = "dots") -> DenseLM:
     if cfg.family == "vlm":
         from repro_torch.models.vlm import VLM
         return VLM(cfg, remat=remat)
+    if cfg.family == "ssm_xlstm":
+        from repro_torch.models.ssm import XLSTM
+        return XLSTM(cfg, remat=remat)
+    if cfg.family == "hybrid_mamba":
+        from repro_torch.models.mamba import ZambaHybrid
+        return ZambaHybrid(cfg, remat=remat)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP slice F)")

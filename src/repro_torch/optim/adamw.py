@@ -17,7 +17,10 @@ global norm is taken over every gradient before any slice is updated.
 
 Gradients come as the tree of the parameters, a stacked leaf's either
 stacked or as a list of per-layer tensors (as the per-layer autograd
-leaves of ``DenseLM.train_leaves`` give them).
+leaves of ``DenseLM.train_leaves`` give them): a list is the leaf's
+layers in row-major order over its leading stacked axes (one axis for
+the dense blocks, two for the xLSTM and Zamba2 stacks), and the leaf is
+updated layer by layer over them.
 """
 
 from __future__ import annotations
@@ -46,16 +49,23 @@ def slices(path: tuple, shape: tuple) -> list:
     return [slice(None)]
 
 
+def layers_of(t: torch.Tensor, layer_shape: tuple) -> torch.Tensor:
+    """A stacked leaf (or its moment) as a (layers, ...) view: its
+    leading stacked axes flattened into one, ``layer_shape`` (one layer's
+    shape, of the leaf itself) left as it is."""
+    lead = len(t.shape) - len(layer_shape)
+    return t.reshape((-1,) + tuple(t.shape[lead:]))
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of every gradient's f32 squares (the leaves in
     sorted-key order, each summed slice by slice in ``slices`` order, so
     a stacked gradient and its per-layer list give the same bits)."""
     total = 0
     for path, g in leaf_items(grads, lambda x: not isinstance(x, dict)):
-        shape = (len(g),) + tuple(g[0].shape) if isinstance(g, list) \
-            else tuple(g.shape)
         leaf = None
-        for ix in slices(path, shape):
+        for ix in (range(len(g)) if isinstance(g, list)
+                   else slices(path, tuple(g.shape))):
             part = g[ix].float().square().sum()
             leaf = part if leaf is None else leaf + part
         total = total + leaf
@@ -141,7 +151,13 @@ class AdamW:
         for path, p in leaf_items(params):
             g = get_path(grads, path)
             mom = get_path(state["moments"], path)
-            for ix in slices(path, tuple(p.shape)):
+            if isinstance(g, list):     # per-layer gradients
+                shape = tuple(g[0].shape)
+                p = layers_of(p, shape)
+                mom = {k: layers_of(v, shape[:-1] + tuple(v.shape[-1:]))
+                       for k, v in mom.items()}
+            for ix in (range(len(g)) if isinstance(g, list)
+                       else slices(path, tuple(p.shape))):
                 self.update_slice(p[ix], g[ix],
                                   {k: v[ix] for k, v in mom.items()},
                                   scale, c1, c2, lr)

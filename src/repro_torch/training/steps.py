@@ -25,6 +25,7 @@ import torch
 from repro_torch.core.plan import DeploymentPlan
 from repro_torch.models.params import (ParamDef, _map_table, leaf_items,
                                       tree_map)
+from repro_torch.optim.adamw import layers_of
 from repro_torch.optim.schedule import warmup_cosine
 
 
@@ -59,6 +60,7 @@ def _ef_compress(grads, ef):
         deq, new = _ef_int8(grads, ef)
         ef.copy_(new)
         return deq
+    ef = layers_of(ef, tuple(grads[0].shape))
     amax = torch.stack([(g.float() + ef[i]).abs().amax()
                         for i, g in enumerate(grads)]).amax()
     out = []
@@ -82,7 +84,7 @@ def loss_and_grads(model, params, batch):
     loss.backward()
     # a stacked leaf's per-layer trees -> one tree of per-layer lists
     grads = {k: tree_map(lambda *ls: list(map(_grad, ls)), *v)
-             if k == "blocks" else tree_map(_grad, v)
+             if isinstance(v, list) else tree_map(_grad, v)
              for k, v in leaves.items()}
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 

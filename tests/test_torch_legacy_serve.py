@@ -220,11 +220,13 @@ def test_vlm_build_lists_the_rmsnorm_kernel_alone(shape):
 
 def test_unported_families_still_raise(monkeypatch):
     from repro_torch.configs import ARCHS
-    ssm = get_config(SMOKE).replace(name="ssm-smoke", family="ssm_xlstm")
-    monkeypatch.setitem(ARCHS, "ssm-smoke", {"full": ssm, "skip_shapes": ()})
+    encdec = get_config(SMOKE).replace(name="encdec-smoke",
+                                       family="encdec")
+    monkeypatch.setitem(ARCHS, "encdec-smoke", {"full": encdec,
+                                                "skip_shapes": ()})
     with pytest.raises(NotImplementedError, match="slice F"):
-        port_serve.serve_main(arch="ssm-smoke", log=quiet, device="cpu")
-    app = parse_appfile("FROM arch:ssm-smoke\nSHAPE decode_32k\n"
+        port_serve.serve_main(arch="encdec-smoke", log=quiet, device="cpu")
+    app = parse_appfile("FROM arch:encdec-smoke\nSHAPE decode_32k\n"
                         "###include_local_kernels###\n")
     with pytest.raises(NotImplementedError, match="slice F"):
         BuildService().build(app, "nvidia:h100", lower=False)

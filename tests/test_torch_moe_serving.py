@@ -239,6 +239,6 @@ def test_mixed_dense_and_moe_fleet_is_refused():
 def test_model_for_serves_moe_and_still_refuses_other_families():
     assert isinstance(model_for(get_config("granite-moe-3b-a800m")), MoELM)
     assert type(model_for(get_config("deepseek-7b"))).__name__ == "DenseLM"
-    ssm = get_config("deepseek-7b-smoke").replace(family="ssm_xlstm")
+    encdec = get_config("deepseek-7b-smoke").replace(family="encdec")
     with pytest.raises(NotImplementedError, match="slice F"):
-        model_for(ssm)
+        model_for(encdec)

@@ -55,6 +55,9 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
             "import repro_torch.runtime.fault_tolerance\n"
             "import repro_torch.launch.train, repro_torch.training.steps\n"
             "import repro_torch.models.vlm, repro_torch.configs.llava_next_34b\n"
+            "import repro_torch.models.ssm, repro_torch.models.mamba\n"
+            "import repro_torch.configs.xlstm_1_3b\n"
+            "import repro_torch.configs.zamba2_7b\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.') or m == 'ml_dtypes' or "

@@ -237,9 +237,10 @@ def test_legacy_families_and_router_only_flags_raise(monkeypatch):
     """The reference's message logic for families the engine cannot
     serve (their fixed-batch path waits for slice F) and for router-only
     flags on one engine."""
-    ssm = get_config(ARCH).replace(name="ssm-smoke", family="ssm_xlstm")
-    monkeypatch.setitem(ARCHS, "ssm-smoke", {"full": ssm, "skip_shapes": ()})
-    kw = dict(arch="ssm-smoke", log=quiet, device="cpu")
+    encdec = get_config(ARCH).replace(name="encdec-smoke", family="encdec")
+    monkeypatch.setitem(ARCHS, "encdec-smoke", {"full": encdec,
+                                                "skip_shapes": ()})
+    kw = dict(arch="encdec-smoke", log=quiet, device="cpu")
     with pytest.raises(NotImplementedError, match="legacy static path"):
         port_serve.serve_main(trace_out="x.json", **kw)
     with pytest.raises(NotImplementedError, match="--replicas"):
