@@ -269,7 +269,27 @@ Phases, each of which raises on failure:
    and last windowed shared attentions within WINDOW_TOL of dense
    attention under the same band; the prefill, the decode step and the
    SSD chunkwise scan alone profiled, tokens/s and peak memory printed,
-   not gated.
+   not gated;
+19. the enc-dec family at full width (``_whisper_full``): ``run_easey``
+   deploys ``RUN serve --arch whisper-tiny --batch 32 --prefill 1024
+   --decode 64`` (4 encoder and 4 decoder layers of 384, 439.1 M
+   parameters, 402.7 M of them the learned position table; 1,024 frames
+   and 1,024 prompt tokens a request) to ``nvidia:h100``: the build
+   compiles no kernel (LayerNorm, the legacy path), the job ends
+   ``finished`` with no kernel launched, a direct ``serve_main`` repeats
+   its tokens; 8 rows' prefill of 1,024 and 16 teacher-forced decode
+   steps against one prefill of 1,040 tokens over the same frames, within
+   two bf16 steps of the largest logit, at zero attention biases and
+   again with every bias drawn nonzero (the cross-attention the port
+   keeps the same on every path), where the reference's cross-attention
+   gap, rebuilt on the same data, must depart beyond that limit; the
+   one-step-noise control printed beside them; the serving shape's prefill
+   and one decode step through ``analysis.cost`` (dot FLOPs, least
+   bytes) beside ``analysis.flops.model_flops``, with the roofline's
+   three terms on the H100's data-sheet peaks, the measured time, the
+   share of the bound and the idle share printed, not gated; 4 steps of
+   ``train_main`` at 8 x 1,024, every loss and grad norm finite and a
+   second run's step 0 bit for bit the first's.
 
 The second-to-last line of output is the card's ``name, power.limit``;
 before it a JSON line lists every kernel with its launches on its path's
@@ -293,6 +313,12 @@ import types
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO / "src"))
+# H100 SXM data sheet: device memory rate and the dense bf16 tensor-core
+# rate (the least time of the attention products), as the port's
+# roofline holds them
+from repro_torch.analysis.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.analysis.roofline import PEAK_FLOPS as BF16_TENSOR_FLOPS  # noqa: E402
 
 # bf16 tolerance of a kernel against its plain version (the reference's
 # own paged-kernel tolerance, tests/test_kernels_paged.py): both round
@@ -307,12 +333,9 @@ KERNEL_ATOL = KERNEL_RTOL = 2e-2
 # kernel's worst tick may exceed the control's worst by at most this
 # factor.
 LOGITS_VS_CONTROL = 2.0
-# H100 SXM data sheet: device memory rate, f32 rate outside the tensor
-# cores (K1, K2 and K4 run on CUDA cores in f32) and the dense bf16
-# tensor-core rate (the least time of the attention products)
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM data sheet: the f32 rate outside the tensor cores (K1, K2 and
+# K4 run on CUDA cores in f32)
 F32_FLOPS = 67e12
-BF16_TENSOR_FLOPS = 989e12
 # the flash kernel against its plain version (tests/test_kernels_flash.py)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # At full width (s = t = 4096, unit-normal q/k/v) a causal row averages
@@ -439,6 +462,28 @@ WINDOW_TOL = 2.0 ** -7
 # mlstm_chunkwise against mlstm_recurrent at full-width shapes: the
 # reference's own tolerance (tests/test_ssm_equivalence.py)
 MLSTM_TOL = 2e-4
+# slice F-4: full-width whisper-tiny through the legacy path, 32 requests
+# (the batch of the prefill_32k shape) of 1,024 frames and 1,024 prompt
+# tokens (the longest length below 2,048 that the reference's attention
+# takes: past 1,024 queries it needs whole chunks of 1,024), 64 tokens
+# each
+WHISPER_FULL = dict(arch="whisper-tiny", batch=32, prefill_len=1024,
+                    decode_tokens=64)
+# decode against the longer prefill: 8 rows, 1,024 frames and prompt
+# tokens, 16 teacher-forced steps; then again with every attention bias
+# drawn nonzero at this std (as training leaves them)
+WHISPER_FORCED = (8, 1024, 16)
+WHISPER_BIAS_STD = 0.5
+# the last decode step's logits may depart from the longer prefill's by
+# two bf16 steps of the largest logit (the CPU tests' limit,
+# tests/test_torch_encdec.py); at nonzero biases the reference's
+# cross-attention gap must depart by more, or the limit could not tell
+# it.  No control sets this limit: one bf16 step of noise at under 1% of
+# the decoder's norm outputs at the decoded positions moves the random
+# 4-layer decoder's logits by ~30% of the largest, more than the gap
+WHISPER_FORCED_TOL = 2.0 ** -7
+WHISPER_TRAIN = dict(arch="whisper-tiny", seq_len=1024, global_batch=8,
+                     steps=4)
 # f32 operations of one fused step per zone (sedov_stencil.cu, counted
 # once per zone: EOS 2, div 8, q 4, pq 1, 1/rho 2, momentum 15, div 8,
 # energy 5, mass 4)
@@ -2842,13 +2887,266 @@ def _hybrid_full(torch, m, card, counts, reset_counts, quiet) -> dict:
     return {k: v for k, v in launches.items() if v}
 
 
+def _decode_vs_prefill(torch, m, prefill, decode, params, frames, tokens,
+                       s: int, n: int) -> dict:
+    """The prefill of ``s`` tokens and ``n`` teacher-forced whole-batch
+    decode steps against one prefill of all ``s + n`` (the same frames):
+    the last step's logits against the longer prefill's (``rel``, max
+    |diff| / max |logit|), beside the control (``ctrl``: the longer
+    prefill with one bf16 step of noise at the decoder's LayerNorm
+    outputs at the decoded positions, at the fraction of decoded self K/V
+    entries, or of the last step's logits, that differ from the longer
+    prefill's, whichever is larger; the encoder is left alone, since both
+    sides share it bit for bit) and the reference's cross-attention gap
+    (``gap``: the same decode with ``bk`` and ``bv`` taken out of the
+    cached cross K/V and ``bq`` out of the decode step's cross query, as
+    the reference computes them)."""
+    if frames.shape[1] in (1, s + n):
+        raise ValueError("the control tells the decoder's norms by length")
+    want, full = prefill(params, {"frames": frames, "tokens": tokens})
+
+    def run(gap: bool):
+        _, cache = prefill(params, {"frames": frames,
+                                    "tokens": tokens[:, :s]})
+        cache = m.grow_kv(cache, n)
+        xattn = params["dec_blocks"]["xattn"]
+        bq = xattn["bq"].clone()
+        if gap:
+            for k, b in (("xk", "bk"), ("xv", "bv")):
+                cache[k].sub_(xattn[b][:, None, None].to(cache[k].dtype))
+            xattn["bq"].zero_()
+        finite = True
+        try:
+            for i in range(n):
+                got, cache = decode(params, cache, tokens[:, s + i:s + i + 1])
+                finite = finite and bool(torch.isfinite(got).all())
+        finally:
+            xattn["bq"].copy_(bq)
+        return got, cache, finite
+    got, cache, finite = run(False)
+    kv_differ = {k: float((cache[k][:, :, s:] != full[k][:, :, s:])
+                          .float().mean()) for k in ("k", "v")}
+    frac = max(sum(kv_differ.values()) / 2,
+               float((got[:, -1] != want[:, -1]).float().mean()))
+    del cache
+    gapped = run(True)[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    plain = m.layers.layernorm
+
+    def noisy(x, scale, bias, eps=1e-5, out_dtype=None):
+        out = plain(x, scale, bias, eps, out_dtype)
+        if out.shape[1] == 1:        # ln_f of the last position
+            return _one_step_noise(torch, out, frac, gen)
+        if out.shape[1] == s + n:    # a decoder norm: its decoded positions
+            return torch.cat([out[:, :s], _one_step_noise(
+                torch, out[:, s:].contiguous(), frac, gen)], 1)
+        return out                   # an encoder norm
+    m.layers.layernorm = noisy
+    try:
+        ctrl, _ = prefill(params, {"frames": frames, "tokens": tokens})
+    finally:
+        m.layers.layernorm = plain
+    got, want, ctrl, gapped = (t[:, -1].float()
+                               for t in (got, want, ctrl, gapped))
+    scale = float(want.abs().max())
+    return dict(rel=float((got - want).abs().max()) / scale,
+                ctrl=float((ctrl - want).abs().max()) / scale,
+                gap=float((gapped - want).abs().max()) / scale, frac=frac,
+                kv_differ=kv_differ,
+                top1=float((got.argmax(-1) == want.argmax(-1)).float()
+                           .mean()), finite=finite)
+
+
+def _step_roofline(torch, m, card, what, cfg, shape, fn, *args) -> dict:
+    """One call of a step through ``analysis.cost`` (dot FLOPs, least
+    bytes) beside ``analysis.flops.model_flops`` of its shape, the
+    roofline's three terms on the H100's data-sheet peaks, the step's
+    device time (CUDA events, warmed up), the share of the bound it
+    reaches and the profiler's idle share; printed, not gated."""
+    _, c = m.cost.measure(fn, *args)
+    mf = m.flops.model_flops(cfg, shape)
+    r = m.roofline.from_cost(c)
+    ms = _events_ms(torch, lambda: fn(*args), 5)
+    prof = _profile_ticks(torch, card, what, lambda: fn(*args), n=3)
+    out = dict(dot_flops=c.flops, dots=c.dot_count, model_flops=mf,
+               read_bytes=c.read_bytes, write_bytes=c.write_bytes,
+               t_compute_ms=r.t_compute * 1e3, t_memory_ms=r.t_memory * 1e3,
+               t_collective_ms=r.t_collective * 1e3,
+               bound_ms=r.t_bound * 1e3, bottleneck=r.bottleneck, ms=ms,
+               share=r.t_bound * 1e3 / ms, idle=prof.get("idle"),
+               busy_ms=prof.get("busy_ms"), kernels=prof["kernels"])
+    print(f"[roofline] {card} {what}: dot FLOPs {c.flops:.6g} in "
+          f"{c.dot_count} products (analysis.cost) vs model_flops "
+          f"{mf['total']:.6g} (dense {mf['dense']:.6g} of "
+          f"{mf['n_active']:,} parameters, attention "
+          f"{mf['attention']:.6g}); least bytes {c.hbm_bytes:.6g} (read "
+          f"{c.read_bytes:.6g}, written {c.write_bytes:.6g}); terms "
+          f"compute {out['t_compute_ms']:.6f} ms, memory "
+          f"{out['t_memory_ms']:.6f} ms, collective "
+          f"{out['t_collective_ms']:.6f} ms: bound {out['bound_ms']:.6f} "
+          f"ms ({r.bottleneck}; {m.roofline.PEAK_FLOPS / 1e12:g} TFLOP/s "
+          f"bf16, {m.roofline.HBM_BW / 1e12:g} TB/s); measured "
+          f"{ms:.6f} ms (CUDA events, warmed up): {out['share']:.6f} of the "
+          f"bound; profiler busy {out['busy_ms']} ms, idle share "
+          f"{out['idle']}, {out['kernels']:g} kernels a call")
+    return out
+
+
+def _whisper_full(torch, m, card, counts, reset_counts, quiet) -> dict:
+    """Phase 19: full-width ``whisper-tiny`` (4 encoder and 4 decoder
+    layers of 384, 439.1 M parameters, 402.7 M of them the learned
+    position table; random weights from seed 0) on one card.  (a)
+    ``run_easey`` of WHISPER_FULL's serving Appfile to ``nvidia:h100``:
+    the build compiles no kernel (a LayerNorm model on the legacy path),
+    the job ends ``finished`` with no kernel launched, and a direct
+    ``serve_main`` repeats its tokens.  (b) WHISPER_FORCED's prefill and
+    teacher-forced decode steps against one longer prefill, within
+    WHISPER_FORCED_TOL of max |logit| (``_decode_vs_prefill``; its
+    one-step-noise control printed beside it), at the init's zero biases
+    and again with every attention bias drawn at WHISPER_BIAS_STD, where
+    the reference's cross-attention gap (which the port closes) must
+    depart beyond that limit.  (c) WHISPER_TRAIN's steps of ``train_main``:
+    every loss and grad norm finite, a second run's step 0 bit for bit
+    the first's.  (d) The serving shape's prefill and one decode step on
+    the roofline (``_step_roofline``).  Returns the roofline readings."""
+    t19 = time.perf_counter()
+    mem, mark = _mem_marks(torch)
+    mark("before phase 19")
+    cfg = m.get_config(WHISPER_FULL["arch"])
+    b, n_dec, P = (WHISPER_FULL[k] for k in ("batch", "decode_tokens",
+                                             "prefill_len"))
+    out_a, build, launches, streams, out_b, easey_s = _legacy_job(
+        torch, m, card, counts, reset_counts, quiet, WHISPER_FULL,
+        "serve-whisper")
+    if build != ("prefill_step", m.build_arch, [], []) or any(
+            launches.values()):
+        raise AssertionError(f"whisper serving build {build}, launches "
+                             f"{launches}: a LayerNorm model on the legacy "
+                             f"path builds and launches no kernel")
+    mark("EASEY job and direct serve_main")
+    print(f"[whisper] {card} run_easey(whisper-tiny serving Appfile, "
+          f"nvidia:h100): build {build[2]} (no kernel: LayerNorm, legacy "
+          f"path), job finished in {easey_s:.1f} s; "
+          f"{cfg.num_encoder_layers} + {cfg.num_layers} layers of "
+          f"{cfg.d_model}, {m.param_count_estimate(cfg) / 1e6:.3f} M "
+          f"parameters; {b} requests of {P} frames + {P} prompt tokens, "
+          f"{n_dec} tokens each; prefill {out_a['prefill_s']:.3f} s, decode "
+          f"{out_a['decode_tok_per_s']:.2f} tokens/s EASEY, "
+          f"{out_b['decode_tok_per_s']:.2f} direct (the direct serve_main "
+          f"repeats the job's {b} x {n_dec} tokens)")
+
+    # (b) decode against the longer prefill, zero and nonzero biases
+    model = m.model_for(cfg, remat="none")
+    params = m.init_params(model.param_table(),
+                           torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    prefill, decode = m.build_prefill_step(model), m.build_decode_step(model)
+    rows, Pf, nf = WHISPER_FORCED
+    shape = dataclasses.replace(m.SHAPES["prefill_32k"], seq_len=Pf + nf,
+                                global_batch=rows)
+    long_req = m.to_device(m.SyntheticSource(cfg.vocab_size, 19).batch(
+        model.batch_table(shape), 0), "cuda")
+    frames = long_req["frames"][:, :Pf].contiguous()
+    forced = {"zero biases": _decode_vs_prefill(
+        torch, m, prefill, decode, params, frames, long_req["tokens"], Pf,
+        nf)}
+    g = torch.Generator(device="cuda").manual_seed(19)
+    for stack in ("enc_blocks", "dec_blocks"):
+        for attn in ("attn", "xattn"):
+            p = params[stack].get(attn)
+            for k in ("bq", "bk", "bv") if p else ():
+                p[k].copy_(WHISPER_BIAS_STD * torch.randn(
+                    p[k].shape, generator=g, device="cuda"))
+    forced["nonzero biases"] = _decode_vs_prefill(
+        torch, m, prefill, decode, params, frames, long_req["tokens"], Pf,
+        nf)
+    del long_req, frames
+    mark("decode against the longer prefill")
+    print(f"[whisper] {card} {rows} rows, prefill of {Pf} frames and tokens "
+          f"+ {nf} teacher-forced decode steps against one prefill of "
+          f"{Pf + nf} tokens (max |diff| / max |logit| of the last step; "
+          f"ctrl: the longer prefill with one bf16 step of noise at the "
+          f"decoder's LayerNorm outputs at the decoded positions, at the "
+          f"fraction frac of decoded self K/V entries, or of the last "
+          f"logits, that differ; gap: the reference's cross-attention, "
+          f"without bk and bv in the cached cross K/V and bq in the decode "
+          f"query; limit {WHISPER_FORCED_TOL:g}): "
+          f"{({k: {kk: round(vv, 6) if isinstance(vv, float) else vv for kk, vv in v.items()} for k, v in forced.items()})}")
+    for label, f in forced.items():
+        if not f["finite"] or f["rel"] > WHISPER_FORCED_TOL:
+            raise AssertionError(f"whisper decode vs the longer prefill "
+                                 f"({label}): {f['rel']:.4g} of max |logit| "
+                                 f"> {WHISPER_FORCED_TOL:g} (finite "
+                                 f"{f['finite']})")
+    if forced["nonzero biases"]["gap"] <= WHISPER_FORCED_TOL:
+        raise AssertionError(f"whisper: the reference's cross-attention gap "
+                             f"departs {forced['nonzero biases']['gap']:.4g}"
+                             f" of max |logit|, within the limit "
+                             f"{WHISPER_FORCED_TOL:g}: the check could not "
+                             f"tell it")
+
+    # (d) the serving shape's steps on the roofline
+    pshape = dataclasses.replace(m.SHAPES["prefill_32k"], seq_len=P,
+                                 global_batch=b)
+    req = m.to_device(m.SyntheticSource(cfg.vocab_size, 0).batch(
+        model.batch_table(pshape), 0), "cuda")
+    roof = {"prefill": _step_roofline(
+        torch, m, card, f"whisper-tiny prefill ({b} x {P} frames + tokens)",
+        cfg, pshape, prefill, params, req)}
+    logits, cache = prefill(params, req)
+    cache = m.grow_kv(cache, 1)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    dshape = dataclasses.replace(m.SHAPES["decode_32k"], seq_len=P + 1,
+                                 global_batch=b)
+    roof["decode"] = _step_roofline(
+        torch, m, card, f"whisper-tiny whole-batch decode step ({b} rows "
+        f"at {P} of {P + 1} positions)", cfg, dshape, decode, params,
+        cache, tok)
+    del params, model, req, logits, cache, prefill, decode
+    mark("roofline")
+
+    # (c) training
+    res = m.train_main(**WHISPER_TRAIN, log=quiet)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses, norms = res["losses"], res["grad_norms"]
+    plan, step_s = res["plan"], res["step_s"]
+    del res
+    mark("train_main")
+    again = m.train_main(**dict(WHISPER_TRAIN, steps=1), log=quiet)
+    if not (all(map(math.isfinite, losses + norms)) and
+            len(losses) == WHISPER_TRAIN["steps"]):
+        raise AssertionError(f"whisper training: losses {losses}, grad "
+                             f"norms {norms}")
+    if (again["losses"][0], again["grad_norms"][0]) != (losses[0], norms[0]):
+        raise AssertionError(f"whisper training: a second run's step 0 "
+                             f"({again['losses'][0]}, "
+                             f"{again['grad_norms'][0]}) != the first's "
+                             f"({losses[0]}, {norms[0]})")
+    del again
+    mark("a second run's step 0")
+    tokens = WHISPER_TRAIN["seq_len"] * WHISPER_TRAIN["global_batch"]
+    t19 = time.perf_counter() - t19
+    print(f"[whisper] {card} train_main(whisper-tiny, "
+          f"{WHISPER_TRAIN['global_batch']} x {WHISPER_TRAIN['seq_len']} "
+          f"frames + tokens, {WHISPER_TRAIN['steps']} steps; plan "
+          f"{plan.optimizer}, remat {plan.remat_policy}, "
+          f"{plan.microbatches} microbatch(es)): losses {losses}, grad norms "
+          f"{norms}, all finite; a second run repeats step 0 bit for bit; "
+          f"ms per step {[round(t * 1e3, 1) for t in step_s]} (host clock, "
+          f"device drained), {tokens / (sum(step_s[1:]) / max(len(step_s) - 1, 1)):.1f}"
+          f" tokens/s after step 0; peak memory {peak:.1f} GB; phase 19 "
+          f"took {t19:.1f} s; memory (GB allocated after, peak during) "
+          f"{mem}")
+    return roof
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(REPO / "src"))
     from repro_torch.configs import get_config
     from repro_torch.core.appspec import AppSpec, parse_appfile
     from repro_torch.core.jobs import JobState
@@ -2869,6 +3167,7 @@ def main() -> int:
     from repro_torch.kernels.sedov_stencil import sedov_step_cuda
     from repro_torch.launch.serve import grow_kv, serve_main
     from repro_torch.models import mamba, ssm
+    from repro_torch.analysis import cost, flops, roofline
     from repro_torch.models import lulesh, moe
     from repro_torch import serving
     from repro_torch.serving import (ReplicaRouter, Request, ServeEngine,
@@ -3235,7 +3534,8 @@ def main() -> int:
         SyntheticSource=SyntheticSource, to_device=to_device,
         build_prefill_step=port_steps.build_prefill_step,
         build_decode_step=port_steps.build_decode_step,
-        build_arch=_build.ARCH, ssm=ssm, mamba=mamba, grow_kv=grow_kv)
+        build_arch=_build.ARCH, ssm=ssm, mamba=mamba, grow_kv=grow_kv,
+        cost=cost, flops=flops, roofline=roofline)
     train_smoke, train_s = _timed(_train_smoke, torch, mt, counts,
                                   reset_counts)
     print(f"[smoke] training {TRAIN_SMOKE_ARCHS}, {TRAIN_SMOKE_STEPS} steps "
@@ -4279,6 +4579,11 @@ def main() -> int:
     # ---- 18. the Zamba2 hybrid at full width, K2 on every norm --------
     zamba_launches = _hybrid_full(torch, mt, card, counts, reset_counts,
                                   quiet)
+
+    # ---- 19. Whisper at full width: serving, training, the roofline ---
+    _whisper_full(torch, mt, card, counts, reset_counts, quiet)
+    print(f"[smoke] {card} phases 1-19 took "
+          f"{time.perf_counter() - t_main:.1f} s")
 
     kernels = [
         {"name": "paged_attention", "route": "cuda",

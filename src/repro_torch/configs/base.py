@@ -94,7 +94,8 @@ def register(cfg: ModelConfig, smoke: ModelConfig,
     addressable archs too); ``skip_shapes`` names the shapes the arch has
     no dry-run cell for."""
     ARCHS[cfg.name] = {"full": cfg, "skip_shapes": skip_shapes}
-    ARCHS[smoke.name] = {"full": smoke, "skip_shapes": skip_shapes}
+    ARCHS[smoke.name] = {"full": smoke, "skip_shapes": skip_shapes,
+                         "is_smoke": True}
     return cfg
 
 
@@ -103,3 +104,25 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"arch {arch!r} is not ported yet; ported: "
                        f"{sorted(ARCHS)} (ROADMAP: other arch configs)")
     return ARCHS[arch]["full"]
+
+
+def list_archs(include_smoke: bool = False) -> list[str]:
+    return sorted(a for a, m in ARCHS.items()
+                  if include_smoke or not m.get("is_smoke"))
+
+
+def cells(include_skipped: bool = False):
+    """All (arch, shape, skipped) cells of the full configs, each shape
+    of ``SHAPES`` once; ``skipped`` flags a shape the arch skips (listed
+    only with ``include_skipped``).  LULESH has its own shape axis."""
+    out = []
+    for arch in list_archs():
+        meta = ARCHS[arch]
+        if meta["full"].family == "stencil":
+            continue
+        for shape in SHAPES.values():
+            skipped = shape.name in meta["skip_shapes"]
+            if skipped and not include_skipped:
+                continue
+            out.append((arch, shape.name, skipped))
+    return out

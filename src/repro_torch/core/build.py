@@ -16,8 +16,9 @@ built with (``"reference"`` on the CPU target, which builds nothing).
 An LM's ``decode`` and ``prefill`` shapes are the serving app: their
 step is the paged serving engine's, whose hand-written kernels are the
 paged-decode kernel (decode only) and the RMSNorm kernel (rmsnorm
-configs); a VLM's is the legacy fixed-batch path's, the RMSNorm kernel
-alone.  The ``train`` shape's step is ``training.steps.
+configs); the other families' (VLM, xLSTM, Zamba2, enc-dec) is the
+legacy fixed-batch path's, the RMSNorm kernel alone on an rmsnorm
+config and no kernel on a LayerNorm one.  The ``train`` shape's step is ``training.steps.
 build_train_step`` under the plan (optimizer, microbatches, remat,
 accumulation dtype), returned as ``step_fn`` with its state and batch
 tables; its kernel is the RMSNorm kernel (rmsnorm configs), on every
@@ -83,8 +84,9 @@ def program_description(step_name: str, kernels: str,
 
 
 # the LM families the port runs: the engine's, and those the legacy
-# fixed-batch serve path serves (the VLM, xLSTM and the Zamba2 hybrid)
-LM_FAMILIES = ("dense", "moe", "vlm", "ssm_xlstm", "hybrid_mamba")
+# fixed-batch serve path serves (the VLM, xLSTM, the Zamba2 hybrid and
+# the enc-dec)
+LM_FAMILIES = ("dense", "moe", "vlm", "ssm_xlstm", "hybrid_mamba", "encdec")
 
 
 def _lm_sources(cfg, kind: str) -> tuple[str, ...]:
@@ -95,8 +97,7 @@ def _lm_sources(cfg, kind: str) -> tuple[str, ...]:
     forward and of its remat recompute)."""
     from repro_torch.serving.engine import SERVABLE_FAMILIES
     if cfg.family not in LM_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP slice F)")
+        raise NotImplementedError(f"no LM family {cfg.family!r}")
     paged = kind == "decode" and cfg.family in SERVABLE_FAMILIES
     norm = ("rmsnorm",) if cfg.norm == "rmsnorm" else ()
     return (("paged_attention",) if paged else ()) + norm

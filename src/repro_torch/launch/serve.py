@@ -20,8 +20,8 @@ hand-written paged-decode kernel; ``local:cpu``: the plain versions).
 
 Families the engine cannot serve take the reference's legacy
 fixed-batch path (``_legacy_serve_main``): one batch prefilled at once,
-then greedy whole-batch decode steps.  The VLM, xLSTM and Zamba2 hybrid
-families are ported; the enc-dec family raises (ROADMAP slice F).
+then greedy whole-batch decode steps: the VLM, xLSTM, Zamba2 hybrid
+and enc-dec (Whisper) families.
 
     python -m repro_torch.launch.serve --device cpu \\
         --arch zamba2-7b-smoke --batch 2 --prefill 32 --decode 8
@@ -391,7 +391,8 @@ def grow_kv(cache: dict, n: int) -> dict:
     writes into a hybrid's ungrown K/V clamp onto the last prompt position
     (or, under a window, evict the ring's oldest); its own decode test
     grows them all, as here.  A recurrent state has no K/V and stays as
-    it is."""
+    it is, and so do an enc-dec's cross K/V (``"xk"``, ``"xv"``), which
+    keep the encoder's length: its decode steps read them whole."""
     out = {}
     for key, v in cache.items():
         if isinstance(v, dict):

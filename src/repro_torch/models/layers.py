@@ -5,9 +5,11 @@ shapes.  Every rounding point of the reference is kept, so on the same
 weights the port agrees with it bit for bit in almost every element:
 bf16 projections, the f32 RMSNorm and LayerNorm, f32 RoPE, attention
 with f32 scores and probabilities rounded to bf16 before the PV product,
-a SiLU whose steps each round to bf16 the way XLA rounds the reference's
-``jax.nn.silu`` on bf16, and a squared ReLU rounded once, after the
-square.
+a SiLU and a tanh-form GELU whose steps each round to bf16 the way XLA
+rounds the reference's ``jax.nn.silu`` and ``jax.nn.gelu`` on bf16, and
+a squared ReLU rounded once, after the square.  Positions are RoPE,
+learned (a ``pos_embedding`` table) or sinusoidal (f32, as the
+reference computes them).
 
 Attention runs in four modes: ``full`` (training: causal, no cache),
 ``prefill`` (causal, returns fresh K/V), ``decode`` (slot-wise: one
@@ -142,6 +144,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     o2 = x2 * cos + x1 * sin
     out = torch.stack([o1, o2], dim=-1).reshape(x_rot.shape).to(x.dtype)
     return torch.cat([out, x_pass], dim=-1) if rot < head_dim else out
+
+
+def _sinusoid(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """f32 sinusoids of f32 positions ``pos`` (..., 1): sin in the even
+    features, cos in the odd ones, each angle ``pos / 10000^(i / d)``."""
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=pos.device)
+    angle = pos / torch.pow(10000.0, dim / d_model)
+    pe = torch.zeros(angle.shape[:-1] + (d_model,), dtype=torch.float32,
+                     device=pos.device)
+    pe[..., 0::2] = torch.sin(angle)
+    pe[..., 1::2] = torch.cos(angle)
+    return pe
+
+
+def sinusoidal_positions(seq_len: int, d_model: int,
+                         device=None) -> torch.Tensor:
+    """The (seq_len, d_model) f32 table of sinusoidal positions."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)
+    return _sinusoid(pos[:, None], d_model)
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +410,7 @@ def _windowed_attention(q, k, v, window: int) -> torch.Tensor:
 
 def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
               mode: str, cache: dict | None = None,
-              window: int | None = None):
+              window: int | None = None, kv_source=None):
     """mode: 'full' (training: causal, no cache), 'prefill' (causal,
     returns the fresh K/V), 'decode' (slot-wise, one token or a verify
     burst per row, through the page table or the slot rows as the pool's
@@ -399,14 +420,30 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     applies it: a full or prefill pass longer than the window attends by
     q-chunks over its band (``_windowed_attention``), and a whole-batch
     decode over a cache no longer than the window treats it as a ring
-    buffer.  Returns (out, fresh_cache or None)."""
+    buffer.
+
+    ``kv_source`` makes it cross-attention: K and V come from the source,
+    a (b, t, d) encoder output (projected here, biases included) or a
+    (k, v) pair projected already (a decode step's cached cross K/V).
+    Every query attends every source position, with no RoPE, in any
+    mode; a prefill returns the projected K/V as its fresh cache.
+    Returns (out, fresh_cache or None)."""
     q = torch.einsum("bse,ehd->bshd", x, p["wq"])
-    k = torch.einsum("bte,ekd->btkd", x, p["wk"])
-    v = torch.einsum("bte,ekd->btkd", x, p["wv"])
     if "bq" in p:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+    if isinstance(kv_source, tuple):
+        k, v = kv_source
+    else:
+        src = x if kv_source is None else kv_source
+        k = torch.einsum("bte,ekd->btkd", src, p["wk"])
+        v = torch.einsum("bte,ekd->btkd", src, p["wv"])
+        if "bk" in p:
+            k = k + p["bk"]
+            v = v + p["bv"]
+    if kv_source is not None:
+        out = dot_attention(q, k, v, causal=False)
+        y = torch.einsum("bshd,hde->bse", out, p["wo"])
+        return y, ({"k": k, "v": v} if mode == "prefill" else None)
     if cfg.pos == "rope":
         q = apply_rope(q, positions, fraction=cfg.rope_fraction,
                        theta=cfg.rope_theta)
@@ -479,17 +516,55 @@ def sq_relu(x: torch.Tensor) -> torch.Tensor:
     return r * r
 
 
+def _gelu_consts(dtype) -> tuple[float, float]:
+    """0.044715 and sqrt(2 / pi) in ``dtype``: ``jax.nn.gelu`` takes its
+    constants in x's dtype (0.044677734375 and 0.796875 in bf16)."""
+    return tuple(float(torch.tensor(c, dtype=dtype))
+                 for c in (0.044715, math.sqrt(2 / math.pi)))
+
+
+class _GeLU(torch.autograd.Function):
+    """GELU's tanh form, ``x * 0.5 * (1 + tanh(c2 * (x + c1 * x^3)))``,
+    each step rounded to x's dtype, as XLA evaluates the reference's
+    ``jax.nn.gelu`` (``approximate=True``) on bf16, and its gradient in
+    the steps and roundings of XLA's transpose of that chain."""
+
+    @staticmethod
+    def forward(ctx, x):
+        c1, c2 = _gelu_consts(x.dtype)
+        x2 = x * x
+        t = torch.tanh((x + (x2 * x) * c1) * c2)
+        ctx.save_for_backward(x, x2, t)
+        return x * ((t + 1) * 0.5)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, x2, t = ctx.saved_tensors
+        c1, c2 = _gelu_consts(x.dtype)
+        direct = g * ((t + 1) * 0.5)                  # d/dx of x in x * cdf
+        p = ((x * g) * 0.5) * (1 - t)
+        db = (p + p * t) * c2                         # through tanh
+        return (direct + db) + (db * c1) * (x2 * 3)   # through x + c1 x^3
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``jax.nn.gelu`` (the tanh form), rounded step by
+    step as XLA rounds it on bf16 (torch's ``F.gelu`` defaults to the erf
+    form, another function)."""
+    return _GeLU.apply(x)
+
+
 def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    if cfg.activation not in ("silu", "sq_relu"):
-        raise NotImplementedError(
-            f"activation {cfg.activation!r} is not ported yet "
-            f"(ROADMAP: other arch configs)")
     h = torch.einsum("bse,ef->bsf", x, p["wi"])
-    if cfg.activation == "sq_relu":
-        h = sq_relu(h)
-    else:
+    if cfg.activation == "silu":
         h = silu(torch.einsum("bse,ef->bsf", x, p["wg"])) * h \
             if "wg" in p else silu(h)
+    elif cfg.activation == "gelu":
+        h = gelu(h)
+    elif cfg.activation == "sq_relu":
+        h = sq_relu(h)
+    else:
+        raise ValueError(f"activation {cfg.activation!r}")
     return torch.einsum("bsf,fe->bse", h, p["wo"])
 
 
@@ -502,19 +577,37 @@ def embed_defs(cfg) -> dict:
                                ("vocab", "embed"), init="embed", scale=0.02)}
     if not cfg.tie_embeddings:
         d["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    if cfg.pos == "learned":
+        d["pos_embedding"] = ParamDef((cfg.max_position, cfg.d_model),
+                                      (None, "embed"), init="embed",
+                                      scale=0.02)
     return d
 
 
-def embed(p: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    if cfg.pos not in ("rope", "none"):
-        raise NotImplementedError(
-            f"position embedding {cfg.pos!r} is not ported yet "
-            f"(ROADMAP: other arch configs)")
-    # indexing, not index_select: index_select's backward adds a repeated
-    # token's rows with atomics on the card, in no fixed order; indexing's
-    # sorts them first
-    flat = p["embedding"][tokens.reshape(-1).long()]
-    return flat.reshape(*tokens.shape, -1).to(cfg.activation_dtype)
+def _take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table``'s rows at the integer ``ids``, shaped (*ids.shape, -1).
+    Indexing, not index_select: index_select's backward adds a repeated
+    id's rows with atomics on the card, in no fixed order; indexing's
+    sorts them first."""
+    return table[ids.reshape(-1).long()].reshape(*ids.shape, -1)
+
+
+def embed(p: dict, tokens: torch.Tensor, cfg,
+          positions: torch.Tensor | None = None) -> torch.Tensor:
+    """The tokens' embeddings in the activation dtype, plus the positions'
+    (a ``learned`` table's rows, or ``sinusoidal`` f32 rows cast down)
+    where the config adds them; RoPE configs add none here."""
+    x = _take_rows(p["embedding"], tokens).to(cfg.activation_dtype)
+    if cfg.pos in ("learned", "sinusoidal") and positions is None:
+        raise ValueError(f"{cfg.pos} positions need ``positions``")
+    if cfg.pos == "learned":
+        x = x + _take_rows(p["pos_embedding"], positions).to(x.dtype)
+    elif cfg.pos == "sinusoidal":
+        x = x + _sinusoid(positions.float()[..., None],
+                          cfg.d_model).to(x.dtype)
+    elif cfg.pos not in ("rope", "none"):
+        raise ValueError(f"position embedding {cfg.pos!r}")
+    return x
 
 
 def unembed(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -304,8 +304,8 @@ def _at(pick: slice, *ts):
 
 
 def model_for(cfg: ModelConfig, remat: str = "dots"):
-    """The model of ``cfg.family`` (dense, MoE, VLM, xLSTM and the Zamba2
-    hybrid so far); ``remat`` is the training forward's policy."""
+    """The model of ``cfg.family`` (dense, MoE, VLM, xLSTM, the Zamba2
+    hybrid, enc-dec); ``remat`` is the training forward's policy."""
     if cfg.family == "dense":
         return DenseLM(cfg, remat=remat)
     if cfg.family == "moe":
@@ -320,5 +320,7 @@ def model_for(cfg: ModelConfig, remat: str = "dots"):
     if cfg.family == "hybrid_mamba":
         from repro_torch.models.mamba import ZambaHybrid
         return ZambaHybrid(cfg, remat=remat)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP slice F)")
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import EncDecLM
+        return EncDecLM(cfg, remat=remat)
+    raise NotImplementedError(f"no model for family {cfg.family!r}")

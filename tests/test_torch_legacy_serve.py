@@ -13,7 +13,8 @@ both packages draw the request from their ``SyntheticSource``.
   ``run_easey`` of a VLM serving Appfile to ``local:cpu`` give the
   reference's result.
 * A VLM's build lists the RMSNorm kernel alone (the legacy path launches
-  no paged-decode kernel); families the port lacks still raise.
+  no paged-decode kernel); the enc-dec family serves and builds no
+  kernel; a family that does not exist raises.
 * The refusals: router-only and telemetry flags, a target on another
   device, no card without ``device="cpu"``.
 * On the card (``cuda``): the smoke legacy serve, K2 counted on every
@@ -219,16 +220,26 @@ def test_vlm_build_lists_the_rmsnorm_kernel_alone(shape):
 
 
 def test_unported_families_still_raise(monkeypatch):
-    from repro_torch.configs import ARCHS
-    encdec = get_config(SMOKE).replace(name="encdec-smoke",
-                                       family="encdec")
-    monkeypatch.setitem(ARCHS, "encdec-smoke", {"full": encdec,
-                                                "skip_shapes": ()})
-    with pytest.raises(NotImplementedError, match="slice F"):
-        port_serve.serve_main(arch="encdec-smoke", log=quiet, device="cpu")
-    app = parse_appfile("FROM arch:encdec-smoke\nSHAPE decode_32k\n"
+    """Every family of the reference is ported: the enc-dec's smoke
+    serves through the legacy path and its build lists no kernel (a
+    LayerNorm model there); only a family that does not exist raises."""
+    out = port_serve.serve_main(arch="whisper-tiny-smoke", batch=2,
+                                prefill_len=16, decode_tokens=3, log=quiet,
+                                device="cpu")
+    assert out["mode"] == "legacy-static" and len(out["sample"]) == 3
+    app = parse_appfile("FROM arch:whisper-tiny-smoke\nSHAPE decode_32k\n"
                         "###include_local_kernels###\n")
-    with pytest.raises(NotImplementedError, match="slice F"):
+    res = BuildService().build(app, "nvidia:h100", lower=False)
+    assert list(res.program["kernels"]) == [] and res.built == {}
+    from repro_torch.configs import ARCHS
+    bogus = get_config(SMOKE).replace(name="bogus-smoke", family="bogus")
+    monkeypatch.setitem(ARCHS, "bogus-smoke", {"full": bogus,
+                                               "skip_shapes": ()})
+    with pytest.raises(NotImplementedError, match="family 'bogus'"):
+        port_serve.serve_main(arch="bogus-smoke", log=quiet, device="cpu")
+    app = parse_appfile("FROM arch:bogus-smoke\nSHAPE decode_32k\n"
+                        "###include_local_kernels###\n")
+    with pytest.raises(NotImplementedError, match="family 'bogus'"):
         BuildService().build(app, "nvidia:h100", lower=False)
 
 

@@ -239,6 +239,8 @@ def test_mixed_dense_and_moe_fleet_is_refused():
 def test_model_for_serves_moe_and_still_refuses_other_families():
     assert isinstance(model_for(get_config("granite-moe-3b-a800m")), MoELM)
     assert type(model_for(get_config("deepseek-7b"))).__name__ == "DenseLM"
-    encdec = get_config("deepseek-7b-smoke").replace(family="encdec")
-    with pytest.raises(NotImplementedError, match="slice F"):
-        model_for(encdec)
+    from repro_torch.models.encdec import EncDecLM
+    assert isinstance(model_for(get_config("whisper-tiny")), EncDecLM)
+    bogus = get_config("deepseek-7b-smoke").replace(family="bogus")
+    with pytest.raises(NotImplementedError, match="family 'bogus'"):
+        model_for(bogus)

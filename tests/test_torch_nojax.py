@@ -58,6 +58,11 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
             "import repro_torch.models.ssm, repro_torch.models.mamba\n"
             "import repro_torch.configs.xlstm_1_3b\n"
             "import repro_torch.configs.zamba2_7b\n"
+            "import repro_torch.models.encdec\n"
+            "import repro_torch.configs.whisper_tiny\n"
+            "import repro_torch.analysis.flops\n"
+            "import repro_torch.analysis.roofline\n"
+            "import repro_torch.analysis.cost\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.') or m == 'ml_dtypes' or "

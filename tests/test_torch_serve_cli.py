@@ -26,7 +26,6 @@ from repro.configs import get_config as ref_config
 from repro.launch.run import run_command as ref_run_command
 from repro.models.params import init_params as ref_init
 from repro.models.transformer import model_for as ref_model_for
-from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import jobspec
 from repro_torch.core.appspec import parse_appfile
 from repro_torch.core.build import BuildService
@@ -234,19 +233,21 @@ def test_serve_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_legacy_families_and_router_only_flags_raise(monkeypatch):
-    """The reference's message logic for families the engine cannot
-    serve (their fixed-batch path waits for slice F) and for router-only
-    flags on one engine."""
-    encdec = get_config(ARCH).replace(name="encdec-smoke", family="encdec")
-    monkeypatch.setitem(ARCHS, "encdec-smoke", {"full": encdec,
-                                                "skip_shapes": ()})
-    kw = dict(arch="encdec-smoke", log=quiet, device="cpu")
+    """The reference's message logic for a family the engine cannot serve
+    (the enc-dec's smoke, served by the legacy fixed-batch path, which
+    refuses the engine's trace and fleet flags) and for router-only flags
+    on one engine."""
+    from repro_torch.serving import ServeEngine
+    kw = dict(arch="whisper-tiny-smoke", log=quiet, device="cpu")
+    with pytest.raises(NotImplementedError, match="legacy static path"):
+        ServeEngine(num_slots=2, max_len=32, **kw)
     with pytest.raises(NotImplementedError, match="legacy static path"):
         port_serve.serve_main(trace_out="x.json", **kw)
     with pytest.raises(NotImplementedError, match="--replicas"):
         port_serve.serve_main(replicas=2, **kw)
-    with pytest.raises(NotImplementedError, match="slice F"):
-        port_serve.serve_main(**kw)
+    out = port_serve.serve_main(batch=2, prefill_len=16, decode_tokens=3,
+                                **kw)
+    assert out["mode"] == "legacy-static"
     with pytest.raises(NotImplementedError, match="router path"):
         port_serve.serve_main(arch=ARCH, autoscale=1, log=quiet,
                               device="cpu")
