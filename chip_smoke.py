@@ -222,7 +222,14 @@ Phases, each of which raises on failure:
    then 4 steps of ``train_main`` with K2 on every norm (counted per
    step), every loss and grad norm finite, the loss curve printed beside
    the plain path's, ms per step, tokens/s and the peak memory printed,
-   not gated;
+   not gated; then the restart at full width (``_restart_full``): that
+   run's state copied to host numpy arrays, RESTART_STEPS more steps
+   taken unbroken, the device state freed, the host copy restored
+   through ``runtime.elastic.reshard_state`` onto
+   ``mesh_for_target("nvidia:h100")`` and the same steps taken on the
+   same step-keyed batches: every leaf bit for bit the unbroken run's, K2
+   counted on every norm of both runs (the copy and restore times and the
+   peak memory printed);
 16. the VLM family at full width through the legacy fixed-batch path
    (``_vlm_full``): with the memory the earlier phases left at most
    VLM_BASELINE_GB, ``run_easey`` deploys a ``llava-next-34b`` serving
@@ -289,7 +296,20 @@ Phases, each of which raises on failure:
    three terms on the H100's data-sheet peaks, the measured time, the
    share of the bound and the idle share printed, not gated; 4 steps of
    ``train_main`` at 8 x 1,024, every loss and grad norm finite and a
-   second run's step 0 bit for bit the first's.
+   second run's step 0 bit for bit the first's;
+20. LULESH over a one-rank NCCL mesh (``_lulesh_nccl``): a world-size-1
+   NCCL process group and a (1, 1) ``("data", "model")`` DeviceMesh on
+   the card; LULESH_NCCL's 20 plain steps at grid 256 through
+   ``lulesh.step(state, cfg, mesh)`` equal to the plain step's bit for
+   bit.  On one rank the mesh path has no neighbour, so no halo is
+   exchanged on the card: what runs there is the blocks' bookkeeping,
+   dt's MAX all-reduce through NCCL (over one rank) and the DTensor
+   wrapping.  The stencil build's ``step_fn`` for ``nvidia:h100`` (on
+   one chip the plain step) is held against K4's step on the same state
+   within STENCIL_TOL_1; the group is destroyed before the phase ends.
+   The multi-rank path itself (8 ranks, the halo exchanges, the sharded
+   train step) runs only on the CPU over gloo
+   (``tests/test_torch_spmd.py``): NCCL puts one rank on one card.
 
 The second-to-last line of output is the card's ``name, power.limit``;
 before it a JSON line lists every kernel with its launches on its path's
@@ -421,6 +441,11 @@ TRAIN_FULL = dict(arch="deepseek-7b", seq_len=1024, global_batch=4, steps=4)
 # under 1.0, the reading of a zero gradient (2.0 for one of flipped
 # sign), so the gate fails either
 GRAD_CONTROL_MAX = 0.25
+# phase 15's restart: steps past train_main's, taken unbroken and again
+# from the host copy restored through reshard_state
+RESTART_STEPS = 2
+# phase 20: LULESH's mesh step over a one-rank NCCL mesh
+LULESH_NCCL = dict(grid=256, steps=20)
 # phase 15's bias gate: the mean of the per-token loss differences (kernel
 # vs plain, control vs plain) within this many standard errors of zero.
 # The relative L2 cannot see a small shift shared by every token; a mean
@@ -2031,8 +2056,10 @@ def _train_full(torch, m, card, counts, reset_counts, quiet) -> dict:
     if not all(map(math.isfinite, run15["losses"] + run15["grad_norms"])):
         raise AssertionError(f"train_main: losses {run15['losses']}, grad "
                              f"norms {run15['grad_norms']}")
-    del run15["state"]
     mark15("train_main, kernel path")
+    _restart_full(torch, m, card, counts, reset_counts, run15.pop("state"),
+                  plan15, ds, shape15, per_step15)
+    mark15("restart through reshard_state")
     with _PlainNorms(m.ops, m.ref, m.layers):
         run15p = m.train_main(**TRAIN_FULL, log=quiet)
     del run15p["state"]
@@ -2058,6 +2085,158 @@ def _train_full(torch, m, card, counts, reset_counts, quiet) -> dict:
           f"peak memory {peak15:.1f} GB (predicted 55-60); phase 15 took "
           f"{t15:.1f} s; memory (GB allocated after, peak during) {mem15}")
     return per_step15
+
+
+def _host_copy(torch, state) -> dict:
+    """The state as host numpy arrays (bf16 as its raw 16-bit integers),
+    as ``Checkpointer`` restores them."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16
+                else t).numpy()
+    return {k: (host(v) if isinstance(v, torch.Tensor) else
+                _host_copy(torch, v)) for k, v in state.items()}
+
+
+def _restart_full(torch, m, card, counts, reset_counts, state, plan, cfg,
+                  shape, per_step) -> None:
+    """Phase 15's restart at full width: ``state`` (train_main's, after
+    TRAIN_FULL's steps) copied to host numpy arrays, RESTART_STEPS more
+    steps taken (the unbroken run) and their state copied to the host;
+    the device state freed, the first host copy restored through
+    ``reshard_state`` onto ``mesh_for_target("nvidia:h100")`` and the same
+    steps taken on the same step-keyed batches: every leaf must equal the
+    unbroken run's bit for bit, K2 counted on every norm of both runs."""
+    model = m.model_for(cfg, remat=plan.remat_policy)
+    opt = m.make_optimizer(plan.optimizer)
+    step = m.build_train_step(model, opt, plan)
+    pipe = m.DataPipeline(model, shape, seed=0, device="cuda")
+    first = TRAIN_FULL["steps"]
+    want_k2 = {k: v * RESTART_STEPS for k, v in per_step.items()}
+
+    def steps(st, what):
+        reset_counts()
+        for i in range(RESTART_STEPS):
+            st, _ = step(st, pipe.batch_at(first + i))
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts().items() if v}
+        if got != want_k2:
+            raise AssertionError(f"restart ({what}): K2 launches {got}, not "
+                                 f"{want_k2}")
+        return st
+    torch.cuda.synchronize()
+    host, copy_s = _timed(_host_copy, torch, state)
+    state = steps(state, "unbroken")
+    unbroken = m.tree_map(lambda t: t.detach().cpu(), state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    table = m.train_state_table(model, opt, plan)
+    mesh = m.mesh_for_target(m.get_target("nvidia:h100"))
+    t0 = time.perf_counter()
+    restored = m.reshard_state(host, table, mesh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del host
+    gc.collect()
+    restored = steps(restored, "restored")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    leaves = 0
+    want = dict(m.leaf_items(unbroken))
+    for path, got in m.leaf_items(restored):
+        if got.device.type != "cuda" or not torch.equal(
+                got, want[path].to("cuda")):
+            raise AssertionError(f"restart: {'/'.join(path)} differs from "
+                                 f"the unbroken run's")
+        leaves += 1
+    del restored, unbroken, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] {card} restart of full-width deepseek-7b through "
+          f"reshard_state: the state after {first} steps of train_main "
+          f"copied to host numpy arrays in {copy_s:.2f} s, {RESTART_STEPS} "
+          f"steps unbroken, the host copy restored onto "
+          f"mesh_for_target('nvidia:h100') {mesh.shape} in {restore_s:.2f} s "
+          f"and the same {RESTART_STEPS} steps taken: all {leaves} leaves "
+          f"equal the unbroken run's bit for bit; K2 launches {want_k2} in "
+          f"each run; peak memory of the restored run {peak:.1f} GB")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _lulesh_nccl(torch, m, card) -> None:
+    """Phase 20: LULESH's mesh step over a one-rank NCCL process group, a
+    (1, 1) ("data", "model") DeviceMesh on the card: LULESH_NCCL's steps
+    at its grid through ``lulesh.step(state, cfg, mesh)`` equal to the
+    plain step's bit for bit.  One rank has no neighbour, so no halo is
+    exchanged: NCCL carries dt's MAX all-reduce alone.  The stencil
+    build's ``step_fn`` for ``nvidia:h100``, the plain step on one chip,
+    is held against K4's step (another code) within STENCIL_TOL_1.  The
+    group is destroyed before the phase returns."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    lulesh = m.lulesh
+    t20 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        dm = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                        mesh_dim_names=("data", "model"))
+        mesh = m.Mesh(("data", "model"), (1, 1), "cuda", dm)
+        init_s = time.perf_counter() - t20
+        cfg = lulesh.LuleshConfig(grid=LULESH_NCCL["grid"])
+        n = LULESH_NCCL["steps"]
+
+        def run(mesh_):
+            # one step to warm up: NCCL makes a group's communicator on
+            # the group's first collective
+            t0 = time.perf_counter()
+            lulesh.step(lulesh.init_state(cfg, "cuda"), cfg, mesh_)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            st = lulesh.init_state(cfg, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                st = lulesh.step(st, cfg, mesh_)
+            torch.cuda.synchronize()
+            return st, (time.perf_counter() - t0) * 1e3 / n, warm_s
+        plain, plain_ms, _ = run(None)
+        meshed, mesh_ms, warm_s = run(mesh)
+        for k in ("rho", "e", "v", "t"):
+            got = meshed[k]
+            if got.device_mesh is not dm or \
+                    not torch.equal(got.to_local(), plain[k]):
+                raise AssertionError(f"LULESH on the NCCL mesh: {k} differs "
+                                     f"from the plain step's")
+        app = m.AppSpec(arch="lulesh-dash", shape="train_4k",
+                        run=f"lulesh -i 1 -s {cfg.grid}")
+        built = m.BuildService().build(app, "nvidia:h100", lower=False)
+        once = built.step_fn(plain)
+        k4 = _rel_err(once, m.sedov_step_cuda(plain, m.ref.cfl_dt(plain)))
+        if max(k4.values()) > STENCIL_TOL_1:
+            raise AssertionError(f"the stencil build's step_fn against K4's "
+                                 f"step: scale-relative error {k4} > "
+                                 f"{STENCIL_TOL_1}")
+    finally:
+        dist.destroy_process_group()
+    t20 = time.perf_counter() - t20
+    print(f"[lulesh] {card} {n} plain steps at grid {cfg.grid} over a "
+          f"one-rank NCCL mesh (1, 1) ('data', 'model'): bit for bit the "
+          f"plain step's ({mesh_ms:.3f} ms a step on the mesh, "
+          f"{plain_ms:.3f} off it, host clock, device drained; the group "
+          f"and mesh up in {init_s:.2f} s, the first mesh step, with NCCL's "
+          f"communicators, {warm_s:.2f} s; one rank exchanges no halo); "
+          f"the stencil build's step_fn for nvidia:h100 within "
+          f"{max(k4.values()):.3g} of K4's step (scale-relative, limit "
+          f"{STENCIL_TOL_1}); phase 20 took {t20:.1f} s")
 
 
 class _StreamLog:
@@ -3175,7 +3354,10 @@ def main() -> int:
                                      zipf_trace)
     from repro_torch.training.steps import (build_decode_step_slots_paged,
                                             build_train_step,
-                                            init_train_state)
+                                            init_train_state,
+                                            train_state_table)
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.launch.mesh import Mesh, mesh_for_target
     from repro_torch.launch.train import train_main
     from repro_torch.launch.run import run_command
     from repro_torch.training import steps as port_steps
@@ -3535,7 +3717,10 @@ def main() -> int:
         build_prefill_step=port_steps.build_prefill_step,
         build_decode_step=port_steps.build_decode_step,
         build_arch=_build.ARCH, ssm=ssm, mamba=mamba, grow_kv=grow_kv,
-        cost=cost, flops=flops, roofline=roofline)
+        cost=cost, flops=flops, roofline=roofline,
+        reshard_state=reshard_state, train_state_table=train_state_table,
+        sedov_step_cuda=sedov_step_cuda,
+        mesh_for_target=mesh_for_target, Mesh=Mesh, lulesh=lulesh)
     train_smoke, train_s = _timed(_train_smoke, torch, mt, counts,
                                   reset_counts)
     print(f"[smoke] training {TRAIN_SMOKE_ARCHS}, {TRAIN_SMOKE_STEPS} steps "
@@ -4582,7 +4767,10 @@ def main() -> int:
 
     # ---- 19. Whisper at full width: serving, training, the roofline ---
     _whisper_full(torch, mt, card, counts, reset_counts, quiet)
-    print(f"[smoke] {card} phases 1-19 took "
+
+    # ---- 20. LULESH over a one-rank NCCL mesh -------------------------
+    _lulesh_nccl(torch, mt, card)
+    print(f"[smoke] {card} phases 1-20 took "
           f"{time.perf_counter() - t_main:.1f} s")
 
     kernels = [

@@ -26,6 +26,16 @@ norm of the forward and of the remat recompute.
 
 The ``###include_local_kernels###`` directive selects the target's kernel
 library vs the plain PyTorch versions for LM plans, as in the reference.
+
+Every build also binds the sharding rules to the target's mesh, as the
+reference's does: the spec tree of each table (``specs``: the state and
+batch of a train shape, the params, batch and cache of a serve shape,
+the cache under ``DECODE_SEQ_CACHE_RULES`` where a decode's KV heads do
+not divide the model axis) and every divisibility fallback in
+``plan.sharding_fallbacks``.  ``mesh`` is the target's live mesh where
+this process holds one of its ranks (or the target is one device), and
+its description otherwise: the specs and plan are the same, and a step
+refuses to run on a description.
 """
 
 from __future__ import annotations
@@ -33,12 +43,17 @@ from __future__ import annotations
 import dataclasses
 import re
 import time
-from typing import Callable
+from typing import Any, Callable
 
 from repro_torch.core.appspec import AppSpec
 from repro_torch.core.plan import DeploymentPlan
 from repro_torch.core.target import TargetSpec, get_target
 from repro_torch.core.tuning import tune
+from repro_torch.launch.mesh import describe, mesh_for_target
+from repro_torch.models.params import partition_specs
+from repro_torch.sharding.rules import (DECODE_SEQ_CACHE_RULES,
+                                        DEFAULT_RULES,
+                                        SEQUENCE_PARALLEL_RULES)
 
 # what the source of a kernel is called in a package's program description
 CSRC_IN_REPO = "src/repro_torch/kernels/csrc"
@@ -55,10 +70,19 @@ class BuildResult:
     # kernel name -> built library, for the kernels built by this build
     built: dict = dataclasses.field(default_factory=dict)
     timings: dict = dataclasses.field(default_factory=dict)
-    # the train shape's step (state, batch) -> (state, metrics), and its
-    # declarative tables: "state", "batch", "params"
+    # the train shape's step (state, batch) -> (state, metrics), the
+    # stencil's (state) -> state; the declarative tables ("state",
+    # "batch", "params"; "cache" for a serve shape)
     step_fn: Callable | None = None
     tables: dict = dataclasses.field(default_factory=dict)
+    # the target's mesh (launch.mesh.Mesh) and the spec tree of each table
+    mesh: Any = None
+    specs: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def rules(self):
+        return SEQUENCE_PARALLEL_RULES if self.plan.sequence_parallel \
+            else DEFAULT_RULES
 
 
 def _timed(fn, *args, **kw):
@@ -103,18 +127,58 @@ def _lm_sources(cfg, kind: str) -> tuple[str, ...]:
     return (("paged_attention",) if paged else ()) + norm
 
 
-def _train_step(result: BuildResult, cfg, shape) -> None:
-    """The train step under the plan, and its tables."""
+def _target_mesh(target: TargetSpec):
+    """The target's live mesh where this process holds its ranks (or the
+    target is one device), else its description."""
+    import torch.distributed as dist
+    if target.num_chips == 1 or dist.is_initialized():
+        return mesh_for_target(target)
+    return describe(tuple(target.mesh_shape), tuple(target.mesh_axes))
+
+
+def _bind(result: BuildResult, cfg, shape) -> None:
+    """The step's tables and their specs on the target's mesh, the train
+    shape's step, and the fallbacks into the plan (the reference's build,
+    table for table)."""
     from repro_torch.models.transformer import model_for
     from repro_torch.optim import make_optimizer
     from repro_torch.training.steps import build_train_step, train_state_table
-    plan = result.plan
+    plan, target, mesh = result.plan, result.target, result.mesh
     model = model_for(cfg, remat=plan.remat_policy)
-    opt = make_optimizer(plan.optimizer)
-    result.step_fn = build_train_step(model, opt, plan)
-    result.tables = {"state": train_state_table(model, opt, plan),
-                     "batch": model.batch_table(shape),
-                     "params": model.param_table()}
+    rules = result.rules
+    fallbacks: list[str] = []
+
+    def specs(table, rules=rules):
+        return partition_specs(table, mesh, rules, fallbacks)
+
+    batch_table = model.batch_table(shape)
+    if shape.kind == "train":
+        opt = make_optimizer(plan.optimizer)
+        state_table = train_state_table(model, opt, plan)
+        result.step_fn = build_train_step(model, opt, plan, mesh)
+        result.tables = {"state": state_table, "batch": batch_table,
+                         "params": model.param_table()}
+        result.specs = {"state": specs(state_table),
+                        "batch": specs(batch_table)}
+    else:
+        param_table = model.param_table()
+        cache_table = model.cache_table(shape.global_batch, shape.seq_len)
+        cache_rules = rules
+        if shape.kind == "decode":
+            # the reference's perf iteration I1: kv heads that do not
+            # divide the model axis shard the cache's sequence axis
+            model_size = dict(zip(target.mesh_axes,
+                                  target.mesh_shape)).get("model", 1)
+            if cfg.num_kv_heads and cfg.num_kv_heads % model_size:
+                cache_rules = DECODE_SEQ_CACHE_RULES
+                plan.notes.append("I1: kv cache sharded on seq axis "
+                                  "(kv_heads % model != 0)")
+        result.tables = {"params": param_table, "batch": batch_table,
+                         "cache": cache_table}
+        result.specs = {"params": specs(param_table),
+                        "batch": specs(batch_table)}
+        result.specs["cache"] = specs(cache_table, cache_rules)
+    plan.sharding_fallbacks = sorted(set(fallbacks))
 
 
 class BuildService:
@@ -140,9 +204,8 @@ class BuildService:
         result = BuildResult(
             appspec=appspec, target=target, plan=plan, step_name=step_name,
             program=program_description(step_name, plan.kernels, sources),
-            timings={"tune_s": tune_s})
-        if shape.kind == "train":
-            _train_step(result, cfg, shape)
+            timings={"tune_s": tune_s}, mesh=_target_mesh(target))
+        _bind(result, cfg, shape)
         if lower and sources:
             from repro_torch.kernels import _build
             _, result.timings["build_s"] = _timed(_build.build, sources)
@@ -151,8 +214,8 @@ class BuildService:
 
     def _build_stencil(self, appspec: AppSpec, target: TargetSpec,
                        lower: bool) -> BuildResult:
-        """LULESH-family build: the deployable unit is one fused hydro
-        step on the target (grid parsed from the RUN command)."""
+        """LULESH-family build: the deployable unit is one hydro step on
+        the target's mesh (grid parsed from the RUN command)."""
         m = re.search(r"-s\s+(\d+)", appspec.run)
         grid = int(m.group(1)) if m else 16
         plan = DeploymentPlan(
@@ -161,13 +224,22 @@ class BuildService:
             kernels=target.kernels, remat_policy="none")
         plan.notes.append("stencil app: fields sharded (grid_x->data, "
                           "grid_y->model); dt via global all-reduce")
-        # the step itself is chosen where it runs (launch/run.py), from
-        # the same plan.kernels
+        # launch/run.py chooses the kernel or the plain step from the same
+        # plan.kernels; step_fn is the reference's: the plain step, on the
+        # mesh (halo exchanges, dt all-reduced) past one chip
+        from repro_torch.models import lulesh
         sources = ("sedov_stencil",) if plan.kernels == "cuda" else ()
+        mesh = _target_mesh(target)
+        cfg = lulesh.LuleshConfig(grid=grid)
+        use_mesh = mesh if target.num_chips > 1 else None
+
+        def step_fn(state):
+            return lulesh.step(state, cfg, use_mesh)
         result = BuildResult(
             appspec=appspec, target=target, plan=plan,
             step_name="sedov_step",
-            program=program_description("sedov_step", plan.kernels, sources))
+            program=program_description("sedov_step", plan.kernels, sources),
+            step_fn=step_fn, mesh=mesh)
         if lower and sources:
             from repro_torch.kernels import _build
             _, result.timings["build_s"] = _timed(_build.build, sources)

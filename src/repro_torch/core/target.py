@@ -62,6 +62,16 @@ register(TargetSpec(
     scheduler="local", kernels="reference",
     description="single-process CPU debug target (smoke tests, examples)"))
 
+# one CPU process per device, over gloo (the reference forces 8 host
+# devices into one process instead)
+register(TargetSpec(
+    name="local:cpu-mesh8", chip="cpu",
+    mesh_shape=(2, 4), mesh_axes=("data", "model"),
+    peak_flops=5e10, hbm_bw=2e10, hbm_bytes=8e9, ici_bw=1e9,
+    scheduler="local", kernels="reference",
+    description="8 CPU ranks over gloo — integration tests of the SPMD "
+                "path"))
+
 
 def get_target(name: str) -> TargetSpec:
     if name not in TARGETS:

@@ -5,7 +5,9 @@ Batches are a pure function of (seed, step): after a failure the training
 loop resumes from checkpoint step k and regenerates batch k+1 bit for
 bit.  ``SyntheticSource`` draws the reference's arrays exactly (the
 same ``RandomState`` stream over the same declarative batch table, in
-its insertion order); ``DataPipeline`` moves them to the training device.
+its insertion order); ``DataPipeline`` moves them to the training device
+and, on a mesh of several ranks, keeps each rank's shard (``shard_batch``:
+every rank draws the whole batch, so nothing is sent).
 """
 
 from __future__ import annotations
@@ -51,19 +53,36 @@ class SyntheticSource:
         return out
 
 
+def shard_batch(batch: dict, table: dict, mesh, rules=None) -> dict:
+    """A batch on ``mesh`` under the table's logical axes: on a live mesh
+    of several ranks each leaf is a DTensor holding this rank's rows
+    (``act_batch`` -> ``("pod", "data")``); off-mesh or on one device the
+    batch as it is."""
+    if mesh is None or mesh.device_mesh is None:
+        return batch
+    from repro_torch.sharding.rules import (DEFAULT_RULES, distribute,
+                                            logical_to_spec)
+    rules = rules or DEFAULT_RULES
+    return {k: distribute(v, logical_to_spec(
+        table[k].logical_axes, table[k].shape, mesh, rules), mesh)
+        for k, v in batch.items()}
+
+
 class DataPipeline:
     """Pipeline facade used by the training driver: the model's batch
-    table for ``shape``, drawn by ``SyntheticSource`` and put on
-    ``device``."""
+    table for ``shape``, drawn by ``SyntheticSource``, put on ``device``
+    and sharded over ``mesh`` (``shard_batch``)."""
 
     def __init__(self, model, shape: ShapeConfig, seed: int = 0,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
         self.table = model.batch_table(shape)
         self.source = SyntheticSource(model.cfg.vocab_size or 256, seed)
         self.device = torch.device(device)
+        self.mesh = mesh
 
     def batch_at(self, step: int) -> dict:
-        return to_device(self.source.batch(self.table, step), self.device)
+        return shard_batch(to_device(self.source.batch(self.table, step),
+                                     self.device), self.table, self.mesh)
 
 
 def to_device(batch: dict, device) -> dict:

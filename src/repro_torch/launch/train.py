@@ -10,7 +10,11 @@ restart policy, straggler monitor).  Weights are drawn from ``seed``
 It runs on the card unless ``--device cpu`` (``device="cpu"``) is asked
 for, and raises where there is no card; the target defaults to the
 device's own (``nvidia:h100``: the RMSNorm kernel on every norm, its
-remat recompute's included; ``local:cpu``: the plain versions).
+remat recompute's included; ``local:cpu``: the plain versions).  A
+target of several chips (``local:cpu-mesh8``: 8 CPU ranks over gloo)
+trains on its mesh: ``train_main`` runs in each rank's process, after
+the caller initialized the process group, the state sharded by the
+rules engine (``runtime.elastic.reshard_state``) and the losses global.
 
     python -m repro_torch.launch.train --device cpu \\
         --arch deepseek-7b-smoke --steps 20 --seq-len 64 --global-batch 4
@@ -32,6 +36,7 @@ from repro_torch.data.pipeline import DataPipeline
 from repro_torch.models.params import init_params
 from repro_torch.models.transformer import model_for
 from repro_torch.optim import make_optimizer
+from repro_torch.runtime.elastic import reshard_state
 from repro_torch.runtime.fault_tolerance import (FailureInjector,
                                                  StragglerMonitor,
                                                  run_with_restarts)
@@ -70,9 +75,18 @@ def train_main(arch: str = "deepseek-7b-smoke", steps: int = 20,
                                    "global_batch": global_batch},
                   run=f"train --steps {steps}")
     result = BuildService().build(app, tgt, lower=False)
+    mesh = result.mesh if tgt.num_chips > 1 else None
+    if mesh is not None and not mesh.live:
+        raise RuntimeError(f"target {tgt.name} trains on {tgt.num_chips} "
+                           f"ranks: run train_main in each process of an "
+                           f"initialized process group of that size")
+    if mesh is not None and ckpt_dir:
+        raise NotImplementedError("checkpoints of a state sharded over a "
+                                  "mesh are not ported")
     model = model_for(app.model_config, remat=result.plan.remat_policy)
     opt = make_optimizer(result.plan.optimizer)
-    pipeline = DataPipeline(model, app.shape_config, seed=seed, device=dev)
+    pipeline = DataPipeline(model, app.shape_config, seed=seed, device=dev,
+                            mesh=mesh)
     ckpt = Checkpointer(ckpt_dir, keep=3, async_writes=async_ckpt) \
         if ckpt_dir else None
     injector = FailureInjector(fail_at_steps=tuple(fail_at))
@@ -85,6 +99,8 @@ def train_main(arch: str = "deepseek-7b-smoke", steps: int = 20,
                              torch.Generator(device=dev).manual_seed(seed),
                              dev)
         state = init_train_state(model, opt, params, result.plan)
+        if mesh is not None:
+            state = reshard_state(state, result.tables["state"], mesh)
         if ckpt and start_step > 0:
             state, at = ckpt.restore(state)
             log(f"[train] restored checkpoint step {at}")

@@ -121,6 +121,29 @@ def init_params(table: ParamTable, generator: torch.Generator,
     return _map_table(table, one)
 
 
+def partition_specs(table: ParamTable, mesh, rules=None,
+                    fallbacks: list[str] | None = None):
+    """The spec tree of a table on ``mesh`` (``sharding.rules.
+    logical_to_spec`` of every leaf), each fallback appended to
+    ``fallbacks``."""
+    from repro_torch.sharding.rules import DEFAULT_RULES, logical_to_spec
+    rules = rules or DEFAULT_RULES
+    return _map_table(table, lambda d: logical_to_spec(
+        d.logical_axes, d.shape, mesh, rules, fallbacks))
+
+
+def replicated_specs(tree, mesh):
+    """Every leaf of ``tree`` replicated (on any mesh)."""
+    from repro_torch.sharding.rules import PartitionSpec
+    return tree_map(lambda _: PartitionSpec(), tree)
+
+
+def bytes_of(tree) -> int:
+    """Total bytes of a tree of tensors or ParamDefs."""
+    return sum(math.prod(leaf.shape) * leaf.dtype.itemsize
+               for _, leaf in leaf_items(tree))
+
+
 def params_from_jax(tree, device: torch.device | str = "cpu"):
     """Load a reference parameter tree (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) bit for bit.  bf16 arrives as

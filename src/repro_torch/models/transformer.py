@@ -120,6 +120,16 @@ class DenseLM:
     def batch_table(self, shape: ShapeConfig) -> dict:
         return token_batch_table(shape)
 
+    def cache_table(self, batch: int, max_len: int) -> dict:
+        """The whole-batch K/V cache a prefill returns, declared (the
+        sharding rules read its logical axes)."""
+        cfg = self.cfg
+        kv = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        ax = ("layers", "act_batch", "act_seq", "act_kv_heads", None)
+        return {"k": ParamDef(kv, ax, cfg.activation_dtype, "zeros"),
+                "v": ParamDef(kv, ax, cfg.activation_dtype, "zeros"),
+                "index": ParamDef((), (), torch.int32, "zeros")}
+
     # ---- block ----
     def block_apply(self, p, x, delta, positions, mode, cache):
         """One block on the residual stream ``x + delta``, ``delta`` the

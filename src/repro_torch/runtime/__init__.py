@@ -1,2 +1,3 @@
-"""Runtime scaffolding (port of ``repro.runtime``): so far only the
-batch rebalancing the serving router's autoscaler resizes with."""
+"""Runtime scaffolding (port of ``repro.runtime``): fault tolerance, and
+elastic scaling (``reshard_state`` onto a degraded mesh, the batch
+rebalancing the serving router's autoscaler also resizes with)."""

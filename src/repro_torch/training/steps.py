@@ -4,7 +4,10 @@ verify (port of ``repro/training/steps.py``).
 
 ``build_train_step`` takes each microbatch's gradients with autograd
 over the model's per-layer leaves (``DenseLM.train_leaves``) and updates
-the state in place: parameters, moments, error feedback and step.
+the state in place: parameters, moments, error feedback and step.  On a
+mesh of ranks it keeps the state sharded at rest and computes what one
+device computes (data parallel over the batch's rows, the update on
+whole leaves); ``Collectives`` counts what it sends.
 
 The serve builders close over the model and return a plain function of
 ``params`` and the step's inputs that runs without autograd.  The decode,
@@ -27,6 +30,8 @@ from repro_torch.models.params import (ParamDef, _map_table, leaf_items,
                                       tree_map)
 from repro_torch.optim.adamw import layers_of
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.sharding.rules import (local_slices, placements,
+                                        shard_index, spec_for)
 
 
 def _accum_dtype(plan: DeploymentPlan) -> torch.dtype:
@@ -89,46 +94,229 @@ def loss_and_grads(model, params, batch):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def build_train_step(model, opt, plan: DeploymentPlan,
+def _microbatches(batch: dict, M: int) -> list[dict]:
+    """``batch`` cut into ``M`` equal microbatches along its first axis."""
+    b = batch["tokens"].shape[0]
+    if b % M:
+        raise ValueError(f"batch {b} does not split into {M} microbatches")
+    n = b // M
+    return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            for i in range(M)]
+
+
+def _batch_grads(model, params, batch, M: int, acc_dt, weights=None):
+    """(loss, metrics, grads) of ``batch``: one microbatch's
+    ``loss_and_grads``, or ``M`` microbatches' gradients accumulated in
+    ``acc_dt`` from zeros and their mean taken in f32, the loss the f32
+    mean of theirs.  ``weights`` (the mesh step's: one f32 factor per
+    microbatch) scales each microbatch's loss and f32 gradient before it
+    is accumulated; the gradients then come back in f32."""
+    if M == 1 and weights is None:
+        return loss_and_grads(model, params, batch)
+    if M == 1:
+        loss, _, grads = loss_and_grads(model, params, batch)
+        loss = loss * weights[0]
+        return loss, {"loss": loss}, tree_map(
+            lambda t: t.float() * weights[0], grads)
+    acc, lsum = None, None
+    for i, mb in enumerate(_microbatches(batch, M)):
+        l, _, g = loss_and_grads(model, params, mb)
+        if weights is not None:
+            l = l * weights[i]
+            g = tree_map(lambda t: t.float() * weights[i], g)
+        if acc is None:
+            acc = tree_map(lambda t: torch.zeros(
+                t.shape, dtype=acc_dt, device=t.device), g)
+            lsum = torch.zeros((), dtype=torch.float32, device=l.device)
+        tree_map(lambda a, t: a.add_(t.to(a.dtype)), acc, g)
+        lsum = lsum + l
+    loss = lsum / M
+    return loss, {"loss": loss}, tree_map(lambda t: (t / M).float(), acc)
+
+
+class Collectives:
+    """The collectives one step issues, counted per kind: calls, and the
+    bytes this rank hands each call (an all-gather's local shard, an
+    all-reduce's buffer).  Mesh dimensions of one rank issue none."""
+
+    KINDS = ("all_gather", "all_reduce")
+
+    def __init__(self):
+        self.counts = {k: {"calls": 0, "bytes": 0} for k in self.KINDS}
+
+    def _count(self, kind: str, t: torch.Tensor) -> None:
+        self.counts[kind]["calls"] += 1
+        self.counts[kind]["bytes"] += t.numel() * t.element_size()
+
+    def all_gather(self, t: torch.Tensor, dim: int, group,
+                   size: int) -> torch.Tensor:
+        import torch.distributed as dist
+        t = t.contiguous()
+        self._count("all_gather", t)
+        parts = [torch.empty_like(t) for _ in range(size)]
+        dist.all_gather(parts, t, group=group)
+        return torch.cat(parts, dim=dim)
+
+    def all_reduce(self, t: torch.Tensor, group) -> None:
+        import torch.distributed as dist
+        self._count("all_reduce", t)
+        dist.all_reduce(t, group=group)
+
+
+def _gather(x, comm: Collectives):
+    """The whole of a DTensor, gathered over each mesh dimension that
+    shards it, the minor ones first (so a dimension sharded over several
+    mesh dimensions is rebuilt major first).  A plain tensor is taken as
+    the whole."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    dm, out = x.device_mesh, x.to_local()
+    for m in reversed(range(dm.ndim)):
+        pl = x.placements[m]
+        if pl.is_shard() and dm.size(m) > 1:
+            out = comm.all_gather(out, pl.dim, dm.get_group(m), dm.size(m))
+    return out
+
+
+def _rows(batch: dict, mesh) -> tuple[dict, list[int]]:
+    """This rank's rows of each batch leaf (``act_batch`` over the mesh)
+    and the data-parallel mesh dimensions: those of more than one rank
+    that split the rows.  A whole tensor is sliced (every rank draws the
+    whole batch, so nothing is sent); a DTensor of
+    ``DataPipeline(mesh=)`` holds the same slice already."""
+    from torch.distributed.tensor import DTensor
+    rows, dims = {}, []
+    for k, x in batch.items():
+        spec = spec_for(("act_batch",) + (None,) * (x.dim() - 1), x.shape,
+                        mesh)
+        pls = placements(spec, mesh)
+        if isinstance(x, DTensor):
+            if list(x.placements) != pls:
+                raise ValueError(f"batch leaf {k} is split as "
+                                 f"{x.placements}, not by its rows {pls}")
+            rows[k] = x.to_local()
+        else:
+            rows[k] = x[local_slices(spec, x.shape, mesh,
+                                     mesh.coordinate())]
+        dims = [m for m, pl in enumerate(pls)
+                if pl.is_shard() and mesh.shape[m] > 1]
+    return rows, dims
+
+
+def _tokens_of(mb: dict) -> torch.Tensor:
+    """The loss's denominator on a microbatch: the tokens its mask keeps
+    (unclamped), or all of its labels."""
+    mask = mb.get("loss_mask")
+    if mask is not None:
+        return mask.float().sum()
+    return torch.tensor(float(mb["labels"].numel()),
+                        device=mb["labels"].device)
+
+
+def _mesh_step(model, opt, plan: DeploymentPlan, mesh, update):
+    """The train step on a mesh of ranks (see ``build_train_step``)."""
+    from torch.distributed.tensor import DTensor
+    M = plan.microbatches
+    acc_dt = _accum_dtype(plan)
+
+    def train_step(state, batch):
+        if mesh.coordinate() is None:
+            raise ValueError("this rank is not on the mesh: it sits the "
+                             "step out")
+        comm = Collectives()
+        dm = mesh.device_mesh
+        full = tree_map(lambda x: _gather(x, comm), state)
+        rows, dp = _rows(batch, mesh)
+        if dp and model.cfg.family == "moe":
+            raise NotImplementedError(
+                "MoE on a data-parallel mesh: its router aux loss is a "
+                "statistic of the whole batch, which no rank sees")
+        groups = [dm.get_group(m) for m in dp]
+        # the loss is a mean weighted by each microbatch's tokens: a
+        # rank's share of microbatch j is its tokens over all ranks'
+        denom = torch.stack([_tokens_of(mb)
+                             for mb in _microbatches(rows, M)])
+        total = denom.clone()
+        for g in groups:
+            comm.all_reduce(total, g)
+        weights = list(denom.clamp_min(1.0) / total.clamp_min(1.0))
+        params = full["params"]
+        loss, metrics, grads = _batch_grads(model, params, rows, M, acc_dt,
+                                            weights)
+        # one f32 buffer: the loss, then every gradient; summed over the
+        # data-parallel ranks, then cast once to the dtype the one-device
+        # step hands the update (the parameter's; f32 past one microbatch)
+        parts = []
+        tree_map(parts.append, grads)
+        buf = torch.cat([loss.reshape(1)] + [t.reshape(-1) for t in parts])
+        for g in groups:
+            comm.all_reduce(buf, g)
+        chunks = iter(torch.split(buf[1:], [t.numel() for t in parts]))
+        grads = tree_map(lambda t, p: next(chunks).view(t.shape).to(
+            p.dtype if M == 1 else torch.float32), grads, params)
+        loss = buf[0]
+        metrics = dict(metrics, loss=loss)
+        metrics = update(full, params, grads, metrics)
+
+        def back(x, f):
+            if not isinstance(x, DTensor):
+                return f
+            idx = shard_index(f.shape, x.placements, tuple(dm.shape),
+                              dm.get_coordinate())
+            return DTensor.from_local(f[idx].contiguous(), dm, x.placements,
+                                      run_check=False, shape=x.shape,
+                                      stride=x.stride())
+        return tree_map(back, state, full), dict(metrics,
+                                                 collectives=comm.counts)
+
+    return train_step
+
+
+def build_train_step(model, opt, plan: DeploymentPlan, mesh=None,
                      peak_lr: float = 3e-4, warmup_steps: int = 100,
                      total_steps: int = 10_000):
     """Returns train_step(state, batch) -> (state, metrics), which updates
-    ``state = {"params", "opt", "ef" (optional), "step"}`` in place.
+    ``state = {"params", "opt", "ef" (optional), "step"}``.
 
     ``plan.microbatches`` > 1 splits the batch into that many equal
     microbatches along its first axis and accumulates their gradients in
     ``plan.grad_accum_dtype`` from zeros, then takes their mean in f32;
     the loss is the f32 mean of theirs.  ``ef_int8`` compression, the
     warm-up cosine learning rate at ``state["step"]`` and the optimizer's
-    update follow, as in the reference."""
-    M = plan.microbatches
+    update follow, as in the reference.  ``metrics["collectives"]``
+    counts the step's collectives (``Collectives``).
+
+    Off-mesh (``mesh`` None) or on a one-device mesh the step updates
+    ``state`` in place and issues no collective.  On a mesh of ranks
+    (``launch.mesh``) it computes what one device computes, as the
+    reference's GSPMD step does, by this design:
+
+    * at rest every leaf of the state is a DTensor with the placements of
+      its spec in the train-state table (``runtime.elastic.
+      reshard_state``);
+    * the step gathers every leaf whole and keeps this rank's rows of the
+      whole batch that every rank draws (or of a ``data.pipeline.
+      DataPipeline(mesh=)`` batch, already cut); each rank computes the
+      gradients of its rows (ranks that differ only along ``model``
+      compute the same rows) in microbatches, as one device does; the
+      loss is the mean over all ranks' tokens, so each rank's loss and
+      gradients are weighted by its share of each microbatch's tokens;
+      one f32 all-reduce over the data-parallel mesh dimensions sums
+      them, then they are cast once;
+    * the update runs on the whole leaves on every rank, which then keeps
+      its slice.  It cannot run on shards as it is: ``AdamW8bit``
+      quantizes row by row over the last axis and the global gradient
+      norm spans every leaf, so a shard-local update needs cross-rank
+      amax and norm reductions (later work, with tensor parallelism).
+
+    The reference's ``param_specs`` pins XLA's gradient layout; the
+    port reads each leaf's placements instead.  A mesh of several devices
+    with no ranks behind it (a description) refuses to run."""
     use_ef = plan.grad_compression == "ef_int8"
     acc_dt = _accum_dtype(plan)
 
-    def train_step(state, batch):
-        params = state["params"]
-        if M == 1:
-            loss, metrics, grads = loss_and_grads(model, params, batch)
-        else:
-            b = batch["tokens"].shape[0]
-            if b % M:
-                raise ValueError(f"batch {b} does not split into {M} "
-                                 f"microbatches")
-            n = b // M
-            acc, lsum = None, None
-            for i in range(M):
-                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                l, _, g = loss_and_grads(model, params, mb)
-                if acc is None:
-                    acc = tree_map(lambda t: torch.zeros(
-                        t.shape, dtype=acc_dt, device=t.device), g)
-                    lsum = torch.zeros((), dtype=torch.float32,
-                                       device=l.device)
-                tree_map(lambda a, t: a.add_(t.to(a.dtype)), acc, g)
-                lsum = lsum + l
-            grads = tree_map(lambda t: (t / M).float(), acc)
-            loss = lsum / M
-            metrics = {"loss": loss}
+    def update(state, params, grads, metrics):
         if use_ef:
             grads = _ef_compress(grads, state["ef"])
         lr = warmup_cosine(state["step"], peak_lr=peak_lr,
@@ -136,7 +324,24 @@ def build_train_step(model, opt, plan: DeploymentPlan,
                            total_steps=total_steps)
         _, _, opt_metrics = opt.update(grads, state["opt"], params, lr)
         state["step"] = state["step"] + 1
-        return state, dict(metrics, lr=lr, **opt_metrics)
+        return dict(metrics, lr=lr, **opt_metrics)
+
+    if mesh is not None and mesh.device_mesh is not None:
+        return _mesh_step(model, opt, plan, mesh, update)
+    if mesh is not None and mesh.size > 1:
+        def refuse(state, batch):
+            raise RuntimeError(
+                f"mesh {mesh.shape} over {mesh.axis_names} has no ranks: "
+                f"build it with launch.mesh.mesh_for_target in each of "
+                f"{mesh.size} processes of an initialized process group")
+        return refuse
+
+    def train_step(state, batch):
+        params = state["params"]
+        loss, metrics, grads = _batch_grads(model, params, batch,
+                                            plan.microbatches, acc_dt)
+        metrics = update(state, params, grads, metrics)
+        return state, dict(metrics, collectives=Collectives().counts)
 
     return train_step
 

@@ -189,9 +189,23 @@ def test_blast_wave_propagates():
 
 
 def test_step_refuses_a_mesh():
+    """A mesh of several devices with no ranks behind it (a description)
+    refuses the step, and the fused kernel refuses a mesh of several
+    ranks: neither falls back to one device.  The 8-rank mesh path is
+    tests/test_torch_spmd.py's."""
+    from repro_torch.launch.mesh import describe
     cfg = lulesh.LuleshConfig(grid=4)
-    with pytest.raises(NotImplementedError, match="slice G"):
-        lulesh.step(lulesh.init_state(cfg, "cpu"), cfg, mesh=object())
+    mesh = describe((2, 4), ("data", "model"))
+    with pytest.raises(RuntimeError, match="no ranks"):
+        lulesh.step(lulesh.init_state(cfg, "cpu"), cfg, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="one device"):
+        lulesh.run(lulesh.init_state(cfg, "cpu"), cfg, 1, mesh=mesh,
+                   use_kernel=True)
+    # a one-device mesh is the plain step
+    one = describe((1, 1), ("data", "model"))
+    st = lulesh.init_state(cfg, "cpu")
+    got, want = lulesh.step(st, cfg, one), lulesh.step(st, cfg)
+    assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_fom_matches_reference():

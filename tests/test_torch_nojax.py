@@ -63,6 +63,14 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
             "import repro_torch.analysis.flops\n"
             "import repro_torch.analysis.roofline\n"
             "import repro_torch.analysis.cost\n"
+            "import repro_torch.sharding, repro_torch.launch.mesh\n"
+            "from repro_torch.sharding import (distribute, placements,\n"
+            "    shard_constraint)\n"
+            "from repro_torch.runtime.elastic import reshard_state\n"
+            "from repro_torch.launch.mesh import (Mesh, degraded_mesh,\n"
+            "    mesh_for_target)\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.') or m == 'ml_dtypes' or "
