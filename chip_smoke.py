@@ -310,6 +310,39 @@ Phases, each of which raises on failure:
    The multi-rank path itself (8 ranks, the halo exchanges, the sharded
    train step) runs only on the CPU over gloo
    (``tests/test_torch_spmd.py``): NCCL puts one rank on one card.
+21. serving over a one-rank NCCL mesh (``_serve_nccl``): the same
+   world-size-1 group and (1, 1) DeviceMesh; full-width ``deepseek-7b``
+   through the paged engine with phase 4's arguments, so phase 4's
+   weights (their fingerprint checked), bound to the mesh (the engine's
+   private ``_bind``, as its constructor binds a target's mesh: the
+   weights at rest as DTensors, every step built on the mesh,
+   ``training/steps.py``: each rank computes its rows, the logits
+   gathered), serves phase 4's 8 requests: the greedy streams, the
+   ``ServeStats`` counts and the K1 and K2 launches equal phase 4's
+   off-mesh run's; then the legacy path's ``zamba2-7b`` job
+   (SERVE_NCCL_LEGACY, shorter than phase 18's) through
+   ``legacy_generate``, off the mesh and with the prefill and decode
+   steps built on it: its tokens and K2 launches equal.  The wall times
+   are printed; the group is destroyed before the phase ends.
+   The 8-rank serving path itself runs on the CPU over gloo
+   (``tests/test_torch_spmd_serve.py``).
+22. the dry run against the card (``_dryrun_card``): ``launch.dryrun``
+   traces ``deepseek-7b``'s prefill and decode cells cut to a batch the
+   card holds (DRYRUN_CELLS) on ``nvidia:h100`` on the ``meta`` device;
+   then the build's same steps run on the card: the dry run's argument
+   bytes within DRYRUN_ARGS_RTOL of the inputs' ``memory_allocated``,
+   its traced peak within DRYRUN_PEAK_RATIO of ``max_memory_allocated``
+   above the inputs, its dot FLOPs equal to ``analysis.cost.measure``'s
+   on the card (the legacy steps launch no K1, and K2 computes no
+   product); the roofline bound, the measured time and the share are
+   printed; then ``dryrun.main(["--arch", "deepseek-7b", "--mesh",
+   "both"])`` on the cluster targets, every record ``ok``, its wall time
+   printed.  That run needs no device: ``python -m
+   repro_torch.launch.dryrun`` runs it in a process of its own, started
+   before phase 1 (``_DryRun``) so that it overlaps the card's phases;
+   phase 22 waits for it, reads its records and prints the phases it
+   ran beside (their host-clock timings shared the host's cores with
+   its one thread), and the script stops it on any exit.
 
 The second-to-last line of output is the card's ``name, power.limit``;
 before it a JSON line lists every kernel with its launches on its path's
@@ -325,6 +358,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -446,6 +480,22 @@ GRAD_CONTROL_MAX = 0.25
 RESTART_STEPS = 2
 # phase 20: LULESH's mesh step over a one-rank NCCL mesh
 LULESH_NCCL = dict(grid=256, steps=20)
+# phase 21: after phase 4's requests through the engine on a one-rank
+# NCCL mesh, the legacy path's zamba2-7b job on it, shorter than phase 18's
+SERVE_NCCL_LEGACY = dict(arch="zamba2-7b", batch=2, prefill_len=512,
+                         decode_tokens=16)
+# phase 22: deepseek-7b's two serve cells cut to a batch one card holds
+DRYRUN_CELLS = (("prefill_32k", {"global_batch": 1, "seq_len": 8192}),
+                ("decode_32k", {"global_batch": 8, "seq_len": 4096}))
+# the dry run's argument bytes against the inputs' memory_allocated: the
+# same tensors, each allocation rounded up to 512 B
+DRYRUN_ARGS_RTOL = 0.01
+# its traced peak of the step's own allocations against the card's
+# max_memory_allocated above the inputs: the same operations make the
+# same tensors, except where a kernel runs on the card (K2 allocates its
+# output alone; the trace's plain norm makes f32 temporaries of the
+# rows) and for the allocator's rounding to 512 B blocks
+DRYRUN_PEAK_RATIO = (0.8, 1.25)
 # phase 15's bias gate: the mean of the per-token loss differences (kernel
 # vs plain, control vs plain) within this many standard errors of zero.
 # The relative L2 cannot see a small shift shared by every token; a mean
@@ -2170,6 +2220,279 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+def _nccl_mesh(torch, m):
+    """A world-size-1 NCCL process group and a (1, 1) ("data", "model")
+    DeviceMesh on the card; the caller destroys the group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    dm = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                    mesh_dim_names=("data", "model"))
+    return m.Mesh(("data", "model"), (1, 1), "cuda", dm)
+
+
+def _serve_nccl(torch, m, card, counts, reset_counts, quiet, reqs,
+                p4) -> dict:
+    """Phase 21: full-width deepseek-7b's paged engine, built as phase 4's
+    (the same weights), serves ``reqs`` on a one-rank NCCL mesh (bound
+    through the engine's ``_bind``: the weights at rest as DTensors,
+    every step the mesh step); its streams, counts and K1/K2 launches
+    equal phase 4's off-mesh run's (``p4``); then the legacy path's
+    SERVE_NCCL_LEGACY job off and on the mesh, tokens and launches
+    equal.  Returns the mesh runs' launches."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    t21 = time.perf_counter()
+    mesh = _nccl_mesh(torch, m)
+    try:
+        eng = m.ServeEngine(arch="deepseek-7b", kv_layout="paged",
+                            num_slots=8, max_len=512, seed=0, log=quiet)
+        if _weights_sig(eng) != p4["sig"]:
+            raise AssertionError("phase 21's engine drew other weights than "
+                                 "phase 4's")
+        eng._bind(mesh)
+        if not all(isinstance(t, DTensor)
+                   for _, t in m.leaf_items(eng.params)):
+            raise AssertionError("the engine's weights are not at rest on "
+                                 "the mesh")
+        reset_counts()
+        st_on, on_s = _timed(eng.run, reqs)
+        on = counts()
+        comm = eng._decode.collectives
+        if _streams(st_on) != p4["streams"]:
+            raise AssertionError(f"the engine on the one-rank mesh: streams "
+                                 f"{_streams(st_on)} != off the mesh "
+                                 f"{p4['streams']}")
+        same = (st_on.decode_steps, st_on.prefill_chunks, st_on.preemptions,
+                st_on.generated_tokens)
+        if same != p4["counts"] or on != p4["launches"] or \
+                not on["paged_attention"] or not on["add_rmsnorm"]:
+            raise AssertionError(f"the engine on the one-rank mesh: counts "
+                                 f"{same} vs {p4['counts']}, launches {on} "
+                                 f"vs {p4['launches']}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        kw = SERVE_NCCL_LEGACY
+        cfg = m.get_config(kw["arch"])
+        model = m.model_for(cfg, remat="none")
+        params = m.init_params(model.param_table(), torch.Generator(
+            device="cuda").manual_seed(0), "cuda")
+        shape = dataclasses.replace(m.SHAPES["prefill_32k"],
+                                    seq_len=kw["prefill_len"],
+                                    global_batch=kw["batch"])
+        req = m.to_device(m.SyntheticSource(cfg.vocab_size, 0).batch(
+            model.batch_table(shape), 0), "cuda")
+        dev = torch.device("cuda")
+        on_params = m.reshard_state(params, model.param_table(), mesh)
+        legacy = []
+        for mesh_ in (None, mesh):
+            steps = (m.build_prefill_step(model), m.build_decode_step(
+                model)) if mesh_ is None else (m.build_prefill_step(
+                    model, mesh_), m.build_decode_step(model, mesh_))
+            reset_counts()
+            legacy.append(m.legacy_generate(
+                *steps, params if mesh_ is None else on_params, req,
+                kw["decode_tokens"], dev) + (counts(),))
+        (toks_off, pre_off, dec_off, l_off), (toks_on, pre_on, dec_on,
+                                              l_on) = legacy
+        if not toks_on.tolist() == toks_off.tolist() or not l_on == l_off \
+                or not l_on["rmsnorm"]:
+            raise AssertionError(f"{kw['arch']} on the one-rank mesh: "
+                                 f"tokens {toks_on.tolist()} vs "
+                                 f"{toks_off.tolist()}, launches {l_on} vs "
+                                 f"{l_off}")
+        del params, on_params, req, model
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t21 = time.perf_counter() - t21
+    print(f"[mesh] {card} deepseek-7b, {len(reqs)} requests through the "
+          f"paged engine on a one-rank NCCL mesh (1, 1) ('data', 'model'), "
+          f"phase 4's weights: greedy streams and counts (decode ticks, "
+          f"chunks, preemptions, tokens) {same} bit for bit phase 4's off "
+          f"the mesh, K1 and K2 launched as often ({on}); wall {on_s:.2f} s "
+          f"on the mesh (host clock; phase 4's first run paid the "
+          f"warm-ups); the last decode tick's collectives {comm} (one rank "
+          f"sends nothing)")
+    print(f"[mesh] {card} {kw['arch']} legacy path {kw['batch']} x "
+          f"{kw['prefill_len']} + {kw['decode_tokens']} off and on the "
+          f"mesh: every row's tokens equal, K2 launches {l_on}; prefill "
+          f"{pre_off:.3f} / {pre_on:.3f} s, decode {dec_off:.3f} / "
+          f"{dec_on:.3f} s (off, the first run / on); phase 21 took "
+          f"{t21:.1f} s")
+    return {"engine": on, "legacy": l_on}
+
+
+class _DryRun:
+    """``dryrun.main(["--arch", "deepseek-7b", "--mesh", "both"])`` as a
+    process of its own (``python -m repro_torch.launch.dryrun``, one CPU
+    thread, no device), its records in a temporary directory: started
+    before the card's phases, waited for in phase 22, killed on exit."""
+
+    ARGV = ["--arch", "deepseek-7b", "--mesh", "both"]
+
+    def __init__(self):
+        self.after = None
+        self.dir = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+        env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+                   OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+        self.log = open(Path(self.dir.name) / "log.txt", "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys; from pathlib import Path; "
+             "from repro_torch.launch import dryrun; sys.exit(dryrun.main("
+             f"{self.ARGV!r}, out_dir=Path({self.dir.name!r}) / 'all'))"],
+            env=env, stdout=self.log, stderr=subprocess.STDOUT)
+
+    def mark(self, phase: int) -> None:
+        """At the start of ``phase``: the first phase that began after the
+        process ended (the printed timings of the phases before it ran
+        beside it)."""
+        if self.after is None and self.proc.poll() is not None:
+            self.after = phase
+
+    def wait(self, timeout: float) -> tuple:
+        """(exit code, the records, seconds waited)."""
+        t0 = time.perf_counter()
+        code = self.proc.wait(timeout=timeout)
+        recs = [json.loads(p.read_text()) for p in
+                sorted((Path(self.dir.name) / "all").glob("*.json"))]
+        return code, recs, time.perf_counter() - t0
+
+    def tail(self) -> str:
+        self.log.flush()
+        return (Path(self.dir.name) / "log.txt").read_text()[-3000:]
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        self.dir.cleanup()
+
+
+def _dryrun_card(torch, m, card, quiet, dry: _DryRun) -> dict:
+    """Phase 22: DRYRUN_CELLS dry-run on ``nvidia:h100`` (meta), then the
+    build's same steps on the card: arguments, peak and FLOPs held; the
+    bound, time and share printed; then every deepseek-7b cell on both
+    cluster meshes.  Returns per cell (measured ms, bound ms, peak GB
+    traced and measured)."""
+    from repro_torch.launch import dryrun
+    t22 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tdir:
+        for shape_name, over in DRYRUN_CELLS:
+            rec = dryrun.run_cell("deepseek-7b", shape_name, "nvidia:h100",
+                                  overrides=over, out_dir=Path(tdir),
+                                  target="nvidia:h100", log=quiet)
+            if rec["status"] != "ok":
+                raise AssertionError(f"dry run of {shape_name}: "
+                                     f"{rec['error']}\n{rec['traceback']}")
+            app = m.AppSpec(arch="deepseek-7b", shape=shape_name,
+                            shape_overrides=over)
+            res = m.BuildService().build(app, "nvidia:h100", lower=False)
+            cfg = app.model_config
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base0 = torch.cuda.memory_allocated()
+            params = m.init_params(res.tables["params"], torch.Generator(
+                device="cuda").manual_seed(0), "cuda")
+            b, s = over["global_batch"], over["seq_len"]
+            if shape_name.startswith("decode"):
+                cache = {k: torch.zeros(d.shape, dtype=d.dtype,
+                                        device="cuda")
+                         for (k,), d in m.leaf_items(res.tables["cache"])
+                         if k != "index"}
+                cache["index"] = torch.tensor(s - 1, dtype=torch.int32)
+                tokens = torch.randint(0, cfg.vocab_size, (b, 1),
+                                       dtype=torch.int32, device="cuda")
+                args = (params, cache, tokens)
+            else:
+                args = (params, {"tokens": torch.randint(
+                    0, cfg.vocab_size, (b, s), dtype=torch.int32,
+                    device="cuda")})
+            torch.cuda.synchronize()
+            inputs = torch.cuda.memory_allocated() - base0
+            mem = rec["memory_analysis"]
+            if abs(inputs - mem["argument_size_in_bytes"]) > \
+                    DRYRUN_ARGS_RTOL * mem["argument_size_in_bytes"]:
+                raise AssertionError(
+                    f"dry run of {shape_name}: argument bytes "
+                    f"{mem['argument_size_in_bytes']:.6g}, the inputs "
+                    f"allocate {inputs:.6g}")
+            step = res.step_fn
+            # the counted run warms the step up for the peak's
+            o, c = m.cost.measure(step, *args)
+            del o
+            if c.flops != rec["hlo_cost"]["flops_per_chip"]:
+                raise AssertionError(
+                    f"dry run of {shape_name}: {rec['hlo_cost']['flops_per_chip']}"
+                    f" dot FLOPs, {c.flops} on the card")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            o = step(*args)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            peak = torch.cuda.max_memory_allocated() - base
+            del o
+            traced = rec["hlo_cost"]["peak_bytes"]
+            ratio = traced / peak
+            if not DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1]:
+                raise AssertionError(
+                    f"dry run of {shape_name}: traced peak {traced:.6g} B, "
+                    f"the card's {peak:.6g} B above its inputs (ratio "
+                    f"{ratio:.4f} outside {DRYRUN_PEAK_RATIO})")
+            r = rec["roofline"]
+            bound = max(r["t_compute_s"], r["t_memory_s"],
+                        r["t_collective_s"]) * 1e3
+            out[shape_name] = {"ms": ms, "bound_ms": bound,
+                               "traced_gb": traced / 1e9,
+                               "card_gb": peak / 1e9,
+                               "args_gb": mem["argument_size_in_bytes"] / 1e9,
+                               "trace_s": rec["trace_s"]}
+            print(f"[dryrun] {card} deepseek-7b {shape_name} at {b} x {s} "
+                  f"on nvidia:h100: traced on meta in {rec['trace_s']:.1f} "
+                  f"s; arguments {mem['argument_size_in_bytes'] / 1e9:.4f} "
+                  f"GB, the inputs allocate {inputs / 1e9:.4f} GB; peak "
+                  f"above them traced {traced / 1e9:.4f} GB, the card's "
+                  f"{peak / 1e9:.4f} GB (ratio {ratio:.4f}); dot FLOPs "
+                  f"{c.flops:.6g} equal on the card; bound {bound:.3f} ms "
+                  f"({r['bottleneck']}), measured {ms:.3f} ms (CUDA events),"
+                  f" share {bound / ms:.3f}")
+            del params, args, step, res
+            gc.collect()
+            torch.cuda.empty_cache()
+    code, recs, waited = dry.wait(timeout=600)
+    if code != 0 or len(recs) != 6 or any(r["status"] != "ok" for r in recs):
+        raise AssertionError(
+            f"dryrun.main {dry.ARGV}: exit {code}, "
+            f"{[(r['shape'], r['mesh'], r['status']) for r in recs]}\n"
+            f"{dry.tail()}")
+    gb = {f"{r['shape']}/{r['mesh']}":
+          round(r["memory_analysis"]["per_chip_total_gb"], 2) for r in recs}
+    t22 = time.perf_counter() - t22
+    main_s = sum(r["total_s"] for r in recs)
+    print(f"[dryrun] {card} dryrun.main({dry.ARGV}) on nvidia:h100x256 and "
+          f"nvidia:h100x512 (a process of its own, started before phase 1): "
+          f"{len(recs)} records ok, their cells {main_s:.1f} s (the "
+          f"records' total_s; the traces "
+          f"{[round(r['trace_s'], 1) for r in recs]} s), {waited:.1f} s "
+          f"waited for in phase 22, beside phases 1-"
+          f"{(dry.after or 23) - 1} (GB a card {gb}); phase 22 took "
+          f"{t22:.1f} s")
+    out["main_s"] = main_s
+    return out
+
+
 def _lulesh_nccl(torch, m, card) -> None:
     """Phase 20: LULESH's mesh step over a one-rank NCCL process group, a
     (1, 1) ("data", "model") DeviceMesh on the card: LULESH_NCCL's steps
@@ -3320,12 +3643,21 @@ def _whisper_full(torch, m, card, counts, reset_counts, quiet) -> dict:
 
 
 def main() -> int:
-    t_main = time.perf_counter()
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    dry = _DryRun()
+    try:
+        return _main(dry)
+    finally:
+        dry.close()
+
+
+def _main(dry: _DryRun) -> int:
+    t_main = time.perf_counter()
+    import numpy as np
+    import torch
     from repro_torch.configs import get_config
     from repro_torch.core.appspec import AppSpec, parse_appfile
     from repro_torch.core.jobs import JobState
@@ -3344,7 +3676,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
     from repro_torch.kernels.rmsnorm import plan as _rmsnorm_plan
     from repro_torch.kernels.sedov_stencil import sedov_step_cuda
-    from repro_torch.launch.serve import grow_kv, serve_main
+    from repro_torch.launch.serve import grow_kv, legacy_generate, serve_main
     from repro_torch.models import mamba, ssm
     from repro_torch.analysis import cost, flops, roofline
     from repro_torch.models import lulesh, moe
@@ -3387,6 +3719,7 @@ def main() -> int:
     card = f"[{smi}]"
 
     # ---- 1. device and build -------------------------------------------
+    dry.mark(1)
     props = torch.cuda.get_device_properties(0)
     print(f"[device] {smi} | {props.name}, {props.multi_processor_count} SMs,"
           f" {props.total_memory / 1e9:.1f} GB | torch {torch.__version__}, "
@@ -3402,6 +3735,7 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     # ---- 2. kernels against their plain versions -----------------------
+    dry.mark(2)
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
     k1_err = 0.0
@@ -3565,6 +3899,7 @@ def main() -> int:
               f"(CUDA graphs)")
 
     # ---- 3. stream identity at smoke size ------------------------------
+    dry.mark(3)
     smoke = get_config("deepseek-7b-smoke")
     param_bytes = 2 * param_count_estimate(smoke)
     kv_budget = 3.5 * kv_bytes_per_token(smoke) * 128
@@ -3720,7 +4055,8 @@ def main() -> int:
         cost=cost, flops=flops, roofline=roofline,
         reshard_state=reshard_state, train_state_table=train_state_table,
         sedov_step_cuda=sedov_step_cuda,
-        mesh_for_target=mesh_for_target, Mesh=Mesh, lulesh=lulesh)
+        mesh_for_target=mesh_for_target, Mesh=Mesh, lulesh=lulesh,
+        ServeEngine=ServeEngine, legacy_generate=legacy_generate)
     train_smoke, train_s = _timed(_train_smoke, torch, mt, counts,
                                   reset_counts)
     print(f"[smoke] training {TRAIN_SMOKE_ARCHS}, {TRAIN_SMOKE_STEPS} steps "
@@ -3791,6 +4127,7 @@ def main() -> int:
               f"greedy tokens equal (sample {leg3['sample']})")
 
     # ---- 4. the slice at full width ------------------------------------
+    dry.mark(4)
     reqs = [Request(rid=i, prompt=prng.randint(1, full.vocab_size - 1,
                                                size=(int(n),)).astype(np.int32),
                     max_new_tokens=32)
@@ -3813,6 +4150,7 @@ def main() -> int:
     st_k = eng_k.run(reqs)
     launches = counts()
     p4_streams, p4_sig = _streams(st_k), _weights_sig(eng_k)
+    p4_launches = dict(launches)     # phase 7 fills in K4's launches
     ticks, chunks = st_k.decode_steps, st_k.prefill_chunks
     # per step: layer 0's first norm alone, then 2 fused add + norms a
     # layer (the second norm; the next first norm or ln_f)
@@ -3894,6 +4232,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. numbers ------------------------------------------------------
+    dry.mark(5)
     flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
     k1 = _k1_numbers(torch, ref, paged_attention_cuda, card, "main path",
@@ -4055,6 +4394,7 @@ def main() -> int:
           f"index_select {host['embed'][1]:.2f}, 1 call a tick")
 
     # ---- 6. the stencil against its plain version ------------------------
+    dry.mark(6)
     grids = (1, 2, 3, 5, 8, 13, 16, 24, 32, 33, 64, 70, 100, LULESH_GRID)
     k4_err, k4_rel, ten = _stencil_checks(np, lulesh, ref, sedov_step_cuda,
                                           grids, (16, 70, LULESH_GRID))
@@ -4067,6 +4407,7 @@ def main() -> int:
           f"(limit {STENCIL_TOL_10})")
 
     # ---- 7. the LULESH path at full size ---------------------------------
+    dry.mark(7)
     iters, n = LULESH_ITERS, LULESH_GRID
     cmd = (f"ch-run -b ./data:/data lulesh.dash -- /built/lulesh.dash "
            f"-i {iters} -s {n}")
@@ -4153,6 +4494,7 @@ def main() -> int:
           f"within rtol {STENCIL_ELEM_RTOL}")
 
     # ---- 8. LULESH numbers -----------------------------------------------
+    dry.mark(8)
     cfg = lulesh.LuleshConfig(grid=n)
     zones = n ** 3
     dt = ref.cfl_dt(fin)
@@ -4201,6 +4543,7 @@ def main() -> int:
     del fin, plain_fin
 
     # ---- 9. flash attention against its plain version -------------------
+    dry.mark(9)
     # the steps hold phase 4's model, whose per-layer views hold its weights
     del eng_k, pool, kernel_step, gather_step, noisy_step
     torch.cuda.empty_cache()
@@ -4220,6 +4563,7 @@ def main() -> int:
     k3_err = max(k3_err, *(r["err"] for r in k3.values()))
 
     # ---- 10. the kernel bench: the flash kernel's own path ---------------
+    dry.mark(10)
     bench_rows = []
     reset_counts()
     bench.run(lambda name, us, note: bench_rows.append((name, us, note)))
@@ -4231,6 +4575,7 @@ def main() -> int:
     print(f"[bench] launches during the bench: {bench_counts}")
 
     # ---- 11. sampling, speculation and the contiguous layout -------------
+    dry.mark(11)
     pico = ServeEngine(arch="picolm-4-smoke", num_slots=4, max_len=128,
                        seed=0, log=quiet)
     rtrace = repetitive_trace(12, 4, seed=0)
@@ -4322,6 +4667,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 12. the router and the prefix cache at full width --------------
+    dry.mark(12)
     t12 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
@@ -4464,6 +4810,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 13. the serving app through EASEY at full width ----------------
+    dry.mark(13)
     t13 = time.perf_counter()
     mem13 = []              # (what, GB allocated after it, its peak GB)
 
@@ -4610,6 +4957,7 @@ def main() -> int:
           f"during) {mem13}")
 
     # ---- 14. the MoE family at full width through EASEY ------------------
+    dry.mark(14)
     t14 = time.perf_counter()
     mem14 = []              # (what, GB allocated after it, its peak GB)
 
@@ -4753,24 +5101,44 @@ def main() -> int:
           f"{peak14:.1f} GB; memory (GB allocated after, peak during) {mem14}")
 
     # ---- 15. training at full width ----------------------------------
+    dry.mark(15)
     per_step15 = _train_full(torch, mt, card, counts, reset_counts, quiet)
 
     # ---- 16. the VLM family at full width, the legacy path ------------
+    dry.mark(16)
     vlm_launches = _vlm_full(torch, mt, card, counts, reset_counts, quiet)
 
     # ---- 17. xLSTM at full width: serving, its cells, training ---------
+    dry.mark(17)
     _ssm_full(torch, mt, card, counts, reset_counts, quiet)
 
     # ---- 18. the Zamba2 hybrid at full width, K2 on every norm --------
+    dry.mark(18)
     zamba_launches = _hybrid_full(torch, mt, card, counts, reset_counts,
                                   quiet)
 
     # ---- 19. Whisper at full width: serving, training, the roofline ---
+    dry.mark(19)
     _whisper_full(torch, mt, card, counts, reset_counts, quiet)
 
     # ---- 20. LULESH over a one-rank NCCL mesh -------------------------
+    dry.mark(20)
     _lulesh_nccl(torch, mt, card)
     print(f"[smoke] {card} phases 1-20 took "
+          f"{time.perf_counter() - t_main:.1f} s")
+
+    # ---- 21. serving over a one-rank NCCL mesh -------------------------
+    dry.mark(21)
+    mesh_launches = _serve_nccl(
+        torch, mt, card, counts, reset_counts, quiet, reqs,
+        {"streams": p4_streams, "sig": p4_sig, "launches": p4_launches,
+         "counts": (st_k.decode_steps, st_k.prefill_chunks,
+                    st_k.preemptions, st_k.generated_tokens)})
+
+    # ---- 22. the dry run against the card -----------------------------
+    dry.mark(22)
+    _dryrun_card(torch, mt, card, quiet, dry)
+    print(f"[smoke] {card} phases 1-22 took "
           f"{time.perf_counter() - t_main:.1f} s")
 
     kernels = [
@@ -4782,6 +5150,8 @@ def main() -> int:
          "easey_serve_launches": easey_counts["paged_attention"],
          "stablelm_launches": st_counts["paged_attention"],
          "granite_moe_launches": moe_launches["paged_attention"],
+         # phase 21: the engine's mesh steps on a one-rank NCCL mesh
+         "mesh_launches": mesh_launches["engine"]["paged_attention"],
          "max_abs_err": k1_err,
          "ms": k1["ms"], "plain_ms": k1["plain"], "bound_ms": k1["bound"],
          "bound_by": k1["bound_by"], "library_ms": k1["lib"],
@@ -4801,6 +5171,9 @@ def main() -> int:
          "llava_launches": vlm_launches["rmsnorm"],
          # zamba2-7b served by the legacy path (phase 18)
          "zamba_launches": zamba_launches["rmsnorm"],
+         # phase 21: the engine's and the legacy path's mesh steps
+         "mesh_launches": mesh_launches["engine"]["rmsnorm"],
+         "mesh_legacy_launches": mesh_launches["legacy"]["rmsnorm"],
          "backward_ms": {f"{r}x{c}": k2g[(r, c)]["ms"]["rmsnorm"][1]
                          for r, c in K2_GRAD_SHAPES},
          "max_abs_err": k2_err,
@@ -4827,6 +5200,8 @@ def main() -> int:
          "train_launches_per_step": per_step15["add_rmsnorm"],
          "llava_launches": vlm_launches["add_rmsnorm"],
          "zamba_launches": zamba_launches["add_rmsnorm"],
+         "mesh_launches": mesh_launches["engine"]["add_rmsnorm"],
+         "mesh_legacy_launches": mesh_launches["legacy"]["add_rmsnorm"],
          "backward_ms": {f"{r}x{c}": k2g[(r, c)]["ms"][True][1]
                          for r, c in K2_GRAD_SHAPES},
          "max_abs_err": k2f_err,

@@ -18,6 +18,27 @@ counts what it dispatches:
   input (a cache written in place) counts the elements written into it.
   Intermediates count nothing: they are the step's own business.
 * ``wire_bytes``: zero on one card (no collective runs).
+* ``peak_bytes``: the most bytes the step's own allocations held at once
+  (the storages its operations made and still referenced; inputs, and
+  writes into them, count nothing): what the caching allocator's
+  ``max_memory_allocated`` reads above the inputs, up to its rounding.
+
+``trace`` runs ``measure`` with no data: the inputs are ``meta`` tensors
+(shapes and dtypes only), made from the declarative tables, so a step of
+any size is costed without a device, as the reference lowers a step it
+never runs.  Each operation still dispatches, so the FLOPs, the least
+bytes and the peak are the same counts; a gather's rows cannot be told
+apart without their values, so on ``meta`` each gathered index counts one
+row, at most the table's.  The hand-written kernels cannot run on
+``meta``: their plain versions run in their place (``kernels/ops.py``),
+the same arithmetic.  The host values a step reads (a whole-batch
+cache's 0-d index, a prompt's last position) stay on the host.
+
+``mesh_collectives`` reckons the collectives of the port's mesh steps
+(``training/steps.py``) from the build's specs alone: the weight (and,
+training, the state) gathers, the gradient all-reduce, the logits
+gathers and a cache's gathers, per call as ``Collectives`` counts them
+on live ranks, with each call's ring wire bytes.
 
 Neither counter sees into a hand-written kernel.  The port's CUDA kernels
 are ``ctypes`` calls made outside the dispatcher (``kernels/_build.py``),
@@ -34,6 +55,8 @@ A step with a kernel on its path reads low; the Whisper steps have none.
 from __future__ import annotations
 
 import dataclasses
+import math
+import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -49,6 +72,8 @@ class StepCost:
     dot_count: int = 0
     read_bytes: float = 0.0
     write_bytes: float = 0.0
+    peak_bytes: float = 0.0
+    collective_breakdown: dict = dataclasses.field(default_factory=dict)
 
 
 def _tensors(tree) -> list:
@@ -63,7 +88,8 @@ def _tensors(tree) -> list:
 
 
 def _key(t: torch.Tensor):
-    return (t.device, t.untyped_storage().data_ptr())
+    # the storage's own identity: every meta storage's data pointer is 0
+    return (t.device, t.untyped_storage()._cdata)
 
 
 def _span(t: torch.Tensor) -> tuple[int, int]:
@@ -143,6 +169,11 @@ class _Traffic(TorchDispatchMode):
             self.spans[k].append(_span(table))
             return
         row = table[0].numel() * table.element_size()
+        if ids.device.type == "meta":
+            # no values: each index one row, at most the table's rows
+            n = self.rows[k].get("meta", 0) // row + ids.numel()
+            self.rows[k]["meta"] = min(n, table.shape[0]) * row
+            return
         for r in torch.unique(ids).tolist():
             self.rows[k][table.storage_offset() + r * table.stride(0)] = row
 
@@ -154,6 +185,35 @@ class _Traffic(TorchDispatchMode):
         return total
 
 
+class _Peak(TorchDispatchMode):
+    """The bytes of the storages the step's operations make, while they
+    live: each new storage counts from the operation that makes it until
+    it is freed (a weak reference's finaliser); the peak of the sum."""
+
+    def __init__(self, inputs):
+        super().__init__()
+        self.known = {_key(t) for t in inputs}
+        self.live = self.peak = 0
+
+    def _free(self, key, nbytes):
+        self.known.discard(key)
+        self.live -= nbytes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            key = (t.device, st._cdata)
+            if key in self.known:
+                continue
+            self.known.add(key)
+            n = st.nbytes()
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(st, self._free, key, n)
+        return out
+
+
 def measure(fn, *args, **kwargs) -> tuple:
     """Run ``fn(*args, **kwargs)`` once, counting: (its result, a
     ``StepCost``).  Tensors anywhere in the arguments (dicts, lists and
@@ -161,7 +221,8 @@ def measure(fn, *args, **kwargs) -> tuple:
     inputs = _tensors(list(args) + list(kwargs.values()))
     traffic = _Traffic(inputs)
     counter = FlopCounterMode(display=False)
-    with counter, traffic:
+    peak = _Peak(inputs)
+    with counter, traffic, peak:
         out = fn(*args, **kwargs)
     seen, written = set(), traffic.written
     for t in _tensors(out):
@@ -173,5 +234,169 @@ def measure(fn, *args, **kwargs) -> tuple:
     read = traffic.read_bytes()
     cost = StepCost(flops=float(counter.get_total_flops()),
                     hbm_bytes=float(read + written), dot_count=traffic.dots,
-                    read_bytes=float(read), write_bytes=float(written))
+                    read_bytes=float(read), write_bytes=float(written),
+                    peak_bytes=float(peak.peak))
     return out, cost
+
+
+def trace(fn, *args, **kwargs) -> tuple:
+    """``measure`` of ``fn`` on ``meta`` tensors (``meta_tree``): (its
+    result, of meta tensors, and its cost).  Every input holding data
+    must be a 0-d host value the step reads (an index)."""
+    for t in _tensors(list(args) + list(kwargs.values())):
+        if t.device.type != "meta" and t.dim():
+            raise ValueError(f"a {tuple(t.shape)} input on {t.device}: a "
+                             f"trace takes meta tensors")
+    return measure(fn, *args, **kwargs)
+
+
+def meta_tree(table, rows: int = 1, index: int | None = None):
+    """Meta tensors of a declarative (ParamDef) table, each leaf's
+    ``act_batch`` axis divided by ``rows`` (one rank's rows of it); a 0-d
+    ``index`` leaf is a host tensor holding ``index`` (a whole-batch
+    cache's length, which the step reads)."""
+    from repro_torch.models.params import ParamDef
+
+    def make(path, d):
+        if path[-1] == "index" and not d.shape and index is not None:
+            return torch.tensor(index, dtype=d.dtype)
+        shape = list(d.shape)
+        if "act_batch" in d.logical_axes:
+            shape[d.logical_axes.index("act_batch")] //= rows
+        return torch.empty(shape, dtype=d.dtype, device="meta")
+
+    def walk(t, path=()):
+        if isinstance(t, ParamDef):
+            return make(path, t)
+        return {k: walk(v, path + (k,)) for k, v in t.items()}
+    return walk(table)
+
+
+# ---------------------------------------------------------------------------
+# the collectives of the mesh steps, reckoned from the specs
+
+_WIRE = {"all_gather": lambda g: g - 1,        # x the bytes a rank hands
+         "all_reduce": lambda g: 2 * (g - 1) / g}
+
+
+class Reckoning:
+    """Collective calls as ``training.steps.Collectives`` counts them
+    (calls, and the bytes this rank hands each), plus each call's ring
+    wire bytes: an all-gather of L bytes a rank over g ranks sends
+    (g - 1) L, an all-reduce of B bytes 2 (g - 1) / g B."""
+
+    def __init__(self):
+        self.counts = {k: {"calls": 0, "bytes": 0} for k in _WIRE}
+        self.wire_bytes = 0.0
+        self.breakdown: dict = {}
+
+    def call(self, kind: str, nbytes: int, group: int) -> None:
+        self.counts[kind]["calls"] += 1
+        self.counts[kind]["bytes"] += int(nbytes)
+        wire = _WIRE[kind](group) * nbytes
+        self.wire_bytes += wire
+        d = self.breakdown.setdefault(kind.replace("_", "-"),
+                                      {"count": 0, "wire_bytes": 0.0})
+        d["count"] += 1
+        d["wire_bytes"] += wire
+
+    def gather(self, local_bytes: int, pls, mesh_shape, skip=()) -> None:
+        """``_gather``'s calls for a leaf of ``local_bytes`` a rank under
+        placements ``pls``, the minor mesh dimensions first, none over
+        the dimensions in ``skip``."""
+        n = local_bytes
+        for m in reversed(range(len(mesh_shape))):
+            if pls[m].is_shard() and mesh_shape[m] > 1 and m not in skip:
+                self.call("all_gather", n, mesh_shape[m])
+                n *= mesh_shape[m]
+
+
+def _local_bytes(shape, dtype, pls, mesh_shape) -> int:
+    n = [1] * len(shape)
+    for m, pl in enumerate(pls):
+        if pl.is_shard():
+            n[pl.dim] *= mesh_shape[m]
+    elems = math.prod(d // k for d, k in zip(shape, n))
+    return elems * dtype.itemsize
+
+
+def spec_bytes(table, specs, mesh) -> int:
+    """The bytes one rank holds of a table at rest under its specs (a
+    dimension split over k ranks holds 1/k of it)."""
+    from repro_torch.models.params import leaf_items
+    from repro_torch.sharding.rules import placements
+    total = 0
+    for (_, d), (_, spec) in zip(leaf_items(table), leaf_items(specs)):
+        total += _local_bytes(d.shape, d.dtype, placements(spec, mesh),
+                              mesh.shape)
+    return total
+
+
+def mesh_collectives(kind: str, tables: dict, specs: dict, mesh,
+                     logits_bytes: int = 0, microbatches: int = 1,
+                     rows: int = 0) -> Reckoning:
+    """The collectives one rank issues in one call of the port's mesh
+    step of a build (``kind``: ``train``, ``prefill`` or ``decode``, the
+    build's ``step_fn``) over the build's ``tables`` and ``specs``:
+
+    * every leaf of the weights (training: of the whole state) gathered
+      whole;
+    * training: the microbatches' token counts all-reduced (``(M,)``
+      f32), then one f32 buffer of the loss and every gradient, each over
+      every data-parallel mesh dimension;
+    * serving: a decode's cache leaves gathered to this rank's rows over
+      their other sharded dimensions; the logits (``logits_bytes`` a
+      rank) all-gathered over the data-parallel dimensions.
+
+    ``rows`` is the batch's row count (the data-parallel dimensions are
+    those ``act_batch`` splits them over)."""
+    from repro_torch.models.params import leaf_items
+    from repro_torch.sharding.rules import data_parallel_dims, placements
+    r = Reckoning()
+    shape = tuple(mesh.shape)
+    dp = data_parallel_dims(rows, mesh)
+
+    def gather_all(table, spec_tree, skip_rows=False):
+        for (_, d), (_, spec) in zip(leaf_items(table),
+                                     leaf_items(spec_tree)):
+            pls = placements(spec, mesh)
+            row_axis = d.logical_axes.index("act_batch") \
+                if "act_batch" in d.logical_axes else None
+            skip = [m for m in dp if pls[m].is_shard() and
+                    pls[m].dim == row_axis] if skip_rows else ()
+            r.gather(_local_bytes(d.shape, d.dtype, pls, shape), pls,
+                     shape, skip)
+
+    def rest_gathers(table, spec_tree):
+        # a leaf whose rows rest unsplit: this rank's rows gathered whole
+        for (_, d), (_, spec) in zip(leaf_items(table),
+                                     leaf_items(spec_tree)):
+            pls = placements(spec, mesh)
+            if "act_batch" not in d.logical_axes or not dp or any(
+                    pls[m].is_shard() and pls[m].dim ==
+                    d.logical_axes.index("act_batch") for m in dp):
+                continue
+            n = math.prod(d.shape) * d.dtype.itemsize // math.prod(
+                shape[m] for m in dp)
+            for m in reversed(dp):
+                r.call("all_gather", n, shape[m])
+                n *= shape[m]
+
+    if kind == "train":
+        gather_all(tables["state"], specs["state"])
+        grads = sum(math.prod(d.shape) for _, d in
+                    leaf_items(tables["state"]["params"]))
+        for m in dp:
+            r.call("all_reduce", microbatches * 4, shape[m])
+        for m in dp:
+            r.call("all_reduce", (1 + grads) * 4, shape[m])
+        return r
+    gather_all(tables["params"], specs["params"])
+    if kind == "decode":
+        gather_all(tables["cache"], specs["cache"], skip_rows=True)
+    rest_gathers(tables["cache"], specs["cache"])
+    n = logits_bytes
+    for m in reversed(dp):
+        r.call("all_gather", n, shape[m])
+        n *= shape[m]
+    return r

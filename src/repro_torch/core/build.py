@@ -18,7 +18,10 @@ step is the paged serving engine's, whose hand-written kernels are the
 paged-decode kernel (decode only) and the RMSNorm kernel (rmsnorm
 configs); the other families' (VLM, xLSTM, Zamba2, enc-dec) is the
 legacy fixed-batch path's, the RMSNorm kernel alone on an rmsnorm
-config and no kernel on a LayerNorm one.  The ``train`` shape's step is ``training.steps.
+config and no kernel on a LayerNorm one.  As in the reference, a serve
+shape's ``step_fn`` is ``build_prefill_step`` (prefill) or the
+whole-batch ``build_decode_step`` (decode) on the target's mesh: the
+dry run traces them.  The ``train`` shape's step is ``training.steps.
 build_train_step`` under the plan (optimizer, microbatches, remat,
 accumulation dtype), returned as ``step_fn`` with its state and batch
 tables; its kernel is the RMSNorm kernel (rmsnorm configs), on every
@@ -70,9 +73,11 @@ class BuildResult:
     # kernel name -> built library, for the kernels built by this build
     built: dict = dataclasses.field(default_factory=dict)
     timings: dict = dataclasses.field(default_factory=dict)
-    # the train shape's step (state, batch) -> (state, metrics), the
-    # stencil's (state) -> state; the declarative tables ("state",
-    # "batch", "params"; "cache" for a serve shape)
+    # the train shape's step (state, batch) -> (state, metrics), a
+    # prefill's (params, batch) -> (logits, cache), a decode's (params,
+    # cache, tokens) -> (logits, cache), the stencil's (state) -> state;
+    # the declarative tables ("state", "batch", "params"; "cache" for a
+    # serve shape)
     step_fn: Callable | None = None
     tables: dict = dataclasses.field(default_factory=dict)
     # the target's mesh (launch.mesh.Mesh) and the spec tree of each table
@@ -136,13 +141,28 @@ def _target_mesh(target: TargetSpec):
     return describe(tuple(target.mesh_shape), tuple(target.mesh_axes))
 
 
+def cache_rules(cfg, axes: tuple, shape: tuple, kind: str, rules):
+    """The rules a serve shape's cache rests under on a mesh of ``shape``
+    over ``axes``: a decode's cache shards its sequence axis where the KV
+    heads do not divide the model axis (the reference's perf iteration
+    I1), else ``rules``."""
+    model_size = dict(zip(axes, shape)).get("model", 1)
+    if kind == "decode" and cfg.num_kv_heads and \
+            cfg.num_kv_heads % model_size:
+        return DECODE_SEQ_CACHE_RULES
+    return rules
+
+
 def _bind(result: BuildResult, cfg, shape) -> None:
     """The step's tables and their specs on the target's mesh, the train
     shape's step, and the fallbacks into the plan (the reference's build,
     table for table)."""
     from repro_torch.models.transformer import model_for
     from repro_torch.optim import make_optimizer
-    from repro_torch.training.steps import build_train_step, train_state_table
+    from repro_torch.training.steps import (build_decode_step,
+                                            build_prefill_step,
+                                            build_train_step,
+                                            train_state_table)
     plan, target, mesh = result.plan, result.target, result.mesh
     model = model_for(cfg, remat=plan.remat_policy)
     rules = result.rules
@@ -163,21 +183,25 @@ def _bind(result: BuildResult, cfg, shape) -> None:
     else:
         param_table = model.param_table()
         cache_table = model.cache_table(shape.global_batch, shape.seq_len)
-        cache_rules = rules
-        if shape.kind == "decode":
-            # the reference's perf iteration I1: kv heads that do not
-            # divide the model axis shard the cache's sequence axis
-            model_size = dict(zip(target.mesh_axes,
-                                  target.mesh_shape)).get("model", 1)
-            if cfg.num_kv_heads and cfg.num_kv_heads % model_size:
-                cache_rules = DECODE_SEQ_CACHE_RULES
-                plan.notes.append("I1: kv cache sharded on seq axis "
-                                  "(kv_heads % model != 0)")
+        c_rules = cache_rules(cfg, target.mesh_axes, target.mesh_shape,
+                              shape.kind, rules)
+        if c_rules is DECODE_SEQ_CACHE_RULES:
+            plan.notes.append("I1: kv cache sharded on seq axis "
+                              "(kv_heads % model != 0)")
+        # the reference's serve steps: the whole prompt's prefill, the
+        # legacy whole-batch decode over its cache (a live mesh's step
+        # splits the rows; a description's refuses to run)
+        if target.num_chips == 1:
+            result.step_fn = build_prefill_step(model) \
+                if shape.kind == "prefill" else build_decode_step(model)
+        else:
+            result.step_fn = build_prefill_step(model, mesh, c_rules) \
+                if shape.kind == "prefill" else build_decode_step(model, mesh)
         result.tables = {"params": param_table, "batch": batch_table,
                          "cache": cache_table}
         result.specs = {"params": specs(param_table),
                         "batch": specs(batch_table)}
-        result.specs["cache"] = specs(cache_table, cache_rules)
+        result.specs["cache"] = specs(cache_table, c_rules)
     plan.sharding_fallbacks = sorted(set(fallbacks))
 
 

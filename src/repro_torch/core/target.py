@@ -55,6 +55,30 @@ register(TargetSpec(
     scheduler="local", kernels="cuda", smem_bytes=232_448,
     description="one NVIDIA H100 SXM (sm_90a), hand-written CUDA kernels"))
 
+# The counterparts of the reference's two TPU pods: H100 SXM cards in
+# HGX/DGX H100 nodes of 8, the reference's mesh shapes and axes, so the
+# rules give its specs entry for entry.  Per card, the data sheet's
+# figures above.  A card's traffic off its node goes through its one
+# 400 Gb/s NDR InfiniBand port (ConnectX-7; DGX H100 data sheet), 50e9
+# B/s: the model axis of 16 spans two nodes, so its ring crosses
+# InfiniBand, not NVLink.  No machine here holds their ranks: building on
+# them gives a description (the dry run reads it), and a step on one
+# raises "no ranks".
+_H100_CLUSTER = dict(chip="h100", peak_flops=989e12, hbm_bw=3.35e12,
+                     hbm_bytes=80e9, ici_bw=50e9, scheduler="slurm",
+                     kernels="cuda", smem_bytes=232_448)
+
+register(TargetSpec(
+    name="nvidia:h100x256", mesh_shape=(16, 16), mesh_axes=("data", "model"),
+    description="256 H100 SXM cards, 32 nodes of 8, 16x16 (data, model)",
+    **_H100_CLUSTER))
+
+register(TargetSpec(
+    name="nvidia:h100x512", mesh_shape=(2, 16, 16),
+    mesh_axes=("pod", "data", "model"),
+    description="512 H100 SXM cards, two 256-card pods, pod axis is pure "
+                "data parallel", **_H100_CLUSTER))
+
 register(TargetSpec(
     name="local:cpu", chip="cpu",
     mesh_shape=(1,), mesh_axes=("data",),

@@ -2,7 +2,8 @@
 
 A CUDA tensor goes to the hand-written kernel (which raises on anything
 it does not take); a CPU tensor goes to the kernel's plain PyTorch
-version in ``kernels/ref.py``.  There is no other fallback.
+version in ``kernels/ref.py``, and so does a ``meta`` tensor (a dry
+run's trace, which computes nothing).  There is no other fallback.
 
 The RMSNorm entries are differentiable: under grad mode, with an input
 that requires grad, they run through a ``torch.autograd.Function``
@@ -148,5 +149,8 @@ def sedov_step_kernel(state: dict, cfg=None, *, dx: float = 1.0) -> dict:
 
 
 def _check_cpu(t: torch.Tensor) -> None:
-    if t.device.type != "cpu":
+    """The plain versions run on the CPU, and on ``meta`` tensors, which
+    hold shapes only: a dry run's trace (``analysis/cost.trace``) counts
+    a kernel's work through its plain version's operations."""
+    if t.device.type not in ("cpu", "meta"):
         raise ValueError(f"no kernel and no plain path for device {t.device}")

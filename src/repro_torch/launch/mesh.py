@@ -11,8 +11,9 @@ A mesh with no ``DeviceMesh`` is a description: the rules engine and
 the build read its names and sizes, and a step refuses to run on it.
 
 Importing this module starts no process group.  There is no counterpart
-of the reference's ``make_production_mesh``: the port registers no
-multi-card H100 target.
+of the reference's ``make_production_mesh``: the port's cluster targets
+(``nvidia:h100x256``, ``nvidia:h100x512``) have no ranks here, so their
+builds take a description (``describe``), which the dry run reads.
 """
 
 from __future__ import annotations

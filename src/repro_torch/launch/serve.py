@@ -18,6 +18,10 @@ hand-written paged-decode kernel; ``local:cpu``: the plain versions).
     python -m repro_torch.launch.serve --device cpu \\
         --arch deepseek-7b-smoke --kv-layout paged --trace-out t.json
 
+A target of several chips serves on its mesh, one process per rank of
+an initialized process group (``local:cpu-mesh8``: 8 CPU ranks over
+gloo), each rank computing its rows of every step.
+
 Families the engine cannot serve take the reference's legacy
 fixed-batch path (``_legacy_serve_main``): one batch prefilled at once,
 then greedy whole-batch decode steps: the VLM, xLSTM, Zamba2 hybrid
@@ -141,7 +145,9 @@ def serve_main(arch: str = "deepseek-7b-smoke", batch: int = 4,
     it has no use for.
 
     ``device``: the card unless ``"cpu"``; ``target`` defaults to the
-    device's own."""
+    device's own.  A target of several chips (``local:cpu-mesh8``) serves
+    on its mesh: call this in each rank's process after initializing the
+    process group, as ``train_main``; without the ranks it raises."""
     cfg = get_config(arch)
     if trace not in TRACES:
         raise ValueError(f"trace {trace!r} not in {tuple(TRACES)}")
@@ -382,6 +388,12 @@ def _write_telemetry(metrics, tracer, trace_out, metrics_out, prom_out,
             f"events; load in Perfetto / chrome://tracing) -> {trace_out}")
 
 
+def _grow(v: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    shape = list(v.shape)
+    shape[axis] = n
+    return torch.cat([v, v.new_zeros(shape)], dim=axis)
+
+
 def grow_kv(cache: dict, n: int) -> dict:
     """A prefill's cache with every attention K/V grown by ``n`` zero
     positions along its sequence axis (axis 2 of a stacked (layers, b, s,
@@ -392,7 +404,9 @@ def grow_kv(cache: dict, n: int) -> dict:
     (or, under a window, evict the ring's oldest); its own decode test
     grows them all, as here.  A recurrent state has no K/V and stays as
     it is, and so do an enc-dec's cross K/V (``"xk"``, ``"xv"``), which
-    keep the encoder's length: its decode steps read them whole."""
+    keep the encoder's length: its decode steps read them whole.  A K/V
+    at rest on a mesh (a DTensor) grows its local shard, which holds the
+    whole sequence axis."""
     out = {}
     for key, v in cache.items():
         if isinstance(v, dict):
@@ -400,53 +414,36 @@ def grow_kv(cache: dict, n: int) -> dict:
         elif key in ("k", "v") and isinstance(v, torch.Tensor) and \
                 v.dim() >= 3:
             axis = 2 if v.dim() == 5 else 1
-            shape = list(v.shape)
-            shape[axis] = n
-            out[key] = torch.cat([v, v.new_zeros(shape)], dim=axis)
+            out[key] = _grow_dtensor(v, axis, n) \
+                if hasattr(v, "placements") else _grow(v, axis, n)
         else:
             out[key] = v
     return out
 
 
-def _legacy_serve_main(arch: str, batch: int, prefill_len: int,
-                       decode_tokens: int, target: str, seed: int,
-                       log, device: torch.device) -> dict:
-    """Fixed-batch prefill-all/decode-all (the pre-engine behaviour):
-    ``batch`` synthetic requests of ``prefill_len`` positions (a VLM's
-    patches included), prefilled at once; then every K/V of the cache
-    grown by ``decode_tokens`` (``grow_kv``; a recurrent state decodes as
-    it is) and ``decode_tokens - 1`` greedy whole-batch steps.  Weights drawn from ``seed`` (``init_params``), the
-    request from ``SyntheticSource(vocab, seed)``; on ``device`` (the card:
-    the RMSNorm kernel on every norm), which must be ``target``'s.
-    Returns the reference's keys."""
-    from repro_torch.core.appspec import AppSpec
-    from repro_torch.core.build import BuildService
-    from repro_torch.data.pipeline import SyntheticSource, to_device
+def _grow_dtensor(v, axis: int, n: int):
+    from torch.distributed.tensor import DTensor
+    if any(pl.is_shard() and pl.dim == axis for pl in v.placements):
+        raise NotImplementedError(
+            f"growing a cache sharded along its sequence axis "
+            f"({v.placements})")
+    from repro_torch.sharding.rules import contiguous_stride
+    shape = list(v.shape)
+    shape[axis] += n
+    return DTensor.from_local(_grow(v.to_local(), axis, n), v.device_mesh,
+                              v.placements, run_check=False,
+                              shape=tuple(shape),
+                              stride=contiguous_stride(shape))
+
+
+def legacy_generate(prefill, decode, params, req: dict,
+                    decode_tokens: int, device: torch.device):
+    """The legacy path's generation: ``req`` prefilled at once, every K/V
+    of the cache grown by ``decode_tokens`` (``grow_kv``), then
+    ``decode_tokens - 1`` greedy whole-batch steps.  Returns (the (b,
+    decode_tokens) tokens as a numpy array, prefill s, decode s)."""
     from repro_torch.launch.run import _timed
-    from repro_torch.models.transformer import model_for
-    from repro_torch.training.steps import (build_decode_step,
-                                            build_prefill_step)
-
-    dev = device
-    tgt = get_target(target)
-    if device_for(tgt) != dev:
-        raise ValueError(f"target {tgt.name} runs on {device_for(tgt)}, "
-                         f"not {dev}")
-    app = AppSpec(arch=arch, shape="prefill_32k",
-                  shape_overrides={"seq_len": prefill_len,
-                                   "global_batch": batch},
-                  run=f"serve --decode {decode_tokens}")
-    BuildService().build(app, tgt, lower=False)
-    cfg = app.model_config
-    model = model_for(cfg, remat="none")
-    prefill = build_prefill_step(model)
-    decode = build_decode_step(model)
-    params = init_params(model.param_table(),
-                         torch.Generator(device=dev).manual_seed(seed), dev)
-    req = to_device(SyntheticSource(cfg.vocab_size, seed).batch(
-        model.batch_table(app.shape_config), 0), dev)
-
-    (logits, cache), t_prefill = _timed(lambda: prefill(params, req), dev)
+    (logits, cache), t_prefill = _timed(lambda: prefill(params, req), device)
     cache = grow_kv(cache, decode_tokens)
 
     def greedy(logits):
@@ -459,8 +456,65 @@ def _legacy_serve_main(arch: str, batch: int, prefill_len: int,
             logits, cache = decode(params, cache, generated[-1])
             generated.append(greedy(logits))
 
-    _, t_decode = _timed(lambda: steps(cache), dev)
-    toks = torch.cat(generated, dim=1).cpu().numpy()
+    _, t_decode = _timed(lambda: steps(cache), device)
+    return torch.cat(generated, dim=1).cpu().numpy(), t_prefill, t_decode
+
+
+def _legacy_serve_main(arch: str, batch: int, prefill_len: int,
+                       decode_tokens: int, target: str, seed: int,
+                       log, device: torch.device) -> dict:
+    """Fixed-batch prefill-all/decode-all (the pre-engine behaviour):
+    ``batch`` synthetic requests of ``prefill_len`` positions (a VLM's
+    patches included), prefilled at once; then every K/V of the cache
+    grown by ``decode_tokens`` (``grow_kv``; a recurrent state decodes as
+    it is) and ``decode_tokens - 1`` greedy whole-batch steps
+    (``legacy_generate``).  Weights drawn from ``seed``
+    (``init_params``), the request from ``SyntheticSource(vocab, seed)``;
+    on ``device`` (the card: the RMSNorm kernel on every norm), which
+    must be ``target``'s.  A target of several chips serves on its mesh,
+    as the reference's path does: this runs in each rank's process of an
+    initialized process group (and raises where the process holds no
+    rank), the weights and the cache at rest under their specs, each
+    rank prefilling and decoding its rows of the batch and every rank
+    holding the whole batch's logits and tokens.  Returns the reference's
+    keys."""
+    from repro_torch.core.appspec import AppSpec
+    from repro_torch.core.build import BuildService
+    from repro_torch.data.pipeline import SyntheticSource, to_device
+    from repro_torch.models.transformer import model_for
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.training.steps import (build_decode_step,
+                                            build_prefill_step, no_ranks)
+
+    dev = device
+    tgt = get_target(target)
+    if device_for(tgt) != dev:
+        raise ValueError(f"target {tgt.name} runs on {device_for(tgt)}, "
+                         f"not {dev}")
+    app = AppSpec(arch=arch, shape="prefill_32k",
+                  shape_overrides={"seq_len": prefill_len,
+                                   "global_batch": batch},
+                  run=f"serve --decode {decode_tokens}")
+    result = BuildService().build(app, tgt, lower=False)
+    mesh = None if tgt.num_chips == 1 else result.mesh
+    if mesh is not None and not mesh.live:
+        raise no_ranks(mesh)
+    cfg = app.model_config
+    model = model_for(cfg, remat="none")
+    if mesh is None:
+        prefill, decode = build_prefill_step(model), build_decode_step(model)
+    else:
+        prefill = build_prefill_step(model, mesh, result.rules)
+        decode = build_decode_step(model, mesh)
+    params = init_params(model.param_table(),
+                         torch.Generator(device=dev).manual_seed(seed), dev)
+    if mesh is not None:
+        params = reshard_state(params, model.param_table(), mesh)
+    req = to_device(SyntheticSource(cfg.vocab_size, seed).batch(
+        model.batch_table(app.shape_config), 0), dev)
+
+    toks, t_prefill, t_decode = legacy_generate(prefill, decode, params,
+                                                req, decode_tokens, dev)
     out = {
         "arch": arch, "batch": batch, "prefill_len": prefill_len,
         "decode_tokens": decode_tokens, "mode": "legacy-static",

@@ -48,6 +48,11 @@ class EncDecLM:
         self._enc_cfg = cfg.replace(causal=False)    # non-causal encoder
         self._views = (None, None)   # (params, their per-layer views)
 
+    def drop_views(self) -> None:
+        """Forget the views ``layer_params`` keeps of the last weights (a
+        mesh step's gathered weights must not outlive the step)."""
+        self._views = (None, None)
+
     # ---- tables ----
     def enc_block_defs(self) -> dict:
         cfg = self.cfg

@@ -254,12 +254,26 @@ def attention_defs(cfg) -> dict:
     return d
 
 
-def _write_pool(pool: torch.Tensor, fpos: torch.Tensor,
+def write_pool(pool: torch.Tensor, fpos: torch.Tensor,
                 kv: torch.Tensor) -> None:
     """Scatter (n, K, dh) rows into a (num_pages, page_size, K, dh) pool at
     flat token positions ``fpos``, in place."""
     n_pages, psize, Kh, dh = pool.shape
     pool.view(n_pages * psize, Kh, dh).index_put_((fpos.long(),), kv)
+
+
+def paged_positions(pages: torch.Tensor, idx: torch.Tensor, s: int,
+                    psize: int) -> torch.Tensor:
+    """The flat pool positions ``(slots, s)`` that s tokens per row write
+    to from each row's index through its page-table row; positions past
+    the row's page run go to the reserved junk page 0, never wrapped into
+    its last page."""
+    max_pages = pages.shape[1]
+    pos = idx[:, None] + torch.arange(s, device=idx.device)[None, :]
+    logical_page = pos // psize
+    ok = logical_page < max_pages
+    dest = pages.gather(1, logical_page.clamp(max=max_pages - 1).long())
+    return torch.where(ok, dest * psize + pos % psize, pos % psize)
 
 
 def _paged_decode(q, k, v, cache):
@@ -276,13 +290,9 @@ def _paged_decode(q, k, v, cache):
     psize, Kh, dh = ck.shape[1], ck.shape[2], ck.shape[3]
     slots, s = q.shape[0], q.shape[1]
     max_pages = pages.shape[1]
-    pos = idx[:, None] + torch.arange(s, device=q.device)[None, :]
-    logical_page = pos // psize
-    ok = logical_page < max_pages
-    dest = pages.gather(1, logical_page.clamp(max=max_pages - 1).long())
-    fpos = torch.where(ok, dest * psize + pos % psize, pos % psize)
-    _write_pool(ck, fpos.reshape(-1), k.reshape(-1, Kh, dh))
-    _write_pool(cv, fpos.reshape(-1), v.reshape(-1, Kh, dh))
+    fpos = paged_positions(pages, idx, s, psize)
+    write_pool(ck, fpos.reshape(-1), k.reshape(-1, Kh, dh))
+    write_pool(cv, fpos.reshape(-1), v.reshape(-1, Kh, dh))
     if s == 1:
         attend = ops.paged_attention if cache.get("use_kernel") \
             else ref.paged_attention_ref
@@ -356,8 +366,8 @@ def _chunk(q, k, v, cache):
         ok = logical < max_pages
         dest = pages_row[logical.clamp(max=max_pages - 1)]
         fpos = torch.where(ok, dest * psize + pos % psize, pos % psize)
-        _write_pool(ck, fpos, k[0])
-        _write_pool(cv, fpos, v[0])
+        write_pool(ck, fpos, k[0])
+        write_pool(cv, fpos, v[0])
         B = min(-(-bound // psize), max_pages)
         read = pages_row[:B].long()
         kg = ck[read].reshape(1, B * psize, Kh, dh)

@@ -334,6 +334,11 @@ class RecurrentLM:
         self.remat = remat
         self._views = (None, None)   # (params, their per-layer views)
 
+    def drop_views(self) -> None:
+        """Forget the views ``layer_params`` keeps of the last weights (a
+        mesh step's gathered weights must not outlive the step)."""
+        self._views = (None, None)
+
     def batch_table(self, shape: ShapeConfig) -> dict:
         return token_batch_table(shape)
 

@@ -47,6 +47,19 @@ where prefix KV comes from, not what it holds.
 ``run(..., tracer=Tracer())`` records the drain's request spans and ring
 events on the virtual step clock (``serving/telemetry.py``); tracing on
 and off give the same streams and counts.
+
+A target of several chips (``local:cpu-mesh8``: 8 CPU ranks over gloo)
+serves on its mesh, built through ``BuildService`` as the reference's
+engine takes it: the engine runs in each rank's process, after the
+caller initialized the process group, and raises where this process
+holds no rank of the mesh.  The engine hands every step builder the
+mesh (``training/steps.py``: each rank computes its rows, the logits are
+all-gathered), puts the weights at rest as DTensors under their specs
+and a contiguous pool's K/V under the cache's; a paged pool is whole on
+every rank.  The scheduler, the pool's page bookkeeping, the prefix
+cache and the keyed sampler run replicated on every rank: host code
+that reads only the whole logits, so every rank draws the same tokens
+and admits, pages and preempts alike.
 """
 
 from __future__ import annotations
@@ -56,7 +69,7 @@ import torch
 from repro_torch.core.appspec import AppSpec
 from repro_torch.core.target import default_target, get_target, resolve_device
 from repro_torch.core.tuning import prefix_cache_quota, tune
-from repro_torch.models.params import init_params
+from repro_torch.models.params import init_params, partition_specs
 from repro_torch.models.transformer import model_for
 from repro_torch.serving.pool import KVCachePool, PagedKVCachePool
 from repro_torch.serving.prefix_cache import PrefixCache
@@ -68,7 +81,8 @@ from repro_torch.training.steps import (build_decode_step_slots,
                                         build_prefill_chunk_step_paged,
                                         build_prefill_step,
                                         build_verify_step_slots,
-                                        build_verify_step_slots_paged)
+                                        build_verify_step_slots_paged,
+                                        no_ranks)
 
 SERVABLE_FAMILIES = ("dense", "moe")
 KV_LAYOUTS = ("contiguous", "paged")
@@ -123,7 +137,14 @@ class ServeEngine:
         if cfg.window:
             raise NotImplementedError(
                 "slot-wise decode does not support sliding-window attention")
-        self.plan = tune(cfg, app.shape_config, get_target(target))
+        tgt = get_target(target)
+        self.plan = tune(cfg, app.shape_config, tgt)
+        mesh = None
+        if tgt.num_chips > 1:
+            from repro_torch.core.build import BuildService
+            mesh = BuildService().build(app, tgt, lower=False).mesh
+            if not mesh.live:
+                raise no_ranks(mesh)
         # spec_k=None defers to the tuner's pick (serve_repetitiveness)
         self.spec_k = self.plan.serve_spec_k if spec_k is None else spec_k
         self.drafter = drafter
@@ -195,16 +216,37 @@ class ServeEngine:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = init_params(self.model.param_table(), gen, self.device)
         self.sampler = make_sampler(seed)
-        self._prefill = build_prefill_step(self.model)
-        if kv_layout == "paged":
+        self._bind(mesh)
+
+    def _bind(self, mesh) -> None:
+        """Build the steps on ``mesh`` (a ``launch.mesh.Mesh``; None: one
+        device) and put the weights, whole on every rank, at rest on it:
+        on a mesh of ranks each leaf a DTensor holding this rank's shard
+        under its spec (sliced, nothing is sent).  On a mesh of ranks the
+        contiguous pools ``make_pool`` builds rest under the cache's
+        specs: sequence-sharded where the KV heads do not divide the
+        mesh's model axis, as the build's decode cache
+        (``core/build.cache_rules``)."""
+        from repro_torch.core.build import cache_rules
+        from repro_torch.sharding.rules import DEFAULT_RULES
+        self.mesh = mesh
+        if mesh is not None and mesh.device_mesh is not None:
+            from repro_torch.runtime.elastic import reshard_state
+            self.params = reshard_state(self.params,
+                                        self.model.param_table(), mesh)
+        self.cache_rules = cache_rules(
+            self.cfg, mesh.axis_names, mesh.shape, "decode",
+            DEFAULT_RULES) if mesh is not None else None
+        self._prefill = build_prefill_step(self.model, mesh)
+        if self.kv_layout == "paged":
             self._decode = build_decode_step_slots_paged(
-                self.model, use_kernel=(self.kv_kernel == "cuda"))
-            self._chunk = build_prefill_chunk_step_paged(self.model)
-            self._verify = build_verify_step_slots_paged(self.model)
+                self.model, mesh, use_kernel=(self.kv_kernel == "cuda"))
+            self._chunk = build_prefill_chunk_step_paged(self.model, mesh)
+            self._verify = build_verify_step_slots_paged(self.model, mesh)
         else:
-            self._decode = build_decode_step_slots(self.model)
-            self._chunk = build_prefill_chunk_step(self.model)
-            self._verify = build_verify_step_slots(self.model)
+            self._decode = build_decode_step_slots(self.model, mesh)
+            self._chunk = build_prefill_chunk_step(self.model, mesh)
+            self._verify = build_verify_step_slots(self.model, mesh)
 
     # -- step wrappers bound to the params ---------------------------------
     def prefill_fn(self, tokens: torch.Tensor, last: int | None = None):
@@ -249,8 +291,14 @@ class ServeEngine:
             return pool
         if use_cache:
             raise ValueError("prefix_cache needs the paged KV layout")
+        if self.mesh is None or self.mesh.device_mesh is None:
+            return KVCachePool(self.model, self.num_slots, self.max_len,
+                               device=self.device)
+        specs = partition_specs(
+            self.model.cache_table(self.num_slots, self.max_len), self.mesh,
+            self.cache_rules)
         return KVCachePool(self.model, self.num_slots, self.max_len,
-                           device=self.device)
+                           device=self.device, mesh=self.mesh, specs=specs)
 
     def run(self, requests, policy: str = "continuous",
             prefill_chunk: int | None = None,

@@ -96,14 +96,20 @@ def _check_servable(cfg) -> None:
 
 
 def _kv_cache(cfg, layout: str, rows: int, cols: int, num_slots: int,
-              device) -> dict:
+              device, mesh=None, specs=None) -> dict:
     """Zeroed K/V storage ``(layers, rows, cols, kv_heads, head_dim)``, the
-    per-slot index, and the pool's layout."""
+    per-slot index, and the pool's layout.  On a mesh of ranks the K/V
+    rest under ``specs`` (``sharding.rules.zeros_at_rest``)."""
     shape = (cfg.num_layers, rows, cols, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.activation_dtype,
-                             device=device),
-            "v": torch.zeros(shape, dtype=cfg.activation_dtype,
-                             device=device),
+
+    def zeros(name):
+        if specs is None:
+            return torch.zeros(shape, dtype=cfg.activation_dtype,
+                               device=device)
+        from repro_torch.sharding.rules import zeros_at_rest
+        return zeros_at_rest(shape, cfg.activation_dtype, specs[name], mesh,
+                             device)
+    return {"k": zeros("k"), "v": zeros("v"),
             "index": torch.zeros((num_slots,), dtype=torch.int32,
                                  device=device),
             "layout": layout}
@@ -133,12 +139,15 @@ class _LengthMirror:
 class KVCachePool(_LengthMirror):
     """Fixed-capacity contiguous slot pool: one ``max_len`` row of K/V per
     slot.  The storage lives on the GPU (``device=None``; raises without
-    one) unless the caller passes ``device="cpu"``."""
+    one) unless the caller passes ``device="cpu"``.  On a mesh of ranks
+    (``mesh``, and ``specs`` the cache table's) the K/V rest as DTensors
+    under their specs, each rank allocating its shard alone."""
 
     layout = "contiguous"
 
     def __init__(self, model, num_slots: int, max_len: int,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, mesh=None,
+                 specs=None):
         cfg = model.cfg
         _check_servable(cfg)
         if num_slots < 1 or max_len < 1:
@@ -148,7 +157,7 @@ class KVCachePool(_LengthMirror):
         self.num_slots = num_slots
         self.max_len = max_len
         self.cache = _kv_cache(cfg, self.layout, num_slots, max_len,
-                               num_slots, self.device)
+                               num_slots, self.device, mesh, specs)
         self._free = _FreeList(num_slots)
         self.lengths = np.zeros((num_slots,), np.int64)  # host mirror
 

@@ -241,6 +241,16 @@ def local_slices(spec: PartitionSpec, shape: Sequence[int], mesh,
                        coordinate)
 
 
+def contiguous_stride(shape: Sequence[int]) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (a DTensor made
+    from local shards is told its global shape and these)."""
+    stride, n = [], 1
+    for dim in reversed(shape):
+        stride.insert(0, n)
+        n *= dim
+    return tuple(stride)
+
+
 def distribute(full: torch.Tensor, spec: PartitionSpec, mesh):
     """``full``, held whole by every rank, on ``mesh`` under ``spec``: a
     DTensor whose local part is this rank's slice (``local_slices``), so
@@ -252,13 +262,35 @@ def distribute(full: torch.Tensor, spec: PartitionSpec, mesh):
     if coord is None:
         raise ValueError("this rank is not on the mesh")
     local = full[local_slices(spec, full.shape, mesh, coord)].contiguous()
-    stride, n = [], 1
-    for dim in reversed(full.shape):
-        stride.insert(0, n)
-        n *= dim
     return DTensor.from_local(local, dm, placements(spec, mesh),
                               run_check=False, shape=full.shape,
-                              stride=tuple(stride))
+                              stride=contiguous_stride(full.shape))
+
+
+def zeros_at_rest(shape: Sequence[int], dtype, spec: PartitionSpec, mesh,
+                  device):
+    """Zeros of ``shape`` on ``mesh`` under ``spec``, as ``distribute``
+    would place them, with this rank's shard all that is allocated."""
+    from torch.distributed.tensor import DTensor
+    dm = mesh.device_mesh
+    coord = dm.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not on the mesh")
+    local = [s.stop - s.start
+             for s in local_slices(spec, shape, mesh, coord)]
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device),
+                              dm, placements(spec, mesh), run_check=False,
+                              shape=tuple(shape),
+                              stride=contiguous_stride(shape))
+
+
+def data_parallel_dims(rows: int, mesh) -> list[int]:
+    """The mesh dimensions of more than one rank that split a batch of
+    ``rows`` rows (``act_batch``'s spec, divisibility fallback
+    included)."""
+    pls = placements(spec_for(("act_batch",), (rows,), mesh), mesh)
+    return [m for m, pl in enumerate(pls)
+            if pl.is_shard() and mesh.shape[m] > 1]
 
 
 def shard_constraint(x, logical_axes: Sequence[str | None], mesh,

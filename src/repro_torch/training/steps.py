@@ -16,11 +16,16 @@ given and return the same tensors (the reference donates them instead).
 Each comes for the contiguous slot pool and for the paged pool
 (``_paged``); a pool's cache names its layout, and a step given another
 layout's cache raises.  ``build_decode_step`` is the legacy fixed-batch
-path's: the whole batch at one length, over a prefill's cache.
+path's: the whole batch at one length, over a prefill's cache.  Every
+serve builder takes ``mesh=None``, as the reference's do: off a mesh or
+on a one-device mesh it returns the one-device step; on a mesh of ranks
+the step each rank runs on its rows (see "serving on a mesh" below); on
+a description of several devices a step that refuses to run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -30,7 +35,9 @@ from repro_torch.models.params import (ParamDef, _map_table, leaf_items,
                                       tree_map)
 from repro_torch.optim.adamw import layers_of
 from repro_torch.optim.schedule import warmup_cosine
-from repro_torch.sharding.rules import (local_slices, placements,
+from repro_torch.sharding.rules import (DEFAULT_RULES, contiguous_stride,
+                                        data_parallel_dims, local_slices,
+                                        logical_to_spec, placements,
                                         shard_index, spec_for)
 
 
@@ -214,6 +221,15 @@ def _tokens_of(mb: dict) -> torch.Tensor:
                         device=mb["labels"].device)
 
 
+def check_mesh_training(cfg, dp) -> None:
+    """The sharded train step's refusal: an MoE model on a mesh whose
+    data-parallel dimensions ``dp`` split the rows."""
+    if dp and cfg.family == "moe":
+        raise NotImplementedError(
+            "MoE on a data-parallel mesh: its router aux loss is a "
+            "statistic of the whole batch, which no rank sees")
+
+
 def _mesh_step(model, opt, plan: DeploymentPlan, mesh, update):
     """The train step on a mesh of ranks (see ``build_train_step``)."""
     from torch.distributed.tensor import DTensor
@@ -228,10 +244,7 @@ def _mesh_step(model, opt, plan: DeploymentPlan, mesh, update):
         dm = mesh.device_mesh
         full = tree_map(lambda x: _gather(x, comm), state)
         rows, dp = _rows(batch, mesh)
-        if dp and model.cfg.family == "moe":
-            raise NotImplementedError(
-                "MoE on a data-parallel mesh: its router aux loss is a "
-                "statistic of the whole batch, which no rank sees")
+        check_mesh_training(model.cfg, dp)
         groups = [dm.get_group(m) for m in dp]
         # the loss is a mean weighted by each microbatch's tokens: a
         # rank's share of microbatch j is its tokens over all ranks'
@@ -330,10 +343,7 @@ def build_train_step(model, opt, plan: DeploymentPlan, mesh=None,
         return _mesh_step(model, opt, plan, mesh, update)
     if mesh is not None and mesh.size > 1:
         def refuse(state, batch):
-            raise RuntimeError(
-                f"mesh {mesh.shape} over {mesh.axis_names} has no ranks: "
-                f"build it with launch.mesh.mesh_for_target in each of "
-                f"{mesh.size} processes of an initialized process group")
+            raise no_ranks(mesh)
         return refuse
 
     def train_step(state, batch):
@@ -379,27 +389,427 @@ def _of_layout(cache: dict, layout: str) -> dict:
     return dict(cache, layout=layout)
 
 
-def build_prefill_step(model):
-    """Whole-prompt prefill: (params, {"tokens", "last"?}) -> (logits, cache)."""
+# ---------------------------------------------------------------------------
+# serving on a mesh
+#
+# Each rank computes what one device computes, on its own rows (as the
+# train step does): the weights rest as DTensors under the build's
+# params specs and are gathered whole for each step; the rank takes its
+# rows of the batch and of the cache along the data-parallel mesh
+# dimensions of ``act_batch`` (a batch whose rows do not divide, such as
+# one slot's prompt chunk, is replicated and every rank computes it);
+# the rank runs the one-device step on them; the logits are all-gathered,
+# so every rank holds the whole batch's.  A contiguous cache rests as
+# DTensors under its specs (each rank holds its rows' shard of the other
+# sharded axes, the KV heads or, under DECODE_SEQ_CACHE_RULES, the
+# sequence): the step gathers the rank's rows whole and keeps its shard
+# of what it wrote; a prompt chunk (one row) gathers the slot's row alone.
+# The gathered weights live for the step alone.  A paged pool is held whole by every rank: after the
+# step the K/V entries each rank wrote are all-gathered into every rank's
+# pool, in the one device's write order, so each pool equals one
+# device's bit for bit.  ``step.collectives`` holds the counts of the
+# last call (``Collectives``).
+
+
+def no_ranks(mesh) -> RuntimeError:
+    """The refusal of a step on a mesh of several devices that this
+    process holds no ranks of."""
+    return RuntimeError(
+        f"mesh {mesh.shape} over {mesh.axis_names} has no ranks: build it "
+        f"with launch.mesh.mesh_for_target in each of {mesh.size} "
+        f"processes of an initialized process group")
+
+
+def _on_mesh(mesh, plain, mesh_step):
+    """The step a builder returns: ``plain`` off a mesh or on a one-device
+    mesh, ``mesh_step()`` on a mesh of ranks, a refusal on a description
+    of several devices."""
+    if mesh is None or (mesh.device_mesh is None and mesh.size == 1):
+        return plain
+    if mesh.device_mesh is None:
+        def refuse(*args, **kwargs):
+            raise no_ranks(mesh)
+        return refuse
+    return mesh_step()
+
+
+class _Share:
+    """This rank's rows of an ``n``-row batch on a mesh: the data-parallel
+    mesh dimensions that split them (``act_batch``'s spec, divisibility
+    fallback included) and this rank's slice."""
+
+    def __init__(self, n: int, mesh):
+        if mesh.coordinate() is None:
+            raise ValueError("this rank is not on the mesh: it sits the "
+                             "step out")
+        self.mesh = mesh
+        self.dp = data_parallel_dims(n, mesh)
+        self.rows = local_slices(spec_for(("act_batch",), (n,), mesh), (n,),
+                                 mesh, mesh.coordinate())[0]
+
+    def take(self, x, axis: int = 0):
+        """This rank's rows of a whole tensor (every rank holds it)."""
+        if not self.dp:
+            return x
+        return x[(slice(None),) * axis + (self.rows,)]
+
+    def gather(self, x, axis: int, comm: Collectives):
+        """Every rank's rows, all-gathered along ``axis`` (minor mesh
+        dimensions first, so rows split over several come back major
+        first)."""
+        dm = self.mesh.device_mesh
+        for m in reversed(self.dp):
+            x = comm.all_gather(x, axis, dm.get_group(m), dm.size(m))
+        return x
+
+
+class _Weights:
+    """The weights gathered whole for a serve step on a mesh, held for
+    the step alone (``with weights(params, comm) as full``).  Where no
+    leaf needed a collective (one rank: each leaf is its local tensor)
+    the tree is the last call's, so the model keeps its per-layer views
+    of it instead of rebuilding them every step.  Where a leaf was
+    gathered, nothing keeps the gathered tree past its step: the model's
+    views of it are dropped as the step ends."""
+
+    def __init__(self, model):
+        self.model = model
+        self.last = ([], None)
+
+    @contextlib.contextmanager
+    def __call__(self, params, comm: Collectives):
+        calls = comm.counts["all_gather"]["calls"]
+        full = tree_map(lambda x: _gather(x, comm), params)
+        if comm.counts["all_gather"]["calls"] != calls:
+            self.last = ([], None)
+            try:
+                yield full
+            finally:
+                del full
+                self.model.drop_views()
+            return
+        leaves = [t for _, t in leaf_items(full, lambda x: not isinstance(
+            x, (dict, list)))]
+        old, tree = self.last
+        if tree is None or len(old) != len(leaves) or \
+                not all(a is b for a, b in zip(old, leaves)):
+            self.last = (leaves, full)
+        yield self.last[1]
+
+
+def _row_axes(model) -> dict:
+    """Cache leaf path -> the axis of its batch rows (``act_batch`` in the
+    cache table), None for a leaf with none."""
+    return {path: (d.logical_axes.index("act_batch")
+                   if "act_batch" in d.logical_axes else None)
+            for path, d in leaf_items(model.cache_table(1, 1))}
+
+
+def _cache_map(cache, fn, path=()):
+    """``fn(path, tensor)`` over the tensors of a (nested) cache dict;
+    other entries (the layout, flags) pass through."""
+    if isinstance(cache, dict):
+        return {k: _cache_map(v, fn, path + (k,)) for k, v in cache.items()}
+    if isinstance(cache, torch.Tensor):
+        return fn(path, cache)
+    return cache
+
+
+def _row_axis(axes: dict, path, x) -> int | None:
+    """A cache leaf's row axis; a pool's per-slot index (which the
+    whole-batch table declares 0-d) has its rows on axis 0."""
+    if path[-1] == "index":
+        return 0 if x.dim() == 1 else None
+    if path not in axes:
+        raise ValueError(f"cache leaf {'/'.join(path)} is not in the "
+                         f"model's cache table")
+    return axes[path]
+
+
+def _rows_of(x, axis, share: _Share, comm: Collectives):
+    """A cache leaf at rest -> this rank's rows of it, whole along its
+    other axes (a DTensor's other sharded axes all-gathered)."""
+    from torch.distributed.tensor import DTensor
+    if axis is None:
+        return _gather(x, comm)
+    if not isinstance(x, DTensor):
+        return share.take(x, axis)
+    dm, out, kept = x.device_mesh, x.to_local(), []
+    for m in reversed(range(dm.ndim)):
+        pl = x.placements[m]
+        if not pl.is_shard() or dm.size(m) == 1:
+            continue
+        if pl.dim == axis and m in share.dp:
+            kept.append(m)
+            continue
+        out = comm.all_gather(out, pl.dim, dm.get_group(m), dm.size(m))
+    if sorted(kept) == share.dp:
+        return out
+    if kept:
+        raise NotImplementedError(
+            f"a cache split over {x.placements} along its rows, the batch "
+            f"over mesh dimensions {share.dp}")
+    return share.take(out, axis)
+
+
+def _at_rest(rows, pls, axis, share: _Share, comm: Collectives):
+    """This rank's rows of a cache leaf (the whole leaf where it has no
+    rows, ``axis`` None) -> at rest: a DTensor under placements ``pls``
+    holding this rank's shard, or (``pls`` None) the whole leaf on every
+    rank."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if pls is None:
+        return rows if axis is None else share.gather(rows, axis, comm)
+    dm = share.mesh.device_mesh
+    kept = [] if axis is None else [
+        m for m in share.dp if pls[m].is_shard() and pls[m].dim == axis]
+    if kept and kept != share.dp:
+        raise NotImplementedError(
+            f"a cache split over {pls} along its rows, the batch over mesh "
+            f"dimensions {share.dp}")
+    if axis is not None and not kept:
+        rows = share.gather(rows, axis, comm)
+    shape = list(rows.shape)
+    for m in kept:
+        shape[axis] *= dm.size(m)
+    local_pls = [Replicate() if m in kept else pl
+                 for m, pl in enumerate(pls)]
+    idx = shard_index(rows.shape, local_pls, tuple(dm.shape),
+                      dm.get_coordinate())
+    return DTensor.from_local(rows[idx].contiguous(), dm, pls,
+                              run_check=False, shape=tuple(shape),
+                              stride=contiguous_stride(shape))
+
+
+def _placements_of(x):
+    return list(x.placements) if hasattr(x, "placements") else None
+
+
+def _mesh_cache_step(model, mesh, inner, row_extras: int = 0):
+    """``inner(params, cache, tokens, *extras)`` -> (logits, cache) on a
+    mesh of ranks: the weights gathered whole, this rank's rows of the
+    tokens, of the first ``row_extras`` extras and of every cache leaf
+    (along its table's ``act_batch`` axis), the one-device step, the
+    logits all-gathered and each cache leaf back at rest with the
+    placements it came with."""
+    axes = _row_axes(model)
+    weights = _Weights(model)
+
+    @torch.no_grad()
+    def step(params, cache, tokens, *extras):
+        comm = Collectives()
+        share = _Share(tokens.shape[0], mesh)
+        if share.dp and cache.get("layout") == "paged":
+            raise NotImplementedError(
+                "a paged pool's rows split over ranks: the decode and "
+                "verify steps sync their writes (_mesh_paged_step)")
+        local = _cache_map(cache, lambda p, x: _rows_of(
+            x, _row_axis(axes, p, x), share, comm))
+        ex = [share.take(e) for e in extras[:row_extras]] + \
+            list(extras[row_extras:])
+        with weights(params, comm) as full:
+            logits, new = inner(full, local, share.take(tokens), *ex)
+        out = _cache_map(new, lambda p, x: _at_rest(
+            x, _placements_of(_leaf_at(cache, p)), _row_axis(axes, p, x),
+            share, comm))
+        step.collectives = comm.counts
+        return share.gather(logits, 0, comm), out
+
+    step.collectives = Collectives().counts
+    return step
+
+
+def _slot_row(x, axis, slot: int, comm: Collectives):
+    """Row ``slot`` of a cache leaf at rest (``axis`` kept, of length 1),
+    whole: a view of a plain tensor (a leaf without rows as it is), or of
+    a DTensor each rank's row at the slot's local offset, all-gathered
+    over every mesh dimension that shards the leaf (minor first, as
+    ``_gather``), of which the rows' owner's is kept.  Only that row
+    moves, not the pool."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x if axis is None else x.narrow(axis, slot, 1)
+    if axis is None:
+        raise NotImplementedError(f"a sharded cache leaf of shape "
+                                  f"{tuple(x.shape)} without rows")
+    dm, out = x.device_mesh, x.to_local()
+    n = out.shape[axis]
+    out = out.narrow(axis, slot % n, 1)
+    for m in reversed(range(dm.ndim)):
+        pl = x.placements[m]
+        if pl.is_shard() and dm.size(m) > 1:
+            out = comm.all_gather(out, pl.dim, dm.get_group(m), dm.size(m))
+    return out.narrow(axis, slot // n, 1)
+
+
+def _put_slot_row(x, axis, slot: int, row) -> None:
+    """The whole row ``row`` (``_slot_row``'s shape) written back in place
+    into a DTensor cache leaf's shard, on the ranks that hold row
+    ``slot``."""
+    from torch.distributed.tensor import Replicate
+    dm, local = x.device_mesh, x.to_local()
+    coord = dm.get_coordinate()
+    n = local.shape[axis]
+    rows = [m for m, pl in enumerate(x.placements)
+            if pl.is_shard() and pl.dim == axis]
+    owner = 0
+    for m in rows:
+        owner = owner * dm.size(m) + coord[m]
+    if owner != slot // n:
+        return
+    pls = [Replicate() if m in rows else pl
+           for m, pl in enumerate(x.placements)]
+    idx = shard_index(row.shape, pls, tuple(dm.shape), coord)
+    local.narrow(axis, slot % n, 1).copy_(row[idx])
+
+
+def _mesh_chunk_step(model, mesh, inner):
+    """``inner(params, cache, tokens, slot, *rest)`` (a prompt chunk into
+    a contiguous pool: one row, which every rank computes) on a mesh of
+    ranks: the weights gathered whole, the slot's row of each cache leaf
+    gathered whole (``_slot_row``) and run as a one-slot pool, then
+    written back in place into the shards of the ranks that hold it."""
+    from torch.distributed.tensor import DTensor
+    axes = _row_axes(model)
+    weights = _Weights(model)
+
+    @torch.no_grad()
+    def step(params, cache, tokens, slot, *rest):
+        comm = Collectives()
+        rows = _cache_map(cache, lambda p, x: _slot_row(
+            x, _row_axis(axes, p, x), slot, comm))
+        with weights(params, comm) as full:
+            logits, new = inner(full, rows, tokens, 0, *rest)
+
+        def back(path, x):
+            if isinstance(x, DTensor):
+                _put_slot_row(x, _row_axis(axes, path, x), slot,
+                              _leaf_at(new, path))
+            return x
+        step.collectives = comm.counts
+        return logits, _cache_map(cache, back)
+
+    step.collectives = Collectives().counts
+    return step
+
+
+def _mesh_prefill_step(model, mesh, inner, rules):
+    """``inner(params, batch)`` -> (logits, cache) on a mesh of ranks: the
+    weights gathered whole, this rank's rows of every batch leaf, the
+    one-device prefill, the logits all-gathered, and the fresh cache at
+    rest under the specs its table's axes give on the whole batch under
+    ``rules``."""
+    axes = _row_axes(model)
+    table = dict(leaf_items(model.cache_table(1, 1)))
+
+    def fresh(path, rows, axis, share):
+        if axis is None or path not in table:
+            return None
+        shape = list(rows.shape)
+        for m in share.dp:
+            shape[axis] *= mesh.shape[m]
+        return placements(logical_to_spec(table[path].logical_axes, shape,
+                                          mesh, rules), mesh)
+
+    weights = _Weights(model)
+
+    @torch.no_grad()
+    def step(params, batch):
+        comm = Collectives()
+        share = _Share(batch["tokens"].shape[0], mesh)
+        with weights(params, comm) as full:
+            logits, new = inner(full, {k: share.take(v) if
+                                       isinstance(v, torch.Tensor) else v
+                                       for k, v in batch.items()})
+
+        def rest(path, x):
+            axis = _row_axis(axes, path, x)
+            return _at_rest(x, fresh(path, x, axis, share), axis, share,
+                            comm)
+        out = _cache_map(new, rest)
+        step.collectives = comm.counts
+        return share.gather(logits, 0, comm), out
+
+    step.collectives = Collectives().counts
+    return step
+
+
+def _leaf_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _mesh_paged_step(model, mesh, inner):
+    """``inner(params, cache, tokens, active, pages)`` (a paged decode or
+    verify step) on a mesh of ranks: every rank holds the whole pool; it
+    runs its rows, then every row's writes (the positions the one device
+    writes, from the whole index, activity and page table) are
+    all-gathered and put into every rank's pool in the one device's
+    order, layer by layer."""
+    from repro_torch.models.layers import paged_positions, write_pool
+    weights = _Weights(model)
+
+    @torch.no_grad()
+    def step(params, cache, tokens, active, pages):
+        comm = Collectives()
+        share = _Share(tokens.shape[0], mesh)
+        local = dict(cache, index=share.take(cache["index"]))
+        with weights(params, comm) as full:
+            logits, new = inner(full, local, share.take(tokens),
+                                share.take(active), share.take(pages))
+        if share.dp:
+            s = tokens.shape[1]
+            safe = torch.where(active.bool()[:, None], pages,
+                               torch.zeros_like(pages))
+            fpos = paged_positions(safe, cache["index"], s,
+                                   cache["k"].shape[2])
+            mine = share.take(fpos).reshape(-1).long()
+            for pool in (cache["k"], cache["v"]):
+                n_layers, n_pages, psize, kh, dh = pool.shape
+                flat = pool.view(n_layers, n_pages * psize, kh, dh)
+                rows = flat[:, mine].reshape(n_layers, -1, s, kh, dh)
+                every = share.gather(rows.contiguous(), 1, comm)
+                every = every.reshape(n_layers, -1, kh, dh)
+                for i in range(n_layers):
+                    write_pool(pool[i], fpos.reshape(-1), every[i])
+        step.collectives = comm.counts
+        return share.gather(logits, 0, comm), dict(
+            cache, index=share.gather(new["index"], 0, comm))
+
+    step.collectives = Collectives().counts
+    return step
+
+
+def build_prefill_step(model, mesh=None, cache_rules=None):
+    """Whole-prompt prefill: (params, {"tokens", "last"?}) -> (logits,
+    cache).  On a mesh of ranks each rank prefills its rows and its cache
+    rests under the specs ``cache_rules`` (DEFAULT_RULES by default) give
+    the cache table's axes."""
     @torch.no_grad()
     def prefill_step(params, batch):
         return model.prefill(params, batch)
-    return prefill_step
+    return _on_mesh(mesh, prefill_step, lambda: _mesh_prefill_step(
+        model, mesh, prefill_step, cache_rules or DEFAULT_RULES))
 
 
-def build_prefill_chunk_step(model):
+def build_prefill_chunk_step(model, mesh=None):
     """Chunked prefill straight into a contiguous KV pool: ``cache`` holds
     K/V ``(layers, num_slots, max_len, kv_heads, head_dim)`` and the
     per-slot index; the chunk's K/V land at ``[slot, offset:offset+c)``
-    and the chunk attends over the slot's first ``kv_bound`` positions."""
+    and the chunk attends over the slot's first ``kv_bound`` positions.
+    On a mesh every rank computes the chunk (one row) over the slot's row
+    of the cache, which it gathers whole; the ranks holding that row keep
+    their shard of what it wrote (``_mesh_chunk_step``)."""
     @torch.no_grad()
     def chunk_step(params, cache, tokens, slot, offset, n_valid, kv_bound):
         return model.chunk_prefill(params, _of_layout(cache, "contiguous"),
                                    tokens, slot, offset, n_valid, kv_bound)
-    return chunk_step
+    return _on_mesh(mesh, chunk_step, lambda: _mesh_chunk_step(
+        model, mesh, chunk_step))
 
 
-def build_prefill_chunk_step_paged(model):
+def build_prefill_chunk_step_paged(model, mesh=None):
     """Chunked prefill straight into a paged KV pool.
 
     ``cache`` holds the page pool ``(layers, num_pages, page_size,
@@ -408,7 +818,8 @@ def build_prefill_chunk_step_paged(model):
     position j lands in page ``pages_row[j // page_size]`` at offset
     ``j % page_size`` — its final resting place, one write.  Pages must
     be reserved by the pool before the call; rows past the reserved
-    region (bucket padding) fall into the junk page 0.
+    region (bucket padding) fall into the junk page 0.  On a mesh every
+    rank computes the chunk (one row) into its whole pool.
     """
     @torch.no_grad()
     def chunk_step(params, cache, tokens, slot, offset, n_valid, kv_bound,
@@ -416,15 +827,17 @@ def build_prefill_chunk_step_paged(model):
         return model.chunk_prefill(params, _of_layout(cache, "paged"),
                                    tokens, slot, offset, n_valid, kv_bound,
                                    pages_row)
-    return chunk_step
+    return _on_mesh(mesh, chunk_step, lambda: _mesh_cache_step(
+        model, mesh, chunk_step))
 
 
-def build_decode_step(model):
+def build_decode_step(model, mesh=None):
     """Whole-batch decode, the legacy fixed-batch serve path's step:
     ``cache`` is a prefill's contiguous cache, its sequence axis padded
     for the tokens to come and its 0-d index the whole batch's length;
     each row's token is written at that index in place.  Returns the
-    logits and the cache with the index advanced."""
+    logits and the cache with the index advanced.  On a mesh each rank
+    decodes its rows of the cache, which rests sharded."""
     @torch.no_grad()
     def decode_step(params, cache, tokens):
         if cache["index"].dim() != 0:
@@ -433,10 +846,11 @@ def build_decode_step(model):
                              "build_decode_step_slots")
         return model.decode_step(params, _of_layout(cache, "contiguous"),
                                  tokens)
-    return decode_step
+    return _on_mesh(mesh, decode_step, lambda: _mesh_cache_step(
+        model, mesh, decode_step))
 
 
-def build_decode_step_slots(model):
+def build_decode_step_slots(model, mesh=None):
     """Slot-wise decode over a contiguous KV pool.  Inactive slots ride
     through the step (each writes only its own row, at its own stale
     index) but their lengths do not advance."""
@@ -447,10 +861,11 @@ def build_decode_step_slots(model):
         new_index = torch.where(active.bool(), new_cache["index"],
                                 cache["index"])
         return logits, dict(cache, index=new_index)
-    return decode_step
+    return _on_mesh(mesh, decode_step, lambda: _mesh_cache_step(
+        model, mesh, decode_step, row_extras=1))
 
 
-def build_decode_step_slots_paged(model, use_kernel: bool = False):
+def build_decode_step_slots_paged(model, mesh=None, use_kernel: bool = False):
     """Slot-wise decode over a paged KV pool.
 
     ``active`` flags the slots holding a live request; the
@@ -461,7 +876,7 @@ def build_decode_step_slots_paged(model, use_kernel: bool = False):
     rows divert to the reserved junk page 0, and their lengths do not
     advance.  ``use_kernel=True`` attends through the CUDA paged-decode
     kernel (its plain version for CPU tensors) instead of the gather
-    path.
+    path; on a mesh each rank's kernel runs on its rows.
     """
     @torch.no_grad()
     def decode_step(params, cache, tokens, active, pages):
@@ -472,10 +887,11 @@ def build_decode_step_slots_paged(model, use_kernel: bool = False):
         logits, new_cache = model.decode_step(params, dcache, tokens)
         new_index = torch.where(keep, new_cache["index"], cache["index"])
         return logits, dict(cache, index=new_index)
-    return decode_step
+    return _on_mesh(mesh, decode_step, lambda: _mesh_paged_step(
+        model, mesh, decode_step))
 
 
-def build_verify_step_slots(model):
+def build_verify_step_slots(model, mesh=None):
     """Speculative verify step over a contiguous KV pool: ``tokens`` is
     ``(num_slots, k+1)`` — each row's pending token and its k drafts —
     and the step returns logits at every position ``(num_slots, k+1,
@@ -488,10 +904,11 @@ def build_verify_step_slots(model):
         cache = _of_layout(cache, "contiguous")
         logits, _ = model.decode_step(params, cache, tokens)
         return logits, cache
-    return verify_step
+    return _on_mesh(mesh, verify_step, lambda: _mesh_cache_step(
+        model, mesh, verify_step, row_extras=1))
 
 
-def build_verify_step_slots_paged(model):
+def build_verify_step_slots_paged(model, mesh=None):
     """Speculative verify step over a paged KV pool: as
     ``build_verify_step_slots`` plus the page table; inactive rows divert
     to the junk page 0 as in ``build_decode_step_slots_paged``, and each
@@ -507,4 +924,5 @@ def build_verify_step_slots_paged(model):
         logits, _ = model.decode_step(params, dict(cache, pages=safe_pages),
                                       tokens)
         return logits, cache
-    return verify_step
+    return _on_mesh(mesh, verify_step, lambda: _mesh_paged_step(
+        model, mesh, verify_step))

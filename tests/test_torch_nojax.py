@@ -64,6 +64,7 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
             "import repro_torch.analysis.roofline\n"
             "import repro_torch.analysis.cost\n"
             "import repro_torch.sharding, repro_torch.launch.mesh\n"
+            "import repro_torch.launch.dryrun\n"
             "from repro_torch.sharding import (distribute, placements,\n"
             "    shard_constraint)\n"
             "from repro_torch.runtime.elastic import reshard_state\n"

@@ -107,6 +107,7 @@ REF_LOSS_RTOL, REF_LATER_RTOL = 1e-3, 1e-2
 REF_GRAD_L2, REF_GRAD_L2_HEAD = 1e-1, 2e-2
 REF_UPDATE_COS = 0.5
 SPAWN_TIMEOUT_S = 240
+_quiet = lambda *a, **k: None  # noqa: E731
 
 
 # (e)'s plan
@@ -695,6 +696,32 @@ def test_mesh_without_ranks_and_kernel_on_a_mesh_refuse():
                    use_kernel=True)
     with pytest.raises(RuntimeError, match="no ranks"):
         lulesh.step(lulesh.init_state(cfg, "cpu"), cfg, mesh)
+
+
+def test_serving_on_a_mesh_without_ranks_refuses():
+    """The engine, ``serve_main`` (engine and legacy families), the
+    legacy path and the build's serve steps on a multi-chip target in a
+    process holding none of its ranks raise; nothing falls back to one
+    device."""
+    from repro_torch.launch.serve import _legacy_serve_main, serve_main
+    from repro_torch.serving import ServeEngine
+    with pytest.raises(RuntimeError, match="no ranks"):
+        ServeEngine(ARCH, target=TARGET, device="cpu", log=_quiet)
+    with pytest.raises(RuntimeError, match="no ranks"):
+        serve_main(arch=ARCH, target=TARGET, device="cpu", log=_quiet)
+    with pytest.raises(RuntimeError, match="no ranks"):
+        serve_main(arch="xlstm-1.3b-smoke", target=TARGET, device="cpu",
+                   log=_quiet)
+    with pytest.raises(RuntimeError, match="no ranks"):
+        _legacy_serve_main("llava-next-34b-smoke", 2, 32, 4, TARGET, 0,
+                           _quiet, torch.device("cpu"))
+    # the build's serve steps on the mesh description
+    for shape in ("prefill_32k", "decode_32k"):
+        res = BuildService().build(AppSpec(arch=ARCH, shape=shape), TARGET,
+                                   lower=False)
+        assert not res.mesh.live
+        with pytest.raises(RuntimeError, match="no ranks"):
+            res.step_fn({}, {"tokens": torch.zeros((2, 1))})
 
 
 if __name__ == "__main__":

@@ -1,0 +1,427 @@
+"""The port's serving on a mesh: 8 CPU ranks over gloo against one
+process.
+
+One spawn of 8 ranks on ``local:cpu-mesh8`` ((2, 4) over ``("data",
+"model")``) runs every check that needs ranks; the ranks write what they
+saw and the tests hold it against the same work in this process on
+``local:cpu`` (one device, run while the ranks run), from the same
+weights (the engines' own draw from seed 0, the same on every rank and
+here):
+
+(a) ``deepseek-7b-smoke`` through ``ServeEngine`` on ``BENCH_serving.
+    json``'s trace (12 Zipf requests, max prompt 48, 32 new tokens,
+    seed 0; 8 slots x 128), chunked prefill (the tuner's grain):
+    paged with the prefix cache on (8-token pages, 24 pages, so
+    preemptions happen), contiguous, and paged sampled (temperature 0.8,
+    top-k 16; 8 Zipf requests of up to 32 + 16) with ``spec_k=2`` (the
+    verify step on the mesh); and a shared-prefix trace (8 requests)
+    through the paged engine with the cache on, so cached pages are
+    shared by slots that different ranks compute;
+(b) ``xlstm-1.3b-smoke`` through ``_legacy_serve_main`` (4 x 16 + 6);
+(c) one call of the build's decode step (the whole-batch legacy step at
+    ``decode_32k`` cut to 4 x 16) and of its train step (4 x 32), the
+    collectives ``Collectives`` counted on the live mesh against those
+    that ``analysis/cost.mesh_collectives`` reckons from the specs (the
+    dry run's reckoning, ``launch/dryrun.collectives_of``);
+(d) the weights each mesh step of (a) and (b) gathers whole, watched
+    through weak references: alive for their step alone; and the
+    contiguous pool's chunk step, which gathers its slot's row, not the
+    pool.
+
+Every rank's streams and ``ServeStats`` counts equal one process's, and
+so do its pools after each run: a paged pool bit for bit on every rank
+(every rank keeps the whole pool; each step's writes are all-gathered
+in the one device's order), a contiguous pool's shards, each of the
+shape its spec gives, gathered bit for bit.  The split over ranks
+changes no bit of a row's arithmetic here: each rank runs the same
+operations on fewer rows.
+
+Run alone: ``PYTHONPATH=src python -m pytest -q
+tests/test_torch_spmd_serve.py``; the file is also each rank's program:
+``python tests/test_torch_spmd_serve.py RANK DIR``.
+"""
+
+import dataclasses
+import gc
+import json
+import os
+import subprocess
+import sys
+import time
+import weakref
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+TARGET = "local:cpu-mesh8"
+WORLD = 8
+ARCH = "deepseek-7b-smoke"
+LEGACY = ("xlstm-1.3b-smoke", 4, 16, 6)
+SPAWN_TIMEOUT_S = 240
+quiet = lambda *a, **k: None  # noqa: E731
+
+# run -> (engine options, trace)
+RUNS = {
+    "paged_cached": (dict(kv_layout="paged", prefix_cache=True), "bench"),
+    "contiguous": (dict(kv_layout="contiguous"), "bench"),
+    "paged_sampled_spec": (dict(kv_layout="paged", spec_k=2), "sampled"),
+    "paged_shared": (dict(kv_layout="paged", prefix_cache=True), "shared"),
+}
+
+
+def _trace(name):
+    from repro_torch.serving import sharedprefix_trace, zipf_trace
+    if name == "shared":
+        return sharedprefix_trace(8, 256, head_len=16, max_suffix=16,
+                                  max_new=8, seed=0)
+    if name == "sampled":
+        return zipf_trace(n=8, vocab_size=256, max_prompt=32, max_new=16,
+                          alpha=1.3, seed=0, temperature=0.8, top_k=16)
+    return zipf_trace(n=12, vocab_size=256, max_prompt=48, max_new=32,
+                      alpha=1.3, seed=0)
+
+
+def _stats_counts(stats) -> dict:
+    """Every ServeStats field but the results and the wall clock."""
+    out = {}
+    for f in dataclasses.fields(stats):
+        if f.name in ("results", "wall_s"):
+            continue
+        v = getattr(stats, f.name)
+        out[f.name] = v if v == v else "nan"    # NaN == NaN for the test
+    return json.loads(json.dumps(out, default=str))
+
+
+def _whole(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+class _GatherWatch:
+    """Weak references to every weight a mesh step gathers whole
+    (``training.steps._gather`` of a DTensor leaf that needed a
+    collective): how many there were, the most in one step, the most
+    alive at once, and how many are alive now.  A step holds its gathered
+    tree alone, so at most one step's are alive at a gather, and none
+    once the steps are done."""
+
+    def __init__(self):
+        from repro_torch.training import steps
+        self.steps, self.gather = steps, steps._gather
+        self.refs, self.n, self.most = [], 0, 0
+        self.comm, self.in_step, self.per_step = None, 0, 0
+        steps._gather = self
+
+    def __call__(self, x, comm):
+        calls = comm.counts["all_gather"]["calls"]
+        out = self.gather(x, comm)
+        if comm.counts["all_gather"]["calls"] != calls:
+            if comm is not self.comm:        # each step counts afresh
+                self.comm, self.in_step = comm, 0
+            self.in_step += 1
+            self.per_step = max(self.per_step, self.in_step)
+            self.refs = [r for r in self.refs if r() is not None]
+            self.refs.append(weakref.ref(out))
+            self.n += 1
+            self.most = max(self.most, len(self.refs))
+        return out
+
+    def read(self) -> dict:
+        self.comm = None
+        gc.collect()
+        return {"gathered": self.n, "per_step": self.per_step,
+                "most_alive": self.most,
+                "alive_after": sum(r() is not None for r in self.refs)}
+
+    def close(self) -> None:
+        self.steps._gather = self.gather
+
+
+def _serve_runs(target: str, out: Path, tag: str) -> dict:
+    """(a) and (b) on ``target``: streams, counts and sizes, and the
+    gathered weights' lifetimes (``_GatherWatch``); the pools after each
+    run go to ``out`` as ``<tag>_<run>.pt``."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serving import ServeEngine
+    from repro_torch.sharding.rules import local_slices
+    from repro_torch.models.params import partition_specs
+    got = {}
+    for run, (opts, trace) in RUNS.items():
+        pages = dict(page_size=8, num_pages=24) \
+            if opts["kv_layout"] == "paged" else {}
+        eng = ServeEngine(ARCH, target=target, num_slots=8, max_len=128,
+                          device="cpu", log=quiet, **pages, **opts)
+        pools = []
+        make = eng.make_pool
+        eng.make_pool = lambda **kw: pools.append(make(**kw)) or pools[-1]
+        watch = _GatherWatch()
+        try:
+            stats = eng.run(_trace(trace))
+        finally:
+            watch.close()
+        cache = pools[0].cache
+        got[run] = {
+            "sizes": [eng.num_slots, eng.num_pages, eng.page_size,
+                      eng.max_len, eng.chunk_unit, eng.prefill_chunk,
+                      eng.spec_k],
+            "streams": [r.tokens for r in sorted(stats.results,
+                                                 key=lambda r: r.rid)],
+            "preempted": [r.preemptions for r in sorted(
+                stats.results, key=lambda r: r.rid)],
+            "counts": _stats_counts(stats),
+            "mesh": None if eng.mesh is None else list(eng.mesh.shape),
+            "gathers": watch.read(),
+            "chunk_gather_bytes": getattr(eng._chunk, "collectives", {
+                "all_gather": {"bytes": 0}})["all_gather"]["bytes"]}
+        if hasattr(cache["k"], "to_local"):
+            specs = partition_specs(
+                eng.model.cache_table(eng.num_slots, eng.max_len), eng.mesh,
+                eng.cache_rules)
+            got[run]["local_shapes_match_specs"] = all(
+                tuple(cache[k].to_local().shape) == tuple(
+                    s.stop - s.start for s in local_slices(
+                        specs[k], cache[k].shape, eng.mesh,
+                        eng.mesh.coordinate()))
+                for k in ("k", "v"))
+        torch.save({k: _whole(cache[k]) for k in ("k", "v", "index")},
+                   out / f"{tag}_{run}.pt")
+    seen = []
+    generate = serve_mod.legacy_generate
+
+    def keep(*args):
+        res = generate(*args)
+        seen.append(res[0].tolist())
+        return res
+    serve_mod.legacy_generate = keep
+    watch = _GatherWatch()
+    try:
+        arch, b, s, n = LEGACY
+        sample = serve_mod._legacy_serve_main(arch, b, s, n, target, 0, quiet,
+                                              torch.device("cpu"))["sample"]
+    finally:
+        serve_mod.legacy_generate = generate
+        watch.close()
+    got["legacy"] = {"tokens": seen[0], "sample": sample}
+    got["legacy_gathers"] = watch.read()
+    return got
+
+
+def _counted_vs_reckoned() -> dict:
+    """(c): the build's decode and train steps on the live mesh, their
+    counted collectives beside the dry run's reckoning."""
+    from repro_torch.analysis.cost import trace
+    from repro_torch.core.appspec import AppSpec
+    from repro_torch.core.build import BuildService
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.dryrun import cell_step, collectives_of
+    from repro_torch.models.params import init_params, leaf_items
+    from repro_torch.models.transformer import model_for
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.sharding.rules import distribute
+    from repro_torch.training.steps import init_train_state
+    out = {}
+    for shape, over in (("decode_32k", {"seq_len": 16, "global_batch": 4}),
+                        ("train_4k", {"seq_len": 32, "global_batch": 4})):
+        app = AppSpec(arch=ARCH, shape=shape, shape_overrides=over)
+        res = BuildService().build(app, TARGET, lower=False)
+        model = model_for(app.model_config, remat=res.plan.remat_policy)
+        params = init_params(res.tables["params"],
+                             torch.Generator().manual_seed(0), "cpu")
+        if shape == "train_4k":
+            opt = make_optimizer(res.plan.optimizer)
+            state = reshard_state(init_train_state(model, opt, params,
+                                                   res.plan),
+                                  res.tables["state"], res.mesh)
+            batch = DataPipeline(model, app.shape_config, seed=0,
+                                 device="cpu").batch_at(0)
+            _, metrics = res.step_fn(state, batch)
+            counted = metrics["collectives"]
+        else:
+            cache = {}
+            for path, d in leaf_items(res.tables["cache"]):
+                if path == ("index",):
+                    cache["index"] = torch.tensor(over["seq_len"] - 1,
+                                                  dtype=d.dtype)
+                else:
+                    cache[path[0]] = distribute(
+                        torch.randn(d.shape).to(d.dtype),
+                        res.specs["cache"][path[0]], res.mesh)
+            tokens = torch.ones((over["global_batch"], 1), dtype=torch.int32)
+            res.step_fn(reshard_state(params, res.tables["params"],
+                                      res.mesh), cache, tokens)
+            counted = res.step_fn.collectives
+        step, args, _ = cell_step(res)
+        traced, _ = trace(step, *args)
+        reckoned = collectives_of(res, traced)
+        out[shape] = {"counted": counted, "reckoned": reckoned.counts,
+                      "wire_bytes": reckoned.wire_bytes}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# each rank's program
+
+
+def _rank_main(rank: int, out: Path) -> None:
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{out / 'store'}",
+                            rank=rank, world_size=WORLD)
+    got = {"rank": rank, "serve": _serve_runs(TARGET, out, f"rank{rank}"),
+           "collectives": _counted_vs_reckoned()}
+    (out / f"rank{rank}.json").write_text(json.dumps(got))
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the tests
+
+
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    """One spawn of the 8 ranks and, while they run, the same runs in
+    this one process on one device: (the ranks' results, this
+    process's)."""
+    out = tmp_path_factory.mktemp("spmd_serve")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, __file__, str(r), str(out)],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(WORLD)]
+    logs = []
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = {"out": out, "serve": _serve_runs("local:cpu", out, "one")}
+        for p in procs:
+            left = SPAWN_TIMEOUT_S - (time.perf_counter() - t0)
+            logs.append(p.communicate(timeout=max(left, 1))[0])
+    finally:
+        torch.set_num_threads(n)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    assert not bad, f"ranks failed {bad}:\n" + "\n".join(
+        log[-3000:] for log in logs)
+    return {"out": out, "ranks": [json.loads((out / f"rank{r}.json")
+                                             .read_text())
+                                  for r in range(WORLD)]}, one
+
+
+@pytest.fixture(scope="module")
+def spawn(both):
+    return both[0]
+
+
+@pytest.fixture(scope="module")
+def one(both):
+    return both[1]
+
+
+@pytest.mark.parametrize("run", sorted(RUNS))
+def test_engine_on_the_mesh_matches_one_process(spawn, one, run):
+    want = one["serve"][run]
+    assert want["mesh"] is None
+    for r in spawn["ranks"]:
+        got = r["serve"][run]
+        assert got["mesh"] == [2, 4]
+        assert got["sizes"] == want["sizes"], (r["rank"], run)
+        assert got["streams"] == want["streams"], (r["rank"], run)
+        assert got["preempted"] == want["preempted"], (r["rank"], run)
+        assert got["counts"] == want["counts"], (r["rank"], run)
+    counts = want["counts"]
+    assert counts["prefill_chunks"] > 0
+    if run == "paged_cached":
+        assert counts["preemptions"] > 0
+    if run == "paged_shared":
+        assert counts["prefix_hits"] > 0
+    if run == "paged_sampled_spec":
+        assert counts["spec_verify_steps"] > 0
+
+
+def test_every_rank_holds_the_same_tokens(spawn):
+    first = spawn["ranks"][0]
+    for r in spawn["ranks"][1:]:
+        for run in RUNS:
+            assert r["serve"][run]["streams"] == \
+                first["serve"][run]["streams"], (r["rank"], run)
+        assert r["serve"]["legacy"] == first["serve"]["legacy"]
+
+
+@pytest.mark.parametrize("run", sorted(RUNS))
+def test_every_rank_pool_equals_one_process_bit_for_bit(spawn, one, run):
+    want = torch.load(one["out"] / f"one_{run}.pt")
+    for r in range(WORLD):
+        got = torch.load(spawn["out"] / f"rank{r}_{run}.pt")
+        for k in ("k", "v", "index"):
+            assert got[k].dtype == want[k].dtype
+            assert torch.equal(got[k].view(torch.int16) if
+                               got[k].dtype == torch.bfloat16 else got[k],
+                               want[k].view(torch.int16) if
+                               want[k].dtype == torch.bfloat16 else want[k]
+                               ), (r, run, k)
+    assert want["k"].abs().sum() > 0
+    if run == "contiguous":
+        for r in spawn["ranks"]:
+            assert r["serve"][run]["local_shapes_match_specs"], r["rank"]
+
+
+def test_contiguous_chunk_moves_the_slot_row_alone(spawn):
+    """A prompt chunk on the mesh gathers its slot's row of the
+    contiguous pool, not the pool: beside the paged chunk's gathers (the
+    weights alone; that pool is whole on every rank) it moves at most
+    two whole rows of K and of V."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    row = cfg.num_layers * 128 * cfg.num_kv_heads * cfg.head_dim * 2
+    for r in spawn["ranks"]:
+        cache = r["serve"]["contiguous"]["chunk_gather_bytes"] - \
+            r["serve"]["paged_cached"]["chunk_gather_bytes"]
+        assert 0 < cache <= 2 * 2 * row, (r["rank"], cache, row)
+
+
+@pytest.mark.parametrize("run", sorted(RUNS) + ["legacy"])
+def test_no_gathered_weight_outlives_its_step(spawn, one, run):
+    """On the mesh every step gathers the weights whole; at a gather at
+    most one step's tree is alive, and none once the run is done (the
+    engine still alive).  One process gathers nothing."""
+    for r in spawn["ranks"]:
+        g = r["serve"]["legacy_gathers"] if run == "legacy" else \
+            r["serve"][run]["gathers"]
+        assert g["gathered"] > g["per_step"] > 0, (r["rank"], run)
+        assert g["most_alive"] <= g["per_step"], (r["rank"], run, g)
+        assert g["alive_after"] == 0, (r["rank"], run, g)
+    g = one["serve"]["legacy_gathers"] if run == "legacy" else \
+        one["serve"][run]["gathers"]
+    assert g["gathered"] == 0
+
+
+def test_legacy_path_on_the_mesh_matches_one_process(spawn, one):
+    want = one["serve"]["legacy"]
+    arch, b, s, n = LEGACY
+    assert len(want["tokens"]) == b and len(want["tokens"][0]) == n
+    for r in spawn["ranks"]:
+        assert r["serve"]["legacy"] == want, r["rank"]
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "train_4k"])
+def test_reckoned_collectives_equal_the_counted(spawn, shape):
+    for r in spawn["ranks"]:
+        c = r["collectives"][shape]
+        assert c["counted"] == c["reckoned"], (r["rank"], shape)
+        assert c["counted"]["all_gather"]["calls"] > 0
+        assert c["wire_bytes"] > 0
+    c = spawn["ranks"][0]["collectives"][shape]
+    if shape == "train_4k":
+        assert c["counted"]["all_reduce"]["calls"] > 0
+    else:
+        assert c["counted"]["all_reduce"]["calls"] == 0
+
+
+if __name__ == "__main__":
+    _rank_main(int(sys.argv[1]), Path(sys.argv[2]))
