@@ -342,7 +342,27 @@ Phases, each of which raises on failure:
    before phase 1 (``_DryRun``) so that it overlaps the card's phases;
    phase 22 waits for it, reads its records and prints the phases it
    ran beside (their host-clock timings shared the host's cores with
-   its one thread), and the script stops it on any exit.
+   its one thread), and the script stops it on any exit;
+23. the lint and the examples on the card: (a) the ``smem-budget``
+   rule's figure of every kernel instantiation the launchers can pick
+   (``flash_fwd_kernel`` and ``flash_fwd_tc`` at each padded head dim,
+   K1's two kernels at each head chunk 1-8 and dh 128 and 256, K2 at
+   both input types and vector counts, K4's four variants), reckoned
+   from the sources with those values as bounds, held against the
+   compiled kernel's ``sharedSizeBytes`` and the dynamic bytes its
+   launcher asks for (each ``.cu``'s ``*_smem`` query, which launches
+   nothing): the rule's figure is never below the card's, every pair is
+   printed and the budget is the card's opt-in limit; then ``python -m
+   repro_torch.analysis.lint src/repro_torch`` in a process of its own,
+   which must exit 0; (b) the four example twins on the card
+   (``_examples_card``): ``quickstart`` at its own size through
+   ``run_easey`` (K2 in training), ``serve_batch`` at full width
+   (``--arch deepseek-7b --kv-layout paged``, EXAMPLE_DECODE tokens: K1
+   and K2), ``train_100m`` at its 100M width through a restart
+   (EXAMPLE_TRAIN: it fails past the step-25 checkpoint and restores
+   from it; its LayerNorms run no K2) and ``lulesh_easey``'s three grids with K4
+   through ``plan.kernels``, each example's launches counted and gated
+   and listed in the kernels line; the phase's seconds are printed.
 
 The second-to-last line of output is the card's ``name, power.limit``;
 before it a JSON line lists every kernel with its launches on its path's
@@ -3642,6 +3662,195 @@ def _whisper_full(torch, m, card, counts, reset_counts, quiet) -> dict:
     return roof
 
 
+# phase 23: the instantiations each launcher can pick, as (kernel,
+# bounds of the lint's [smem.bounds] they take, the query's arguments)
+SMEM_CASES = {
+    "flash_attention": [
+        (kernel, {"DP": dp}, (bf16, dp))
+        for dp in (16, 32, 64, 128, 192, 256)
+        for bf16, kernel in ((0, "flash_fwd_kernel"), (1, "flash_fwd_tc"))],
+    "paged_attention": [
+        (kernel, {"G": g, "dh": dh}, (pv, g, dh))
+        for g in range(1, 9) for dh in (128, 256)
+        for pv, kernel in ((0, "paged_scores_kernel"),
+                           (1, "paged_pv_kernel"))],
+    "rmsnorm": [("norm_kernel", {}, (f32, nv))
+                for f32 in (0, 1) for nv in (1, 2, 4, 8)],
+    "sedov_stencil": [("sedov_step_kernel", {}, (vec, pow2))
+                      for vec in (0, 1) for pow2 in (0, 1)],
+}
+# phase 23: decode tokens of the full-width serve_batch example, and
+# train_100m's steps and injected failure: it checkpoints every 25 steps,
+# so it fails right after the step-25 checkpoint and must restore it
+# (steps cut from 30 / 27 to keep the phase near 40 s: a step of the 100M
+# model takes ~0.5 s on the card)
+EXAMPLE_DECODE = 8
+EXAMPLE_TRAIN = dict(steps=26, fail_at=25)
+
+
+def _smem_card(torch, _build, card) -> None:
+    """Phase 23 (a): the lint's ``smem-budget`` figure of every
+    instantiation in SMEM_CASES against the card's (the compiled static
+    bytes and the dynamic bytes the launcher asks for, through each
+    source's ``<name>_smem`` query), every pair printed; raises where
+    the rule's figure is below the card's, or the budget is not the
+    card's opt-in limit."""
+    import ctypes
+    from repro_torch.analysis.lint import default_config
+    from repro_torch.analysis.lint.rules import smem_budget
+    from repro_torch.core.target import get_target
+    cfg = default_config()
+    budget = get_target(cfg.smem_target).smem_bytes
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    if budget != optin:
+        raise AssertionError(f"the lint's budget {budget} B is not the "
+                             f"card's opt-in limit {optin} B a block")
+    out: dict = {}
+    for name, cases in SMEM_CASES.items():
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        query = getattr(_build.load(name), f"{name}_smem")
+        nargs = len(cases[0][2])
+        query.argtypes = [ctypes.c_int] * nargs + \
+            [ctypes.POINTER(ctypes.c_int)] * 2
+        query.restype = ctypes.c_int
+        for kernel, bounds, args in cases:
+            rule = {k.name: k for k in smem_budget.reckon(
+                text, {**cfg.smem_bounds, **bounds})}[kernel]
+            if rule.total is None:
+                raise AssertionError(f"smem-budget cannot size {kernel} "
+                                     f"at {bounds}: {rule.problems}")
+            st, dyn = ctypes.c_int(-1), ctypes.c_int(-1)
+            rc = query(*args, ctypes.byref(st), ctypes.byref(dyn))
+            if rc != 0:
+                raise RuntimeError(f"{name}_smem{args}: CUDA error {rc}")
+            if rule.static < st.value or rule.dynamic < dyn.value:
+                raise AssertionError(
+                    f"smem-budget under the card: {kernel} at {bounds} "
+                    f"reckons {rule.static} + {rule.dynamic} B, the card "
+                    f"{st.value} static + {dyn.value} dynamic")
+            if st.value + dyn.value > optin:
+                raise AssertionError(f"{kernel} at {bounds} asks for "
+                                     f"more than {optin} B a block")
+            out.setdefault(kernel, []).append(
+                (bounds, rule.static, rule.dynamic, st.value, dyn.value))
+    for kernel, rows in out.items():
+        pairs = "; ".join(
+            f"{','.join(f'{k}={v}' for k, v in b.items()) or '-'}: "
+            f"{rs}/{cs} + {rd}/{cd}"
+            + ("" if (rs, rd) == (cs, cd) else " (differ)")
+            for b, rs, rd, cs, cd in rows)
+        print(f"[smem] {card} {kernel}, rule/card static + rule/launcher "
+              f"dynamic B: {pairs}")
+    equal = sum((rs, rd) == (cs, cd) for rows in out.values()
+                for _, rs, rd, cs, cd in rows)
+    total = sum(len(rows) for rows in out.values())
+    print(f"[smem] {card} {total} instantiations: the rule's figure at or "
+          f"above the card's in all, equal in {equal}; budget {budget} B = "
+          f"the card's opt-in limit")
+
+
+def _lint_port():
+    """Start ``python -m repro_torch.analysis.lint src/repro_torch`` in a
+    process of its own (host only; it runs beside phase 23's card work);
+    returns a function that waits for it, raises unless it exited 0, and
+    returns its report."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis.lint", "src/repro_torch"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+    def wait() -> str:
+        try:
+            out = proc.communicate(timeout=300)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError(f"the port's lint failed (rc "
+                                 f"{proc.returncode}):\n{out[-4000:]}")
+        return out
+    return wait
+
+
+def _examples_card(torch, card, counts, reset_counts) -> dict:
+    """Phase 23 (b): the four example twins on the card, each through its
+    ``main`` with the arguments a user would give, its stdout captured
+    and its last lines printed; returns each one's kernel launches."""
+    import io
+    from repro_torch.examples import (lulesh_easey, quickstart, serve_batch,
+                                      train_100m)
+    runs = {
+        "quickstart": (quickstart, []),
+        "serve_batch": (serve_batch, ["--arch", "deepseek-7b",
+                                      "--kv-layout", "paged", "--decode",
+                                      str(EXAMPLE_DECODE)]),
+        "train_100m": (train_100m, [
+            "--steps", str(EXAMPLE_TRAIN["steps"]),
+            "--fail-at", str(EXAMPLE_TRAIN["fail_at"])]),
+        "lulesh_easey": (lulesh_easey, []),
+    }
+    launches, outs, logs = {}, {}, {}
+    for name, (mod, argv) in runs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            outs[name], secs = _timed(mod.main, argv)
+        torch.cuda.synchronize()
+        launches[name] = counts()
+        logs[name] = buf.getvalue()
+        tail = [ln for ln in logs[name].splitlines() if ln.strip()]
+        keep = {"quickstart": tail[:1], "serve_batch": tail[-1:],
+                "train_100m": tail[-2:], "lulesh_easey": tail[:4]}[name]
+        for ln in keep:
+            print(f"[example] {card} {name}: {ln}")
+        if name == "train_100m":
+            print(f"[example] {card} train_100m: its {len(outs[name]['step_s'])}"
+                  f" steps {sum(outs[name]['step_s']):.1f} s (the first "
+                  f"{outs[name]['step_s'][0]:.2f} s)")
+        k = launches[name]
+        print(f"[example] {card} {name} {' '.join(argv) or '(no arguments)'}"
+              f": {secs:.1f} s; launches K1 {k['paged_attention']}, K2 "
+              f"{k['rmsnorm']} + {k['add_rmsnorm']} fused, K4 "
+              f"{k['sedov_stencil']}")
+    mw, jid, build = outs["quickstart"]
+    res = mw.scheduler.result(jid)[0]
+    if mw.status(jid).value != "finished" or build.plan.kernels != "cuda" \
+            or not math.isfinite(res["final_loss"]) or \
+            launches["quickstart"]["add_rmsnorm"] == 0:
+        raise AssertionError(f"quickstart: job {mw.status(jid).value}, "
+                             f"kernels {build.plan.kernels}, loss "
+                             f"{res['final_loss']}, {launches['quickstart']}")
+    sv, k = outs["serve_batch"], launches["serve_batch"]
+    if not (k["paged_attention"] and k["rmsnorm"] and k["add_rmsnorm"]) or \
+            len(sv["sample"]) != min(8, EXAMPLE_DECODE) or \
+            not sv["decode_tok_per_s"] > 0:
+        raise AssertionError(f"serve_batch at full width: {k}, sample "
+                             f"{sv['sample']}")
+    tr, k = outs["train_100m"], launches["train_100m"]
+    restored = "[train] restored checkpoint step 24" in logs["train_100m"]
+    if (tr["steps"], tr["restarts"]) != (EXAMPLE_TRAIN["steps"], 1) or \
+            not restored or k["rmsnorm"] or k["add_rmsnorm"] or \
+            not all(map(math.isfinite, tr["losses"])):
+        raise AssertionError(f"train_100m: {tr['steps']} steps, "
+                             f"{tr['restarts']} restarts, restored from "
+                             f"the step-25 checkpoint: {restored}, {k}")
+    rows, _ = outs["lulesh_easey"]
+    # per grid: 2 warm-up + iters native, iters in each of 2 EASEY jobs
+    want = sum(2 + 3 * iters for _, iters in lulesh_easey.GRIDS)
+    if launches["lulesh_easey"]["sedov_stencil"] != want or not all(
+            nat > 0 and eas > 0 for _, nat, eas in rows):
+        raise AssertionError(f"lulesh_easey: {launches['lulesh_easey']}, "
+                             f"want {want} K4 launches; FOMs {rows}")
+    print(f"[example] {card} train_100m (gpt2s-100m, LayerNorm): no K2 on "
+          f"its path; quickstart's deepseek-7b-smoke and serve_batch's "
+          f"deepseek-7b have RMSNorms: K2 on every norm")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5141,6 +5350,20 @@ def _main(dry: _DryRun) -> int:
     print(f"[smoke] {card} phases 1-22 took "
           f"{time.perf_counter() - t_main:.1f} s")
 
+    # ---- 23. the lint's shared-memory figures, the examples -----------
+    dry.mark(23)
+    t23 = time.perf_counter()
+    lint_wait = _lint_port()
+    _smem_card(torch, _build, card)
+    ex = _examples_card(torch, card, counts, reset_counts)
+    lint = lint_wait().strip().splitlines()
+    print(f"[smem] {card} `python -m repro_torch.analysis.lint "
+          f"src/repro_torch` (beside the examples) exit 0, "
+          f"{sum('[info] smem-budget' in ln for ln in lint)} kernels "
+          f"reckoned: {lint[-1]}")
+    print(f"[smoke] {card} phase 23 took {time.perf_counter() - t23:.1f} s; "
+          f"phases 1-23 took {time.perf_counter() - t_main:.1f} s")
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -5152,6 +5375,9 @@ def _main(dry: _DryRun) -> int:
          "granite_moe_launches": moe_launches["paged_attention"],
          # phase 21: the engine's mesh steps on a one-rank NCCL mesh
          "mesh_launches": mesh_launches["engine"]["paged_attention"],
+         # phase 23: the example twins on the card
+         "examples_launches": {n: c["paged_attention"]
+                               for n, c in ex.items()},
          "max_abs_err": k1_err,
          "ms": k1["ms"], "plain_ms": k1["plain"], "bound_ms": k1["bound"],
          "bound_by": k1["bound_by"], "library_ms": k1["lib"],
@@ -5174,6 +5400,7 @@ def _main(dry: _DryRun) -> int:
          # phase 21: the engine's and the legacy path's mesh steps
          "mesh_launches": mesh_launches["engine"]["rmsnorm"],
          "mesh_legacy_launches": mesh_launches["legacy"]["rmsnorm"],
+         "examples_launches": {n: c["rmsnorm"] for n, c in ex.items()},
          "backward_ms": {f"{r}x{c}": k2g[(r, c)]["ms"]["rmsnorm"][1]
                          for r, c in K2_GRAD_SHAPES},
          "max_abs_err": k2_err,
@@ -5202,6 +5429,7 @@ def _main(dry: _DryRun) -> int:
          "zamba_launches": zamba_launches["add_rmsnorm"],
          "mesh_launches": mesh_launches["engine"]["add_rmsnorm"],
          "mesh_legacy_launches": mesh_launches["legacy"]["add_rmsnorm"],
+         "examples_launches": {n: c["add_rmsnorm"] for n, c in ex.items()},
          "backward_ms": {f"{r}x{c}": k2g[(r, c)]["ms"][True][1]
                          for r, c in K2_GRAD_SHAPES},
          "max_abs_err": k2f_err,
@@ -5220,7 +5448,9 @@ def _main(dry: _DryRun) -> int:
         {"name": "sedov_stencil", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sedov_stencil.cu",
          "replaces": "src/repro/kernels/sedov_stencil.py:143",
-         "launches": launches["sedov_stencil"], "max_abs_err": k4_err,
+         "launches": launches["sedov_stencil"],
+         "examples_launches": {n: c["sedov_stencil"] for n, c in ex.items()},
+         "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound,
          "bound_by": "bytes" if k4_bytes / HBM_BYTES_PER_S >=
          k4_flops / F32_FLOPS else "operations",
@@ -5232,7 +5462,10 @@ def _main(dry: _DryRun) -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:108",
          "launches": bench_counts["flash_attention"],
-         "tensor_core_launches": k3_tc, "max_abs_err": k3_err,
+         "tensor_core_launches": k3_tc,
+         "examples_launches": {n: c["flash_attention"]
+                               for n, c in ex.items()},
+         "max_abs_err": k3_err,
          "ms": k3["deepseek-7b"]["ms"], "plain_ms": k3["deepseek-7b"]["plain"],
          "bound_ms": k3["deepseek-7b"]["bound"],
          "bound_by": k3["deepseek-7b"]["bound_by"],

@@ -116,6 +116,11 @@ class Checkpointer:
             self._raise_pending()
 
     def latest_step(self) -> int | None:
+        """The newest complete checkpoint, counting every save this
+        process made: an async write still in flight is waited for, so a
+        restart right after a save restores it instead of racing its
+        writer thread (and starting over from step 0)."""
+        self.wait()
         m = self.dir / "manifest.json"
         if not m.exists():
             return None

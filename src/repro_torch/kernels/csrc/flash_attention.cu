@@ -151,6 +151,12 @@ constexpr int smem_floats() {
   return kBQ * (DP + 1) + 2 * kBK * (DP + 1) + kBQ * (kBK + 1);
 }
 
+// the dynamic shared memory a block asks for
+template <int DP>
+constexpr int smem_bytes() {
+  return smem_floats<DP>() * (int)sizeof(float);
+}
+
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -281,7 +287,7 @@ template <int DP>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int s, int t, int H, int K, int dh, int seq_k, int causal,
            float scale, cudaStream_t stream) {
-  const int smem = smem_floats<DP>() * (int)sizeof(float);
+  const int smem = smem_bytes<DP>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -910,6 +916,19 @@ int launch_dp(const void* q, const void* k, const void* v, void* out, int bf16,
                                  scale, stream);
 }
 
+// The shared memory of the body launch_dp<DP> runs: the static bytes of
+// the compiled kernel and the dynamic bytes its launcher asks for.
+template <int DP>
+int smem_dp(int bf16, int* static_bytes, int* dynamic_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e = bf16 ? cudaFuncGetAttributes(&a, tc::flash_fwd_tc<DP>)
+                             : cudaFuncGetAttributes(&a, simt::flash_fwd_kernel<DP>);
+  if (e != cudaSuccess) return (int)e;
+  *static_bytes = (int)a.sharedSizeBytes;
+  *dynamic_bytes = bf16 ? tc::Geo<DP>::kSmemBytes : simt::smem_bytes<DP>();
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -937,6 +956,21 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   FLASH_DP(16) FLASH_DP(32) FLASH_DP(64) FLASH_DP(128) FLASH_DP(192)
   FLASH_DP(256)
 #undef FLASH_DP
+  return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory of the kernel flash_attention_launch runs for (bf16, dh):
+// its static bytes as compiled (cudaFuncGetAttributes) and the dynamic
+// bytes its launch asks for.  Launches nothing; returns the CUDA error of
+// the query, cudaErrorInvalidValue for a dh the launch refuses.
+int flash_attention_smem(int bf16, int dh, int* static_bytes,
+                         int* dynamic_bytes) {
+  if (dh % 8 || dh < 8 || dh > 256) return (int)cudaErrorInvalidValue;
+#define FLASH_SMEM(n) \
+  if (dh <= n) return smem_dp<n>(bf16, static_bytes, dynamic_bytes);
+  FLASH_SMEM(16) FLASH_SMEM(32) FLASH_SMEM(64) FLASH_SMEM(128) FLASH_SMEM(192)
+  FLASH_SMEM(256)
+#undef FLASH_SMEM
   return (int)cudaErrorInvalidValue;
 }
 

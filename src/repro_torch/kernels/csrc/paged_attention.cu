@@ -400,6 +400,12 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v_pages,
   if (tid == 0) counters[pair] = 0;
 }
 
+// the dynamic shared memory a block of (b) asks for: its warps' partials
+template <int G>
+constexpr size_t pv_smem_bytes(int dh) {
+  return (size_t)kWarps * G * dh * sizeof(float);
+}
+
 template <int G>
 cudaError_t launch_g(const void* q, const void* k_pages, const void* v_pages,
                      const void* page_table, const void* kv_len, void* out,
@@ -421,7 +427,7 @@ cudaError_t launch_g(const void* q, const void* k_pages, const void* v_pages,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = (size_t)kWarps * G * geo.dh * sizeof(float);
+  cfg.dynamicSmemBytes = pv_smem_bytes<G>(geo.dh);
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -432,6 +438,19 @@ cudaError_t launch_g(const void* q, const void* k_pages, const void* v_pages,
                          counters, (__nv_bfloat16*)out, geo);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// The shared memory of kernel (a) (pv == 0) or (b) (pv == 1) at G: the
+// static bytes as compiled and the dynamic bytes launch_g<G> asks for.
+template <int G>
+int smem_g(int pv, int dh, int* static_bytes, int* dynamic_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e = pv ? cudaFuncGetAttributes(&a, paged_pv_kernel<G>)
+                           : cudaFuncGetAttributes(&a, paged_scores_kernel<G>);
+  if (e != cudaSuccess) return (int)e;
+  *static_bytes = (int)a.sharedSizeBytes;
+  *dynamic_bytes = pv ? (int)pv_smem_bytes<G>(dh) : 0;
+  return 0;
 }
 
 }  // namespace
@@ -473,6 +492,26 @@ int paged_attention_launch(const void* q, const void* k_pages,
     PAGED_G(5) PAGED_G(6) PAGED_G(7) PAGED_G(8)
   }
 #undef PAGED_G
+  return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory of kernel (a) (pv == 0) or (b) (pv == 1) as
+// paged_attention_launch runs it for a head chunk gc and head dim dh: its
+// static bytes as compiled (cudaFuncGetAttributes) and the dynamic bytes
+// its launch asks for.  Launches nothing; returns the CUDA error of the
+// query, cudaErrorInvalidValue for a gc or dh the launch refuses.
+int paged_attention_smem(int pv, int gc, int dh, int* static_bytes,
+                         int* dynamic_bytes) {
+  if (gc < 1 || gc > kMaxG || dh % 8 || dh > 256)
+    return (int)cudaErrorInvalidValue;
+#define PAGED_SMEM(n) \
+  case n:             \
+    return smem_g<n>(pv, dh, static_bytes, dynamic_bytes);
+  switch (gc) {
+    PAGED_SMEM(1) PAGED_SMEM(2) PAGED_SMEM(3) PAGED_SMEM(4)
+    PAGED_SMEM(5) PAGED_SMEM(6) PAGED_SMEM(7) PAGED_SMEM(8)
+  }
+#undef PAGED_SMEM
   return (int)cudaErrorInvalidValue;
 }
 

@@ -185,6 +185,29 @@ int launch(const T* x, const __nv_bfloat16* a, const __nv_bfloat16* w,
   return (int)cudaErrorInvalidValue;
 }
 
+// The shared memory of norm_kernel<T, NV>: the static bytes as compiled;
+// launch_nv asks for no dynamic bytes.
+template <typename T, int NV>
+int smem_nv(int* static_bytes, int* dynamic_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, norm_kernel<T, NV>);
+  if (e != cudaSuccess) return (int)e;
+  *static_bytes = (int)a.sharedSizeBytes;
+  *dynamic_bytes = 0;
+  return 0;
+}
+
+template <typename T>
+int smem(int nv, int* static_bytes, int* dynamic_bytes) {
+  switch (nv) {
+    case 1: return smem_nv<T, 1>(static_bytes, dynamic_bytes);
+    case 2: return smem_nv<T, 2>(static_bytes, dynamic_bytes);
+    case 4: return smem_nv<T, 4>(static_bytes, dynamic_bytes);
+    case 8: return smem_nv<T, 8>(static_bytes, dynamic_bytes);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -220,6 +243,16 @@ int add_rmsnorm_launch(const void* x, const void* a, const void* w,
                 (const __nv_bfloat16*)w, (__nv_bfloat16*)r_out,
                 (__nv_bfloat16*)y_out, rows, d, eps, norm_of_rounded, threads,
                 nv, (cudaStream_t)stream);
+}
+
+// Shared memory of the kernel the launches run for x of f32 (x_is_f32 ==
+// 1) or bf16 and nv vectors a thread: its static bytes as compiled
+// (cudaFuncGetAttributes) and the dynamic bytes its launch asks for.
+// Launches nothing; returns the CUDA error of the query.
+int rmsnorm_smem(int x_is_f32, int nv, int* static_bytes,
+                 int* dynamic_bytes) {
+  return x_is_f32 ? smem<float>(nv, static_bytes, dynamic_bytes)
+                  : smem<__nv_bfloat16>(nv, static_bytes, dynamic_bytes);
 }
 
 }  // extern "C"

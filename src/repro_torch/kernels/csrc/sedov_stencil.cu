@@ -317,6 +317,19 @@ cudaError_t launch_t(const dim3& grid, cudaStream_t stream, const float* rho,
   return cudaGetLastError();
 }
 
+// The shared memory of sedov_step_kernel<kVec, kPow2>: the static bytes as
+// compiled and the dynamic bytes launch_t asks for.
+template <bool kVec, bool kPow2>
+int smem_t(int* static_bytes, int* dynamic_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e =
+      cudaFuncGetAttributes(&a, sedov_step_kernel<kVec, kPow2>);
+  if (e != cudaSuccess) return (int)e;
+  *static_bytes = (int)a.sharedSizeBytes;
+  *dynamic_bytes = kSmemBytes;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -354,6 +367,18 @@ int sedov_stencil_launch(const void* rho, const void* e, const void* v,
   else
     err = launch_t<false, false>(grid, st, r, ee, vv, d, tt, ro, eo, vo, to, n, two_dx);
   return (int)err;
+}
+
+// Shared memory of the kernel sedov_stencil_launch runs with 16-byte row
+// loads (vec) and a power-of-two 2 dx (pow2): its static bytes as compiled
+// (cudaFuncGetAttributes) and the dynamic bytes its launch asks for.
+// Launches nothing; returns the CUDA error of the query.
+int sedov_stencil_smem(int vec, int pow2, int* static_bytes,
+                       int* dynamic_bytes) {
+  if (vec && pow2) return smem_t<true, true>(static_bytes, dynamic_bytes);
+  if (vec) return smem_t<true, false>(static_bytes, dynamic_bytes);
+  if (pow2) return smem_t<false, true>(static_bytes, dynamic_bytes);
+  return smem_t<false, false>(static_bytes, dynamic_bytes);
 }
 
 }  // extern "C"

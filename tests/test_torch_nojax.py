@@ -65,6 +65,15 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
             "import repro_torch.analysis.cost\n"
             "import repro_torch.sharding, repro_torch.launch.mesh\n"
             "import repro_torch.launch.dryrun\n"
+            "import repro_torch.analysis.lint, repro_torch.analysis.lint.core\n"
+            "import repro_torch.analysis.lint.__main__\n"
+            "from repro_torch.analysis.lint.rules import (graph_purity,\n"
+            "    keyed_rng, refcount, smem_budget, telemetry_guard,\n"
+            "    wall_clock)\n"
+            "import repro_torch.examples.quickstart\n"
+            "import repro_torch.examples.serve_batch\n"
+            "import repro_torch.examples.train_100m\n"
+            "import repro_torch.examples.lulesh_easey\n"
             "from repro_torch.sharding import (distribute, placements,\n"
             "    shard_constraint)\n"
             "from repro_torch.runtime.elastic import reshard_state\n"
