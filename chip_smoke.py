@@ -219,7 +219,7 @@ Phases, each of which raises on failure:
    the mean of the per-token loss differences (kernel and control, each
    from the plain path) within BIAS_SE_MAX standard errors of zero
    (``_hold_bias``);
-   then 4 steps of ``train_main`` with K2 on every norm (counted per
+   then TRAIN_FULL's steps of ``train_main`` with K2 on every norm (counted per
    step), every loss and grad norm finite, the loss curve printed beside
    the plain path's, ms per step, tokens/s and the peak memory printed,
    not gated; then the restart at full width (``_restart_full``): that
@@ -258,7 +258,7 @@ Phases, each of which raises on failure:
    at full-width shapes (dk 512, dv 1,024, 1,024 positions, chunk 256,
    f32) within MLSTM_TOL; the prefill of 1,025 tokens against the
    prefill of 1,024 and one decode step within the reference's decode
-   test's bound; SSM_TRAIN's 4 steps (4 x 128 tokens) of ``train_main``,
+   test's bound; SSM_TRAIN's steps (4 x 128 tokens) of ``train_main``,
    every loss and
    grad norm finite and a second run's step 0 bit for bit the first's;
    the decode step and the sLSTM time loop alone profiled, ms per
@@ -362,7 +362,24 @@ Phases, each of which raises on failure:
    (EXAMPLE_TRAIN: it fails past the step-25 checkpoint and restores
    from it; its LayerNorms run no K2) and ``lulesh_easey``'s three grids with K4
    through ``plan.kernels``, each example's launches counted and gated
-   and listed in the kernels line; the phase's seconds are printed.
+   and listed in the kernels line; the phase's seconds are printed;
+24. training on a one-rank NCCL mesh (``_train_nccl``), the split train
+   step (``sharding.split``) as a card runs it: (a) ``deepseek-7b`` at
+   full width, TRAIN_NCCL_DENSE's depth, 2 steps under phase 15's plan
+   through the mesh step beside the off-mesh step from the same state:
+   every loss, every leaf and K2's launches bit for bit equal; (b)
+   ``granite-moe-3b-a800m`` at full width (32 layers, 40 experts top-8)
+   at TRAIN_NCCL_MOE's 4 x 512: step 0 under the mesh step's split on
+   the kernel path held to phase 15's gates against the plain path and
+   the control (``_hold_grads``, ``_hold_bias``; the block weights drawn
+   at their layers' fan-in, an expert's at its own), K2 counted, then 2
+   steps of the mesh step (losses finite, K2 per step as predicted);
+   (c) the restart from disk at granite's size: the state saved through
+   ``Checkpointer(mesh=)`` into ``.ckpt_smoke/`` (git-ignored, removed
+   after), an injected failure, the archive restored onto the mesh into
+   a fresh state, and one more step taken by the unbroken and the
+   restored state: every leaf bit for bit equal; the save, restore and
+   phase seconds are printed.
 
 The second-to-last line of output is the card's ``name, power.limit``;
 before it a JSON line lists every kernel with its launches on its path's
@@ -487,7 +504,7 @@ K2_GRAD_RTOL, K2_GRAD_ATOL = 2.0 ** -7, 2.0 ** -8
 TRAIN_SMOKE_ARCHS = ("deepseek-7b-smoke", "granite-moe-3b-a800m-smoke")
 TRAIN_SMOKE_STEPS = 6
 TRAIN_GRAD_SMOKE = "deepseek-7b-smoke"
-TRAIN_FULL = dict(arch="deepseek-7b", seq_len=1024, global_batch=4, steps=4)
+TRAIN_FULL = dict(arch="deepseek-7b", seq_len=1024, global_batch=4, steps=2)
 # the step-0 gradient gates (phases 3 and 15) draw each stacked block
 # weight at its layer's own fan-in (``_fan_in_draw``), and each holds the
 # control's per-leaf reading (relative L2 from the plain path) at or
@@ -497,13 +514,22 @@ TRAIN_FULL = dict(arch="deepseek-7b", seq_len=1024, global_batch=4, steps=4)
 GRAD_CONTROL_MAX = 0.25
 # phase 15's restart: steps past train_main's, taken unbroken and again
 # from the host copy restored through reshard_state
-RESTART_STEPS = 2
+RESTART_STEPS = 1
 # phase 20: LULESH's mesh step over a one-rank NCCL mesh
 LULESH_NCCL = dict(grid=256, steps=20)
 # phase 21: after phase 4's requests through the engine on a one-rank
 # NCCL mesh, the legacy path's zamba2-7b job on it, shorter than phase 18's
 SERVE_NCCL_LEGACY = dict(arch="zamba2-7b", batch=2, prefill_len=512,
                          decode_tokens=16)
+# phase 24: training on a one-rank NCCL mesh: deepseek-7b at full width
+# cut to 8 layers (two copies of its state side by side: the off-mesh
+# step's and the mesh step's) at the tuner's plan for the full config,
+# and full-width granite-moe-3b-a800m at its plan with 8-bit moments
+TRAIN_NCCL_DENSE = dict(arch="deepseek-7b", layers=8, seq_len=1024,
+                        global_batch=4, steps=2)
+TRAIN_NCCL_MOE = dict(arch="granite-moe-3b-a800m", seq_len=512,
+                      global_batch=4, steps=2, optimizer="adamw8bit")
+CKPT_SMOKE = Path(__file__).resolve().parent / ".ckpt_smoke"
 # phase 22: deepseek-7b's two serve cells cut to a batch one card holds
 DRYRUN_CELLS = (("prefill_32k", {"global_batch": 1, "seq_len": 8192}),
                 ("decode_32k", {"global_batch": 8, "seq_len": 4096}))
@@ -545,7 +571,7 @@ SSM_FULL = dict(arch="xlstm-1.3b", batch=4, prefill_len=1024,
 # 4 x 128 tokens a step: the sLSTM time loop runs through autograd a
 # launch at a time (34-44 s a step at 4 x 1,024 on an NVIDIA H100 80GB
 # HBM3, 9.5-11 s at 4 x 256)
-SSM_TRAIN = dict(arch="xlstm-1.3b", seq_len=128, global_batch=4, steps=4)
+SSM_TRAIN = dict(arch="xlstm-1.3b", seq_len=128, global_batch=4, steps=2)
 HYBRID_FULL = dict(arch="zamba2-7b", batch=4, prefill_len=1024,
                    decode_tokens=32)
 # one request twice the shared attention's window, through prefill
@@ -988,8 +1014,8 @@ class _RouteLog:
         self.moe, self.route = moe, moe.route_tokens
         self.calls = []
 
-    def __call__(self, logits, k, capacity):
-        out = self.route(logits, k, capacity)
+    def __call__(self, logits, k, capacity, tp=None):
+        out = self.route(logits, k, capacity, tp)
         self.calls.append((tuple(logits.shape), out[0], out[2]))
         return out
 
@@ -1737,13 +1763,18 @@ def _fan_in_draw(m, params) -> None:
     decorrelates the block gradients (relative L2 ~1.3 from the plain
     path for the kernel path and the control alike), so no gate could
     tell a right gradient from a wrong one.  The contracted axes are the
-    embedding for wq, wk and wv, and all but the layer and output axes
-    for the others."""
+    embedding for wq, wk and wv, an expert's own input axis for the MoE
+    experts' (layers, experts, in, out) weights, and all but the layer
+    and output axes for the others."""
     for path, w in m.leaf_items(params["blocks"]):
         if w.dim() < 3:
             continue                    # the norms' per-layer scales
-        fan_in = w.shape[1] if path[-1] in ("wq", "wk", "wv") \
-            else math.prod(w.shape[1:-1])
+        if path[-1] in ("wq", "wk", "wv"):
+            fan_in = w.shape[1]
+        elif path[0] == "mlp" and w.dim() == 4:
+            fan_in = w.shape[2]         # one expert's products
+        else:
+            fan_in = math.prod(w.shape[1:-1])
         w.mul_(math.sqrt(w.shape[0] / fan_in))
 
 
@@ -3851,6 +3882,241 @@ def _examples_card(torch, card, counts, reset_counts) -> dict:
     return launches
 
 
+def _k2_per_step(plan, layers: int) -> dict:
+    """K2's launches in one microbatch's training step of a dense or MoE
+    model: layer 0's first norm and the fused add + norms in the forward,
+    all but ``ln_f`` again in the remat recompute."""
+    rec = int(plan.remat_policy != "none")
+    return {"rmsnorm": 1 + rec, "add_rmsnorm": 2 * layers + rec *
+            (2 * layers - 1)}
+
+
+def _dense_nccl(torch, m, mesh, card, counts, reset_counts) -> dict:
+    """Phase 24 (a): TRAIN_NCCL_DENSE's model through the mesh step and
+    the off-mesh step, side by side from the same state: bit for bit."""
+    full = m.get_config(TRAIN_NCCL_DENSE["arch"])
+    cfg = full.replace(num_layers=TRAIN_NCCL_DENSE["layers"])
+    shape = dataclasses.replace(
+        m.SHAPES["train_4k"], seq_len=TRAIN_NCCL_DENSE["seq_len"],
+        global_batch=TRAIN_NCCL_DENSE["global_batch"])
+    plan = m.tune(full, shape, m.get_target("nvidia:h100"))
+    model = m.model_for(cfg, remat=plan.remat_policy)
+    opt = m.make_optimizer(plan.optimizer)
+    params = m.init_params(model.param_table(),
+                           torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    state = m.init_train_state(model, opt, params, plan)
+    off = m.tree_map(lambda t: t.clone(), state)
+    # the DTensors hold the state's own tensors on the one rank
+    on = m.reshard_state(state, m.train_state_table(model, opt, plan), mesh)
+    del state, params
+    off_step = m.build_train_step(model, opt, plan)
+    on_step = m.build_train_step(model, opt, plan, mesh)
+    pipe = m.DataPipeline(model, shape, seed=0, device="cuda")
+    want = _k2_per_step(plan, cfg.num_layers)
+    losses = []
+    for i in range(TRAIN_NCCL_DENSE["steps"]):
+        batch = pipe.batch_at(i)
+        reset_counts()
+        off, mo = off_step(off, batch)
+        torch.cuda.synchronize()
+        got_off = {k: v for k, v in counts().items() if v}
+        reset_counts()
+        on, mn = on_step(on, batch)
+        torch.cuda.synchronize()
+        got_on = {k: v for k, v in counts().items() if v}
+        lo, ln = float(mo["loss"]), float(mn["loss"])
+        if lo != ln or got_off != got_on or got_on != want:
+            raise AssertionError(f"phase 24 deepseek-7b step {i}: loss off "
+                                 f"the mesh {lo}, on it {ln}; K2 {got_off} "
+                                 f"/ {got_on}, predicted {want}")
+        if any(c["calls"] for c in mn["collectives"].values()):
+            raise AssertionError(f"phase 24: one rank sent collectives "
+                                 f"{mn['collectives']}")
+        losses.append(ln)
+    leaves = 0
+    for (path, a), (_, b) in zip(m.leaf_items(off), m.leaf_items(on)):
+        if not torch.equal(a, b.to_local()):
+            raise AssertionError(f"phase 24 deepseek-7b: {'/'.join(path)} "
+                                 f"differs on the mesh from off it")
+        leaves += 1
+    del off, on
+    print(f"[train-mesh] {card} deepseek-7b ({cfg.num_layers} of "
+          f"{full.num_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}), {TRAIN_NCCL_DENSE['steps']} steps of "
+          f"{shape.global_batch} x {shape.seq_len} (plan {plan.optimizer}, "
+          f"remat {plan.remat_policy}, {plan.microbatches} microbatch) "
+          f"through the split mesh step on a one-rank NCCL mesh and off "
+          f"the mesh: losses {losses} equal, all {leaves} leaves equal bit "
+          f"for bit, K2 per step {want} on both, no collective sent")
+    return want
+
+
+def _moe_nccl(torch, m, mesh, card, counts, reset_counts) -> dict:
+    """Phase 24 (b) and (c): full-width granite-moe-3b-a800m through the
+    mesh step's split, held to phase 15's gates; then its steps and the
+    restart from disk."""
+    import shutil
+    cfg = m.get_config(TRAIN_NCCL_MOE["arch"])
+    shape = dataclasses.replace(
+        m.SHAPES["train_4k"], seq_len=TRAIN_NCCL_MOE["seq_len"],
+        global_batch=TRAIN_NCCL_MOE["global_batch"])
+    # the tuner's plan with 8-bit moments: its f32 moments would make the
+    # restart's archive 33.7 GB, three states 101 GB beside the template
+    plan = dataclasses.replace(m.tune(cfg, shape, m.get_target(
+        "nvidia:h100")), optimizer=TRAIN_NCCL_MOE["optimizer"])
+    model = m.model_for(cfg, remat=plan.remat_policy)
+    opt = m.make_optimizer(plan.optimizer)
+    params = m.init_params(model.param_table(),
+                           torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    _fan_in_draw(m, params)
+    pipe = m.DataPipeline(model, shape, seed=0, device="cuda")
+    batch = pipe.batch_at(0)
+
+    def counted():
+        got = counts()
+        reset_counts()
+        return got
+    # step 0 on the kernel path under the mesh step's split
+    model.tp = m.steps.split_for(mesh, params)
+    try:
+        loss_k, tok_k, g_k, (fwd, rec) = _step0(torch, m, model, params,
+                                                batch, counted=counted)
+    finally:
+        model.tp = None
+    loss_p, tok_p, g_p, _ = _step0(torch, m, model, params, batch,
+                                   plain=True)
+    err_k = _grad_errs(torch, g_k, g_p)
+    del g_k
+    loss_c, tok_c, g_c, _ = _step0(torch, m, model, params, batch,
+                                   plain=True, rounded=True)
+    err_c = _grad_errs(torch, g_c, g_p)
+    del g_c, g_p
+    tok = (_rel_l2(torch, tok_k, tok_p), _rel_l2(torch, tok_c, tok_p))
+    bias = (_bias_se(torch, tok_k, tok_p), _bias_se(torch, tok_c, tok_p))
+    per_step = _k2_per_step(plan, cfg.num_layers)
+    got0 = {k: fwd.get(k, 0) + rec.get(k, 0) for k in per_step}
+    print(f"[train-mesh] {card} granite-moe-3b-a800m ({cfg.num_layers} "
+          f"layers, {cfg.num_experts} experts top-{cfg.experts_per_token}, "
+          f"d {cfg.d_model}, {m.param_count_estimate(cfg) / 1e9:.3f} B "
+          f"parameters, block weights at their layers' fan-in) step 0 at "
+          f"{shape.global_batch} x {shape.seq_len} under the mesh step's "
+          f"split: K2 {got0} (predicted {per_step}); loss kernel "
+          f"{loss_k:.6f}, plain {loss_p:.6f}, control {loss_c:.6f}; "
+          f"per-token losses rel L2 vs plain, kernel {tok[0]:.4g}, control "
+          f"{tok[1]:.4g}; mean difference kernel {bias[0]['mean']:.4g} "
+          f"({bias[0]['z']:.3f} standard errors), control "
+          f"{bias[1]['mean']:.4g} ({bias[1]['z']:.3f}); per-leaf gradient "
+          f"rel L2 vs plain, kernel "
+          f"{({k: round(v, 6) for k, v in err_k.items()})}, control "
+          f"{({k: round(v, 6) for k, v in err_c.items()})}")
+    if got0 != per_step:
+        raise AssertionError(f"phase 24 granite step 0: K2 {got0}, not "
+                             f"{per_step}")
+    _hold_grads("granite-moe-3b-a800m step 0", *tok, err_k, err_c)
+    _hold_bias("granite-moe-3b-a800m step 0", *bias)
+
+    # the mesh step's steps, then a save, a failure and the restore
+    table = m.train_state_table(model, opt, plan)
+    state = m.reshard_state(m.init_train_state(model, opt, params, plan),
+                            table, mesh)
+    del params
+    step = m.build_train_step(model, opt, plan, mesh)
+    losses = []
+    for i in range(TRAIN_NCCL_MOE["steps"]):
+        reset_counts()
+        state, metrics = step(state, pipe.batch_at(i))
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts().items() if v}
+        if got != per_step or not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"phase 24 granite step {i}: K2 {got} "
+                                 f"(predicted {per_step}), loss "
+                                 f"{float(metrics['loss'])}")
+        losses.append(float(metrics["loss"]))
+    at = TRAIN_NCCL_MOE["steps"] - 1
+    shutil.rmtree(CKPT_SMOKE, ignore_errors=True)
+    try:
+        ckpt = m.Checkpointer(CKPT_SMOKE, keep=1, async_writes=True,
+                              mesh=mesh)
+        t0 = time.perf_counter()
+        ckpt.save(at, state)
+        snap_s = time.perf_counter() - t0
+        latest = ckpt.latest_step()
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in CKPT_SMOKE.rglob("*")
+                   if f.is_file())
+        try:
+            m.FailureInjector(fail_at_steps=(at + 1,)).check(at + 1)
+            raise AssertionError("phase 24: the injected failure did not "
+                                 "fire")
+        except m.SimulatedFailure:
+            pass
+        fresh = m.init_params(model.param_table(),
+                              torch.Generator(device="cuda").manual_seed(1),
+                              "cuda")
+        template = m.reshard_state(m.init_train_state(model, opt, fresh,
+                                                      plan), table, mesh)
+        del fresh
+        t0 = time.perf_counter()
+        restored, got_at = ckpt.restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del template
+    finally:
+        shutil.rmtree(CKPT_SMOKE, ignore_errors=True)
+    if latest != at or got_at != at:
+        raise AssertionError(f"phase 24: latest step {latest}, restored "
+                             f"{got_at}, saved {at}")
+    nxt = pipe.batch_at(at + 1)
+    reset_counts()
+    state, m_u = step(state, nxt)
+    restored, m_r = step(restored, nxt)
+    torch.cuda.synchronize()
+    leaves = 0
+    for (path, a), (_, b) in zip(m.leaf_items(state),
+                                 m.leaf_items(restored)):
+        if not torch.equal(a.to_local(), b.to_local()):
+            raise AssertionError(f"phase 24 restart: {'/'.join(path)} "
+                                 f"differs from the unbroken run's")
+        leaves += 1
+    if float(m_u["loss"]) != float(m_r["loss"]):
+        raise AssertionError("phase 24 restart: the losses differ")
+    del state, restored
+    print(f"[train-mesh] {card} granite-moe-3b-a800m: "
+          f"{TRAIN_NCCL_MOE['steps']} steps of the mesh step (plan "
+          f"{plan.optimizer}, remat {plan.remat_policy}, "
+          f"{plan.microbatches} microbatch), losses {losses}, K2 per step "
+          f"{per_step}; restart from disk: the state after step {at} saved "
+          f"through Checkpointer(mesh=) ({size / 1e9:.2f} GB; host snapshot "
+          f"{snap_s:.2f} s, written by {save_s:.2f} s), an injected failure, "
+          f"restored onto the mesh in {restore_s:.2f} s, one more step each: "
+          f"all {leaves} leaves and the loss {float(m_u['loss'])} equal the "
+          f"unbroken run's bit for bit")
+    return per_step
+
+
+def _train_nccl(torch, m, card, counts, reset_counts) -> dict:
+    """Phase 24: the split train step on a one-rank NCCL mesh (see the
+    module's docstring); returns K2's launches per step of each run."""
+    import torch.distributed as dist
+    t24 = time.perf_counter()
+    mem24, mark24 = _mem_marks(torch)
+    mark24("before phase 24")
+    mesh = _nccl_mesh(torch, m)
+    try:
+        dense = _dense_nccl(torch, m, mesh, card, counts, reset_counts)
+        mark24("deepseek-7b on and off the mesh")
+        moe_k2 = _moe_nccl(torch, m, mesh, card, counts, reset_counts)
+        mark24("granite-moe-3b-a800m, its steps and its restart")
+    finally:
+        dist.destroy_process_group()
+    print(f"[train-mesh] {card} phase 24 took "
+          f"{time.perf_counter() - t24:.1f} s; memory (GB allocated after, "
+          f"peak during) {mem24}")
+    return {"dense": dense, "moe": moe_k2}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3901,6 +4167,9 @@ def _main(dry: _DryRun) -> int:
     from repro_torch.launch.mesh import Mesh, mesh_for_target
     from repro_torch.launch.train import train_main
     from repro_torch.launch.run import run_command
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.runtime.fault_tolerance import (FailureInjector,
+                                                     SimulatedFailure)
     from repro_torch.training import steps as port_steps
     from repro_torch.data.pipeline import (DataPipeline, SyntheticSource,
                                            to_device)
@@ -4265,7 +4534,9 @@ def _main(dry: _DryRun) -> int:
         reshard_state=reshard_state, train_state_table=train_state_table,
         sedov_step_cuda=sedov_step_cuda,
         mesh_for_target=mesh_for_target, Mesh=Mesh, lulesh=lulesh,
-        ServeEngine=ServeEngine, legacy_generate=legacy_generate)
+        ServeEngine=ServeEngine, legacy_generate=legacy_generate,
+        Checkpointer=Checkpointer, FailureInjector=FailureInjector,
+        SimulatedFailure=SimulatedFailure)
     train_smoke, train_s = _timed(_train_smoke, torch, mt, counts,
                                   reset_counts)
     print(f"[smoke] training {TRAIN_SMOKE_ARCHS}, {TRAIN_SMOKE_STEPS} steps "
@@ -5364,6 +5635,12 @@ def _main(dry: _DryRun) -> int:
     print(f"[smoke] {card} phase 23 took {time.perf_counter() - t23:.1f} s; "
           f"phases 1-23 took {time.perf_counter() - t_main:.1f} s")
 
+    # ---- 24. training on a one-rank NCCL mesh ---------------------------
+    dry.mark(24)
+    mesh_train = _train_nccl(torch, mt, card, counts, reset_counts)
+    print(f"[smoke] {card} phases 1-24 took "
+          f"{time.perf_counter() - t_main:.1f} s")
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -5401,6 +5678,10 @@ def _main(dry: _DryRun) -> int:
          "mesh_launches": mesh_launches["engine"]["rmsnorm"],
          "mesh_legacy_launches": mesh_launches["legacy"]["rmsnorm"],
          "examples_launches": {n: c["rmsnorm"] for n, c in ex.items()},
+         # phase 24: the split train step on a one-rank NCCL mesh, per
+         # step (deepseek-7b cut to 8 layers; granite-moe-3b-a800m)
+         "mesh_train_launches_per_step": {
+             n: k["rmsnorm"] for n, k in mesh_train.items()},
          "backward_ms": {f"{r}x{c}": k2g[(r, c)]["ms"]["rmsnorm"][1]
                          for r, c in K2_GRAD_SHAPES},
          "max_abs_err": k2_err,
@@ -5430,6 +5711,8 @@ def _main(dry: _DryRun) -> int:
          "mesh_launches": mesh_launches["engine"]["add_rmsnorm"],
          "mesh_legacy_launches": mesh_launches["legacy"]["add_rmsnorm"],
          "examples_launches": {n: c["add_rmsnorm"] for n, c in ex.items()},
+         "mesh_train_launches_per_step": {
+             n: k["add_rmsnorm"] for n, k in mesh_train.items()},
          "backward_ms": {f"{r}x{c}": k2g[(r, c)]["ms"][True][1]
                          for r, c in K2_GRAD_SHAPES},
          "max_abs_err": k2f_err,

@@ -35,10 +35,20 @@ the same arithmetic.  The host values a step reads (a whole-batch
 cache's 0-d index, a prompt's last position) stay on the host.
 
 ``mesh_collectives`` reckons the collectives of the port's mesh steps
-(``training/steps.py``) from the build's specs alone: the weight (and,
-training, the state) gathers, the gradient all-reduce, the logits
-gathers and a cache's gathers, per call as ``Collectives`` counts them
-on live ranks, with each call's ring wire bytes.
+(``training/steps.py``), per call as ``Collectives`` counts them on live
+ranks, with each call's ring wire bytes.  The serve steps' and the
+whole-weight train step's (the families outside ``SPLIT_FAMILIES``)
+come from the build's specs alone: the weight (and, training, the
+state) gathers, the gradient all-reduce, the logits gathers and a
+cache's gathers.  The split train step (dense, VLM, MoE) sends its
+collectives where its layers run: each layer's ``data`` gathers and,
+in the backward, their reduce-scatters, the model axis's all-reduces of
+each column-parallel input's gradient and of each row-parallel output,
+the vocabulary's max and sums, the router's statistics, per microbatch,
+and again in the remat recompute; so they are counted from the step
+itself, traced on ``meta`` shards by a rank of the described mesh
+(``steps.described_rank_step``; ``meta_shards``), whose collectives
+send nothing and count all the same.
 
 Neither counter sees into a hand-written kernel.  The port's CUDA kernels
 are ``ctypes`` calls made outside the dispatcher (``kernels/_build.py``),
@@ -276,19 +286,30 @@ def meta_tree(table, rows: int = 1, index: int | None = None):
 # the collectives of the mesh steps, reckoned from the specs
 
 _WIRE = {"all_gather": lambda g: g - 1,        # x the bytes a rank hands
-         "all_reduce": lambda g: 2 * (g - 1) / g}
+         "all_reduce": lambda g: 2 * (g - 1) / g,
+         "reduce_scatter": lambda g: (g - 1) / g}
 
 
 class Reckoning:
     """Collective calls as ``training.steps.Collectives`` counts them
     (calls, and the bytes this rank hands each), plus each call's ring
     wire bytes: an all-gather of L bytes a rank over g ranks sends
-    (g - 1) L, an all-reduce of B bytes 2 (g - 1) / g B."""
+    (g - 1) L, an all-reduce of B bytes 2 (g - 1) / g B, a
+    reduce-scatter of B bytes (g - 1) / g B."""
 
     def __init__(self):
         self.counts = {k: {"calls": 0, "bytes": 0} for k in _WIRE}
         self.wire_bytes = 0.0
         self.breakdown: dict = {}
+
+    @classmethod
+    def of_calls(cls, calls) -> "Reckoning":
+        """The reckoning of a log of (kind, bytes, group size) calls, as
+        ``Collectives.calls`` keeps them."""
+        r = cls()
+        for kind, nbytes, group in calls:
+            r.call(kind, nbytes, group)
+        return r
 
     def call(self, kind: str, nbytes: int, group: int) -> None:
         self.counts[kind]["calls"] += 1
@@ -332,9 +353,28 @@ def spec_bytes(table, specs, mesh) -> int:
     return total
 
 
+def meta_shards(table, specs, mesh):
+    """Meta tensors of one rank's shards of a declarative table at rest
+    under its specs (a dimension split over k ranks holds 1/k of it)."""
+    from repro_torch.models.params import ParamDef, leaf_items
+    from repro_torch.sharding.rules import placements
+    spec_of = dict(leaf_items(specs))
+
+    def walk(t, path=()):
+        if not isinstance(t, ParamDef):
+            return {k: walk(v, path + (k,)) for k, v in t.items()}
+        n = [1] * len(t.shape)
+        for m, pl in enumerate(placements(spec_of[path], mesh)):
+            if pl.is_shard():
+                n[pl.dim] *= mesh.shape[m]
+        return torch.empty([d // k for d, k in zip(t.shape, n)],
+                           dtype=t.dtype, device="meta")
+    return walk(table)
+
+
 def mesh_collectives(kind: str, tables: dict, specs: dict, mesh,
                      logits_bytes: int = 0, microbatches: int = 1,
-                     rows: int = 0) -> Reckoning:
+                     rows: int = 0, calls=None) -> Reckoning:
     """The collectives one rank issues in one call of the port's mesh
     step of a build (``kind``: ``train``, ``prefill`` or ``decode``, the
     build's ``step_fn``) over the build's ``tables`` and ``specs``:
@@ -349,7 +389,11 @@ def mesh_collectives(kind: str, tables: dict, specs: dict, mesh,
       rank) all-gathered over the data-parallel dimensions.
 
     ``rows`` is the batch's row count (the data-parallel dimensions are
-    those ``act_batch`` splits them over)."""
+    those ``act_batch`` splits them over).  ``calls``: the split train
+    step's log of its traced collectives (see the module's docstring),
+    which is its reckoning."""
+    if calls is not None:
+        return Reckoning.of_calls(calls)
     from repro_torch.models.params import leaf_items
     from repro_torch.sharding.rules import data_parallel_dims, placements
     r = Reckoning()

@@ -7,11 +7,15 @@ The port builds each cell on the H100 counterparts of those pods,
 ``nvidia:h100x256`` (16 x 16 over ``data``, ``model``) and
 ``nvidia:h100x512`` (2 x 16 x 16 over ``pod``, ``data``, ``model``),
 described targets with no ranks behind them, and traces the step on the
-``meta`` device (``analysis/cost.trace``): the one-device step that one
-rank of the port's mesh step computes, on rank 0's rows of the batch
-and of the cache with the weights whole, its collectives reckoned from
-the specs (``cost.mesh_collectives``).  It needs no device and no
-process group, and sets no environment.
+``meta`` device (``analysis/cost.trace``): the step that one rank of the
+port's mesh step computes.  A serve cell, or a train cell of a family
+outside ``steps.SPLIT_FAMILIES``, traces the one-device step on rank 0's
+rows of the batch and of the cache with the weights whole, its
+collectives reckoned from the specs (``cost.mesh_collectives``).  A
+dense, VLM or MoE train cell traces the split step itself
+(``steps.described_rank_step``) on rank 0's shards of the state and its
+rows, its collectives sending nothing and counted as they are issued.
+It needs no device and no process group, and sets no environment.
 
 For each cell it prints the memory per card, the FLOPs, the three
 roofline terms and the plan, and writes one JSON record under
@@ -21,7 +25,9 @@ roofline terms and the plan, and writes one JSON record under
   card holds at rest, each leaf's shard under its spec),
   ``temp_size_in_bytes`` (the trace's peak of the step's own
   allocations, plus what the mesh step gathers: the whole weights, in
-  training the whole state, a decode's cache rows), ``output_size_in_
+  a whole-weight train step the whole state, a decode's cache rows; a
+  split train step's gathers, one layer's weights along ``data`` at a
+  time, are allocations of its trace already), ``output_size_in_
   bytes`` (the logits gathered whole, the cache or state at rest),
   ``alias_size_in_bytes`` (the outputs written in place into inputs:
   a decode's cache, the train state), ``per_chip_total_gb`` (arguments
@@ -36,12 +42,14 @@ roofline terms and the plan, and writes one JSON record under
 * ``kernels_traced_as``: ``"plain"``: the hand-written kernels cannot
   run on ``meta``, so their plain versions stand in for them.
 
-On a mesh the port's ranks compute with whole weights (each gathers
-every weight for each step): its memory per card does not shrink with
-the model axis, which the records show (tensor-parallel compute is
-later work).  A cell that hits one of the port's refusals (MoE training
-on a data-parallel mesh) records it as its error.  A failing cell
-records ``"status": "error"`` and its traceback, and the run returns 1.
+A split train step holds its shards of the state, its shards of the
+gradients, and one layer's weights gathered along ``data`` at a time
+(``gathered_at_once``: the reckoning the live step's gather records are
+held to), so its memory per card shrinks with both mesh axes.  The serve
+steps and the other families' train steps compute with whole weights
+(each rank gathers every weight for each step), which the records show.
+A failing cell records ``"status": "error"`` and its traceback, and the
+run returns 1.
 
     python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k
     python -m repro_torch.launch.dryrun --all --mesh both
@@ -92,11 +100,21 @@ def split_overrides(overrides: dict | None) -> tuple[dict, dict]:
                    if k not in SHAPE_FIELDS}
 
 
+def split_cell(result) -> bool:
+    """Whether a build's cell is a train step that runs split on its
+    mesh (``steps.SPLIT_FAMILIES`` on a mesh of several chips)."""
+    from repro_torch.training import steps
+    return result.appspec.shape_config.kind == "train" and \
+        result.target.num_chips > 1 and \
+        result.appspec.model_config.family in steps.SPLIT_FAMILIES
+
+
 def cell_step(result):
-    """(the one-device step one rank runs, its meta arguments, the
-    ranks splitting the rows) of a build: the build's step on a single
-    card, on a mesh the step each rank of the port's mesh step computes
-    (rank 0's rows, the weights whole)."""
+    """(the step one rank runs, its meta arguments, the ranks splitting
+    the rows) of a build: the build's step on a single card; on a mesh
+    the split train step of rank 0 on its shards (``split_cell``), or the
+    one-device step each rank of the port's mesh step computes (rank 0's
+    rows, the weights whole)."""
     from repro_torch.models.transformer import model_for
     from repro_torch.training import steps
     plan, tables = result.plan, result.tables
@@ -109,10 +127,15 @@ def cell_step(result):
     meta = cost_mod.meta_tree
     if shape.kind == "train":
         from repro_torch.optim import make_optimizer
-        if result.target.num_chips > 1:
-            steps.check_mesh_training(cfg, dp)
-        step = steps.build_train_step(model, make_optimizer(plan.optimizer),
-                                      plan)
+        opt = make_optimizer(plan.optimizer)
+        if split_cell(result):
+            step = steps.described_rank_step(model, opt, plan, result.mesh,
+                                             result.specs["state"]["params"],
+                                             rows)
+            return step, (cost_mod.meta_shards(
+                tables["state"], result.specs["state"], result.mesh),
+                meta(tables["batch"], split)), split
+        step = steps.build_train_step(model, opt, plan)
         return step, (meta(tables["state"]),
                       meta(tables["batch"], split)), split
     params = meta(tables["params"])
@@ -138,7 +161,8 @@ def collectives_of(result, out) -> cost_mod.Reckoning:
     return cost_mod.mesh_collectives(
         shape.kind, result.tables, result.specs, result.mesh,
         logits_bytes=logits, microbatches=result.plan.microbatches,
-        rows=shape.global_batch)
+        rows=shape.global_batch, calls=out[1]["collective_calls"]
+        if split_cell(result) else None)
 
 
 def _gathered_bytes(table, specs, mesh) -> int:
@@ -155,6 +179,45 @@ def _gathered_bytes(table, specs, mesh) -> int:
     return total
 
 
+def gathered_at_once(table, specs, mesh, remat: str) -> int:
+    """The most bytes of weights a rank of the split train step holds
+    gathered along ``data`` at once (a weight split only along ``model``
+    is not gathered): the largest of the embedding's, one block's and
+    the head's (``ln_f`` and the unembedding, or a tied embedding), each
+    freed before the next is gathered; under ``remat="none"`` autograd
+    keeps every block's for its backward, so all blocks' and the
+    head's."""
+    from repro_torch.models.params import leaf_items
+    from repro_torch.sharding.rules import placements
+    model = list(mesh.axis_names).index("model") \
+        if "model" in mesh.axis_names else None
+    tied = "unembed" not in table["embed"]
+    groups, layers = {}, 0
+    for (path, d), (_, spec) in zip(leaf_items(table), leaf_items(specs)):
+        n, gathered = [1] * len(d.shape), False
+        for m, pl in enumerate(placements(spec, mesh)):
+            if pl.is_shard() and m == model:
+                n[pl.dim] *= mesh.shape[m]
+            elif pl.is_shard() and mesh.shape[m] > 1:
+                gathered = True
+        if not gathered:
+            continue
+        lead = 1 if path[0] == "blocks" else 0
+        layers = d.shape[0] if lead else layers
+        nbytes = math.prod(k // f for k, f in zip(d.shape[lead:], n[lead:])) \
+            * d.dtype.itemsize
+        keys = ["block"] if lead else \
+            ["embed"] + (["head"] if tied and path[-1] == "embedding"
+                         else []) \
+            if path[-1] in ("embedding", "pos_embedding") else ["head"]
+        for k in keys:
+            groups[k] = groups.get(k, 0) + nbytes
+    if remat == "none":
+        return max(groups.get("embed", 0),
+                   layers * groups.get("block", 0) + groups.get("head", 0))
+    return max(groups.values(), default=0)
+
+
 def memory_per_chip(result, cost, out, split: int) -> dict:
     """The reference's ``memory_analysis`` keys for one card (see the
     module's docstring)."""
@@ -168,7 +231,8 @@ def memory_per_chip(result, cost, out, split: int) -> dict:
         metrics = sum(t.numel() * t.element_size()
                       for t in cost_mod._tensors(out[1]))
         output = alias + metrics
-        gathered = _gathered_bytes(tables["state"], specs["state"], mesh)
+        gathered = 0 if split_cell(result) else \
+            _gathered_bytes(tables["state"], specs["state"], mesh)
     else:
         weights = at_rest(tables["params"], specs["params"], mesh)
         batch = at_rest(tables["batch"], specs["batch"], mesh)
@@ -238,6 +302,11 @@ def _cell(rec: dict, app: AppSpec, target, plan_over: dict, name: str,
             f"({cost.dot_count} products)")
         mem = memory_per_chip(result, cost, out, split)
         rec["memory_analysis"] = mem
+        if split_cell(result):
+            rec["gathered_at_once_bytes"] = gathered_at_once(
+                result.tables["state"]["params"],
+                result.specs["state"]["params"],
+                result.mesh, result.plan.remat_policy)
         log(f"{name} memory_analysis: "
             f"args={mem['argument_size_in_bytes'] / 1e9:.2f}GB "
             f"temp={mem['temp_size_in_bytes'] / 1e9:.2f}GB "

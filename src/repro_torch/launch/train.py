@@ -14,7 +14,10 @@ remat recompute's included; ``local:cpu``: the plain versions).  A
 target of several chips (``local:cpu-mesh8``: 8 CPU ranks over gloo)
 trains on its mesh: ``train_main`` runs in each rank's process, after
 the caller initialized the process group, the state sharded by the
-rules engine (``runtime.elastic.reshard_state``) and the losses global.
+rules engine (``runtime.elastic.reshard_state``) and the losses global;
+its checkpoints gather the state to one writer rank and restore each
+rank's shard (``Checkpointer(mesh=)``), so ``fail_at`` restarts every
+rank from the same step.
 
     python -m repro_torch.launch.train --device cpu \\
         --arch deepseek-7b-smoke --steps 20 --seq-len 64 --global-batch 4
@@ -80,15 +83,12 @@ def train_main(arch: str = "deepseek-7b-smoke", steps: int = 20,
         raise RuntimeError(f"target {tgt.name} trains on {tgt.num_chips} "
                            f"ranks: run train_main in each process of an "
                            f"initialized process group of that size")
-    if mesh is not None and ckpt_dir:
-        raise NotImplementedError("checkpoints of a state sharded over a "
-                                  "mesh are not ported")
     model = model_for(app.model_config, remat=result.plan.remat_policy)
     opt = make_optimizer(result.plan.optimizer)
     pipeline = DataPipeline(model, app.shape_config, seed=seed, device=dev,
                             mesh=mesh)
-    ckpt = Checkpointer(ckpt_dir, keep=3, async_writes=async_ckpt) \
-        if ckpt_dir else None
+    ckpt = Checkpointer(ckpt_dir, keep=3, async_writes=async_ckpt,
+                        mesh=mesh) if ckpt_dir else None
     injector = FailureInjector(fail_at_steps=tuple(fail_at))
     straggler = StragglerMonitor()
     losses, grad_norms, step_s = {}, {}, {}

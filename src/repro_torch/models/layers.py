@@ -24,6 +24,13 @@ Everything is differentiable for training: the RMSNorm kernel through
 its ``torch.autograd.Function`` (``kernels/ops.py``), the rest through
 autograd.  Under grad the embedding gathers by indexing, whose backward
 sums a repeated token's gradients in a fixed order on the card.
+
+A train step split over a mesh passes ``tp`` (a ``sharding.split.Split``)
+to the training forward's layers, with weights split along the model
+axis: attention by heads, the MLP by ``mlp``, the embedding and the
+unembedding by vocabulary.  A layer whose weight is whole (one model
+rank, or a dimension the axis does not divide) computes as on one
+device.
 """
 
 from __future__ import annotations
@@ -177,14 +184,17 @@ def _softmax(x: torch.Tensor) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True)
 
 
-def _attn_one_chunk(q, k, v, mask, scale):
-    """q: (b,K,G,qc,dh)  k/v: (b,t,K,dh)  mask: (b or 1, qc, t) bool."""
+def _attn_one_chunk(q, k, v, mask, scale, dtype=None):
+    """q: (b,K,G,qc,dh)  k/v: (b,t,K,dh)  mask: (b or 1, qc, t) bool.
+    The probabilities and the output are rounded to ``dtype`` (default
+    v's)."""
+    dtype = dtype or v.dtype
     scores = torch.einsum("bkgqd,btkd->bkgqt", q.float(), k.float()) * scale
     scores = torch.where(mask[:, None, None], scores,
                          torch.full_like(scores, -1e30))
-    probs = _softmax(scores).to(v.dtype)
+    probs = _softmax(scores).to(dtype)
     out = torch.einsum("bkgqt,btkd->bkgqd", probs.float(), v.float())
-    return out.to(v.dtype)
+    return out.to(dtype)
 
 
 def _rows(v):
@@ -195,7 +205,7 @@ def _rows(v):
 def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, q_offset: torch.Tensor | int = 0,
                   kv_len: torch.Tensor | int | None = None,
-                  q_chunk: int = _Q_CHUNK) -> torch.Tensor:
+                  q_chunk: int = _Q_CHUNK, dtype=None) -> torch.Tensor:
     """Grouped-query attention.
 
     q: (b, s, H, dh); k/v: (b, t, K, dh) with H % K == 0.
@@ -203,7 +213,9 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len: optional valid length of the kv sequence.
     q_offset / kv_len may be (b,) tensors — per-row lengths for the
     continuous-batching slot decode.  Long sequences are processed in
-    q-chunks so the live score buffer is (b, H, q_chunk, t).
+    q-chunks so the live score buffer is (b, H, q_chunk, t).  ``dtype``
+    rounds the probabilities and the output (default v's: a split step
+    hands f32 K/V of bf16 values).
     """
     b, s, H, dh = q.shape
     t, K = k.shape[1], k.shape[2]
@@ -225,7 +237,7 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stop = min(start + q_chunk, s)
         q_pos = torch.arange(start, stop, device=q.device)
         return _attn_one_chunk(qg[:, :, :, start:stop], k, v,
-                               mask_for(q_pos), scale)
+                               mask_for(q_pos), scale, dtype)
 
     # under grad, a chunk's (q_chunk x t) scores are recomputed in the
     # backward instead of kept for every chunk, as the reference
@@ -420,7 +432,7 @@ def _windowed_attention(q, k, v, window: int) -> torch.Tensor:
 
 def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
               mode: str, cache: dict | None = None,
-              window: int | None = None, kv_source=None):
+              window: int | None = None, kv_source=None, tp=None):
     """mode: 'full' (training: causal, no cache), 'prefill' (causal,
     returns the fresh K/V), 'decode' (slot-wise, one token or a verify
     burst per row, through the page table or the slot rows as the pool's
@@ -437,16 +449,32 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     (k, v) pair projected already (a decode step's cached cross K/V).
     Every query attends every source position, with no RoPE, in any
     mode; a prefill returns the projected K/V as its fresh cache.
+
+    With ``tp`` and the heads split over the model axis (``full`` mode),
+    this rank's heads: the K/V heads they read, ``wo`` row-parallel.
     Returns (out, fresh_cache or None)."""
-    q = torch.einsum("bse,ehd->bshd", x, p["wq"])
+    dt = x.dtype
+    split = tp is not None and p["wq"].shape[1] < cfg.num_heads
+    if split:
+        if mode != "full" or kv_source is not None:
+            raise NotImplementedError(f"attention split by heads in "
+                                      f"{mode!r} mode")
+    # the K/V heads whole where ``kv_heads`` does not divide the model
+    # axis: every model rank computes them all, as one device does
+    shared_kv = split and p["wk"].shape[1] == cfg.num_kv_heads
+
+    def proj(eq, t, w, whole=False):
+        return split_product(tp, eq, t, w) if split and not whole \
+            else torch.einsum(eq, t, w)
+    q = proj("bse,ehd->bshd", x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
     if isinstance(kv_source, tuple):
         k, v = kv_source
     else:
         src = x if kv_source is None else kv_source
-        k = torch.einsum("bte,ekd->btkd", src, p["wk"])
-        v = torch.einsum("bte,ekd->btkd", src, p["wv"])
+        k = proj("bte,ekd->btkd", src, p["wk"], shared_kv)
+        v = proj("bte,ekd->btkd", src, p["wv"], shared_kv)
         if "bk" in p:
             k = k + p["bk"]
             v = v + p["bv"]
@@ -459,6 +487,8 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                        theta=cfg.rope_theta)
         k = apply_rope(k, positions, fraction=cfg.rope_fraction,
                        theta=cfg.rope_theta)
+    if shared_kv:
+        k, v = (tp.kv_for_heads(t, cfg, q.shape[2]) for t in (k, v))
     new_cache = None
     if mode == "decode":
         if cache["layout"] == "paged":
@@ -473,13 +503,43 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         if window is not None and q.shape[1] > window and cfg.causal:
             out = _windowed_attention(q, k, v, window)
         else:
-            out = dot_attention(q, k, v, causal=cfg.causal)
+            out = dot_attention(q, k, v, causal=cfg.causal, dtype=dt)
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
     else:
         raise ValueError(f"attention mode {mode!r}")
+    if split:
+        # the f32 partial sums over this rank's heads, summed over the
+        # model axis and rounded once
+        y = tp.reduce_out(torch.einsum("bshd,hde->bse", out.float(),
+                                       p["wo"].float())).to(dt)
+        return y, new_cache
     y = torch.einsum("bshd,hde->bse", out, p["wo"])
     return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Products split over the model axis
+
+
+def split_input(tp, x: torch.Tensor) -> torch.Tensor:
+    """The input of column-parallel products on a split step: x in f32
+    through ``copy_in``, so each model rank's partial gradient of it stays
+    f32 until the sum over the model axis, and is rounded once."""
+    return tp.copy_in(x.float())
+
+
+def split_product(tp, eq: str, x: torch.Tensor, w: torch.Tensor,
+                  dtype=None) -> torch.Tensor:
+    """A column-parallel ``einsum(eq, x, w)`` on a split step: x through
+    its own ``split_input`` and the weight shard in f32, the product
+    rounded once to ``dtype`` (default x's; one device's bf16 product
+    accumulates in f32 and rounds once too).  Each product's input
+    gradient is summed over the model axis alone and rounded once, then
+    added to the other products' in x's dtype, as one device adds its
+    products'."""
+    return torch.einsum(eq, split_input(tp, x), w.float()).to(
+        dtype or x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -564,17 +624,28 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return _GeLU.apply(x)
 
 
-def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    h = torch.einsum("bse,ef->bsf", x, p["wi"])
+def mlp(p: dict, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
+    """The MLP; with ``tp`` and ``mlp`` split over the model axis, this
+    rank's columns, ``wo`` row-parallel (f32 partials summed, rounded
+    once)."""
+    dt = x.dtype
+    split = tp is not None and p["wi"].shape[-1] < cfg.d_ff
+
+    def proj(w):
+        return split_product(tp, "bse,ef->bsf", x, w) if split \
+            else torch.einsum("bse,ef->bsf", x, w)
+    h = proj(p["wi"])
     if cfg.activation == "silu":
-        h = silu(torch.einsum("bse,ef->bsf", x, p["wg"])) * h \
-            if "wg" in p else silu(h)
+        h = silu(proj(p["wg"])) * h if "wg" in p else silu(h)
     elif cfg.activation == "gelu":
         h = gelu(h)
     elif cfg.activation == "sq_relu":
         h = sq_relu(h)
     else:
         raise ValueError(f"activation {cfg.activation!r}")
+    if split:
+        return tp.reduce_out(torch.einsum("bsf,fe->bse", h.float(),
+                                          p["wo"].float())).to(dt)
     return torch.einsum("bsf,fe->bse", h, p["wo"])
 
 
@@ -603,11 +674,16 @@ def _take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def embed(p: dict, tokens: torch.Tensor, cfg,
-          positions: torch.Tensor | None = None) -> torch.Tensor:
+          positions: torch.Tensor | None = None, tp=None) -> torch.Tensor:
     """The tokens' embeddings in the activation dtype, plus the positions'
     (a ``learned`` table's rows, or ``sinusoidal`` f32 rows cast down)
-    where the config adds them; RoPE configs add none here."""
-    x = _take_rows(p["embedding"], tokens).to(cfg.activation_dtype)
+    where the config adds them; RoPE configs add none here.  With ``tp``
+    and the table split by vocabulary, each model rank's rows, summed."""
+    table = p["embedding"]
+    rows = tp.vocab_rows(table, tokens) \
+        if tp is not None and table.shape[0] < cfg.vocab_size \
+        else _take_rows(table, tokens)
+    x = rows.to(cfg.activation_dtype)
     if cfg.pos in ("learned", "sinusoidal") and positions is None:
         raise ValueError(f"{cfg.pos} positions need ``positions``")
     if cfg.pos == "learned":
@@ -620,21 +696,34 @@ def embed(p: dict, tokens: torch.Tensor, cfg,
     return x
 
 
-def unembed(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def unembed(p: dict, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
+    """Logits of the stream; with ``tp`` and the table split by
+    vocabulary, this rank's columns of them (``softmax_xent`` with the
+    same ``tp`` reduces over the model axis)."""
+    w = p["embedding"] if cfg.tie_embeddings else p["unembed"]
+    if tp is not None and w.shape[0 if cfg.tie_embeddings else 1] \
+            < cfg.vocab_size:
+        eq = "bse,ve->bsv" if cfg.tie_embeddings else "bse,ev->bsv"
+        return split_product(tp, eq, x, w)
     if cfg.tie_embeddings:
         return torch.einsum("bse,ve->bsv", x, p["embedding"].to(x.dtype))
     return torch.einsum("bse,ev->bsv", x, p["unembed"])
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: torch.Tensor | None = None) -> torch.Tensor:
+                 mask: torch.Tensor | None = None, tp=None) -> torch.Tensor:
     """Mean per-token cross entropy in f32 (``logsumexp`` of the f32
     logits less the label's logit); with ``mask``, the mean over the
-    tokens it keeps.  labels: integer (b, s)."""
+    tokens it keeps.  labels: integer (b, s).  ``tp``: the logits are
+    this rank's vocabulary columns (``unembed``'s split), the max and
+    the sum of exponentials reduced over the model axis."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
-    nll = lse - gold
+    if tp is not None:
+        nll = tp.vocab_nll(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None].long())[..., 0]
+        nll = lse - gold
     if mask is None:
         return nll.mean()
     mask = mask.float()

@@ -18,7 +18,11 @@ autograd leaf per weight and per layer of a stacked weight, each sharing
 its storage with the stacked tensor, so each layer has its own ``.grad``
 and an in-place update of a leaf is an update of the stacked weight that
 serving and checkpoints read.  Each block runs under the remat policy
-(``remat_wrap``).
+(``remat_wrap``).  In a train step split over a mesh, ``tp`` is the
+step's ``sharding.split.Split``: the leaves are the rank's shards, each
+gathered along ``data`` where its layer (or the embedding, or the head)
+uses it, inside the block so that the remat recompute gathers it again,
+and the products run split along the model axis (``layers``).
 
 Decode takes a pool's slot-wise cache (a ``(slots,)`` index) or, on the
 legacy fixed-batch serve path, the cache ``prefill`` returns: the whole
@@ -97,6 +101,9 @@ class DenseLM:
         self.cfg = cfg
         self.remat = remat
         self._views = (None, [])    # (blocks dict, its per-layer views)
+        # the split of a mesh train step while it runs (``Split``), else
+        # None
+        self.tp = None
 
     # ---- tables ----
     def block_defs(self) -> dict:
@@ -141,7 +148,7 @@ class DenseLM:
         x, h = L.add_norm(p["ln1"], x, delta, cfg.norm)
         attn_out, new_cache = L.attention(p["attn"], h, cfg,
                                           positions=positions, mode=mode,
-                                          cache=cache)
+                                          cache=cache, tp=self.tp)
         # XLA evaluates the reference's bf16 residual add in f32 and hands
         # the unrounded sum to the next norm (excess precision), while the
         # residual stream itself is rounded; both are mirrored here
@@ -150,7 +157,7 @@ class DenseLM:
         return x, self.mlp_apply(p["mlp"], h), new_cache
 
     def mlp_apply(self, p, h):
-        return L.mlp(p, h, self.cfg)
+        return L.mlp(p, h, self.cfg, self.tp)
 
     def layer_params(self, params) -> list[dict]:
         """Per-layer views of the stacked block weights, built once per
@@ -182,8 +189,19 @@ class DenseLM:
 
     def _full_block(self, p, x, delta, positions):
         """One block of the training forward: (stream, mlp_out, aux)."""
-        x, out, _ = self.block_apply(p, x, delta, positions, "full", None)
+        x, out, _ = self.block_apply(self._used(p, "blocks"), x, delta,
+                                     positions, "full", None)
         return x, out, None
+
+    def _used(self, tree, *path):
+        """Weights at params ``path`` as a layer uses them: as they are,
+        or in a split step gathered along ``data`` (``Split.use``)."""
+        return tree if self.tp is None else self.tp.use(tree, path)
+
+    def _table(self, params, *names) -> dict:
+        """The embedding weights ``names`` (those present), as used."""
+        e = params["embed"]
+        return {k: self._used(e[k], "embed", k) for k in names if k in e}
 
     def full_forward(self, leaves, batch):
         """The training forward of ``batch`` over ``train_leaves``: logits
@@ -205,12 +223,25 @@ class DenseLM:
         pick = slice(self.loss_from, s)
         return self.logits_from(leaves, *_at(pick, x, delta)), aux_sum
 
-    def loss(self, leaves, batch):
+    def loss(self, leaves, batch, weight=None):
         """Mean next-token cross entropy of ``batch`` (tokens, labels and an
-        optional loss_mask) over ``train_leaves``: (loss, metrics)."""
+        optional loss_mask) over ``train_leaves``: (loss, metrics).  A
+        mesh step's ``weight`` (this rank's share of the microbatch's
+        tokens) scales it."""
         logits, _ = self.full_forward(leaves, batch)
-        loss = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+        loss = self.xent(logits, batch)
+        if weight is not None:
+            loss = loss * weight
         return loss, {"loss": loss}
+
+    def xent(self, logits, batch):
+        """The cross entropy of ``logits`` (over the vocabulary, or on a
+        split step this rank's columns of it) against the batch's
+        labels."""
+        split = self.tp is not None and \
+            logits.shape[-1] < self.cfg.vocab_size
+        return L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"),
+                              tp=self.tp if split else None)
 
     # ---- entry points ----
     # the first position the loss reads (a VLM's patches come before it)
@@ -218,12 +249,19 @@ class DenseLM:
 
     def embed_inputs(self, params, batch):
         """The residual stream's input: the tokens' embeddings."""
-        return L.embed(params["embed"], batch["tokens"], self.cfg)
+        return self.embed_tokens(params, batch["tokens"])
+
+    def embed_tokens(self, params, tokens):
+        return L.embed(self._table(params, "embedding", "pos_embedding"),
+                       tokens, self.cfg, tp=self.tp)
 
     def logits_from(self, params, x, delta=None):
         """Logits of the stream ``x + delta`` (the last block's pair)."""
-        _, h = L.add_norm(params["ln_f"], x, delta, self.cfg.norm)
-        return L.unembed(params["embed"], h, self.cfg)
+        _, h = L.add_norm(self._used(params["ln_f"], "ln_f"), x, delta,
+                          self.cfg.norm)
+        return L.unembed(self._table(params, "embedding" if
+                                     self.cfg.tie_embeddings else "unembed"),
+                         h, self.cfg, tp=self.tp)
 
     def prefill(self, params, batch):
         """Whole-prompt forward: returns last-position logits and a fresh

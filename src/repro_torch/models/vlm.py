@@ -15,7 +15,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDef
 from repro_torch.models.transformer import DenseLM
 
@@ -53,5 +52,5 @@ class VLM(DenseLM):
         return base
 
     def embed_inputs(self, params, batch):
-        tok = L.embed(params["embed"], batch["tokens"], self.cfg)
+        tok = self.embed_tokens(params, batch["tokens"])
         return torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1)

@@ -5,9 +5,9 @@ verify (port of ``repro/training/steps.py``).
 ``build_train_step`` takes each microbatch's gradients with autograd
 over the model's per-layer leaves (``DenseLM.train_leaves``) and updates
 the state in place: parameters, moments, error feedback and step.  On a
-mesh of ranks it keeps the state sharded at rest and computes what one
-device computes (data parallel over the batch's rows, the update on
-whole leaves); ``Collectives`` counts what it sends.
+mesh of ranks it computes what one device computes, the state sharded at
+rest and, for the dense, VLM and MoE families, during the step too
+(``sharding.split``); ``Collectives`` counts what it sends.
 
 The serve builders close over the model and return a plain function of
 ``params`` and the step's inputs that runs without autograd.  The decode,
@@ -35,10 +35,16 @@ from repro_torch.models.params import (ParamDef, _map_table, leaf_items,
                                       tree_map)
 from repro_torch.optim.adamw import layers_of
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.sharding import split as _split
 from repro_torch.sharding.rules import (DEFAULT_RULES, contiguous_stride,
                                         data_parallel_dims, local_slices,
                                         logical_to_spec, placements,
                                         shard_index, spec_for)
+from repro_torch.sharding.split import Collectives, Split
+
+# the families whose train step on a mesh runs split (``sharding.split``);
+# the others gather every leaf whole for the step
+SPLIT_FAMILIES = ("dense", "vlm", "moe")
 
 
 def _accum_dtype(plan: DeploymentPlan) -> torch.dtype:
@@ -61,20 +67,29 @@ def _ef_int8(g: torch.Tensor, err: torch.Tensor,
     return deq, x - deq
 
 
-def _ef_compress(grads, ef):
+def _ef_compress(grads, ef, shards=None, path=()):
     """``_ef_int8`` over every leaf, a stacked one layer by layer with its
     whole-leaf amax; ``ef`` (the tree of errors) is updated in place.
     Returns the gradients dequantized, each leaf as it came (a tensor or a
-    per-layer list)."""
+    per-layer list).  With ``shards`` (a split step's) each leaf is the
+    rank's shard, its amax a max over the ranks that split it."""
     if isinstance(grads, dict):
-        return {k: _ef_compress(v, ef[k]) for k, v in grads.items()}
+        return {k: _ef_compress(v, ef[k], shards, path + (k,))
+                for k, v in grads.items()}
+    dims = shards.dims_of(path) if shards is not None else ()
     if not isinstance(grads, list):
-        deq, new = _ef_int8(grads, ef)
+        amax = None
+        if dims:
+            amax = (grads.float() + ef).abs().amax()
+            shards.max_over(amax, dims)
+        deq, new = _ef_int8(grads, ef, amax)
         ef.copy_(new)
         return deq
     ef = layers_of(ef, tuple(grads[0].shape))
     amax = torch.stack([(g.float() + ef[i]).abs().amax()
                         for i, g in enumerate(grads)]).amax()
+    if dims:
+        shards.max_over(amax, dims)
     out = []
     for i, g in enumerate(grads):
         deq, new = _ef_int8(g, ef[i], amax)
@@ -87,12 +102,14 @@ def _grad(leaf: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(leaf) if leaf.grad is None else leaf.grad
 
 
-def loss_and_grads(model, params, batch):
+def loss_and_grads(model, params, batch, weight=None):
     """(loss, metrics, grads) of one batch: autograd over the model's
     per-layer leaves; grads has the tree of ``params``, a stacked leaf's
-    gradient as a list of per-layer tensors in the parameter's dtype."""
+    gradient as a list of per-layer tensors in the parameter's dtype.
+    ``weight`` goes to the model's loss (a split step's share)."""
     leaves = model.train_leaves(params)
-    loss, metrics = model.loss(leaves, batch)
+    loss, metrics = model.loss(leaves, batch) if weight is None \
+        else model.loss(leaves, batch, weight=weight)
     loss.backward()
     # a stacked leaf's per-layer trees -> one tree of per-layer lists
     grads = {k: tree_map(lambda *ls: list(map(_grad, ls)), *v)
@@ -111,26 +128,31 @@ def _microbatches(batch: dict, M: int) -> list[dict]:
             for i in range(M)]
 
 
-def _batch_grads(model, params, batch, M: int, acc_dt, weights=None):
-    """(loss, metrics, grads) of ``batch``: one microbatch's
-    ``loss_and_grads``, or ``M`` microbatches' gradients accumulated in
-    ``acc_dt`` from zeros and their mean taken in f32, the loss the f32
-    mean of theirs.  ``weights`` (the mesh step's: one f32 factor per
-    microbatch) scales each microbatch's loss and f32 gradient before it
-    is accumulated; the gradients then come back in f32."""
-    if M == 1 and weights is None:
-        return loss_and_grads(model, params, batch)
-    if M == 1:
-        loss, _, grads = loss_and_grads(model, params, batch)
-        loss = loss * weights[0]
-        return loss, {"loss": loss}, tree_map(
-            lambda t: t.float() * weights[0], grads)
+def _batch_grads(model, params, mbs: list, acc_dt, weights=None,
+                 weigh_loss: bool = False):
+    """(loss, metrics, grads) of the microbatches ``mbs``: one
+    microbatch's ``loss_and_grads``, or M microbatches' gradients
+    accumulated in ``acc_dt`` from zeros and their mean taken in f32, the
+    loss the f32 mean of theirs.  ``weights`` (a mesh step's: one f32
+    factor per microbatch) scale each microbatch: inside the model's loss
+    with ``weigh_loss`` (the split step, whose gradients come back in the
+    parameters' dtype), else its loss and f32 gradient after the fact
+    (the gradients then come back in f32)."""
+    def one(i):
+        if weights is None or weigh_loss:
+            return loss_and_grads(model, params, mbs[i],
+                                  None if weights is None else weights[i])
+        l, _, g = loss_and_grads(model, params, mbs[i])
+        l = l * weights[i]
+        return l, {"loss": l}, tree_map(lambda t: t.float() * weights[i],
+                                        g)
+    if len(mbs) == 1:
+        loss, metrics, grads = one(0)
+        return loss, (metrics if weights is None else {"loss": loss}), grads
+    M = len(mbs)
     acc, lsum = None, None
-    for i, mb in enumerate(_microbatches(batch, M)):
-        l, _, g = loss_and_grads(model, params, mb)
-        if weights is not None:
-            l = l * weights[i]
-            g = tree_map(lambda t: t.float() * weights[i], g)
+    for i in range(M):
+        l, _, g = one(i)
         if acc is None:
             acc = tree_map(lambda t: torch.zeros(
                 t.shape, dtype=acc_dt, device=t.device), g)
@@ -139,35 +161,6 @@ def _batch_grads(model, params, batch, M: int, acc_dt, weights=None):
         lsum = lsum + l
     loss = lsum / M
     return loss, {"loss": loss}, tree_map(lambda t: (t / M).float(), acc)
-
-
-class Collectives:
-    """The collectives one step issues, counted per kind: calls, and the
-    bytes this rank hands each call (an all-gather's local shard, an
-    all-reduce's buffer).  Mesh dimensions of one rank issue none."""
-
-    KINDS = ("all_gather", "all_reduce")
-
-    def __init__(self):
-        self.counts = {k: {"calls": 0, "bytes": 0} for k in self.KINDS}
-
-    def _count(self, kind: str, t: torch.Tensor) -> None:
-        self.counts[kind]["calls"] += 1
-        self.counts[kind]["bytes"] += t.numel() * t.element_size()
-
-    def all_gather(self, t: torch.Tensor, dim: int, group,
-                   size: int) -> torch.Tensor:
-        import torch.distributed as dist
-        t = t.contiguous()
-        self._count("all_gather", t)
-        parts = [torch.empty_like(t) for _ in range(size)]
-        dist.all_gather(parts, t, group=group)
-        return torch.cat(parts, dim=dim)
-
-    def all_reduce(self, t: torch.Tensor, group) -> None:
-        import torch.distributed as dist
-        self._count("all_reduce", t)
-        dist.all_reduce(t, group=group)
 
 
 def _gather(x, comm: Collectives):
@@ -221,17 +214,126 @@ def _tokens_of(mb: dict) -> torch.Tensor:
                         device=mb["labels"].device)
 
 
-def check_mesh_training(cfg, dp) -> None:
-    """The sharded train step's refusal: an MoE model on a mesh whose
-    data-parallel dimensions ``dp`` split the rows."""
-    if dp and cfg.family == "moe":
-        raise NotImplementedError(
-            "MoE on a data-parallel mesh: its router aux loss is a "
-            "statistic of the whole batch, which no rank sees")
+def _rank_microbatches(batch: dict, mesh, M: int,
+                       comm: Collectives) -> tuple[list, list[int]]:
+    """This rank's rows of each of the ``M`` microbatches, and the
+    data-parallel mesh dimensions that split them: the whole batch cut
+    into M along its rows as one device cuts it (microbatch j is rows
+    ``[j B/M, (j+1) B/M)``, as the reference's scan takes them), then each
+    microbatch's rows split over the mesh as ``act_batch``'s spec splits
+    them.  A batch held as DTensors (``DataPipeline(mesh=)``, each rank
+    its block of rows) is all-gathered whole first, unless M is 1."""
+    if M == 1:
+        rows, dp = _rows(batch, mesh)
+        return [rows], dp
+    whole = {k: _gather(x, comm) for k, x in batch.items()}
+    out, dp = [], []
+    for mb in _microbatches(whole, M):
+        rows, dp = _rows(mb, mesh)
+        out.append(rows)
+    return out, dp
+
+
+def _token_weights(mbs: list, total_of) -> list:
+    """Each microbatch's weight on a mesh: the loss is a mean over all
+    ranks' tokens, so a rank's share of microbatch j is its tokens over
+    all ranks' (``total_of`` sums the counts over the data-parallel
+    ranks)."""
+    denom = torch.stack([_tokens_of(mb) for mb in mbs])
+    total = total_of(denom)
+    return list(denom.clamp_min(1.0) / total.clamp_min(1.0))
+
+
+def _local(x):
+    """A DTensor's local shard (call under no_grad: the tensor itself, so
+    an update in place is the DTensor's), a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _placements_tree(tree, ndim: int) -> dict:
+    """``split.weight_placements`` of a state's params (a plain tensor
+    replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.sharding.split import weight_placements
+    return weight_placements(
+        (path, x.placements if isinstance(x, DTensor)
+         else [Replicate()] * ndim, x.dim()) for path, x in leaf_items(tree))
+
+
+def split_for(mesh, params, dp=(), comm: Collectives | None = None):
+    """The ``Split`` of this rank of a live ``mesh`` for a step on a
+    state's ``params`` (DTensors at rest; a plain tensor is replicated),
+    its rows split over the mesh dimensions ``dp``."""
+    dm = mesh.device_mesh
+    return Split(mesh.shape, mesh.coordinate(),
+                 [dm.get_group(m) for m in range(dm.ndim)],
+                 comm or Collectives(), dp,
+                 _placements_tree(params, dm.ndim), mesh.axis_names)
+
+
+def split_train_body(model, plan: DeploymentPlan, update):
+    """One rank's step of the split train step: ``body(state, mbs,
+    split)`` updates ``state`` (the rank's shards as plain tensors, in
+    place) from its microbatches ``mbs`` under ``split`` (a
+    ``sharding.split.Split``) and returns the metrics.  The dry run
+    traces it on ``meta`` shards under a split without ranks."""
+    acc_dt = _accum_dtype(plan)
+
+    def body(state, mbs, split):
+        weights = _token_weights(mbs, split.dp_sum)
+        params = state["params"]
+        model.tp = split
+        try:
+            with split.engaged():
+                loss, metrics, grads = _batch_grads(
+                    model, params, mbs, acc_dt, weights, weigh_loss=True)
+                loss = split.dp_sum(loss.reshape(1))[0]
+                return update(state, params, grads, dict(metrics, loss=loss))
+        finally:
+            model.tp = None
+    return body
+
+
+def _split_step(model, plan: DeploymentPlan, mesh, update):
+    """The split train step on a mesh of ranks (see ``build_train_step``):
+    each leaf stays the rank's shard; the step's body is
+    ``split_train_body``'s."""
+    from torch.distributed.tensor import DTensor
+    body = split_train_body(model, plan, update)
+
+    def train_step(state, batch):
+        if mesh.coordinate() is None:
+            raise ValueError("this rank is not on the mesh: it sits the "
+                             "step out")
+        comm = Collectives()
+        dm = mesh.device_mesh
+        mbs, dp = _rank_microbatches(batch, mesh, plan.microbatches, comm)
+        split = split_for(mesh, state["params"], dp, comm)
+        with torch.no_grad():
+            local = tree_map(_local, state)
+        before = tree_map(lambda t: t, local)
+        metrics = body(local, mbs, split)
+
+        def back(x, old, new):
+            # a leaf updated in place stays; one replaced (the counters)
+            # goes back at rest as its DTensor was
+            if new is old:
+                return x
+            if not isinstance(x, DTensor):
+                return new
+            return DTensor.from_local(new, dm, x.placements,
+                                      run_check=False, shape=x.shape,
+                                      stride=x.stride())
+        return tree_map(back, state, before, local), dict(
+            metrics, collectives=comm.counts)
+
+    return train_step
 
 
 def _mesh_step(model, opt, plan: DeploymentPlan, mesh, update):
-    """The train step on a mesh of ranks (see ``build_train_step``)."""
+    """The whole-weight train step on a mesh of ranks (the families
+    outside ``SPLIT_FAMILIES``; see ``build_train_step``)."""
     from torch.distributed.tensor import DTensor
     M = plan.microbatches
     acc_dt = _accum_dtype(plan)
@@ -243,19 +345,17 @@ def _mesh_step(model, opt, plan: DeploymentPlan, mesh, update):
         comm = Collectives()
         dm = mesh.device_mesh
         full = tree_map(lambda x: _gather(x, comm), state)
-        rows, dp = _rows(batch, mesh)
-        check_mesh_training(model.cfg, dp)
+        mbs, dp = _rank_microbatches(batch, mesh, M, comm)
         groups = [dm.get_group(m) for m in dp]
-        # the loss is a mean weighted by each microbatch's tokens: a
-        # rank's share of microbatch j is its tokens over all ranks'
-        denom = torch.stack([_tokens_of(mb)
-                             for mb in _microbatches(rows, M)])
-        total = denom.clone()
-        for g in groups:
-            comm.all_reduce(total, g)
-        weights = list(denom.clamp_min(1.0) / total.clamp_min(1.0))
+
+        def total_of(t):
+            t = t.clone()
+            for g in groups:
+                comm.all_reduce(t, g)
+            return t
+        weights = _token_weights(mbs, total_of)
         params = full["params"]
-        loss, metrics, grads = _batch_grads(model, params, rows, M, acc_dt,
+        loss, metrics, grads = _batch_grads(model, params, mbs, acc_dt,
                                             weights)
         # one f32 buffer: the loss, then every gradient; summed over the
         # data-parallel ranks, then cast once to the dtype the one-device
@@ -303,43 +403,38 @@ def build_train_step(model, opt, plan: DeploymentPlan, mesh=None,
     Off-mesh (``mesh`` None) or on a one-device mesh the step updates
     ``state`` in place and issues no collective.  On a mesh of ranks
     (``launch.mesh``) it computes what one device computes, as the
-    reference's GSPMD step does, by this design:
+    reference's GSPMD step does:
 
     * at rest every leaf of the state is a DTensor with the placements of
       its spec in the train-state table (``runtime.elastic.
       reshard_state``);
-    * the step gathers every leaf whole and keeps this rank's rows of the
-      whole batch that every rank draws (or of a ``data.pipeline.
-      DataPipeline(mesh=)`` batch, already cut); each rank computes the
-      gradients of its rows (ranks that differ only along ``model``
-      compute the same rows) in microbatches, as one device does; the
-      loss is the mean over all ranks' tokens, so each rank's loss and
-      gradients are weighted by its share of each microbatch's tokens;
-      one f32 all-reduce over the data-parallel mesh dimensions sums
-      them, then they are cast once;
-    * the update runs on the whole leaves on every rank, which then keeps
-      its slice.  It cannot run on shards as it is: ``AdamW8bit``
-      quantizes row by row over the last axis and the global gradient
-      norm spans every leaf, so a shard-local update needs cross-rank
-      amax and norm reductions (later work, with tensor parallelism).
+    * microbatch j is the whole batch's rows ``[j B/M, (j+1) B/M)``, each
+      rank computing its rows of it (ranks that differ only along
+      ``model`` hold the same rows); the loss is the mean over all ranks'
+      tokens, so each rank's loss is weighted by its share of each
+      microbatch's tokens (an MoE router's aux loss is summed over the
+      ranks instead: ``models.moe``);
+    * the dense, VLM and MoE families (``SPLIT_FAMILIES``) run split
+      (``sharding.split``): each leaf stays the rank's shard, gathered
+      along ``data`` only for the layer that uses it, the products split
+      along ``model``, every gradient the rank's shard summed over the
+      data-parallel ranks, and the update on the shards, its global norm,
+      8-bit row scales and error-feedback amax reduced across ranks
+      (``optim.adamw``);
+    * the other families gather every leaf whole, compute the gradients
+      of their rows, sum them in one f32 all-reduce over the
+      data-parallel dimensions, update whole leaves and keep their slice.
 
-    The reference's ``param_specs`` pins XLA's gradient layout; the
-    port reads each leaf's placements instead.  A mesh of several devices
-    with no ranks behind it (a description) refuses to run."""
-    use_ef = plan.grad_compression == "ef_int8"
+    On a mesh whose dimensions are all of one rank nothing is sent and
+    the step is the one-device step, bit for bit.  The reference's
+    ``param_specs`` pins XLA's gradient layout; the port reads each
+    leaf's placements instead.  A mesh of several devices with no ranks
+    behind it (a description) refuses to run."""
     acc_dt = _accum_dtype(plan)
-
-    def update(state, params, grads, metrics):
-        if use_ef:
-            grads = _ef_compress(grads, state["ef"])
-        lr = warmup_cosine(state["step"], peak_lr=peak_lr,
-                           warmup_steps=warmup_steps,
-                           total_steps=total_steps)
-        _, _, opt_metrics = opt.update(grads, state["opt"], params, lr)
-        state["step"] = state["step"] + 1
-        return dict(metrics, lr=lr, **opt_metrics)
-
+    update = _updater(opt, plan, peak_lr, warmup_steps, total_steps)
     if mesh is not None and mesh.device_mesh is not None:
+        if model.cfg.family in SPLIT_FAMILIES:
+            return _split_step(model, plan, mesh, update)
         return _mesh_step(model, opt, plan, mesh, update)
     if mesh is not None and mesh.size > 1:
         def refuse(state, batch):
@@ -348,12 +443,59 @@ def build_train_step(model, opt, plan: DeploymentPlan, mesh=None,
 
     def train_step(state, batch):
         params = state["params"]
-        loss, metrics, grads = _batch_grads(model, params, batch,
-                                            plan.microbatches, acc_dt)
+        loss, metrics, grads = _batch_grads(
+            model, params, _microbatches(batch, plan.microbatches), acc_dt)
         metrics = update(state, params, grads, metrics)
         return state, dict(metrics, collectives=Collectives().counts)
 
     return train_step
+
+
+def _updater(opt, plan: DeploymentPlan, peak_lr: float, warmup_steps: int,
+             total_steps: int):
+    """``update(state, params, grads, metrics)``: ``ef_int8``, the
+    schedule's learning rate and the optimizer's update, in place."""
+    use_ef = plan.grad_compression == "ef_int8"
+
+    def update(state, params, grads, metrics):
+        if use_ef:
+            grads = _ef_compress(grads, state["ef"], _split.active())
+        lr = warmup_cosine(state["step"], peak_lr=peak_lr,
+                           warmup_steps=warmup_steps,
+                           total_steps=total_steps)
+        _, _, opt_metrics = opt.update(grads, state["opt"], params, lr)
+        state["step"] = state["step"] + 1
+        return dict(metrics, lr=lr, **opt_metrics)
+    return update
+
+
+def described_rank_step(model, opt, plan: DeploymentPlan, mesh,
+                        params_specs, rows: int, peak_lr: float = 3e-4,
+                        warmup_steps: int = 100, total_steps: int = 10_000):
+    """The split train step that one rank (coordinate 0) of ``mesh``, a
+    mesh described without ranks, runs on its shards, for the dry run's
+    trace on ``meta``: ``step(state, batch)`` takes the rank's shards
+    and its rows of an ``rows``-row batch, cuts them into the plan's
+    microbatches and returns (state, metrics), the metrics'
+    ``collective_calls`` each collective's (kind, bytes, group size), sent
+    nowhere (``Collectives`` with no groups); the schedule's arguments are
+    ``build_train_step``'s."""
+    from repro_torch.sharding.split import params_placements
+    M = plan.microbatches
+    dp = data_parallel_dims(rows // M, mesh)
+    pls = params_placements(params_specs, mesh.axis_names, mesh.shape)
+    body = split_train_body(model, plan, _updater(
+        opt, plan, peak_lr, warmup_steps, total_steps))
+
+    def step(state, batch):
+        comm = Collectives()
+        split = Split(mesh.shape, (0,) * len(mesh.shape),
+                      [None] * len(mesh.shape), comm, dp, pls,
+                      mesh.axis_names)
+        metrics = body(state, _microbatches(batch, M), split)
+        return state, dict(metrics, collectives=comm.counts,
+                           collective_calls=comm.calls)
+    return step
 
 
 def init_train_state(model, opt, params, plan: DeploymentPlan) -> dict:

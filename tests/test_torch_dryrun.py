@@ -26,7 +26,9 @@ reference's build of the same cells, on the CPU, without a device.
   meshes) ends ``ok``, its arguments a card the sum of the specs' shard
   bytes, worked out here; ``nemotron-4-340b`` on ``nvidia:h100x256``
   holds more than a card's 80 GB (each rank gathers every weight), which
-  the record shows.
+  the record shows.  ``granite-moe-3b-a800m`` x ``train_4k``, once the
+  refusal of MoE training on a data-parallel mesh, runs split: its
+  shards at rest and one layer's gathers, worked out here.
 * The trace on ``meta`` counts what ``cost.measure`` counts running the
   same step on CPU tensors: FLOPs, bytes and the peak of the step's own
   allocations.
@@ -240,12 +242,39 @@ def test_whole_weights_on_a_mesh_show_in_memory_per_card(tmp_path):
 
 
 def test_moe_training_on_a_data_parallel_mesh_records_the_refusal(tmp_path):
+    """MoE training on a data-parallel mesh, once refused, now runs split:
+    the cell is ``ok``; its arguments are the state's and the batch's
+    shards; the trace of the split step gathers one layer's weights along
+    ``data`` at a time, whose reckoning is the largest of the
+    embedding's, one block's and the head's, worked out here; its
+    collectives are the traced step's, reduce-scatters among them."""
     rec = dryrun.run_cell("granite-moe-3b-a800m", "train_4k", "single",
                           out_dir=tmp_path, log=quiet)
-    assert rec["status"] == "error"
-    assert rec["error"].startswith("NotImplementedError: MoE on a "
-                                   "data-parallel mesh")
-    assert "traceback" in rec
+    assert rec["status"] == "ok", rec.get("traceback")
+    res = BuildService().build(AppSpec(arch="granite-moe-3b-a800m",
+                                       shape="train_4k"),
+                               dryrun.MESHES["single"], lower=False)
+    tgt = res.target
+    mem = rec["memory_analysis"]
+    assert mem["argument_size_in_bytes"] == sum(
+        _shard_bytes(res.tables[k], res.specs[k], tgt.mesh_shape,
+                     tgt.mesh_axes) for k in ("state", "batch"))
+    assert mem["temp_size_in_bytes"] > 0
+    # 40 experts on a 16-way model axis: experts whole, their mlp split;
+    # every weight's embed axis gathered over data
+    cfg = get_config("granite-moe-3b-a800m")
+    d, f, E, dh = cfg.d_model, cfg.d_ff // 16, cfg.num_experts, \
+        cfg.head_dim
+    block = 2 * (d * (cfg.num_heads // 16) * dh * 2
+                 + d * cfg.num_kv_heads * dh * 2     # kv_heads 8: whole
+                 + d * E + 3 * E * d * f + 2 * d)
+    vocab = cfg.vocab_size                            # 49,155: whole
+    head = 2 * (d * vocab + d)
+    assert rec["gathered_at_once_bytes"] == max(block, head, 2 * vocab * d)
+    calls = rec["hlo_cost"]["collective_calls"]
+    assert calls["reduce_scatter"]["calls"] > 0
+    assert calls["all_gather"]["calls"] > 0
+    assert rec["memory_analysis"]["per_chip_total_gb"] > 0
 
 
 def test_meta_trace_counts_what_measure_counts_on_the_cpu():

@@ -143,7 +143,10 @@ def _steps(res, params, mesh=None, lr=LR):
         losses.append(float(metrics["loss"]))
         comms.append(metrics["collectives"])
         hosts.append(_host(state))
-    return losses, comms, _flat_grads(opt.grads[0]), hosts
+        if i == 0:
+            grads1 = _flat_grads(opt.grads[0]) if mesh is None \
+                else _whole_grads(opt.grads[0], state["params"])
+    return losses, comms, grads1, hosts
 
 
 def _lulesh_app():
@@ -195,6 +198,21 @@ def _whole(x):
 def _host(state):
     """The whole state as CPU tensors (a mesh's leaves gathered)."""
     return tree_map(lambda x: _whole(x).detach().clone(), state)
+
+
+def _whole_grads(grads, params) -> dict:
+    """path -> the whole f32 gradient of a split step's shards (each
+    stacked and put back as its parameter's DTensor, then gathered)."""
+    from torch.distributed.tensor import DTensor
+    out = {}
+    for path, g in leaf_items(grads, lambda x: not isinstance(x, dict)):
+        local = torch.stack(g) if isinstance(g, list) else g
+        x = _leaf(params, path)
+        whole = DTensor.from_local(local.contiguous(), x.device_mesh,
+                                   x.placements, run_check=False,
+                                   shape=x.shape, stride=x.stride())
+        out["/".join(path)] = whole.full_tensor().float()
+    return out
 
 
 def _flat_grads(grads) -> dict:
@@ -273,9 +291,9 @@ def _rank_main(rank: int, out: Path) -> None:
         got["remesh_loss"] = float(m2["loss"])
         got["remesh_collectives"] = m2["collectives"]
         host_b = _host(restate)
+        grads_b = _whole_grads(opt.grads[0], restate["params"])
         if rank == 0:
-            torch.save({"grads": _flat_grads(opt.grads[0]),
-                        "state": host_b}, out / "b.pt")
+            torch.save({"grads": grads_b, "state": host_b}, out / "b.pt")
 
     # (c) LULESH through the stencil build's step on the mesh
     lres = BuildService().build(_lulesh_app(), TARGET, lower=False)
@@ -581,11 +599,16 @@ def test_collectives_counted_on_the_mesh_and_zero_on_one_rank(spmd, one):
                 c["all_gather"]["bytes"] > 0, c
             assert c["all_reduce"]["calls"] > 0 and \
                 c["all_reduce"]["bytes"] > 0, c
-    # one data row on the degraded mesh: gathers, no gradient all-reduce
+        # the split step: each layer's weights gathered along data, their
+        # gradients reduce-scattered back
+        assert c["reduce_scatter"]["calls"] > 0, c
+    # one data row on the degraded mesh: nothing split along data is
+    # gathered or reduce-scattered; the model axis's all-reduces remain
     for r in spmd["ranks"][:4]:
         c = r["remesh_collectives"]
-        assert c["all_gather"]["calls"] > 0 and \
-            c["all_reduce"]["calls"] == 0, c
+        assert c["all_gather"]["calls"] == 0 and \
+            c["reduce_scatter"]["calls"] == 0 and \
+            c["all_reduce"]["calls"] > 0, c
 
 
 def test_elastic_remesh_matches_one_process(spmd, one):
