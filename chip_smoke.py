@@ -195,8 +195,9 @@ Phases, each of which raises on failure:
 14. the MoE family at full width through EASEY: ``run_easey`` deploys a
    ``granite-moe-3b-a800m`` serving Appfile (``RUN serve --kv-layout
    paged --batch 8 --max-len 512 --requests 8 --prefill 256 --decode
-   32``; 32 layers, 40 experts top-8, d 1536, random weights from the
-   seed) to ``nvidia:h100``: the build compiles K1 and K2, the job ends
+   16``: MOE_DECODE, cut from 32 for the script's time limit; 32 layers,
+   40 experts top-8, d 1536, random weights from the seed) to
+   ``nvidia:h100``: the build compiles K1 and K2, the job ends
    ``finished``, K1 runs on every decode tick and K2 on every norm
    (counted); an engine on the same trace repeats the job's streams,
    and its run teacher-forced as phase 4's is (``_teacher_forced_run``:
@@ -315,8 +316,9 @@ Phases, each of which raises on failure:
    through the paged engine with phase 4's arguments, so phase 4's
    weights (their fingerprint checked), bound to the mesh (the engine's
    private ``_bind``, as its constructor binds a target's mesh: the
-   weights at rest as DTensors, every step built on the mesh,
-   ``training/steps.py``: each rank computes its rows, the logits
+   weights and the paged pool at rest as DTensors, every step built on
+   the mesh, ``training/steps.py``: the dense family's split steps, each
+   rank computing its rows, its heads and vocabulary columns, the logits
    gathered), serves phase 4's 8 requests: the greedy streams, the
    ``ServeStats`` counts and the K1 and K2 launches equal phase 4's
    off-mesh run's; then the legacy path's ``zamba2-7b`` job
@@ -380,6 +382,26 @@ Phases, each of which raises on failure:
    a fresh state, and one more step taken by the unbroken and the
    restored state: every leaf bit for bit equal; the save, restore and
    phase seconds are printed.
+25. one rank of a (16, 16) mesh serving, split (``_serve_rank``): (i)
+   rank 0 of ``nvidia:h100x256`` at ``decode_32k`` through the split
+   decode step (``steps.described_serve_step``: its collectives send
+   nothing) for real on the card, at full width and depth, its weight
+   and cache shards drawn on the card from seed 0: ``deepseek-7b`` (8
+   rows, 2 of 32 heads, an 8.05 GB cache shard) and ``nemotron-4-340b``
+   (8 rows, 6 of 96 heads, its cache split along the sequence, the one
+   kv head its heads read gathered a layer at a time): the logits
+   finite and whole, the arguments within DRYRUN_ARGS_RTOL of the dry
+   run's, the peak within DRYRUN_PEAK_RATIO of its GB a card, K2
+   counted, the step's time beside its one-card bound; (ii) K1 at each
+   split arch's per-rank shape (``RANK_K1``: deepseek-7b's 2 kv heads,
+   nemotron-4-340b's and mistral-large-123b's 6 heads and dbrx-132b's 3
+   on one kv head of a pool that keeps all 8, read from its offset) and
+   at the whole-head archs' (SERVE_WHOLE_HEADS: 24 and 56 heads do not
+   divide 16), 8 rows up to 32,768 tokens, held as phase 2 holds it and
+   timed beside its bound, the plain version and SDPA; then one
+   attention layer of each through ``layers.attention`` under a rank's
+   ``ServeSplit``, K1 launched once a call, within the kernel tolerance
+   of the gather path; the phase's seconds printed.
 
 The second-to-last line of output is the card's ``name, power.limit``;
 before it a JSON line lists every kernel with its launches on its path's
@@ -404,7 +426,9 @@ import types
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-sys.path.insert(0, str(REPO / "src"))
+# after the paths a caller put first: tools/kernel_mutants.py imports this
+# module beside a mutated copy of the port, which must be the one imported
+sys.path.append(str(REPO / "src"))
 # H100 SXM data sheet: device memory rate and the dense bf16 tensor-core
 # rate (the least time of the attention products), as the port's
 # roofline holds them
@@ -841,10 +865,11 @@ def _rounding_diff(torch, ref, args, got) -> dict:
     ratio of the difference to that bound, the largest difference in bf16
     steps of the output, the largest absolute difference and the
     fraction of outputs that differ."""
-    q, kp, vp, table, kv_len = args
+    q, kp, vp, table, kv_len, *heads = args
     want = ref.paged_attention_ref(*args).float()
     # the same probabilities over |v|: sum_t p_t |v_t| per output column
-    spread = ref.paged_attention_ref(q, kp, vp.abs(), table, kv_len).float()
+    spread = ref.paged_attention_ref(q, kp, vp.abs(), table, kv_len,
+                                     *heads).float()
     g = got.float()
     diff = (g - want).abs()
     bound = 2.0 ** -7 * (spread * (1 + 2.0 ** -7) + want.abs()) + 1e-6
@@ -883,6 +908,36 @@ def _shared_run_case(torch, rng, page_size, max_pages, K, G, dh,
             torch.as_tensor(lens, dtype=torch.int32, device="cuda"))
 
 
+def _rank_case(torch, rng, lens, page_size, max_pages, Kp, kv0, K, G, dh,
+               num_pages=None):
+    """``_paged_case`` of a pool of ``Kp`` kv heads of which a rank's K*G
+    query heads read the K from ``kv0`` (a pool kept whole on every rank
+    of a model axis the kv heads do not divide): (q, pages, table,
+    lengths, kv0, K)."""
+    q, kp, vp, table, kv_len = _paged_case(torch, rng, lens, page_size,
+                                           max_pages, Kp, G, dh, num_pages)
+    return (q[:, :K * G].contiguous(), kp, vp, table, kv_len, kv0, K)
+
+
+def _case_heads(case) -> tuple[int, int]:
+    """(the kv heads a K1 case reads, its query heads per kv head)."""
+    H = case[0].shape[1]
+    K = case[6] if len(case) > 5 else case[1].shape[2]
+    return K, H // K
+
+
+# K1 at one rank's heads of nvidia:h100x256's (16, 16) mesh at decode_32k:
+# (name, pool kv heads, first read, kv heads read, query heads a kv head,
+# dh).  deepseek-7b's 32 kv heads split 2 a rank; the other three keep
+# their 8 kv heads whole on every rank (8 does not divide 16) and a rank's
+# 6 (nemotron-4-340b, mistral-large-123b) or 3 (dbrx-132b) query heads read
+# one of them in place, here the last rank's that reads kv head kv0
+RANK_K1 = (("deepseek-7b", 2, 0, 2, 1, 128),
+           ("nemotron-4-340b", 8, 5, 1, 6, 192),
+           ("mistral-large-123b", 8, 3, 1, 6, 128),
+           ("dbrx-132b", 8, 7, 1, 3, 128))
+
+
 def _k1_cases(torch, rng, K, dh, page_size, sms, num_splits):
     """(name, case) pairs for K1's rounding and determinism gates at full
     width (K kv heads of dh): 1 and 2 slots; lengths that fill whole
@@ -897,7 +952,10 @@ def _k1_cases(torch, rng, K, dh, page_size, sms, num_splits):
     slots the attention shapes of ``stablelm-1.6b`` (32 heads over 32 kv
     heads of 64, G = 1) and of ``nemotron-4-340b`` (96 heads over 8 kv
     heads of 192, G = 12), ``granite-moe-3b-a800m`` (24 heads over 8 kv
-    heads of 64, G = 3) and ``dbrx-132b`` (48 over 8 of 128, G = 6)."""
+    heads of 64, G = 3) and ``dbrx-132b`` (48 over 8 of 128, G = 6); and
+    at one rank's heads on nvidia:h100x256 (``RANK_K1``: a pool of kv
+    heads split along ``model``, or kept whole and read from an
+    offset)."""
     one = num_splits(K, 64, sms)
     whole = 2 * one * page_size              # 2 pages per split
     # split i of a run of P live pages takes pages [i P / n, (i + 1) P / n)
@@ -930,7 +988,10 @@ def _k1_cases(torch, rng, K, dh, page_size, sms, num_splits):
          _paged_case(torch, rng, lens8, page_size, 32, 8, 3, 64)),
         ("dbrx-132b (G=6, dh 128)",
          _paged_case(torch, rng, lens8, page_size, 32, 8, 6, 128)),
-    ]
+    ] + [(f"{name} rank ({Kr * G} heads on kv {kv0}-{kv0 + Kr - 1} of "
+          f"{Kp}, dh {d})", _rank_case(torch, rng, lens8, page_size, 32, Kp,
+                                       kv0, Kr, G, d))
+         for name, Kp, kv0, Kr, G, d in RANK_K1]
 
 
 def _k1_hold(torch, ref, attend, name, case) -> dict:
@@ -1014,8 +1075,8 @@ class _RouteLog:
         self.moe, self.route = moe, moe.route_tokens
         self.calls = []
 
-    def __call__(self, logits, k, capacity, tp=None):
-        out = self.route(logits, k, capacity, tp)
+    def __call__(self, logits, k, capacity, tp=None, **kw):
+        out = self.route(logits, k, capacity, tp, **kw)
         self.calls.append((tuple(logits.shape), out[0], out[2]))
         return out
 
@@ -1305,9 +1366,10 @@ def _k1_numbers(torch, ref, attend, card, what, case, flush) -> dict:
     path, CUDA events after a flush), and the bound: the bytes of
     q, out, the table, the lengths and each held K/V row once over the
     memory rate, or 4 H dh operations per token over the f32 rate."""
-    q, kp, vp, table, kv_len = case
+    q, kp, vp, table, kv_len, *heads = case
     slots, H, dh = q.shape
-    Kh = kp.shape[2]
+    Kh, _ = _case_heads(case)
+    kv0 = heads[0] if heads else 0
     toks = int(kv_len.sum())
     byts = 2 * q.numel() * 2 + table.numel() * 4 + kv_len.numel() * 4 + \
         2 * toks * Kh * dh * 2
@@ -1320,8 +1382,10 @@ def _k1_numbers(torch, ref, attend, card, what, case, flush) -> dict:
     plain = _events_ms(torch, lambda: ref.paged_attention_ref(*case), 20,
                        flush)
     T = table.shape[1] * kp.shape[1]
-    kg = kp[table.long()].reshape(slots, T, Kh, dh).transpose(1, 2)
-    vg = vp[table.long()].reshape(slots, T, Kh, dh).transpose(1, 2)
+    kg = kp[table.long()][..., kv0:kv0 + Kh, :].reshape(
+        slots, T, Kh, dh).transpose(1, 2)
+    vg = vp[table.long()][..., kv0:kv0 + Kh, :].reshape(
+        slots, T, Kh, dh).transpose(1, 2)
     mask = (torch.arange(T, device="cuda")[None] <
             kv_len[:, None])[:, None, None]
     lib = _graph_pairs_ms(
@@ -4117,6 +4181,241 @@ def _train_nccl(torch, m, card, counts, reset_counts) -> dict:
     return {"dense": dense, "moe": moe_k2}
 
 
+# phase 14: tokens each granite-moe-3b-a800m request generates (cut from
+# 32 to keep the script inside its time limit on a slow host: the MoE
+# tick is host-bound, ~180-195 ms on a slow one)
+MOE_DECODE = 16
+# phase 25: one rank of nvidia:h100x256's (16, 16) mesh at decode_32k
+# through the split serve step, at full width and depth on the card
+SERVE_RANK_ARCHS = ("deepseek-7b", "nemotron-4-340b")
+SERVE_RANK_TARGET = "nvidia:h100x256"
+# K1 at a rank's shapes: 8 rows (128 over 16 data ranks) at lengths up to
+# decode_32k's 32,768 positions, 16-token pages
+SERVE_RANK_LENS = (32768, 30001, 24576, 16385, 8192, 4097, 1024, 17)
+# the archs whose heads (24, 56) do not divide the model axis: a rank
+# computes every head, and K1 reads every kv head, at the model's shape
+SERVE_WHOLE_HEADS = ("granite-moe-3b-a800m", "llava-next-34b")
+
+
+def _rank_shards(torch, m, table, specs, mesh, gen):
+    """One rank's shards of ``table`` at rest under ``specs`` on a
+    described ``mesh``, drawn on the card from ``gen`` (a K/V cache
+    leaf: standard normal; a weight as ``init_params`` draws it)."""
+    shards = m.cost.shard_table(table, specs, mesh)
+    return m.init_params(shards, gen, "cuda")
+
+
+def _serve_rank(torch, m, card, counts, reset_counts, quiet, flush) -> dict:
+    """Phase 25: (i) one rank of SERVE_RANK_TARGET's mesh runs its split
+    decode step (``steps.described_serve_step``, collectives sent nowhere)
+    at decode_32k for each of SERVE_RANK_ARCHS at full width and depth,
+    its shards drawn on the card from seed 0: the logits finite and
+    whole, the peak within DRYRUN_PEAK_RATIO of the dry run's GB a card,
+    the arguments within DRYRUN_ARGS_RTOL, the step's time beside its
+    bound; (ii) K1 at each split arch's per-rank shape (``RANK_K1``) and
+    at the whole-head archs' (SERVE_WHOLE_HEADS) at SERVE_RANK_LENS, held
+    as phase 2 holds it and timed; then one attention layer of each
+    through ``layers.attention`` in the paged decode mode under a rank's
+    ``ServeSplit`` of the mesh, K1 launched once a call (its kv head
+    offset where the pool keeps every kv head), the output within the
+    kernel tolerance of the gather path's.  Returns the launches and the
+    numbers."""
+    import numpy as np
+    from repro_torch.launch import dryrun
+    t25 = time.perf_counter()
+    out = {"steps": {}, "k1": {}}
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rank_") as tdir:
+        for arch in SERVE_RANK_ARCHS:
+            rec = dryrun.run_cell(arch, "decode_32k", "single",
+                                  out_dir=Path(tdir), log=quiet)
+            if rec["status"] != "ok":
+                raise AssertionError(f"dry run of {arch}: {rec['error']}\n"
+                                     f"{rec['traceback']}")
+            res = m.BuildService().build(m.AppSpec(arch=arch,
+                                                   shape="decode_32k"),
+                                         SERVE_RANK_TARGET, lower=False)
+            mesh, tables, specs = res.mesh, res.tables, res.specs
+            shape = res.appspec.shape_config
+            cfg = res.appspec.model_config
+            model = m.model_for(cfg, remat="none")
+            step = m.steps.described_serve_step(
+                model, mesh, specs["params"], "decode", shape.global_batch,
+                specs["cache"])
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base0 = torch.cuda.memory_allocated()
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = _rank_shards(torch, m, tables["params"],
+                                  specs["params"], mesh, gen)
+            shards = m.cost.shard_table(tables["cache"], specs["cache"],
+                                        mesh)
+            cache = {k: torch.randn(d.shape, generator=gen, device="cuda",
+                                    dtype=d.dtype)
+                     for (k,), d in m.leaf_items(shards) if k != "index"}
+            cache["index"] = torch.tensor(shape.seq_len - 1,
+                                          dtype=torch.int32)
+            rows = next(iter(cache.values())).shape[1]
+            tokens = torch.randint(0, cfg.vocab_size, (rows, 1),
+                                   dtype=torch.int32, device="cuda",
+                                   generator=gen)
+            torch.cuda.synchronize()
+            inputs = torch.cuda.memory_allocated() - base0
+            mem = rec["memory_analysis"]
+            if abs(inputs - mem["argument_size_in_bytes"]) > \
+                    DRYRUN_ARGS_RTOL * mem["argument_size_in_bytes"]:
+                raise AssertionError(
+                    f"{arch}'s rank step: argument bytes "
+                    f"{mem['argument_size_in_bytes']:.6g}, the inputs "
+                    f"allocate {inputs:.6g}")
+            torch.cuda.reset_peak_memory_stats()
+            logits, _ = step(params, cache, tokens)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base0
+            if tuple(logits.shape) != (shape.global_batch, 1,
+                                       cfg.vocab_size) or \
+                    not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{arch}'s rank step: logits "
+                                     f"{tuple(logits.shape)}, finite "
+                                     f"{bool(torch.isfinite(logits).all())}")
+            del logits
+            ratio = mem["per_chip_total_gb"] * 1e9 / peak
+            if not DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1]:
+                raise AssertionError(
+                    f"{arch}'s rank step: the dry run's "
+                    f"{mem['per_chip_total_gb']:.4f} GB a card, the card's "
+                    f"peak {peak / 1e9:.4f} GB (ratio {ratio:.4f} outside "
+                    f"{DRYRUN_PEAK_RATIO})")
+            # the index stays at the last position: the step rewrites it
+            ms = _events_ms(torch, lambda: step(params, cache, tokens), 3)
+            r = rec["roofline"]
+            bound = max(r["t_compute_s"], r["t_memory_s"]) * 1e3
+            calls = {k: v["calls"] for k, v in step.collectives.items()}
+            out["steps"][arch] = {"ms": ms, "bound_ms": bound,
+                                  "card_gb": peak / 1e9,
+                                  "dryrun_gb": mem["per_chip_total_gb"]}
+            print(f"[rank] {card} {arch} x decode_32k, rank 0 of "
+                  f"{SERVE_RANK_TARGET}'s {tuple(mesh.shape)} mesh on the "
+                  f"card through the split decode step ({rows} rows, "
+                  f"{model.cfg.num_heads // mesh.shape[-1] if model.cfg.num_heads % mesh.shape[-1] == 0 else model.cfg.num_heads} "
+                  f"of {model.cfg.num_heads} heads, cache shard "
+                  f"{sum(t.numel() * t.element_size() for t in cache.values() if t.dim()) / 1e9:.2f} GB"
+                  f"{', split along its sequence' if 'I1' in ' '.join(res.plan.notes) else ''}): "
+                  f"arguments {mem['argument_size_in_bytes'] / 1e9:.4f} GB, "
+                  f"the inputs allocate {inputs / 1e9:.4f} GB; peak "
+                  f"{peak / 1e9:.4f} GB on the card, {mem['per_chip_total_gb']:.4f} "
+                  f"GB the dry run (ratio {ratio:.4f}); logits finite; "
+                  f"{ms:.3f} ms a step (CUDA events) beside a one-card "
+                  f"bound of {bound:.3f} ms (the collectives, "
+                  f"{calls} calls sent nowhere, not timed: "
+                  f"{r['t_collective_s'] * 1e3:.3f} ms on the dry run's "
+                  f"link)")
+            del params, cache, tokens, step, res, model
+            gc.collect()
+            torch.cuda.empty_cache()
+    step_counts = counts()
+    if not step_counts["rmsnorm"] or not step_counts["add_rmsnorm"]:
+        raise AssertionError(f"the rank steps launched no K2: {step_counts}")
+    out["step_launches"] = step_counts
+
+    # (ii) K1 at a rank's shapes, then one attention layer a rank
+    rng = np.random.default_rng(25)
+    lens = list(SERVE_RANK_LENS)
+    cases = [(name, _rank_case(torch, rng, lens, 16, 2048, Kp, kv0, K, G,
+                               d)) for name, Kp, kv0, K, G, d in RANK_K1]
+    for name in SERVE_WHOLE_HEADS:
+        c = m.get_config(name)
+        cases.append((name, _paged_case(
+            torch, rng, lens, 16, 2048, c.num_kv_heads,
+            c.num_heads // c.num_kv_heads, c.head_dim)))
+    attend = m.paged_attention_cuda
+    for name, case in cases:
+        d = _k1_hold(torch, m.ref, attend, f"{name} rank", case)
+        num = _k1_numbers(torch, m.ref, attend, card, f"{name} at a rank's "
+                          f"heads on {SERVE_RANK_TARGET}", case, flush)
+        out["k1"][name] = dict(num, ratio=d["ratio"], abs=d["abs"])
+        del case
+    del cases
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    layer = {}
+    for name in tuple(n for n, *_ in RANK_K1) + SERVE_WHOLE_HEADS:
+        layer[name] = _rank_attention(torch, m, name, rng, counts)
+    out["layer_launches"] = counts()
+    print(f"[rank] {card} one attention layer a rank on "
+          f"{SERVE_RANK_TARGET} through layers.attention (paged decode, K1 "
+          f"on the rank's heads, the pool's kv heads read in place): "
+          f"{layer}; K1 launched {out['layer_launches']['paged_attention']}"
+          f" times; phase 25 took {time.perf_counter() - t25:.1f} s")
+    return out
+
+
+def _rank_attention(torch, m, arch, rng, counts) -> str:
+    """One attention layer of ``arch`` as the last model rank of
+    SERVE_RANK_TARGET's mesh runs it in the paged decode mode: its weight
+    shards gathered along ``data`` by a ``ServeSplit`` of the described
+    mesh, 8 rows over a pool of every kv head or of the rank's; K1 on the
+    card (one launch) against the gather path on a copy of the pool,
+    within the kernel tolerance.  Returns how the rank split it."""
+    from repro_torch.sharding.split import (Collectives, ServeSplit,
+                                            params_placements)
+    res = m.BuildService().build(m.AppSpec(arch=arch, shape="decode_32k"),
+                                 SERVE_RANK_TARGET, lower=False)
+    mesh, cfg = res.mesh, res.appspec.model_config
+    coord = (0,) * (len(mesh.shape) - 1) + (mesh.shape[-1] - 1,)
+    split = ServeSplit(mesh.shape, coord, [None] * len(mesh.shape),
+                       Collectives(), params_placements(
+                           res.specs["params"], mesh.axis_names, mesh.shape),
+                       mesh.axis_names)
+    table = {"blocks": {"attn": res.tables["params"]["blocks"]["attn"]}}
+    spec = {"blocks": {"attn": res.specs["params"]["blocks"]["attn"]}}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shards = _rank_shards(torch, m, table, spec, mesh, gen)
+    p = split.use(m.tree_map(lambda t: t[0], shards["blocks"]),
+                  ("blocks",))["attn"]
+    heads = p["wq"].shape[1]
+    kv = p["wk"].shape[1]
+    slots, psize, max_pages = 8, 16, 64
+    lens = [int(n) for n in rng.integers(1, max_pages * psize, slots)]
+    held = [-(-n // psize) for n in lens]
+    table_ = torch.zeros((slots, max_pages), dtype=torch.int32)
+    order = torch.randperm(sum(held), generator=torch.Generator().manual_seed(
+        0)) + 1
+    i = 0
+    for r_, h in enumerate(held):
+        table_[r_, :h] = order[i:i + h].to(torch.int32)
+        i += h
+    pool = torch.randn((sum(held) + 1, psize, kv, cfg.head_dim),
+                       device="cuda", generator=gen).to(torch.bfloat16)
+    x = torch.randn((slots, 1, cfg.d_model), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    idx = torch.as_tensor(lens, dtype=torch.int32, device="cuda") - 1
+    positions = idx[:, None]
+    outs = []
+    for kernel in (True, False):
+        cache = {"k": pool.clone(), "v": pool.clone(), "index": idx,
+                 "layout": "paged", "pages": table_.to("cuda"),
+                 "use_kernel": kernel}
+        before = counts()["paged_attention"]
+        y, _ = m.layers.attention(p, x, cfg, positions=positions,
+                                  mode="decode", cache=cache, tp=split)
+        launched = counts()["paged_attention"] - before
+        if launched != (1 if kernel else 0):
+            raise AssertionError(f"{arch}: K1 launched {launched} times in "
+                                 f"one layer (kernel {kernel})")
+        outs.append(y.float())
+    _check_close(f"{arch} rank attention layer", outs[0], outs[1],
+                 KERNEL_ATOL, KERNEL_RTOL)
+    how = f"{heads} of {cfg.num_heads} heads over " + (
+        f"kv heads {split.kv_range(cfg, heads)} of a pool of {kv}"
+        if kv == cfg.num_kv_heads and heads < cfg.num_heads else
+        f"the rank's {kv} kv heads" if heads < cfg.num_heads else
+        f"all {kv} kv heads (heads whole)")
+    return how
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4270,12 +4569,12 @@ def _main(dry: _DryRun) -> int:
             raise AssertionError("paged_attention: two slots over the same "
                                  "pages and query differ")
         k1_err = max(k1_err, d["abs"])
-        slots, H, _ = case[0].shape
-        Kh = case[1].shape[2]
-        hc = head_chunk(H // Kh)
-        pairs = slots * Kh * head_chunks(H // Kh)
+        slots = case[0].shape[0]
+        Kh, G = _case_heads(case)
+        hc = head_chunk(G)
+        pairs = slots * Kh * head_chunks(G)
         print(f"[kernels] paged_attention {name} (lengths "
-              f"{case[4].tolist()[:8]}, G={H // Kh} in chunks of {hc}, "
+              f"{case[4].tolist()[:8]}, G={G} in chunks of {hc}, "
               f"{num_splits(pairs, case[3].shape[1], sms)} splits): "
               f"{d['ratio']:.4f} of the two-rounding bound, "
               f"{d['ulps']:.3g} bf16 steps, max abs {d['abs']:.4g}; two calls "
@@ -4536,7 +4835,8 @@ def _main(dry: _DryRun) -> int:
         mesh_for_target=mesh_for_target, Mesh=Mesh, lulesh=lulesh,
         ServeEngine=ServeEngine, legacy_generate=legacy_generate,
         Checkpointer=Checkpointer, FailureInjector=FailureInjector,
-        SimulatedFailure=SimulatedFailure)
+        SimulatedFailure=SimulatedFailure,
+        paged_attention_cuda=paged_attention_cuda)
     train_smoke, train_s = _timed(_train_smoke, torch, mt, counts,
                                   reset_counts)
     print(f"[smoke] training {TRAIN_SMOKE_ARCHS}, {TRAIN_SMOKE_STEPS} steps "
@@ -5451,7 +5751,7 @@ def _main(dry: _DryRun) -> int:
     gr = get_config("granite-moe-3b-a800m")
     gl = gr.num_layers
     cmd14 = ("serve --arch granite-moe-3b-a800m --kv-layout paged --batch 8 "
-             "--max-len 512 --requests 8 --prefill 256 --decode 32")
+             f"--max-len 512 --requests 8 --prefill 256 --decode {MOE_DECODE}")
     app14 = parse_appfile(f"FROM arch:granite-moe-3b-a800m\nSHAPE "
                           f"decode_32k\n###include_local_kernels###\nRUN "
                           f"{cmd14}\n")
@@ -5479,7 +5779,7 @@ def _main(dry: _DryRun) -> int:
         raise AssertionError(f"MoE serve ({out14['kv_kernel']}): launches "
                              f"{moe_launches} != {want}")
     if len(st14.results) != 8 or any(
-            len(r.tokens) != 32 or
+            len(r.tokens) != MOE_DECODE or
             not all(0 <= x < gr.vocab_size for x in r.tokens)
             for r in st14.results):
         raise AssertionError("MoE serve: not every request complete")
@@ -5492,7 +5792,7 @@ def _main(dry: _DryRun) -> int:
                         log=quiet)
     eng14_chunk = eng14.prefill_chunk
     reqs14 = serving.uniform_trace(8, gr.vocab_size, prompt_len=256,
-                                   max_new=32, seed=0)
+                                   max_new=MOE_DECODE, seed=0)
     with _RouteLog(moe) as log14:
         if _streams(eng14.run(reqs14)) != easey14[0]:
             raise AssertionError("granite-moe-3b-a800m: the engine's streams "
@@ -5641,6 +5941,12 @@ def _main(dry: _DryRun) -> int:
     print(f"[smoke] {card} phases 1-24 took "
           f"{time.perf_counter() - t_main:.1f} s")
 
+    # ---- 25. one rank of a (16, 16) mesh serving, split ----------------
+    dry.mark(25)
+    rank = _serve_rank(torch, mt, card, counts, reset_counts, quiet, flush)
+    print(f"[smoke] {card} phases 1-25 took "
+          f"{time.perf_counter() - t_main:.1f} s")
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -5655,13 +5961,21 @@ def _main(dry: _DryRun) -> int:
          # phase 23: the example twins on the card
          "examples_launches": {n: c["paged_attention"]
                                for n, c in ex.items()},
-         "max_abs_err": k1_err,
+         # phase 25: one attention layer a rank of nvidia:h100x256, K1 on
+         # the rank's heads (a kv head offset where the pool keeps all)
+         "rank_layer_launches": rank["layer_launches"]["paged_attention"],
+         "max_abs_err": max(k1_err, max(r["abs"]
+                                        for r in rank["k1"].values())),
          "ms": k1["ms"], "plain_ms": k1["plain"], "bound_ms": k1["bound"],
          "bound_by": k1["bound_by"], "library_ms": k1["lib"],
          # the attention shapes of the configs ported since (phase 2)
          "shapes": {n: {"ms": r["ms"], "plain_ms": r["plain"],
                         "bound_ms": r["bound"], "library_ms": r["lib"]}
-                    for n, r in k1_new.items()}},
+                    for n, r in k1_new.items()},
+         # phase 25: at a rank's heads of nvidia:h100x256 at decode_32k
+         "rank_shapes": {n: {"ms": r["ms"], "plain_ms": r["plain"],
+                             "bound_ms": r["bound"], "library_ms": r["lib"]}
+                         for n, r in rank["k1"].items()}},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:38",
@@ -5682,6 +5996,8 @@ def _main(dry: _DryRun) -> int:
          # step (deepseek-7b cut to 8 layers; granite-moe-3b-a800m)
          "mesh_train_launches_per_step": {
              n: k["rmsnorm"] for n, k in mesh_train.items()},
+         # phase 25: both rank steps at decode_32k
+         "rank_step_launches": rank["step_launches"]["rmsnorm"],
          "backward_ms": {f"{r}x{c}": k2g[(r, c)]["ms"]["rmsnorm"][1]
                          for r, c in K2_GRAD_SHAPES},
          "max_abs_err": k2_err,
@@ -5713,6 +6029,7 @@ def _main(dry: _DryRun) -> int:
          "examples_launches": {n: c["add_rmsnorm"] for n, c in ex.items()},
          "mesh_train_launches_per_step": {
              n: k["add_rmsnorm"] for n, k in mesh_train.items()},
+         "rank_step_launches": rank["step_launches"]["add_rmsnorm"],
          "backward_ms": {f"{r}x{c}": k2g[(r, c)]["ms"][True][1]
                          for r, c in K2_GRAD_SHAPES},
          "max_abs_err": k2f_err,

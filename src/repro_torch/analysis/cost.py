@@ -36,19 +36,21 @@ cache's 0-d index, a prompt's last position) stay on the host.
 
 ``mesh_collectives`` reckons the collectives of the port's mesh steps
 (``training/steps.py``), per call as ``Collectives`` counts them on live
-ranks, with each call's ring wire bytes.  The serve steps' and the
-whole-weight train step's (the families outside ``SPLIT_FAMILIES``)
-come from the build's specs alone: the weight (and, training, the
-state) gathers, the gradient all-reduce, the logits gathers and a
-cache's gathers.  The split train step (dense, VLM, MoE) sends its
-collectives where its layers run: each layer's ``data`` gathers and,
-in the backward, their reduce-scatters, the model axis's all-reduces of
-each column-parallel input's gradient and of each row-parallel output,
-the vocabulary's max and sums, the router's statistics, per microbatch,
-and again in the remat recompute; so they are counted from the step
-itself, traced on ``meta`` shards by a rank of the described mesh
-(``steps.described_rank_step``; ``meta_shards``), whose collectives
-send nothing and count all the same.
+ranks, with each call's ring wire bytes.  The whole-weight steps' (the
+families outside ``SPLIT_FAMILIES``) come from the build's specs alone:
+the weight (and, training, the state) gathers, the gradient all-reduce,
+the logits gathers and a cache's gathers.  The split steps (dense, VLM,
+MoE) send their collectives where their layers run: each layer's
+``data`` gathers, the model axis's all-reduces of each row-parallel
+output, the vocabulary's gathers (serving) or max and sums (training),
+a sequence-split cache's heads (an all-to-all), and in training the
+gathers' reduce-scatters, each column-parallel input's gradient's
+all-reduce and the router's statistics, per microbatch and again in the
+remat recompute; so they are counted from the step itself, traced on
+``meta`` shards by a rank of the described mesh
+(``steps.described_rank_step``, ``steps.described_serve_step``;
+``meta_shards``), whose collectives send nothing and count all the
+same.
 
 Neither counter sees into a hand-written kernel.  The port's CUDA kernels
 are ``ctypes`` calls made outside the dispatcher (``kernels/_build.py``),
@@ -287,7 +289,8 @@ def meta_tree(table, rows: int = 1, index: int | None = None):
 
 _WIRE = {"all_gather": lambda g: g - 1,        # x the bytes a rank hands
          "all_reduce": lambda g: 2 * (g - 1) / g,
-         "reduce_scatter": lambda g: (g - 1) / g}
+         "reduce_scatter": lambda g: (g - 1) / g,
+         "all_to_all": lambda g: (g - 1) / g}
 
 
 class Reckoning:
@@ -295,7 +298,7 @@ class Reckoning:
     (calls, and the bytes this rank hands each), plus each call's ring
     wire bytes: an all-gather of L bytes a rank over g ranks sends
     (g - 1) L, an all-reduce of B bytes 2 (g - 1) / g B, a
-    reduce-scatter of B bytes (g - 1) / g B."""
+    reduce-scatter or an all-to-all of B bytes (g - 1) / g B."""
 
     def __init__(self):
         self.counts = {k: {"calls": 0, "bytes": 0} for k in _WIRE}
@@ -353,9 +356,11 @@ def spec_bytes(table, specs, mesh) -> int:
     return total
 
 
-def meta_shards(table, specs, mesh):
-    """Meta tensors of one rank's shards of a declarative table at rest
-    under its specs (a dimension split over k ranks holds 1/k of it)."""
+def shard_table(table, specs, mesh):
+    """The declarative table of one rank's shards of ``table`` at rest
+    under its specs: each ParamDef with its shard's shape (a dimension
+    split over k ranks holds 1/k of it)."""
+    import dataclasses
     from repro_torch.models.params import ParamDef, leaf_items
     from repro_torch.sharding.rules import placements
     spec_of = dict(leaf_items(specs))
@@ -367,9 +372,15 @@ def meta_shards(table, specs, mesh):
         for m, pl in enumerate(placements(spec_of[path], mesh)):
             if pl.is_shard():
                 n[pl.dim] *= mesh.shape[m]
-        return torch.empty([d // k for d, k in zip(t.shape, n)],
-                           dtype=t.dtype, device="meta")
+        return dataclasses.replace(
+            t, shape=tuple(d // k for d, k in zip(t.shape, n)))
     return walk(table)
+
+
+def meta_shards(table, specs, mesh):
+    """Meta tensors of one rank's shards of a declarative table at rest
+    under its specs (``shard_table``)."""
+    return meta_tree(shard_table(table, specs, mesh))
 
 
 def mesh_collectives(kind: str, tables: dict, specs: dict, mesh,
@@ -389,9 +400,9 @@ def mesh_collectives(kind: str, tables: dict, specs: dict, mesh,
       rank) all-gathered over the data-parallel dimensions.
 
     ``rows`` is the batch's row count (the data-parallel dimensions are
-    those ``act_batch`` splits them over).  ``calls``: the split train
-    step's log of its traced collectives (see the module's docstring),
-    which is its reckoning."""
+    those ``act_batch`` splits them over).  ``calls``: a split step's
+    log of its traced collectives (the dense, VLM and MoE train and
+    serve steps; see the module's docstring), which is its reckoning."""
     if calls is not None:
         return Reckoning.of_calls(calls)
     from repro_torch.models.params import leaf_items

@@ -69,6 +69,12 @@
 // tail and the gap between the launches.  Shared memory does not depend
 // on T: kPageChunk ints, and in (b) kWarps * G * dh floats to sum its
 // warps' partials.
+// A sub-range of the pool's kv heads.  The pool may hold more kv heads
+// (Kp) than the call reads: a rank of a mesh whose model axis the kv
+// heads do not divide keeps every kv head and reads the K heads
+// [kv0, kv0 + K) its query heads use.  Only a row's address changes (its
+// head stride is Kp, its head kv0 + kh); q, out and the scratch hold the
+// K heads read, as they do at Kp = K, kv0 = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,8 +90,9 @@ constexpr int kMaxG = 8;
 constexpr int kPageChunk = 64;                    // page ids staged at a time
 
 struct Geo {
-  int K, heads, hc, dh, page_size, max_pages, nsplit, lpr;
-};  // heads: query heads per kv head, hc: their chunks
+  int K, heads, hc, dh, page_size, max_pages, nsplit, lpr, Kp, kv0;
+};  // heads: query heads per kv head, hc: their chunks; Kp: the pool's kv
+    // heads, kv0: the first of the K read
 
 // First query head of the block's chunk, and how many of its gc heads are
 // real (fewer in the last chunk where gc does not divide the heads).
@@ -122,8 +129,8 @@ __device__ __forceinline__ void bf16x8(const uint4& raw, float* f) {
 // Address of the bf16 row of token `pos` of kv head kh on `page`.
 __device__ __forceinline__ const __nv_bfloat16* row_at(
     const __nv_bfloat16* pages, int page, int pos, int kh, const Geo& g) {
-  return pages + (((size_t)page * g.page_size + pos % g.page_size) * g.K + kh)
-                     * g.dh;
+  return pages + (((size_t)page * g.page_size + pos % g.page_size) * g.Kp +
+                  g.kv0 + kh) * g.dh;
 }
 
 // The rows a warp loads at once: kUnroll loads per lane, each lane group
@@ -457,9 +464,11 @@ int smem_g(int pv, int dh, int* static_bytes, int* dynamic_bytes) {
 
 extern "C" {
 
-// q (slots, K*G, dh) bf16; k/v_pages (num_pages, page_size, K, dh) bf16;
-// page_table (slots, max_pages) int32; kv_len (slots,) int32;
-// out (slots, K*G, dh) bf16; all contiguous, q/k/v/out 16-byte aligned.
+// q (slots, K*G, dh) bf16; k/v_pages (num_pages, page_size, Kp, dh) bf16,
+// of whose Kp kv heads the K heads [kv0, kv0 + K) are read (Kp = K, kv0 =
+// 0: every head); page_table (slots, max_pages) int32; kv_len (slots,)
+// int32; out (slots, K*G, dh) bf16; all contiguous, q/k/v/out 16-byte
+// aligned.
 // Query heads are taken gc at a time (1 <= gc <= 8), in hc = ceil(G / gc)
 // chunks.  Scratch from the caller, with C = slots*K*hc*gc: scores
 // C*max_pages*page_size f32, maxes C*nsplit f32, partials C*nsplit*dh f32
@@ -473,13 +482,14 @@ int paged_attention_launch(const void* q, const void* k_pages,
                            void* maxes, void* partials, void* counters,
                            int slots, int K, int G, int gc, int dh,
                            int page_size, int max_pages, int nsplit,
-                           float scale, void* stream) {
-  if (gc < 1 || gc > kMaxG || G < 1 || dh % 8 || dh > 256 || nsplit < 1)
+                           int Kp, int kv0, float scale, void* stream) {
+  if (gc < 1 || gc > kMaxG || G < 1 || dh % 8 || dh > 256 || nsplit < 1 ||
+      kv0 < 0 || kv0 + K > Kp)
     return (int)cudaErrorInvalidValue;
   int lpr = 1;
   while (lpr * 8 < dh) lpr <<= 1;
   const Geo geo{K, G, (G + gc - 1) / gc, dh, page_size, max_pages, nsplit,
-                lpr};
+                lpr, Kp, kv0};
   float *s = (float*)scores, *mx = (float*)maxes, *pt = (float*)partials;
   int* ct = (int*)counters;
   const cudaStream_t st = (cudaStream_t)stream;

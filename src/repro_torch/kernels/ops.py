@@ -46,16 +46,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
-                    kv_len: torch.Tensor) -> torch.Tensor:
+                    kv_len: torch.Tensor, kv0: int = 0,
+                    kv_heads: int | None = None) -> torch.Tensor:
     """Paged single-token decode attention (see kernels/paged_attention.py).
 
-    q: (slots, H, dh); k_pages/v_pages: (num_pages, page_size, K, dh);
+    q: (slots, H, dh); k_pages/v_pages: (num_pages, page_size, Kp, dh), of
+    whose kv heads ``kv_heads`` (default all) from ``kv0`` on are read;
     page_table: (slots, max_pages) int32; kv_len: (slots,) int32.
     """
     if q.is_cuda:
-        return paged_attention_cuda(q, k_pages, v_pages, page_table, kv_len)
+        return paged_attention_cuda(q, k_pages, v_pages, page_table, kv_len,
+                                    kv0, kv_heads)
     _check_cpu(q)
-    return ref.paged_attention_ref(q, k_pages, v_pages, page_table, kv_len)
+    return ref.paged_attention_ref(q, k_pages, v_pages, page_table, kv_len,
+                                   kv0, kv_heads)
 
 
 def _rmsnorm_fwd(x, w, eps, out_dtype):

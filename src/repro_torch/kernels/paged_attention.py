@@ -18,6 +18,11 @@ is allocated once per (device, shape) and kept: the decode tick is
 bound by the host, and an allocation per call would cost it.  One
 shape's scratch serves one stream at a time.
 
+A call may read a sub-range of the pool's kv heads (``kv0``,
+``kv_heads``): a rank of a mesh whose model axis the kv heads do not
+divide holds every kv head in its pool and reads those its query heads
+use, in place.
+
 Its plain version is ``ref.paged_attention_ref``; ``ops.paged_attention``
 picks between the two by the tensors' device.  This wrapper takes CUDA
 tensors only and raises on anything the kernel does not take.
@@ -44,7 +49,7 @@ _SCRATCH: dict[tuple, tuple[torch.Tensor, ...]] = {}
 def _lib():
     """The built library, its C signature declared once."""
     lib = _build.load("paged_attention")
-    lib.paged_attention_launch.argtypes = [_P] * 10 + [_I] * 8 + \
+    lib.paged_attention_launch.argtypes = [_P] * 10 + [_I] * 10 + \
         [ctypes.c_float, _P]
     lib.paged_attention_launch.restype = _I
     return lib
@@ -102,12 +107,15 @@ def _scratch(device: torch.device, slots: int, K: int, G: int, dh: int,
 
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, page_table: torch.Tensor,
-                         kv_len: torch.Tensor) -> torch.Tensor:
+                         kv_len: torch.Tensor, kv0: int = 0,
+                         kv_heads: int | None = None) -> torch.Tensor:
     """Single-token GQA decode attention through a page table, on the card.
 
-    q: (slots, H, dh) bf16; k/v_pages: (num_pages, page_size, K, dh) bf16;
-    page_table: (slots, max_pages) int32 (entry 0 = the junk page);
-    kv_len: (slots,) int32.  Returns (slots, H, dh) bf16.
+    q: (slots, H, dh) bf16; k/v_pages: (num_pages, page_size, Kp, dh) bf16,
+    of whose Kp kv heads the ``kv_heads`` (default all) from ``kv0`` on
+    are read, H % kv_heads == 0; page_table: (slots, max_pages) int32
+    (entry 0 = the junk page); kv_len: (slots,) int32.  Returns (slots, H,
+    dh) bf16.
     """
     tensors = (q, k_pages, v_pages, page_table, kv_len)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
@@ -124,7 +132,10 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("q/k/v must start on 16-byte boundaries (the "
                          "kernel reads rows with 16-byte loads)")
     slots, H, dh = q.shape
-    num_pages, page_size, K, dh_kv = k_pages.shape
+    num_pages, page_size, Kp, dh_kv = k_pages.shape
+    K = Kp if kv_heads is None else kv_heads
+    if not 0 <= kv0 <= kv0 + K <= Kp:
+        raise ValueError(f"kv heads [{kv0}, {kv0 + K}) of a pool of {Kp}")
     if v_pages.shape != k_pages.shape or dh_kv != dh or \
             not kernel_takes(H, K, dh):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k_pages.shape)}"
@@ -148,7 +159,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
         scores.data_ptr(), maxes.data_ptr(), partials.data_ptr(),
         counters.data_ptr(), slots, K, G, gc, dh, page_size, max_pages, nsplit,
-        1.0 / math.sqrt(dh), _build.stream_of(q))
+        Kp, kv0, 1.0 / math.sqrt(dh), _build.stream_of(q))
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")

@@ -90,10 +90,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, page_table: torch.Tensor,
-                        kv_len: torch.Tensor) -> torch.Tensor:
+                        kv_len: torch.Tensor, kv0: int = 0,
+                        kv_heads: int | None = None) -> torch.Tensor:
     """Gather-then-attend single-token decode attention over a page pool.
 
-    q: (slots, H, dh); k/v_pages: (num_pages, page_size, K, dh);
+    q: (slots, H, dh); k/v_pages: (num_pages, page_size, Kp, dh), of whose
+    Kp kv heads the ``kv_heads`` (default all) from ``kv0`` on are read;
     page_table: (slots, max_pages) int32; kv_len: (slots,) int32.
     Returns (slots, H, dh) in q's dtype.
 
@@ -104,6 +106,10 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     junk page 0 or at/after ``kv_len`` get probability exactly 0, so a
     slot with no live page returns exact zeros.
     """
+    if kv_heads is not None or kv0:
+        stop = kv0 + (k_pages.shape[2] - kv0 if kv_heads is None
+                      else kv_heads)
+        k_pages, v_pages = k_pages[:, :, kv0:stop], v_pages[:, :, kv0:stop]
     slots, H, dh = q.shape
     _, psize, K, _ = k_pages.shape
     G = H // K

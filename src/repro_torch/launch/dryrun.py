@@ -8,14 +8,16 @@ The port builds each cell on the H100 counterparts of those pods,
 ``nvidia:h100x512`` (2 x 16 x 16 over ``pod``, ``data``, ``model``),
 described targets with no ranks behind them, and traces the step on the
 ``meta`` device (``analysis/cost.trace``): the step that one rank of the
-port's mesh step computes.  A serve cell, or a train cell of a family
-outside ``steps.SPLIT_FAMILIES``, traces the one-device step on rank 0's
-rows of the batch and of the cache with the weights whole, its
-collectives reckoned from the specs (``cost.mesh_collectives``).  A
-dense, VLM or MoE train cell traces the split step itself
-(``steps.described_rank_step``) on rank 0's shards of the state and its
-rows, its collectives sending nothing and counted as they are issued.
-It needs no device and no process group, and sets no environment.
+port's mesh step computes.  A cell of a family outside
+``steps.SPLIT_FAMILIES`` traces the one-device step on rank 0's rows of
+the batch and of the cache with the weights whole, its collectives
+reckoned from the specs (``cost.mesh_collectives``).  A dense, VLM or
+MoE cell traces the split step itself (``steps.described_rank_step``
+for training, ``steps.described_serve_step`` for the prefill and the
+decode) on rank 0's shards of the state, the weights or the cache and
+its rows, its collectives sending nothing and counted as they are
+issued.  It needs no device and no process group, and sets no
+environment.
 
 For each cell it prints the memory per card, the FLOPs, the three
 roofline terms and the plan, and writes one JSON record under
@@ -24,11 +26,12 @@ roofline terms and the plan, and writes one JSON record under
 * ``memory_analysis``: ``argument_size_in_bytes`` (the inputs' bytes a
   card holds at rest, each leaf's shard under its spec),
   ``temp_size_in_bytes`` (the trace's peak of the step's own
-  allocations, plus what the mesh step gathers: the whole weights, in
-  a whole-weight train step the whole state, a decode's cache rows; a
-  split train step's gathers, one layer's weights along ``data`` at a
-  time, are allocations of its trace already), ``output_size_in_
-  bytes`` (the logits gathered whole, the cache or state at rest),
+  allocations, plus what a whole-weight step gathers: the whole
+  weights, in a train step the whole state, a decode's cache rows; a
+  split step's gathers, one layer's weights along ``data`` at a time
+  and a sequence-split cache's heads one layer at a time, are
+  allocations of its trace already), ``output_size_in_bytes`` (the
+  logits gathered whole, the cache or state at rest),
   ``alias_size_in_bytes`` (the outputs written in place into inputs:
   a decode's cache, the train state), ``per_chip_total_gb`` (arguments
   plus temporaries); ``generated_code_size_in_bytes`` is null: the port
@@ -42,12 +45,13 @@ roofline terms and the plan, and writes one JSON record under
 * ``kernels_traced_as``: ``"plain"``: the hand-written kernels cannot
   run on ``meta``, so their plain versions stand in for them.
 
-A split train step holds its shards of the state, its shards of the
-gradients, and one layer's weights gathered along ``data`` at a time
-(``gathered_at_once``: the reckoning the live step's gather records are
-held to), so its memory per card shrinks with both mesh axes.  The serve
-steps and the other families' train steps compute with whole weights
-(each rank gathers every weight for each step), which the records show.
+A split step holds its shards of the state (training: and of the
+gradients; serving: of the weights and the cache), and one layer's
+weights gathered along ``data`` at a time (``gathered_at_once``: the
+reckoning the live step's gather records are held to), so its memory
+per card shrinks with both mesh axes.  The other families' steps
+compute with whole weights (each rank gathers every weight for each
+step), which the records show.
 A failing cell records ``"status": "error"`` and its traceback, and the
 run returns 1.
 
@@ -66,6 +70,8 @@ import math
 import time
 import traceback
 from pathlib import Path
+
+import torch
 
 from repro_torch.analysis import cost as cost_mod
 from repro_torch.analysis.flops import model_flops
@@ -101,18 +107,17 @@ def split_overrides(overrides: dict | None) -> tuple[dict, dict]:
 
 
 def split_cell(result) -> bool:
-    """Whether a build's cell is a train step that runs split on its
-    mesh (``steps.SPLIT_FAMILIES`` on a mesh of several chips)."""
+    """Whether a build's cell runs split on its mesh
+    (``steps.SPLIT_FAMILIES`` on a mesh of several chips)."""
     from repro_torch.training import steps
-    return result.appspec.shape_config.kind == "train" and \
-        result.target.num_chips > 1 and \
+    return result.target.num_chips > 1 and \
         result.appspec.model_config.family in steps.SPLIT_FAMILIES
 
 
 def cell_step(result):
     """(the step one rank runs, its meta arguments, the ranks splitting
     the rows) of a build: the build's step on a single card; on a mesh
-    the split train step of rank 0 on its shards (``split_cell``), or the
+    the split step of rank 0 on its shards (``split_cell``), or the
     one-device step each rank of the port's mesh step computes (rank 0's
     rows, the weights whole)."""
     from repro_torch.models.transformer import model_for
@@ -138,8 +143,20 @@ def cell_step(result):
         step = steps.build_train_step(model, opt, plan)
         return step, (meta(tables["state"]),
                       meta(tables["batch"], split)), split
-    params = meta(tables["params"])
     batch = meta(tables["batch"], split)
+    if split_cell(result):
+        step = steps.described_serve_step(
+            model, result.mesh, result.specs["params"], shape.kind, rows,
+            result.specs["cache"])
+        params = cost_mod.meta_shards(tables["params"],
+                                      result.specs["params"], result.mesh)
+        if shape.kind == "prefill":
+            return step, (params, batch), split
+        cache = dict(cost_mod.meta_shards(
+            tables["cache"], result.specs["cache"], result.mesh),
+            index=torch.tensor(shape.seq_len - 1, dtype=torch.int32))
+        return step, (params, cache, batch["tokens"]), split
+    params = meta(tables["params"])
     if shape.kind == "prefill":
         return steps.build_prefill_step(model), (params, batch), split
     # the whole-batch decode at the cache's last position: the step
@@ -149,20 +166,26 @@ def cell_step(result):
                                             batch["tokens"]), split
 
 
-def collectives_of(result, out) -> cost_mod.Reckoning:
+def collectives_of(result, out, step=None) -> cost_mod.Reckoning:
     """The collectives one rank of the port's mesh step issues in one
-    call of the build's step, reckoned from its specs (none on one card);
-    ``out`` is the traced one-rank step's result (its logits' bytes)."""
+    call of the build's step (none on one card): a split step's as its
+    trace logged them (``out``'s metrics in training, the traced
+    ``step``'s log in serving), a whole-weight step's reckoned from its
+    specs; ``out`` is the traced one-rank step's result (its logits'
+    bytes)."""
     if result.target.num_chips == 1:
         return cost_mod.Reckoning()
     shape = result.appspec.shape_config
+    calls = None
+    if split_cell(result):
+        calls = out[1]["collective_calls"] if shape.kind == "train" \
+            else step.collective_calls
     logits = 0 if shape.kind == "train" else \
         out[0].numel() * out[0].element_size()
     return cost_mod.mesh_collectives(
         shape.kind, result.tables, result.specs, result.mesh,
         logits_bytes=logits, microbatches=result.plan.microbatches,
-        rows=shape.global_batch, calls=out[1]["collective_calls"]
-        if split_cell(result) else None)
+        rows=shape.global_batch, calls=calls)
 
 
 def _gathered_bytes(table, specs, mesh) -> int:
@@ -179,14 +202,14 @@ def _gathered_bytes(table, specs, mesh) -> int:
     return total
 
 
-def gathered_at_once(table, specs, mesh, remat: str) -> int:
-    """The most bytes of weights a rank of the split train step holds
-    gathered along ``data`` at once (a weight split only along ``model``
-    is not gathered): the largest of the embedding's, one block's and
-    the head's (``ln_f`` and the unembedding, or a tied embedding), each
-    freed before the next is gathered; under ``remat="none"`` autograd
-    keeps every block's for its backward, so all blocks' and the
-    head's."""
+def gathered_at_once(table, specs, mesh, remat: str | None) -> int:
+    """The most bytes of weights a rank of a split step holds gathered
+    along ``data`` at once (a weight split only along ``model`` is not
+    gathered): the largest of the embedding's, one block's and the
+    head's (``ln_f`` and the unembedding, or a tied embedding), each
+    freed before the next is gathered; in a train step under
+    ``remat="none"`` autograd keeps every block's for its backward, so
+    all blocks' and the head's.  A serve step's ``remat`` is None."""
     from repro_torch.models.params import leaf_items
     from repro_torch.sharding.rules import placements
     model = list(mesh.axis_names).index("model") \
@@ -237,13 +260,18 @@ def memory_per_chip(result, cost, out, split: int) -> dict:
         weights = at_rest(tables["params"], specs["params"], mesh)
         batch = at_rest(tables["batch"], specs["batch"], mesh)
         cache = at_rest(tables["cache"], specs["cache"], mesh)
-        logits = out[0].numel() * out[0].element_size() * split
-        gathered = _gathered_bytes(tables["params"], specs["params"], mesh)
+        # a split step's logits come out whole already
+        whole = split_cell(result)
+        logits = out[0].numel() * out[0].element_size() * (
+            1 if whole else split)
+        gathered = 0 if whole else \
+            _gathered_bytes(tables["params"], specs["params"], mesh)
         if kind == "decode":
             args = weights + cache + batch
             alias = cache
-            gathered += _gathered_bytes(tables["cache"], specs["cache"],
-                                        mesh) // split
+            if not whole:
+                gathered += _gathered_bytes(tables["cache"], specs["cache"],
+                                            mesh) // split
         else:
             args = weights + batch
             alias = 0
@@ -303,10 +331,12 @@ def _cell(rec: dict, app: AppSpec, target, plan_over: dict, name: str,
         mem = memory_per_chip(result, cost, out, split)
         rec["memory_analysis"] = mem
         if split_cell(result):
+            train = result.appspec.shape_config.kind == "train"
+            tables, specs = (result.tables["state"], result.specs["state"]) \
+                if train else (result.tables, result.specs)
             rec["gathered_at_once_bytes"] = gathered_at_once(
-                result.tables["state"]["params"],
-                result.specs["state"]["params"],
-                result.mesh, result.plan.remat_policy)
+                tables["params"], specs["params"], result.mesh,
+                result.plan.remat_policy if train else None)
         log(f"{name} memory_analysis: "
             f"args={mem['argument_size_in_bytes'] / 1e9:.2f}GB "
             f"temp={mem['temp_size_in_bytes'] / 1e9:.2f}GB "
@@ -316,7 +346,7 @@ def _cell(rec: dict, app: AppSpec, target, plan_over: dict, name: str,
                                 "bytes_accessed": cost.hbm_bytes}
         log(f"  cost_analysis (meta trace, a card): "
             f"flops={cost.flops:.3e} bytes={cost.hbm_bytes:.3e}")
-        wire = collectives_of(result, out)
+        wire = collectives_of(result, out, step)
         cost.wire_bytes = wire.wire_bytes
         cost.collective_breakdown = wire.breakdown
         mf = model_flops(app.model_config, app.shape_config)
@@ -332,8 +362,9 @@ def _cell(rec: dict, app: AppSpec, target, plan_over: dict, name: str,
         rec["model_flops"] = mf
         rec["roofline"] = roof.row()
         rec["notes"] = [
-            "flops, bytes and peak: a meta-device trace of the one-device "
-            "step one rank computes (rank 0's rows, the weights whole)",
+            "flops, bytes and peak: a meta-device trace of the step rank "
+            "0 computes (its shards and rows in a split cell; else its "
+            "rows, the weights whole)",
             "hand-written kernels traced as their plain versions",
             "no generated program: compile_s, hlo_parse_s, "
             "generated_code_size_in_bytes and while_trips are null"]

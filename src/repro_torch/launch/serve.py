@@ -405,8 +405,9 @@ def grow_kv(cache: dict, n: int) -> dict:
     grows them all, as here.  A recurrent state has no K/V and stays as
     it is, and so do an enc-dec's cross K/V (``"xk"``, ``"xv"``), which
     keep the encoder's length: its decode steps read them whole.  A K/V
-    at rest on a mesh (a DTensor) grows its local shard, which holds the
-    whole sequence axis."""
+    at rest on a mesh (a DTensor, its rows along ``data``, its KV heads
+    along ``model`` or whole) grows its local shard, which holds the
+    whole sequence axis; a K/V split along its sequence is refused."""
     out = {}
     for key, v in cache.items():
         if isinstance(v, dict):
@@ -475,9 +476,11 @@ def _legacy_serve_main(arch: str, batch: int, prefill_len: int,
     as the reference's path does: this runs in each rank's process of an
     initialized process group (and raises where the process holds no
     rank), the weights and the cache at rest under their specs, each
-    rank prefilling and decoding its rows of the batch and every rank
-    holding the whole batch's logits and tokens.  Returns the reference's
-    keys."""
+    rank prefilling and decoding its rows of the batch (split along
+    ``model`` for the dense, VLM and MoE families: its heads, MLP
+    columns or experts and vocabulary, its shard of the cache) and every
+    rank holding the whole batch's logits and tokens.  Returns the
+    reference's keys."""
     from repro_torch.core.appspec import AppSpec
     from repro_torch.core.build import BuildService
     from repro_torch.data.pipeline import SyntheticSource, to_device

@@ -25,12 +25,18 @@ its ``torch.autograd.Function`` (``kernels/ops.py``), the rest through
 autograd.  Under grad the embedding gathers by indexing, whose backward
 sums a repeated token's gradients in a fixed order on the card.
 
-A train step split over a mesh passes ``tp`` (a ``sharding.split.Split``)
-to the training forward's layers, with weights split along the model
-axis: attention by heads, the MLP by ``mlp``, the embedding and the
-unembedding by vocabulary.  A layer whose weight is whole (one model
-rank, or a dimension the axis does not divide) computes as on one
-device.
+A step split over a mesh passes ``tp`` (a ``sharding.split.Split``, or
+a serve step's ``ServeSplit``) to its layers, with weights split along
+the model axis: attention by heads, the MLP by ``mlp``, the embedding
+and the unembedding by vocabulary.  A layer whose weight is whole (one
+model rank, or a dimension the axis does not divide) computes as on one
+device.  A split decode or chunk step reads the KV cache where it
+rests: the rank's own KV heads; of a cache that keeps every KV head
+(``kv_heads`` does not divide the model axis: every rank computes them
+all, as in training, and writes them all) the heads its query heads
+read (``Split.kv_range``); of a cache split along its sequence over the
+model axis (``seq_split``: each rank writes the positions it holds),
+those heads' shards gathered for the layer (``ServeSplit.gather_seq``).
 """
 
 from __future__ import annotations
@@ -288,7 +294,30 @@ def paged_positions(pages: torch.Tensor, idx: torch.Tensor, s: int,
     return torch.where(ok, dest * psize + pos % psize, pos % psize)
 
 
-def _paged_decode(q, k, v, cache):
+def _heads(t, read):
+    """The KV heads ``read`` (``(lo, hi, ...)``: ``[lo, hi)``; None: all)
+    of a (..., K, dh) cache tensor, in place."""
+    return t if read is None else t[..., read[0]:read[1], :]
+
+
+def _seq_view(t, read, tp, seq: bool):
+    """A (b, t, K, dh) cache row block as a layer reads it: its heads
+    ``read``, and where the cache is split along its sequence over the
+    model axis (``seq``) every model rank's shard of those heads
+    (``ServeSplit.gather_seq``)."""
+    return tp.gather_seq(t, read) if seq else _heads(t, read)
+
+
+def _owned(ok, pos, t_local: int, tp, seq: bool):
+    """(the positions ``ok`` this rank writes, their local index) of
+    global sequence positions ``pos``: all of them, or of a cache split
+    along its sequence those in this rank's block of ``t_local``."""
+    if not seq:
+        return ok, pos
+    return ok & (pos // t_local == tp.tp_rank), pos % t_local
+
+
+def _paged_decode(q, k, v, cache, read=None):
     """Paged slot-wise decode of s tokens per row: scatter each row's new
     K/V to its own pages/offsets through the page table (positions past
     the row's page run go to the reserved junk page 0, never wrapped into
@@ -296,7 +325,9 @@ def _paged_decode(q, k, v, cache):
     CUDA kernel (``use_kernel``) or through the gather path, which is the
     kernel's plain version ``ref.paged_attention_ref`` on any device; a
     verify burst (s > 1) always gathers the rows' page runs and attends
-    with ``dot_attention``, as the reference does."""
+    with ``dot_attention``, as the reference does.  ``read``: the KV heads
+    ``[lo, hi)`` the queries read of a pool holding more (the kernel
+    reads them in place)."""
     pages, idx = cache["pages"], cache["index"]
     ck, cv = cache["k"], cache["v"]
     psize, Kh, dh = ck.shape[1], ck.shape[2], ck.shape[3]
@@ -308,31 +339,38 @@ def _paged_decode(q, k, v, cache):
     if s == 1:
         attend = ops.paged_attention if cache.get("use_kernel") \
             else ref.paged_attention_ref
-        return attend(q[:, 0].contiguous(), ck, cv, pages, idx + 1)[:, None]
-    read = pages.long()
-    kg = ck[read].reshape(slots, max_pages * psize, Kh, dh)
-    vg = cv[read].reshape(slots, max_pages * psize, Kh, dh)
+        heads = () if read is None else (read[0], read[1] - read[0])
+        return attend(q[:, 0].contiguous(), ck, cv, pages, idx + 1,
+                      *heads)[:, None]
+    rows = pages.long()
+    kg = _heads(ck[rows], read).reshape(slots, max_pages * psize, -1, dh)
+    vg = _heads(cv[rows], read).reshape(slots, max_pages * psize, -1, dh)
     return dot_attention(q, kg, vg, causal=True, q_offset=idx, kv_len=idx + s)
 
 
-def _slot_decode(q, k, v, cache):
+def _slot_decode(q, k, v, cache, read=None, tp=None):
     """Contiguous slot-wise decode of s tokens per row: each row's new K/V
     land at its own positions ``index .. index + s - 1`` of its
     ``(max_len, K, dh)`` row (positions past max_len are dropped, as the
     reference's one-hot select and ``mode="drop"`` scatter drop them),
-    then the row attends its own prefix with a per-row causal mask."""
+    then the row attends its own prefix with a per-row causal mask.  On a
+    split step ``read`` and the cache's ``seq_split`` say what the rank
+    reads (see the module's docstring)."""
     idx, ck, cv = cache["index"], cache["k"], cache["v"]
+    seq = bool(cache.get("seq_split"))
     slots, s = q.shape[0], q.shape[1]
-    t = ck.shape[1]
+    t = ck.shape[1] * (tp.tp if seq else 1)
     pos = idx[:, None].long() + torch.arange(s, device=q.device)[None, :]
     rows = torch.arange(slots, device=q.device)[:, None].expand(slots, s)
-    ok = pos < t
-    ck.index_put_((rows[ok], pos[ok]), k[ok])
-    cv.index_put_((rows[ok], pos[ok]), v[ok])
-    return dot_attention(q, ck, cv, causal=True, q_offset=idx, kv_len=idx + s)
+    ok, at = _owned(pos < t, pos, ck.shape[1], tp, seq)
+    ck.index_put_((rows[ok], at[ok]), k[ok])
+    cv.index_put_((rows[ok], at[ok]), v[ok])
+    return dot_attention(q, _seq_view(ck, read, tp, seq),
+                         _seq_view(cv, read, tp, seq), causal=True,
+                         q_offset=idx, kv_len=idx + s)
 
 
-def _batch_decode(q, k, v, cache, window=None):
+def _batch_decode(q, k, v, cache, window=None, read=None, tp=None):
     """Whole-batch decode at one length (a 0-d index, on the host): every
     row's s new K/V land at positions ``index .. index + s - 1``, then
     each row attends its prefix causally.  With a ``window`` at least the
@@ -342,29 +380,42 @@ def _batch_decode(q, k, v, cache, window=None):
     the ring does not matter), the reference's branch.  A write past the
     cache's end raises: the reference's ``dynamic_update_slice`` would
     clamp it onto the last positions, overwriting them silently (the
-    legacy path grows the cache by the tokens it decodes)."""
+    legacy path grows the cache by the tokens it decodes).  On a split
+    step ``read`` and the cache's ``seq_split`` say what the rank reads
+    (see the module's docstring)."""
     at, ck, cv = int(cache["index"]), cache["k"], cache["v"]
-    s, t = q.shape[1], ck.shape[1]
+    seq = bool(cache.get("seq_split"))
+    tl = ck.shape[1]
+    s, t = q.shape[1], tl * (tp.tp if seq else 1)
     ring = window is not None and t <= window
+    if ring and seq:
+        raise NotImplementedError("a ring-buffer cache split along its "
+                                  "sequence")
     start = at % t if ring else at
     if start + s > t:
         raise ValueError(f"decode write at {start}..{start + s - 1} falls "
                          f"past a cache of {t} positions")
-    ck[:, start:start + s] = k
-    cv[:, start:start + s] = v
+    lo = start - (tp.tp_rank * tl if seq else 0)
+    a, b = max(lo, 0), min(lo + s, tl)
+    if a < b:
+        ck[:, a:b] = k[:, a - lo:b - lo]
+        cv[:, a:b] = v[:, a - lo:b - lo]
+    kc, vc = (_seq_view(c, read, tp, seq) for c in (ck, cv))
     if ring:
-        return dot_attention(q, ck, cv, causal=False, kv_len=min(at + s, t))
-    return dot_attention(q, ck, cv, causal=True, q_offset=at, kv_len=at + s)
+        return dot_attention(q, kc, vc, causal=False, kv_len=min(at + s, t))
+    return dot_attention(q, kc, vc, causal=True, q_offset=at, kv_len=at + s)
 
 
-def _chunk(q, k, v, cache):
+def _chunk(q, k, v, cache, read=None, tp=None):
     """Chunked prefill straight into the pool: the chunk's K/V land at
     their final positions, then the chunk attends causally over the
     slot's first ``kv_bound`` positions read back through the same
     indirection.  Paged: through the slot's page-table row, bucket
     padding past the row's pages falling into the junk page 0.
     Contiguous: the slot's row, positions past max_len dropped.  The
-    pool's ``layout`` picks which."""
+    pool's ``layout`` picks which.  On a split step ``read`` and the
+    cache's ``seq_split`` say what the rank reads (see the module's
+    docstring)."""
     off, bound = cache["offset"], cache["kv_bound"]
     ck, cv = cache["k"], cache["v"]
     Kh, dh = ck.shape[2], ck.shape[3]
@@ -381,16 +432,18 @@ def _chunk(q, k, v, cache):
         write_pool(ck, fpos, k[0])
         write_pool(cv, fpos, v[0])
         B = min(-(-bound // psize), max_pages)
-        read = pages_row[:B].long()
-        kg = ck[read].reshape(1, B * psize, Kh, dh)
-        vg = cv[read].reshape(1, B * psize, Kh, dh)
+        held = pages_row[:B].long()
+        kg = _heads(ck[held], read).reshape(1, B * psize, -1, dh)
+        vg = _heads(cv[held], read).reshape(1, B * psize, -1, dh)
     else:
-        slot = cache["slot"]
-        ok = pos < ck.shape[1]
-        ck[slot, pos[ok]] = k[0][ok]
-        cv[slot, pos[ok]] = v[0][ok]
-        L = min(bound, ck.shape[1])
-        kg, vg = ck[slot:slot + 1, :L], cv[slot:slot + 1, :L]
+        slot, seq = cache["slot"], bool(cache.get("seq_split"))
+        t = ck.shape[1] * (tp.tp if seq else 1)
+        ok, at = _owned(pos < t, pos, ck.shape[1], tp, seq)
+        ck[slot, at[ok]] = k[0][ok]
+        cv[slot, at[ok]] = v[0][ok]
+        L = min(bound, t)
+        kg, vg = (_seq_view(c[slot:slot + 1], read, tp, seq)[:, :L]
+                  for c in (ck, cv))
     return dot_attention(q, kg, vg, causal=True, q_offset=off, kv_len=off + s)
 
 
@@ -450,15 +503,15 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     Every query attends every source position, with no RoPE, in any
     mode; a prefill returns the projected K/V as its fresh cache.
 
-    With ``tp`` and the heads split over the model axis (``full`` mode),
-    this rank's heads: the K/V heads they read, ``wo`` row-parallel.
-    Returns (out, fresh_cache or None)."""
+    With ``tp`` and the heads split over the model axis, this rank's
+    heads: the K/V heads they read, ``wo`` row-parallel; a prefill's
+    fresh K/V are the heads the rank computed (every KV head where they
+    are kept whole), a decode or chunk reads the cache where it rests
+    (see the module's docstring).  Returns (out, fresh_cache or None)."""
     dt = x.dtype
     split = tp is not None and p["wq"].shape[1] < cfg.num_heads
-    if split:
-        if mode != "full" or kv_source is not None:
-            raise NotImplementedError(f"attention split by heads in "
-                                      f"{mode!r} mode")
+    if split and kv_source is not None:
+        raise NotImplementedError("cross-attention split by heads")
     # the K/V heads whole where ``kv_heads`` does not divide the model
     # axis: every model rank computes them all, as one device does
     shared_kv = split and p["wk"].shape[1] == cfg.num_kv_heads
@@ -487,25 +540,33 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                        theta=cfg.rope_theta)
         k = apply_rope(k, positions, fraction=cfg.rope_fraction,
                        theta=cfg.rope_theta)
-    if shared_kv:
-        k, v = (tp.kv_for_heads(t, cfg, q.shape[2]) for t in (k, v))
     new_cache = None
-    if mode == "decode":
-        if cache["layout"] == "paged":
-            out = _paged_decode(q, k, v, cache)
+    if mode in ("decode", "chunk"):
+        # the KV heads read: this rank's and every model rank's range
+        read = tp.kv_range(cfg, q.shape[2]) + (
+            [tp.kv_range(cfg, q.shape[2], j) for j in range(tp.tp)],) \
+            if shared_kv else None
+        if split and cache["k"].shape[-2] != k.shape[2]:
+            raise NotImplementedError(
+                f"a cache of {cache['k'].shape[-2]} KV heads a rank beside "
+                f"{k.shape[2]} computed")
+        if mode == "chunk":
+            out = _chunk(q, k, v, cache, read, tp)
+        elif cache["layout"] == "paged":
+            out = _paged_decode(q, k, v, cache, read)
         elif cache["index"].dim() == 0:
-            out = _batch_decode(q, k, v, cache, window)
+            out = _batch_decode(q, k, v, cache, window, read, tp)
         else:
-            out = _slot_decode(q, k, v, cache)
-    elif mode == "chunk":
-        out = _chunk(q, k, v, cache)
+            out = _slot_decode(q, k, v, cache, read, tp)
     elif mode in ("prefill", "full"):
+        if mode == "prefill":
+            new_cache = {"k": k, "v": v}
+        if shared_kv:
+            k, v = (tp.kv_for_heads(t, cfg, q.shape[2]) for t in (k, v))
         if window is not None and q.shape[1] > window and cfg.causal:
             out = _windowed_attention(q, k, v, window)
         else:
             out = dot_attention(q, k, v, causal=cfg.causal, dtype=dt)
-        if mode == "prefill":
-            new_cache = {"k": k, "v": v}
     else:
         raise ValueError(f"attention mode {mode!r}")
     if split:

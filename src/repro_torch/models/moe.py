@@ -35,7 +35,9 @@ computed by every rank (its columns gathered over the model axis where
 ``experts`` is split), so routing is one device's; each model rank runs
 its own experts' products (or, where ``experts`` does not divide the
 axis and ``mlp`` does, its columns of every expert) and combines only
-what lands on them, the f32 sums all-reduced over ``model``.
+what lands on them, the f32 sums all-reduced over ``model``.  A split
+serve step (``ServeSplit``) splits the experts the same way and computes
+no aux loss.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDef
 from repro_torch.models.transformer import DenseLM
+from repro_torch.sharding.split import ServeSplit
 
 _MOE_SEQ_CHUNK = 2048
 _F32_TINY = torch.finfo(torch.float32).tiny
@@ -71,7 +74,7 @@ def expert_capacity(cfg, S: int) -> int:
 
 
 def route_tokens(router_logits: torch.Tensor, k: int, capacity: int,
-                 tp=None):
+                 tp=None, with_aux: bool = True):
     """router_logits: (b, s, E) f32.  Returns (slot, gates, keep, aux).
 
     slot: (b, s*k) int32 in [0, E*C]; E*C is the drop sentinel.
@@ -80,7 +83,8 @@ def route_tokens(router_logits: torch.Tensor, k: int, capacity: int,
     bool; aux: the Switch load-balance loss E * sum_e f_e * P_e, or with
     ``tp`` and data-parallel ranks this rank's term of it (f and the
     token count the whole batch's, the probabilities summed over this
-    rank's rows).
+    rank's rows); None with ``with_aux=False`` (a split serve step, which
+    computes no loss).
     """
     b, s, E = router_logits.shape
     probs = L._softmax(router_logits)
@@ -101,6 +105,8 @@ def route_tokens(router_logits: torch.Tensor, k: int, capacity: int,
     keep = pos_in_e < capacity
     slot = torch.where(keep, flat_e * capacity + pos_in_e,
                        E * capacity).to(torch.int32)
+    if not with_aux:
+        return slot, gate_vals, keep, None
     counts = oh.reshape(b, s, k, E).sum(2)
     if tp is None or not tp.dp:
         frac = counts.float().mean((0, 1)) / k
@@ -132,7 +138,8 @@ def moe_mlp_chunk(p: dict, x: torch.Tensor, cfg, tp=None):
             tp, "bsm,me->bse", x, p["router"], torch.float32), -1)
     else:
         logits = torch.einsum("bsm,me->bse", x.float(), p["router"].float())
-    slot, gates, keep, aux = route_tokens(logits, k, C, tp)
+    slot, gates, keep, aux = route_tokens(
+        logits, k, C, tp, with_aux=not isinstance(tp, ServeSplit))
 
     # the experts' input: by experts, each rank's whole products over its
     # experts' tokens in one device's dtype (a token's k assignments land
@@ -192,7 +199,8 @@ def moe_mlp_chunk(p: dict, x: torch.Tensor, cfg, tp=None):
 
 
 def moe_mlp(p: dict, x: torch.Tensor, cfg, tp=None):
-    """Chunked over the sequence; returns (y, mean aux loss)."""
+    """Chunked over the sequence; returns (y, mean aux loss; None in a
+    split serve step)."""
     b, s, m = x.shape
     chunk = min(_MOE_SEQ_CHUNK, s)
     if s <= chunk:
@@ -202,7 +210,8 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg, tp=None):
                          f"{chunk}")
     ys, auxs = zip(*(moe_mlp_chunk(p, x[:, i:i + chunk], cfg, tp)
                      for i in range(0, s, chunk)))
-    return torch.cat(ys, dim=1), torch.stack(auxs).mean()
+    aux = None if auxs[0] is None else torch.stack(auxs).mean()
+    return torch.cat(ys, dim=1), aux
 
 
 class MoELM(DenseLM):

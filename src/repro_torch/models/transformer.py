@@ -27,6 +27,14 @@ and the products run split along the model axis (``layers``).
 Decode takes a pool's slot-wise cache (a ``(slots,)`` index) or, on the
 legacy fixed-batch serve path, the cache ``prefill`` returns: the whole
 batch at one length, a 0-d index kept on the host.
+
+A serve step split over a mesh sets ``tp`` the same way (a
+``sharding.split.ServeSplit``) for ``prefill``, ``chunk_prefill`` and
+``decode_step``: each layer's weight shards are gathered along ``data``
+for that layer alone, the products split along the model axis, the
+logits this rank's vocabulary columns (the step gathers them), and the
+cache read where it rests (a cache split along its sequence says so by
+its ``seq_split`` flag).
 """
 
 from __future__ import annotations
@@ -274,8 +282,9 @@ class DenseLM:
         delta = None
         ks, vs = [], []
         for lp in self.layer_params(params):
-            x, delta, nc = self.block_apply(lp, x, delta, positions,
-                                            "prefill", None)
+            x, delta, nc = self.block_apply(self._used(lp, "blocks"), x,
+                                            delta, positions, "prefill",
+                                            None)
             ks.append(nc["k"])
             vs.append(nc["v"])
         last = batch.get("last")
@@ -307,12 +316,14 @@ class DenseLM:
                              f"table row")
         b, c = tokens.shape
         positions = offset + torch.arange(c, device=tokens.device).expand(b, c)
-        x, delta = L.embed(params["embed"], tokens, self.cfg), None
+        x, delta = self.embed_tokens(params, tokens), None
         for i, lp in enumerate(self.layer_params(params)):
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
                            "layout": layout, "slot": slot, "offset": offset,
-                           "kv_bound": int(kv_bound), "pages_row": pages_row}
-            x, delta, _ = self.block_apply(lp, x, delta, positions, "chunk",
+                           "kv_bound": int(kv_bound), "pages_row": pages_row,
+                           "seq_split": cache.get("seq_split")}
+            x, delta, _ = self.block_apply(self._used(lp, "blocks"), x,
+                                           delta, positions, "chunk",
                                            layer_cache)
         pick = slice(n_valid - 1, n_valid)
         logits = self.logits_from(params, x[:, pick], delta[:, pick])
@@ -336,14 +347,16 @@ class DenseLM:
         else:
             positions = idx[:, None] + torch.arange(
                 s, device=idx.device)[None, :]
-        x, delta = L.embed(params["embed"], tokens, self.cfg), None
+        x, delta = self.embed_tokens(params, tokens), None
         paged = {"pages": cache["pages"],
                  "use_kernel": cache.get("use_kernel", False)} \
             if cache["layout"] == "paged" else {}
         for i, lp in enumerate(self.layer_params(params)):
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
-                           "index": idx, "layout": cache["layout"], **paged}
-            x, delta, _ = self.block_apply(lp, x, delta, positions, "decode",
+                           "index": idx, "layout": cache["layout"],
+                           "seq_split": cache.get("seq_split"), **paged}
+            x, delta, _ = self.block_apply(self._used(lp, "blocks"), x,
+                                           delta, positions, "decode",
                                            layer_cache)
         new_cache = {"k": cache["k"], "v": cache["v"], "index": idx + s,
                      "layout": cache["layout"], **paged}

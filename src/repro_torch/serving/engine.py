@@ -53,10 +53,13 @@ serves on its mesh, built through ``BuildService`` as the reference's
 engine takes it: the engine runs in each rank's process, after the
 caller initialized the process group, and raises where this process
 holds no rank of the mesh.  The engine hands every step builder the
-mesh (``training/steps.py``: each rank computes its rows, the logits are
-all-gathered), puts the weights at rest as DTensors under their specs
-and a contiguous pool's K/V under the cache's; a paged pool is whole on
-every rank.  The scheduler, the pool's page bookkeeping, the prefix
+mesh (``training/steps.py``: each rank computes its rows, split along
+``model`` by heads, MLP columns or experts and vocabulary, and every
+rank gets the whole logits), puts the weights at rest as DTensors under
+their specs and a pool's K/V under its specs (a contiguous pool's the
+cache's, a paged pool's ``serving.pool.paged_specs``: split by KV heads
+along ``model`` where they divide it, whole along ``data``).  The
+scheduler, the pool's page bookkeeping, the prefix
 cache and the keyed sampler run replicated on every rank: host code
 that reads only the whole logits, so every rank draws the same tokens
 and admits, pages and preempts alike.
@@ -71,7 +74,9 @@ from repro_torch.core.target import default_target, get_target, resolve_device
 from repro_torch.core.tuning import prefix_cache_quota, tune
 from repro_torch.models.params import init_params, partition_specs
 from repro_torch.models.transformer import model_for
-from repro_torch.serving.pool import KVCachePool, PagedKVCachePool
+from repro_torch.serving.pool import (KVCachePool, PagedKVCachePool,
+                                     paged_specs)
+from repro_torch.sharding.rules import DEFAULT_RULES
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampling import make_sampler
 from repro_torch.serving.scheduler import Scheduler, ServeStats
@@ -223,12 +228,12 @@ class ServeEngine:
         device) and put the weights, whole on every rank, at rest on it:
         on a mesh of ranks each leaf a DTensor holding this rank's shard
         under its spec (sliced, nothing is sent).  On a mesh of ranks the
-        contiguous pools ``make_pool`` builds rest under the cache's
-        specs: sequence-sharded where the KV heads do not divide the
-        mesh's model axis, as the build's decode cache
-        (``core/build.cache_rules``)."""
+        pools ``make_pool`` builds rest under their specs: a contiguous
+        pool's the cache's, sequence-sharded where the KV heads do not
+        divide the mesh's model axis, as the build's decode cache
+        (``core/build.cache_rules``); a paged pool's by KV heads where
+        they divide it (``serving.pool.paged_specs``)."""
         from repro_torch.core.build import cache_rules
-        from repro_torch.sharding.rules import DEFAULT_RULES
         self.mesh = mesh
         if mesh is not None and mesh.device_mesh is not None:
             from repro_torch.runtime.elastic import reshard_state
@@ -277,11 +282,17 @@ class ServeEngine:
         ``prefix_cache`` overrides the engine's default for this pool."""
         use_cache = self.prefix_cache if prefix_cache is None \
             else prefix_cache
+        on_mesh = self.mesh is not None and \
+            self.mesh.device_mesh is not None
         if self.kv_layout == "paged":
+            specs = paged_specs(self.model, self.num_pages, self.page_size,
+                                self.mesh, DEFAULT_RULES) if on_mesh else None
             pool = PagedKVCachePool(self.model, self.num_slots, self.max_len,
                                     page_size=self.page_size,
                                     num_pages=self.num_pages,
-                                    device=self.device)
+                                    device=self.device,
+                                    mesh=self.mesh if on_mesh else None,
+                                    specs=specs)
             if use_cache:
                 # the tuner's quota, never more than ~1/4 of the pool
                 # actually built (explicit page counts may shrink it)
@@ -291,7 +302,7 @@ class ServeEngine:
             return pool
         if use_cache:
             raise ValueError("prefix_cache needs the paged KV layout")
-        if self.mesh is None or self.mesh.device_mesh is None:
+        if not on_mesh:
             return KVCachePool(self.model, self.num_slots, self.max_len,
                                device=self.device)
         specs = partition_specs(

@@ -36,6 +36,12 @@ speculative verify bursts (``grow_for_burst``, ``sync_index``).
 Each pool's cache dict carries its ``layout`` ("contiguous" or
 "paged"): the steps and the model read the layout from there, so the
 pool is the one place that decides how K/V are addressed.
+
+On a mesh of ranks a pool's K/V rest as DTensors under specs, each rank
+allocating its shard alone: a contiguous pool's under the cache table's
+(rows along ``data``; KV heads, or the sequence where the KV heads do
+not divide it, along ``model``), a paged pool's under ``paged_specs``
+(whole along ``data``; KV heads along ``model`` where they divide it).
 """
 
 from __future__ import annotations
@@ -113,6 +119,18 @@ def _kv_cache(cfg, layout: str, rows: int, cols: int, num_slots: int,
             "index": torch.zeros((num_slots,), dtype=torch.int32,
                                  device=device),
             "layout": layout}
+
+
+def paged_specs(model, num_pages: int, page_size: int, mesh, rules) -> dict:
+    """The specs a paged pool's K/V rest under on ``mesh``: whole along
+    every axis but the KV heads, which follow ``act_kv_heads``'s rule
+    (``model``, where it divides them; else whole)."""
+    from repro_torch.models.params import ParamDef, partition_specs
+    cfg = model.cfg
+    d = ParamDef((cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+                  cfg.head_dim), ("layers", None, None, "act_kv_heads", None),
+                 cfg.activation_dtype, "zeros")
+    return partition_specs({"k": d, "v": d}, mesh, rules)
 
 
 class _LengthMirror:
@@ -238,14 +256,16 @@ class PagedKVCachePool(_LengthMirror):
     0, so ``num_pages - 1`` pages are allocatable.  A slot may hold at most
     ``max_pages = ceil(max_len / page_size)`` pages.  The storage lives on
     the GPU (``device=None``; raises without one) unless the caller passes
-    ``device="cpu"``.
+    ``device="cpu"``.  On a mesh of ranks (``mesh``, and ``specs``
+    ``paged_specs``') the K/V rest as DTensors under their specs.
     """
 
     layout = "paged"
 
     def __init__(self, model, num_slots: int, max_len: int,
                  page_size: int = 16, num_pages: int = 0,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, mesh=None,
+                 specs=None):
         cfg = model.cfg
         _check_servable(cfg)
         if num_slots < 1 or max_len < 1 or page_size < 1:
@@ -262,7 +282,7 @@ class PagedKVCachePool(_LengthMirror):
             raise ValueError(f"num_pages {self.num_pages} < 2 "
                              f"(page 0 is reserved)")
         self.cache = _kv_cache(cfg, self.layout, self.num_pages, page_size,
-                               num_slots, self.device)
+                               num_slots, self.device, mesh, specs)
         self.page_table = np.zeros((num_slots, self.max_pages), np.int32)
         self._pages_held = np.zeros((num_slots,), np.int64)
         self._free = _FreeList(num_slots)

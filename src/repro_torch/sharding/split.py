@@ -1,7 +1,8 @@
-"""One rank's part of a train step split over a mesh: the collectives
-the step sends, counted (``Collectives``), and the rank's place on the
-mesh with the autograd functions that split a model's products over it
-(``Split``).
+"""One rank's part of a train or serve step split over a mesh: the
+collectives the step sends, counted (``Collectives``), and the rank's
+place on the mesh with the functions that split a model's products over
+it (``Split``, autograd functions for training; ``ServeSplit``, plain
+collectives for serving).
 
 The dense and MoE train steps on a mesh of ranks keep every leaf of the
 state as the shard its spec gives it, as the reference's GSPMD step does
@@ -22,6 +23,15 @@ under ``DEFAULT_RULES`` (``embed`` over ``data``; ``heads``,
   entropy reduced over ``model`` (``vocab_nll``);
 * statistics of the whole batch (the MoE router's per-expert counts)
   are all-reduced over the data-parallel dimensions (``dp_sum``).
+
+The serve steps split the same way, forward only (``ServeSplit``: the
+same functions as plain collectives, no autograd on the path): a layer's
+weights gathered along ``data`` for the layer alone, its heads, ``mlp``
+columns, experts and vocabulary columns along ``model``, and a decode's
+KV cache read where it rests: a rank's own KV heads, the KV heads its
+query heads read of a pool that keeps them all, or, for a cache split
+along its sequence, those heads' sequence shards gathered for one layer
+(``gather_seq``).
 
 On a mesh dimension of one rank nothing is gathered or sent and every
 function is the identity, so on a one-rank mesh the step is the
@@ -62,7 +72,7 @@ class Collectives:
     stands for a rank of a mesh described without ranks, its output
     shaped as the collective's."""
 
-    KINDS = ("all_gather", "all_reduce", "reduce_scatter")
+    KINDS = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all")
 
     def __init__(self):
         self.counts = {k: {"calls": 0, "bytes": 0} for k in self.KINDS}
@@ -94,6 +104,18 @@ class Collectives:
         import torch.distributed as dist
         dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
                         else dist.ReduceOp.SUM, group=group)
+
+    def all_to_all(self, t: torch.Tensor, group, size: int) -> torch.Tensor:
+        """``t[j]`` (its first axis of ``size``) sent to rank j of the
+        group; returns what each rank sent this one, in rank order."""
+        t = t.contiguous()
+        self._count("all_to_all", t, size)
+        if group is None:
+            return t.clone()
+        import torch.distributed as dist
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=group)
+        return out
 
     def reduce_scatter(self, t: torch.Tensor, dim: int, group, size: int,
                        index: int) -> torch.Tensor:
@@ -321,6 +343,23 @@ class Split:
         rows = torch.where(here[..., None], rows, torch.zeros_like(rows))
         return self.reduce_out(rows.float()).to(table.dtype)
 
+    def kv_range(self, cfg, heads: int, rank: int | None = None
+                 ) -> tuple[int, int]:
+        """The KV heads ``[lo, hi)`` the ``heads`` query heads of this
+        model rank (or of ``rank``) read where the rules keep
+        ``kv_heads`` whole: each KV head's query heads all on the rank
+        (``heads`` a multiple of the group G) or all of the rank's in one
+        KV head.  A run whose groups are uneven has no such range and
+        raises."""
+        G = cfg.num_heads // cfg.num_kv_heads
+        first = (self.tp_rank if rank is None else rank) * heads
+        lo, hi = first // G, (first + heads - 1) // G + 1
+        if heads % G and hi - lo > 1:
+            raise NotImplementedError(
+                f"{heads} query heads a rank from head {first} read "
+                f"{hi - lo} KV heads of {G} unevenly")
+        return lo, hi
+
     def kv_for_heads(self, t, cfg, heads: int):
         """The K or V heads (``t``: (b, s, K, dh), every KV head, computed
         by every model rank) that this rank's ``heads`` query heads read,
@@ -356,6 +395,84 @@ class Split:
     def max_over(self, t: torch.Tensor, dims) -> None:
         for m in dims:
             self.comm.all_reduce(t, self.groups[m], self.shape[m], op="max")
+
+
+class ServeSplit(Split):
+    """One rank of a serve step split over a mesh: ``Split``'s functions
+    forward only, under no_grad, each a plain collective (no autograd
+    function on the path).  ``dp`` is empty: serving sums no statistic
+    over the data-parallel ranks (an MoE router's aux loss is not
+    computed)."""
+
+    def __init__(self, shape, coord, groups, comm: Collectives, pls: dict,
+                 axis_names):
+        super().__init__(shape, coord, groups, comm, (), pls, axis_names)
+
+    def use(self, tree, prefix: tuple):
+        """The weights of ``tree`` gathered along ``data`` for one layer
+        (the caller drops them when the layer is done), kept split along
+        ``model``."""
+        if isinstance(tree, dict):
+            return {k: self.use(v, prefix + (k,)) for k, v in tree.items()}
+        gather = self._gathers(prefix)
+        return serve_gather(tree, self, tuple(gather)) if gather else tree
+
+    def copy_in(self, x):
+        return x
+
+    def reduce_out(self, x):
+        """``x`` (a row-parallel product's f32 partials, a tensor of the
+        caller's own) summed over ``model`` in place."""
+        if self.tp == 1:
+            return x
+        t = x.contiguous()
+        self.comm.all_reduce(t, self.groups[self.tp_dim], self.tp)
+        return t
+
+    def gather_out(self, x, dim: int):
+        if self.tp == 1:
+            return x
+        return self.comm.all_gather(x, dim, self.groups[self.tp_dim],
+                                    self.tp)
+
+    def gather_seq(self, x, read=None):
+        """A (b, t, K, dh) cache block split along its sequence (axis 1)
+        over the model axis, every KV head in each rank's shard ``x`` ->
+        the whole sequence of the KV heads this rank reads: ``read`` is
+        (lo, hi, every model rank's (lo, hi)), None for every head.  Each
+        rank sends each other its heads of its own shard (an all-to-all;
+        an all-gather where every rank reads every head), so only the
+        heads read move."""
+        if read is None:
+            return self.gather_out(x.contiguous(), 1)
+        lo, hi, peers = read
+        if self.tp == 1:
+            return x[..., lo:hi, :]
+        parts = torch.stack([x[..., a:b, :] for a, b in peers])
+        got = self.comm.all_to_all(parts, self.groups[self.tp_dim], self.tp)
+        b_, tl = x.shape[0], x.shape[1]
+        return got.transpose(0, 1).reshape(b_, self.tp * tl,
+                                           *got.shape[3:])
+
+    def gather_rows(self, x, dims, axis: int = 0):
+        """Every rank's rows of ``x``, all-gathered along ``axis`` over
+        the mesh dimensions ``dims`` that split them (minor first, so
+        rows split over several come back major first)."""
+        for m in reversed(list(dims)):
+            x = self.comm.all_gather(x, axis, self.groups[m], self.shape[m])
+        return x
+
+
+def serve_gather(shard, split: Split, gather: tuple):
+    """One weight shard gathered along ``gather``'s (mesh dimension,
+    tensor dimension) pairs, minor mesh dimensions first, for a serve step
+    (a module function, so a test can watch what each gather leaves
+    alive)."""
+    out = shard
+    for m, dim in gather:
+        out = split.comm.all_gather(out, dim, split.groups[m],
+                                    split.shape[m])
+    return out
 
 
 def gather_leaf(shard, split: Split, gather: tuple):

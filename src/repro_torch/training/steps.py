@@ -19,8 +19,11 @@ layout's cache raises.  ``build_decode_step`` is the legacy fixed-batch
 path's: the whole batch at one length, over a prefill's cache.  Every
 serve builder takes ``mesh=None``, as the reference's do: off a mesh or
 on a one-device mesh it returns the one-device step; on a mesh of ranks
-the step each rank runs on its rows (see "serving on a mesh" below); on
-a description of several devices a step that refuses to run.
+the step each rank runs on its rows, split along ``model`` for
+``SPLIT_FAMILIES`` (see "serving on a mesh" below); on a description of
+several devices a step that refuses to run.  ``described_serve_step`` is
+the split prefill or whole-batch decode that one rank of a described
+mesh runs on its shards (the dry run's).
 """
 
 from __future__ import annotations
@@ -42,8 +45,8 @@ from repro_torch.sharding.rules import (DEFAULT_RULES, contiguous_stride,
                                         shard_index, spec_for)
 from repro_torch.sharding.split import Collectives, Split
 
-# the families whose train step on a mesh runs split (``sharding.split``);
-# the others gather every leaf whole for the step
+# the families whose train and serve steps on a mesh run split
+# (``sharding.split``); the others gather every leaf whole for the step
 SPLIT_FAMILIES = ("dense", "vlm", "moe")
 
 
@@ -535,22 +538,34 @@ def _of_layout(cache: dict, layout: str) -> dict:
 # serving on a mesh
 #
 # Each rank computes what one device computes, on its own rows (as the
-# train step does): the weights rest as DTensors under the build's
-# params specs and are gathered whole for each step; the rank takes its
-# rows of the batch and of the cache along the data-parallel mesh
-# dimensions of ``act_batch`` (a batch whose rows do not divide, such as
-# one slot's prompt chunk, is replicated and every rank computes it);
-# the rank runs the one-device step on them; the logits are all-gathered,
-# so every rank holds the whole batch's.  A contiguous cache rests as
-# DTensors under its specs (each rank holds its rows' shard of the other
-# sharded axes, the KV heads or, under DECODE_SEQ_CACHE_RULES, the
-# sequence): the step gathers the rank's rows whole and keeps its shard
-# of what it wrote; a prompt chunk (one row) gathers the slot's row alone.
-# The gathered weights live for the step alone.  A paged pool is held whole by every rank: after the
-# step the K/V entries each rank wrote are all-gathered into every rank's
-# pool, in the one device's write order, so each pool equals one
-# device's bit for bit.  ``step.collectives`` holds the counts of the
-# last call (``Collectives``).
+# train step does): the rank takes its rows of the batch along the
+# data-parallel mesh dimensions of ``act_batch`` (a batch whose rows do
+# not divide, such as one slot's prompt chunk, is replicated and every
+# rank computes it) and every rank ends with the whole batch's logits.
+#
+# The dense, VLM and MoE families (``SPLIT_FAMILIES``) serve split, as the
+# reference's GSPMD serve steps do (``sharding.split.ServeSplit``): the
+# weights stay the rank's shards, each layer's gathered along ``data`` for
+# that layer alone; the rank computes its heads, its MLP columns (or its
+# experts) and its vocabulary columns, whose logits the step gathers along
+# ``model``, then the rows along ``data``; and it reads its shard of the
+# KV cache where it rests (``models.layers``): its own KV heads, of a
+# cache that keeps every KV head (``kv_heads`` does not divide the model
+# axis) the heads its query heads read, of a cache split along its
+# sequence (``DECODE_SEQ_CACHE_RULES``) those heads' shards gathered one
+# layer at a time.  A contiguous cache's rows rest split along ``data`` as
+# the batch's are; a prompt chunk (one row) gathers its slot's row along
+# ``data`` alone, and the ranks holding it write it back.  A paged pool is
+# whole along ``data`` (split by KV heads along ``model`` where they
+# divide it): after a decode or verify step the K/V entries each rank
+# wrote are all-gathered along ``data`` into every rank's pool, in the
+# one device's write order, so each pool equals one device's.
+#
+# The other families (the legacy path's xLSTM, Zamba2 and Whisper) gather
+# every weight whole for each step and run the one-device step on their
+# rows; a contiguous cache rests as DTensors under its specs, each rank
+# gathering its rows whole and keeping its shard of what it wrote.
+# ``step.collectives`` holds the counts of the last call (``Collectives``).
 
 
 def no_ranks(mesh) -> RuntimeError:
@@ -605,12 +620,321 @@ class _Share:
         return x
 
 
+@contextlib.contextmanager
+def _serving(model, split):
+    """``split`` is the model's ``tp`` inside."""
+    model.tp = split
+    try:
+        yield split
+    finally:
+        model.tp = None
+
+
+def _whole_logits(model, split, logits, dp):
+    """The rank's logits (its rows, its vocabulary columns where the
+    unembedding is split) -> the whole batch's: the columns all-gathered
+    along ``model``, then the rows along the data-parallel dimensions
+    ``dp``."""
+    if logits.shape[-1] < model.cfg.vocab_size:
+        logits = split.gather_out(logits, -1)
+    return split.gather_rows(logits, dp)
+
+
+class _SplitServe:
+    """What a split serve step on a live mesh keeps between calls: the
+    rank's shards of the weights at rest (DTensors) as plain tensors and
+    their placements, rebuilt only when the weights change, so the
+    model's per-layer views of them are built once."""
+
+    def __init__(self, model, mesh):
+        self.model, self.mesh = model, mesh
+        self.last = ([], None, None)
+
+    @contextlib.contextmanager
+    def __call__(self, params, comm: Collectives):
+        """(the rank's shards of ``params``, its ``ServeSplit``), the
+        model's ``tp`` inside."""
+        from repro_torch.sharding.split import ServeSplit
+        leaves = [x for _, x in leaf_items(params)]
+        old, local, pls = self.last
+        if local is None or len(old) != len(leaves) or \
+                not all(a is b for a, b in zip(old, leaves)):
+            with torch.no_grad():
+                local = tree_map(_local, params)
+            pls = _placements_tree(params, len(self.mesh.shape))
+            self.last = (leaves, local, pls)
+        dm = self.mesh.device_mesh
+        split = ServeSplit(self.mesh.shape, self.mesh.coordinate(),
+                           [dm.get_group(m) for m in range(dm.ndim)], comm,
+                           pls, self.mesh.axis_names)
+        with _serving(self.model, split):
+            yield local, split
+
+
+# the axes of a (layers, rows, seq, kv heads, dh) K/V cache leaf, a paged
+# pool's (layers, pages, page_size, kv heads, dh)
+_ROWS, _SEQ, _HEADS = 1, 2, 3
+
+
+def _cache_split(x, split, paged: bool) -> tuple[list, bool]:
+    """How a K/V leaf at rest is split: (the mesh dimensions that split
+    its rows, whether the model axis splits its sequence).  Its KV heads
+    may be split along ``model`` too; any other split raises."""
+    from torch.distributed.tensor import DTensor
+    rows, seq = [], False
+    if not isinstance(x, DTensor):
+        return rows, seq
+    for m, pl in enumerate(x.placements):
+        if not pl.is_shard() or split.shape[m] == 1:
+            continue
+        if pl.dim == _ROWS and not paged and m != split.tp_dim:
+            rows.append(m)
+        elif pl.dim == _SEQ and not paged and m == split.tp_dim:
+            seq = True
+        elif pl.dim != _HEADS or m != split.tp_dim:
+            raise NotImplementedError(
+                f"a {'paged ' if paged else ''}cache split as {x.placements}")
+    return rows, seq
+
+
+def _local_cache(cache, share: _Share, split, paged: bool = False) -> dict:
+    """A cache at rest -> the rank's part as the split step reads it, in
+    place: each K/V leaf's local shard (a plain tensor is whole on every
+    rank: its rows taken), split along the rows as the batch is, along
+    the KV heads or the sequence (``seq_split``) by the model axis; the
+    rank's rows of a per-slot index."""
+    out = dict(cache)
+    for key in ("k", "v"):
+        x = cache[key]
+        rows, seq = _cache_split(x, split, paged)
+        if not hasattr(x, "to_local"):
+            out[key] = x if paged else share.take(x, _ROWS)
+            continue
+        if not paged and rows != share.dp:
+            raise NotImplementedError(
+                f"a cache split over {x.placements} along its rows, the "
+                f"batch over mesh dimensions {share.dp}")
+        out[key] = x.to_local()
+        if seq:
+            out["seq_split"] = True
+    idx = cache["index"]
+    out["index"] = share.take(idx) if idx.dim() == 1 else idx
+    return out
+
+
+def _split_cache_step(model, mesh, inner, row_extras: int = 0):
+    """``inner(params, cache, tokens, *extras)`` -> (logits, cache) split
+    on a mesh of ranks (a contiguous slot-wise decode or verify, the
+    legacy whole-batch decode, a paged pool's prompt chunk): the rank's
+    rows of the tokens, of the first ``row_extras`` extras and of the
+    cache, read and written in place where they rest (``_local_cache``);
+    the whole logits and the index of every row back."""
+    serve = _SplitServe(model, mesh)
+
+    @torch.no_grad()
+    def step(params, cache, tokens, *extras):
+        comm = Collectives()
+        share = _Share(tokens.shape[0], mesh)
+        ex = [share.take(e) for e in extras[:row_extras]] + \
+            list(extras[row_extras:])
+        with serve(params, comm) as (local, split):
+            rows = _local_cache(cache, share, split,
+                                cache.get("layout") == "paged")
+            logits, new = inner(local, rows, share.take(tokens), *ex)
+            logits = _whole_logits(model, split, logits, share.dp)
+            idx = new["index"]
+            if idx.dim() == 1:
+                idx = split.gather_rows(idx, share.dp)
+        step.collectives = comm.counts
+        return logits, dict(cache, index=idx)
+
+    step.collectives = Collectives().counts
+    return step
+
+
+def _split_chunk_step(model, mesh, inner):
+    """``inner(params, cache, tokens, slot, *rest)`` (a prompt chunk into
+    a contiguous pool: one row, which every rank computes) split on a
+    mesh of ranks: the slot's row of each K/V leaf gathered along the
+    ``data`` dimensions that split the rows (each rank hands its row at
+    the slot's local offset; the owner's is kept), its shard along
+    ``model`` as it rests, run as a one-slot pool and written back in
+    place by the ranks that hold it."""
+    serve = _SplitServe(model, mesh)
+
+    @torch.no_grad()
+    def step(params, cache, tokens, slot, *rest):
+        comm = Collectives()
+        coord = mesh.coordinate()
+        with serve(params, comm) as (local, split):
+            rows, back = dict(cache), []
+            for key in ("k", "v"):
+                x = cache[key]
+                dims, seq = _cache_split(x, split, False)
+                x = x.to_local() if hasattr(x, "to_local") else x
+                n = x.shape[_ROWS]
+                row = x.narrow(_ROWS, slot % n, 1)
+                if dims:
+                    owner = 0
+                    for m in dims:
+                        owner = owner * split.shape[m] + coord[m]
+                    if owner == slot // n:
+                        back.append((row, key))
+                    row = split.gather_rows(row, dims, _ROWS).narrow(
+                        _ROWS, slot // n, 1)
+                rows[key] = row
+                if seq:
+                    rows["seq_split"] = True
+            rows["index"] = cache["index"].narrow(0, slot, 1)
+            logits, _ = inner(local, rows, tokens, 0, *rest)
+            logits = _whole_logits(model, split, logits, ())
+        for row, key in back:
+            row.copy_(rows[key])
+        step.collectives = comm.counts
+        return logits, cache
+
+    step.collectives = Collectives().counts
+    return step
+
+
+def _split_paged_step(model, mesh, inner):
+    """``inner(params, cache, tokens, active, pages)`` (a paged decode or
+    verify step) split on a mesh of ranks: every rank holds the pool whole
+    along ``data`` (its KV heads' shard along ``model``); it runs its rows,
+    then every row's writes (the positions the one device writes, from
+    the whole index, activity and page table) are all-gathered along
+    ``data`` and put into every rank's pool in the one device's order,
+    layer by layer."""
+    from repro_torch.models.layers import paged_positions, write_pool
+    serve = _SplitServe(model, mesh)
+
+    @torch.no_grad()
+    def step(params, cache, tokens, active, pages):
+        comm = Collectives()
+        share = _Share(tokens.shape[0], mesh)
+        with serve(params, comm) as (local, split):
+            rows = _local_cache(cache, share, split, paged=True)
+            logits, new = inner(local, rows, share.take(tokens),
+                                share.take(active), share.take(pages))
+            logits = _whole_logits(model, split, logits, share.dp)
+            if share.dp:
+                s = tokens.shape[1]
+                safe = torch.where(active.bool()[:, None], pages,
+                                   torch.zeros_like(pages))
+                fpos = paged_positions(safe, cache["index"], s,
+                                       rows["k"].shape[2])
+                mine = share.take(fpos).reshape(-1).long()
+                for pool in (rows["k"], rows["v"]):
+                    n_layers, n_pages, psize, kh, dh = pool.shape
+                    flat = pool.view(n_layers, n_pages * psize, kh, dh)
+                    held = flat[:, mine].reshape(n_layers, -1, s, kh, dh)
+                    every = split.gather_rows(held.contiguous(), share.dp, 1)
+                    every = every.reshape(n_layers, -1, kh, dh)
+                    for i in range(n_layers):
+                        write_pool(pool[i], fpos.reshape(-1), every[i])
+            idx = split.gather_rows(new["index"], share.dp)
+        step.collectives = comm.counts
+        return logits, dict(cache, index=idx)
+
+    step.collectives = Collectives().counts
+    return step
+
+
+def _split_prefill_step(model, mesh, inner, rules):
+    """``inner(params, batch)`` -> (logits, cache) split on a mesh of
+    ranks: the rank's rows of every batch leaf, the whole logits, and the
+    fresh cache at rest under the specs its table's axes give on the
+    whole batch under ``rules``: what the rank computed (its rows, its KV
+    heads or every KV head) is its shard, nothing is sent."""
+    from torch.distributed.tensor import DTensor
+    table = dict(leaf_items(model.cache_table(1, 1)))
+    serve = _SplitServe(model, mesh)
+
+    def rest(path, x, share):
+        if path not in table or "act_batch" not in table[path].logical_axes:
+            return x
+        axes = table[path].logical_axes
+        shape = list(x.shape)
+        for m in share.dp:
+            shape[axes.index("act_batch")] *= mesh.shape[m]
+        if "act_kv_heads" in axes:
+            shape[axes.index("act_kv_heads")] = model.cfg.num_kv_heads
+        pls = placements(logical_to_spec(axes, shape, mesh, rules), mesh)
+        dm = mesh.device_mesh
+        idx = shard_index(shape, pls, tuple(dm.shape), dm.get_coordinate())
+        if tuple(s.stop - s.start for s in idx) != tuple(x.shape):
+            raise NotImplementedError(
+                f"a fresh cache leaf of {tuple(x.shape)} a rank under "
+                f"{pls}")
+        return DTensor.from_local(x.contiguous(), dm, pls, run_check=False,
+                                  shape=tuple(shape),
+                                  stride=contiguous_stride(shape))
+
+    @torch.no_grad()
+    def step(params, batch):
+        comm = Collectives()
+        share = _Share(batch["tokens"].shape[0], mesh)
+        with serve(params, comm) as (local, split):
+            logits, new = inner(local, {k: share.take(v) if
+                                        isinstance(v, torch.Tensor) else v
+                                        for k, v in batch.items()})
+            logits = _whole_logits(model, split, logits, share.dp)
+        step.collectives = comm.counts
+        return logits, _cache_map(new, lambda p, x: rest(p, x, share))
+
+    step.collectives = Collectives().counts
+    return step
+
+
+def described_serve_step(model, mesh, params_specs, kind: str, rows: int,
+                         cache_specs=None):
+    """The split serve step that one rank (coordinate 0) of ``mesh``, a
+    mesh described without ranks, runs on its shards, for the dry run's
+    trace on ``meta`` (and a card's run of one rank): ``kind`` is
+    ``prefill`` (``step(params, batch)``, the rank's rows of an
+    ``rows``-row batch) or ``decode`` (the legacy whole-batch decode,
+    ``step(params, cache, tokens)`` over the rank's shard of a cache at
+    rest under ``cache_specs``).  Returns (the whole batch's logits, the
+    rank's cache), its collectives sent nowhere (``Collectives`` with no
+    groups) and kept on the step: ``step.collectives`` and
+    ``step.collective_calls`` (each call's kind, bytes and group size)."""
+    from repro_torch.sharding.split import ServeSplit, params_placements
+    pls = params_placements(params_specs, mesh.axis_names, mesh.shape)
+    dp = data_parallel_dims(rows, mesh)
+    seq = False
+    if kind == "decode":
+        model_dim = list(mesh.axis_names).index("model") \
+            if "model" in mesh.axis_names else None
+        seq = any(m == model_dim and mesh.shape[m] > 1 for m, pl in
+                  enumerate(placements(cache_specs["k"], mesh))
+                  if pl.is_shard() and pl.dim == _SEQ)
+
+    @torch.no_grad()
+    def step(params, *args):
+        comm = Collectives()
+        split = ServeSplit(mesh.shape, (0,) * len(mesh.shape),
+                           [None] * len(mesh.shape), comm, pls,
+                           mesh.axis_names)
+        with _serving(model, split):
+            if kind == "prefill":
+                logits, cache = model.prefill(params, args[0])
+            else:
+                cache, tokens = args
+                extra = {"seq_split": True} if seq else {}
+                logits, cache = model.decode_step(
+                    params, dict(cache, layout="contiguous", **extra), tokens)
+            logits = _whole_logits(model, split, logits, dp)
+        step.collectives, step.collective_calls = comm.counts, comm.calls
+        return logits, cache
+    return step
+
+
 class _Weights:
-    """The weights gathered whole for a serve step on a mesh, held for
-    the step alone (``with weights(params, comm) as full``).  Where no
-    leaf needed a collective (one rank: each leaf is its local tensor)
-    the tree is the last call's, so the model keeps its per-layer views
-    of it instead of rebuilding them every step.  Where a leaf was
+    """The weights gathered whole for a whole-weight serve step on a mesh,
+    held for the step alone (``with weights(params, comm) as full``).
+    Where no leaf needed a collective (one rank: each leaf is its local
+    tensor) the tree is the last call's, so the model keeps its per-layer
+    views of it instead of rebuilding them every step.  Where a leaf was
     gathered, nothing keeps the gathered tree past its step: the model's
     views of it are dropped as the step ends."""
 
@@ -729,9 +1053,10 @@ def _placements_of(x):
 
 def _mesh_cache_step(model, mesh, inner, row_extras: int = 0):
     """``inner(params, cache, tokens, *extras)`` -> (logits, cache) on a
-    mesh of ranks: the weights gathered whole, this rank's rows of the
-    tokens, of the first ``row_extras`` extras and of every cache leaf
-    (along its table's ``act_batch`` axis), the one-device step, the
+    mesh of ranks, whole weights (the families outside
+    ``SPLIT_FAMILIES``): the weights gathered whole, this rank's rows of
+    the tokens, of the first ``row_extras`` extras and of every cache
+    leaf (along its table's ``act_batch`` axis), the one-device step, the
     logits all-gathered and each cache leaf back at rest with the
     placements it came with."""
     axes = _row_axes(model)
@@ -741,10 +1066,6 @@ def _mesh_cache_step(model, mesh, inner, row_extras: int = 0):
     def step(params, cache, tokens, *extras):
         comm = Collectives()
         share = _Share(tokens.shape[0], mesh)
-        if share.dp and cache.get("layout") == "paged":
-            raise NotImplementedError(
-                "a paged pool's rows split over ranks: the decode and "
-                "verify steps sync their writes (_mesh_paged_step)")
         local = _cache_map(cache, lambda p, x: _rows_of(
             x, _row_axis(axes, p, x), share, comm))
         ex = [share.take(e) for e in extras[:row_extras]] + \
@@ -761,86 +1082,12 @@ def _mesh_cache_step(model, mesh, inner, row_extras: int = 0):
     return step
 
 
-def _slot_row(x, axis, slot: int, comm: Collectives):
-    """Row ``slot`` of a cache leaf at rest (``axis`` kept, of length 1),
-    whole: a view of a plain tensor (a leaf without rows as it is), or of
-    a DTensor each rank's row at the slot's local offset, all-gathered
-    over every mesh dimension that shards the leaf (minor first, as
-    ``_gather``), of which the rows' owner's is kept.  Only that row
-    moves, not the pool."""
-    from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
-        return x if axis is None else x.narrow(axis, slot, 1)
-    if axis is None:
-        raise NotImplementedError(f"a sharded cache leaf of shape "
-                                  f"{tuple(x.shape)} without rows")
-    dm, out = x.device_mesh, x.to_local()
-    n = out.shape[axis]
-    out = out.narrow(axis, slot % n, 1)
-    for m in reversed(range(dm.ndim)):
-        pl = x.placements[m]
-        if pl.is_shard() and dm.size(m) > 1:
-            out = comm.all_gather(out, pl.dim, dm.get_group(m), dm.size(m))
-    return out.narrow(axis, slot // n, 1)
-
-
-def _put_slot_row(x, axis, slot: int, row) -> None:
-    """The whole row ``row`` (``_slot_row``'s shape) written back in place
-    into a DTensor cache leaf's shard, on the ranks that hold row
-    ``slot``."""
-    from torch.distributed.tensor import Replicate
-    dm, local = x.device_mesh, x.to_local()
-    coord = dm.get_coordinate()
-    n = local.shape[axis]
-    rows = [m for m, pl in enumerate(x.placements)
-            if pl.is_shard() and pl.dim == axis]
-    owner = 0
-    for m in rows:
-        owner = owner * dm.size(m) + coord[m]
-    if owner != slot // n:
-        return
-    pls = [Replicate() if m in rows else pl
-           for m, pl in enumerate(x.placements)]
-    idx = shard_index(row.shape, pls, tuple(dm.shape), coord)
-    local.narrow(axis, slot % n, 1).copy_(row[idx])
-
-
-def _mesh_chunk_step(model, mesh, inner):
-    """``inner(params, cache, tokens, slot, *rest)`` (a prompt chunk into
-    a contiguous pool: one row, which every rank computes) on a mesh of
-    ranks: the weights gathered whole, the slot's row of each cache leaf
-    gathered whole (``_slot_row``) and run as a one-slot pool, then
-    written back in place into the shards of the ranks that hold it."""
-    from torch.distributed.tensor import DTensor
-    axes = _row_axes(model)
-    weights = _Weights(model)
-
-    @torch.no_grad()
-    def step(params, cache, tokens, slot, *rest):
-        comm = Collectives()
-        rows = _cache_map(cache, lambda p, x: _slot_row(
-            x, _row_axis(axes, p, x), slot, comm))
-        with weights(params, comm) as full:
-            logits, new = inner(full, rows, tokens, 0, *rest)
-
-        def back(path, x):
-            if isinstance(x, DTensor):
-                _put_slot_row(x, _row_axis(axes, path, x), slot,
-                              _leaf_at(new, path))
-            return x
-        step.collectives = comm.counts
-        return logits, _cache_map(cache, back)
-
-    step.collectives = Collectives().counts
-    return step
-
-
 def _mesh_prefill_step(model, mesh, inner, rules):
-    """``inner(params, batch)`` -> (logits, cache) on a mesh of ranks: the
-    weights gathered whole, this rank's rows of every batch leaf, the
-    one-device prefill, the logits all-gathered, and the fresh cache at
-    rest under the specs its table's axes give on the whole batch under
-    ``rules``."""
+    """``inner(params, batch)`` -> (logits, cache) on a mesh of ranks,
+    whole weights (the families outside ``SPLIT_FAMILIES``): the weights
+    gathered whole, this rank's rows of every batch leaf, the one-device
+    prefill, the logits all-gathered, and the fresh cache at rest under
+    the specs its table's axes give on the whole batch under ``rules``."""
     axes = _row_axes(model)
     table = dict(leaf_items(model.cache_table(1, 1)))
 
@@ -882,56 +1129,18 @@ def _leaf_at(tree, path):
     return tree
 
 
-def _mesh_paged_step(model, mesh, inner):
-    """``inner(params, cache, tokens, active, pages)`` (a paged decode or
-    verify step) on a mesh of ranks: every rank holds the whole pool; it
-    runs its rows, then every row's writes (the positions the one device
-    writes, from the whole index, activity and page table) are
-    all-gathered and put into every rank's pool in the one device's
-    order, layer by layer."""
-    from repro_torch.models.layers import paged_positions, write_pool
-    weights = _Weights(model)
-
-    @torch.no_grad()
-    def step(params, cache, tokens, active, pages):
-        comm = Collectives()
-        share = _Share(tokens.shape[0], mesh)
-        local = dict(cache, index=share.take(cache["index"]))
-        with weights(params, comm) as full:
-            logits, new = inner(full, local, share.take(tokens),
-                                share.take(active), share.take(pages))
-        if share.dp:
-            s = tokens.shape[1]
-            safe = torch.where(active.bool()[:, None], pages,
-                               torch.zeros_like(pages))
-            fpos = paged_positions(safe, cache["index"], s,
-                                   cache["k"].shape[2])
-            mine = share.take(fpos).reshape(-1).long()
-            for pool in (cache["k"], cache["v"]):
-                n_layers, n_pages, psize, kh, dh = pool.shape
-                flat = pool.view(n_layers, n_pages * psize, kh, dh)
-                rows = flat[:, mine].reshape(n_layers, -1, s, kh, dh)
-                every = share.gather(rows.contiguous(), 1, comm)
-                every = every.reshape(n_layers, -1, kh, dh)
-                for i in range(n_layers):
-                    write_pool(pool[i], fpos.reshape(-1), every[i])
-        step.collectives = comm.counts
-        return share.gather(logits, 0, comm), dict(
-            cache, index=share.gather(new["index"], 0, comm))
-
-    step.collectives = Collectives().counts
-    return step
-
-
 def build_prefill_step(model, mesh=None, cache_rules=None):
     """Whole-prompt prefill: (params, {"tokens", "last"?}) -> (logits,
-    cache).  On a mesh of ranks each rank prefills its rows and its cache
-    rests under the specs ``cache_rules`` (DEFAULT_RULES by default) give
-    the cache table's axes."""
+    cache).  On a mesh of ranks each rank prefills its rows (split along
+    ``model`` for ``SPLIT_FAMILIES``) and its cache rests under the specs
+    ``cache_rules`` (DEFAULT_RULES by default) give the cache table's
+    axes."""
     @torch.no_grad()
     def prefill_step(params, batch):
         return model.prefill(params, batch)
-    return _on_mesh(mesh, prefill_step, lambda: _mesh_prefill_step(
+    mesh_step = _split_prefill_step if model.cfg.family in SPLIT_FAMILIES \
+        else _mesh_prefill_step
+    return _on_mesh(mesh, prefill_step, lambda: mesh_step(
         model, mesh, prefill_step, cache_rules or DEFAULT_RULES))
 
 
@@ -940,14 +1149,14 @@ def build_prefill_chunk_step(model, mesh=None):
     K/V ``(layers, num_slots, max_len, kv_heads, head_dim)`` and the
     per-slot index; the chunk's K/V land at ``[slot, offset:offset+c)``
     and the chunk attends over the slot's first ``kv_bound`` positions.
-    On a mesh every rank computes the chunk (one row) over the slot's row
-    of the cache, which it gathers whole; the ranks holding that row keep
-    their shard of what it wrote (``_mesh_chunk_step``)."""
+    On a mesh every rank computes the chunk (one row) over its shard of
+    the slot's row, gathered along ``data``; the ranks holding that row
+    keep what it wrote (``_split_chunk_step``)."""
     @torch.no_grad()
     def chunk_step(params, cache, tokens, slot, offset, n_valid, kv_bound):
         return model.chunk_prefill(params, _of_layout(cache, "contiguous"),
                                    tokens, slot, offset, n_valid, kv_bound)
-    return _on_mesh(mesh, chunk_step, lambda: _mesh_chunk_step(
+    return _on_mesh(mesh, chunk_step, lambda: _split_chunk_step(
         model, mesh, chunk_step))
 
 
@@ -961,7 +1170,8 @@ def build_prefill_chunk_step_paged(model, mesh=None):
     ``j % page_size`` — its final resting place, one write.  Pages must
     be reserved by the pool before the call; rows past the reserved
     region (bucket padding) fall into the junk page 0.  On a mesh every
-    rank computes the chunk (one row) into its whole pool.
+    rank computes the chunk (one row) into its pool, its KV heads where
+    the pool is split by them.
     """
     @torch.no_grad()
     def chunk_step(params, cache, tokens, slot, offset, n_valid, kv_bound,
@@ -969,7 +1179,7 @@ def build_prefill_chunk_step_paged(model, mesh=None):
         return model.chunk_prefill(params, _of_layout(cache, "paged"),
                                    tokens, slot, offset, n_valid, kv_bound,
                                    pages_row)
-    return _on_mesh(mesh, chunk_step, lambda: _mesh_cache_step(
+    return _on_mesh(mesh, chunk_step, lambda: _split_cache_step(
         model, mesh, chunk_step))
 
 
@@ -979,7 +1189,8 @@ def build_decode_step(model, mesh=None):
     for the tokens to come and its 0-d index the whole batch's length;
     each row's token is written at that index in place.  Returns the
     logits and the cache with the index advanced.  On a mesh each rank
-    decodes its rows of the cache, which rests sharded."""
+    decodes its rows of the cache, which rests sharded (split along
+    ``model`` for ``SPLIT_FAMILIES``)."""
     @torch.no_grad()
     def decode_step(params, cache, tokens):
         if cache["index"].dim() != 0:
@@ -988,7 +1199,9 @@ def build_decode_step(model, mesh=None):
                              "build_decode_step_slots")
         return model.decode_step(params, _of_layout(cache, "contiguous"),
                                  tokens)
-    return _on_mesh(mesh, decode_step, lambda: _mesh_cache_step(
+    mesh_step = _split_cache_step if model.cfg.family in SPLIT_FAMILIES \
+        else _mesh_cache_step
+    return _on_mesh(mesh, decode_step, lambda: mesh_step(
         model, mesh, decode_step))
 
 
@@ -1003,7 +1216,7 @@ def build_decode_step_slots(model, mesh=None):
         new_index = torch.where(active.bool(), new_cache["index"],
                                 cache["index"])
         return logits, dict(cache, index=new_index)
-    return _on_mesh(mesh, decode_step, lambda: _mesh_cache_step(
+    return _on_mesh(mesh, decode_step, lambda: _split_cache_step(
         model, mesh, decode_step, row_extras=1))
 
 
@@ -1029,7 +1242,7 @@ def build_decode_step_slots_paged(model, mesh=None, use_kernel: bool = False):
         logits, new_cache = model.decode_step(params, dcache, tokens)
         new_index = torch.where(keep, new_cache["index"], cache["index"])
         return logits, dict(cache, index=new_index)
-    return _on_mesh(mesh, decode_step, lambda: _mesh_paged_step(
+    return _on_mesh(mesh, decode_step, lambda: _split_paged_step(
         model, mesh, decode_step))
 
 
@@ -1046,7 +1259,7 @@ def build_verify_step_slots(model, mesh=None):
         cache = _of_layout(cache, "contiguous")
         logits, _ = model.decode_step(params, cache, tokens)
         return logits, cache
-    return _on_mesh(mesh, verify_step, lambda: _mesh_cache_step(
+    return _on_mesh(mesh, verify_step, lambda: _split_cache_step(
         model, mesh, verify_step, row_extras=1))
 
 
@@ -1066,5 +1279,5 @@ def build_verify_step_slots_paged(model, mesh=None):
         logits, _ = model.decode_step(params, dict(cache, pages=safe_pages),
                                       tokens)
         return logits, cache
-    return _on_mesh(mesh, verify_step, lambda: _mesh_paged_step(
+    return _on_mesh(mesh, verify_step, lambda: _split_paged_step(
         model, mesh, verify_step))

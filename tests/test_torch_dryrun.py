@@ -23,12 +23,21 @@ reference's build of the same cells, on the CPU, without a device.
   same tables under the port's plan, on the reference test's
   placeholder-device meshes).
 * ``main`` on one full-width cell (``deepseek-7b`` x ``decode_32k``, both
-  meshes) ends ``ok``, its arguments a card the sum of the specs' shard
-  bytes, worked out here; ``nemotron-4-340b`` on ``nvidia:h100x256``
-  holds more than a card's 80 GB (each rank gathers every weight), which
-  the record shows.  ``granite-moe-3b-a800m`` x ``train_4k``, once the
+  meshes) ends ``ok``, traced as one rank's split step, its arguments a
+  card the sum of the specs' shard bytes, worked out here;
+  ``nemotron-4-340b`` x ``decode_32k`` on ``nvidia:h100x256``, split
+  (its cache along the sequence), fits a card's 80 GB, while a family
+  outside ``SPLIT_FAMILIES`` still gathers every weight whole, which the
+  records show.  ``granite-moe-3b-a800m`` x ``train_4k``, once the
   refusal of MoE training on a data-parallel mesh, runs split: its
   shards at rest and one layer's gathers, worked out here.
+* The smoke prefill and decode cells on ``local:cpu-mesh8`` ((2, 4),
+  described here): the port's traced rank step takes per card the
+  argument bytes the reference's build compiled on 8 forced host devices
+  takes per device (a subprocess, as ``tests/test_torch_spmd_train.py``
+  runs the reference's mesh), the heads split (``deepseek-7b-smoke``) or
+  the decode cache split along its sequence
+  (``granite-moe-3b-a800m-smoke``'s 2 KV heads on a 4-way model axis).
 * The trace on ``meta`` counts what ``cost.measure`` counts running the
   same step on CPU tensors: FLOPs, bytes and the peak of the step's own
   allocations.
@@ -228,17 +237,30 @@ def test_main_on_a_full_width_cell(tmp_path):
 
 
 def test_whole_weights_on_a_mesh_show_in_memory_per_card(tmp_path):
-    """Each rank gathers every weight: nemotron-4-340b's 680 GB of bf16
-    weights sit whole in every card's temporaries on nvidia:h100x256,
-    far past its 80 GB, though each card holds a 256th of them at
-    rest."""
+    """A split step holds its shards and one layer: nemotron-4-340b's 680
+    GB of bf16 weights rest a 256th to a card on nvidia:h100x256 and stay
+    so in its decode step (a 9.66 GB cache shard along the sequence,
+    each layer's weights gathered along ``data`` alone), under a card's
+    80 GB.  A family outside ``SPLIT_FAMILIES`` gathers every weight
+    whole: xlstm-1.3b's sit whole in each card's temporaries."""
     rec = dryrun.run_cell("nemotron-4-340b", "decode_32k", "single",
                           out_dir=tmp_path, log=quiet)
     assert rec["status"] == "ok", rec.get("traceback")
     mem = rec["memory_analysis"]
     n_params = rec["model_flops"]["n_active"]
-    assert mem["temp_size_in_bytes"] > 2 * n_params
-    assert mem["per_chip_total_gb"] > 80
+    assert mem["temp_size_in_bytes"] < 2 * n_params / 16
+    assert 12 < mem["per_chip_total_gb"] < 80
+    assert 0 < rec["gathered_at_once_bytes"] < mem["temp_size_in_bytes"]
+    rec = dryrun.run_cell("xlstm-1.3b", "decode_32k", "single",
+                          out_dir=tmp_path, log=quiet)
+    assert rec["status"] == "ok", rec.get("traceback")
+    res = BuildService().build(AppSpec(arch="xlstm-1.3b",
+                                       shape="decode_32k"),
+                               dryrun.MESHES["single"], lower=False)
+    whole = sum(int(np.prod(d.shape)) * d.dtype.itemsize
+                for _, d in leaf_items(res.tables["params"]))
+    assert rec["memory_analysis"]["temp_size_in_bytes"] > whole
+    assert "gathered_at_once_bytes" not in rec
 
 
 def test_moe_training_on_a_data_parallel_mesh_records_the_refusal(tmp_path):
@@ -275,6 +297,85 @@ def test_moe_training_on_a_data_parallel_mesh_records_the_refusal(tmp_path):
     assert calls["reduce_scatter"]["calls"] > 0
     assert calls["all_gather"]["calls"] > 0
     assert rec["memory_analysis"]["per_chip_total_gb"] > 0
+
+
+REF_MESH_ARGS = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import json, sys
+from repro.core.appspec import AppSpec
+from repro.core.build import BuildService
+got = {}
+for arch, shape, over in json.loads(sys.argv[1]):
+    res = BuildService().build(AppSpec(arch=arch, shape=shape,
+                                       shape_overrides=over),
+                               "local:cpu-mesh8", lower=True)
+    mem = res.lowered.compile().memory_analysis()
+    got[f"{arch} {shape}"] = mem.argument_size_in_bytes
+print("RESULT:" + json.dumps(got))
+"""
+MESH_CELLS = [("deepseek-7b-smoke", "prefill_32k"),
+              ("deepseek-7b-smoke", "decode_32k"),
+              ("granite-moe-3b-a800m-smoke", "decode_32k")]
+MESH_SMOKE = {"seq_len": 32, "global_batch": 4}
+
+
+def test_split_rank_step_takes_the_reference_meshs_arguments(tmp_path):
+    """The smoke cells on (2, 4): the bytes of the meta arguments the
+    port's rank step is traced on, and the record's arguments a card,
+    equal the reference's compiled step's per device on 8 forced host
+    devices."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-c", REF_MESH_ARGS, json.dumps(
+            [(a, sh, MESH_SMOKE) for a, sh in MESH_CELLS])],
+        env=dict(os.environ, PYTHONPATH=str(repo / "src"),
+                 JAX_PLATFORMS="cpu"),
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT:")]
+    want = json.loads(line[0][len("RESULT:"):])
+    for arch, shape in MESH_CELLS:
+        res = BuildService().build(AppSpec(arch=arch, shape=shape,
+                                           shape_overrides=MESH_SMOKE),
+                                   "local:cpu-mesh8", lower=False)
+        assert not res.mesh.live and dryrun.split_cell(res)
+        step, args, split = dryrun.cell_step(res)
+        traced = sum(t.numel() * t.element_size()
+                     for t in cost._tensors(list(args)) if t.dim())
+        index = 4 if shape == "decode_32k" else 0     # the host's 0-d index
+        assert traced + index == want[f"{arch} {shape}"], (arch, shape)
+        rec = dryrun.run_cell(arch, shape, "mesh8", overrides=MESH_SMOKE,
+                              out_dir=tmp_path, target="local:cpu-mesh8",
+                              log=quiet)
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert rec["memory_analysis"]["argument_size_in_bytes"] == \
+            want[f"{arch} {shape}"]
+        calls = rec["hlo_cost"]["collective_calls"]
+        assert calls["all_reduce"]["calls"] > 0
+        if arch.startswith("granite") and shape == "decode_32k":
+            # the cache split along its sequence: each layer's heads by
+            # an all-to-all over the model axis
+            assert calls["all_to_all"]["calls"] == \
+                2 * get_config(arch).num_layers
+
+
+def test_split_moe_prefill_longer_than_a_chunk(tmp_path):
+    """A split MoE prefill past the MoE layer's 2,048-token chunk (the
+    ``prefill_32k`` cells of dbrx-132b and granite-moe-3b-a800m): the
+    chunks' routers compute no aux loss in serving, and the cell traces
+    ``ok``."""
+    rec = dryrun.run_cell("granite-moe-3b-a800m-smoke", "prefill_32k",
+                          "mesh8", overrides={"seq_len": 4096,
+                                              "global_batch": 4},
+                          out_dir=tmp_path, target="local:cpu-mesh8",
+                          log=quiet)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["gathered_at_once_bytes"] > 0
 
 
 def test_meta_trace_counts_what_measure_counts_on_the_cpu():

@@ -3,7 +3,9 @@ against the JAX reference: the paged-decode kernel (K1) at G > 8 query
 heads per kv head, flash attention (K3) at head dims 16, 112 and 192, and
 LULESH states that default to the card.
 
-K1 takes any H % K == 0, as the reference's kernel asserts: a block holds
+K1 takes any H % K == 0, as the reference's kernel asserts, and reads a
+range of the pool's kv heads in place (a rank of a mesh whose model
+axis the kv heads do not divide keeps them all): a block holds
 at most 8 query heads (``paged_attention.head_chunk``), so G = 12 runs as
 three chunks of 4 over the same kv head, and G = 11 as 4, 4 and a short
 chunk of 3.  K3 takes any dh % 8 == 0 up to
@@ -101,6 +103,40 @@ def test_head_chunks_are_gqa_problems_of_their_own(G):
             whole[:, :, h0:h1], rtol=1e-6, atol=1e-6)
 
 
+# (Kp, kv0, K, G, dh, dtype): a rank of a mesh whose model axis the pool's
+# Kp kv heads do not divide reads the K heads from kv0 its query heads
+# use: nemotron-4-340b's and mistral-large-123b's 6 of 96 query heads on
+# one of 8 kv heads (16 model ranks), dbrx-132b's 3 of 48, the smoke
+# granite's 1 of 4 on one of 2, and two heads of eight from head 3
+KV_RANGES = [(8, 5, 1, 6, 32, BF16), (8, 0, 1, 3, 16, np.float32),
+             (2, 1, 1, 1, 16, BF16), (8, 3, 2, 4, 32, BF16)]
+
+
+@pytest.mark.parametrize("Kp,kv0,K,G,dh,dtype", KV_RANGES)
+def test_plain_paged_attention_reads_a_kv_head_range(Kp, kv0, K, G, dh,
+                                                     dtype):
+    """The plain version reading kv heads [kv0, kv0 + K) of a pool of Kp
+    in place, against the reference's Pallas kernel (interpret mode) on
+    a pool of those heads alone, with the reference's tolerances."""
+    q, kp, vp, table, kv_len = paged_case(Kp + G, [19, 0, 8, 32], 8, 4, Kp,
+                                          G, dh, dtype)
+    q = q[:, :K * G]
+    got = ref.paged_attention_ref(tt(q), tt(kp), tt(vp), tt(table),
+                                  tt(kv_len), kv0, K).float().numpy()
+    heads = slice(kv0, kv0 + K)
+    want = np.asarray(paged_attention_pallas(
+        q, np.ascontiguousarray(kp[:, :, heads]),
+        np.ascontiguousarray(vp[:, :, heads]), table, kv_len,
+        interpret=True), np.float32)
+    np.testing.assert_allclose(got, want, rtol=tol(dtype), atol=tol(dtype))
+    # the same as the plain version on the copied heads, bit for bit
+    whole = ref.paged_attention_ref(
+        tt(q), tt(np.ascontiguousarray(kp[:, :, heads])),
+        tt(np.ascontiguousarray(vp[:, :, heads])), tt(table),
+        tt(kv_len)).float().numpy()
+    np.testing.assert_array_equal(got, whole)
+
+
 def test_paged_kernel_takes_any_gqa_grouping():
     for shape in [(96, 8, 128), (96, 8, 192), (32, 32, 128), (32, 1, 64),
                   (8, 8, 8), (4, 1, 256)]:
@@ -195,6 +231,25 @@ def test_cuda_paged_attention_at_large_G_matches_plain(cuda, K, G, dh):
     assert bool(((got.float() - want).abs() <= bound).all())
     assert torch.equal(got, pa.paged_attention_cuda(*case))
     assert not bool(got[2].ne(0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kp,kv0,K,G,dh,dtype", KV_RANGES)
+def test_cuda_paged_attention_reads_a_kv_head_range(cuda, Kp, kv0, K, G, dh,
+                                                    dtype):
+    """The kernel reading kv heads [kv0, kv0 + K) of the pool in place
+    within two bf16 roundings of the plain version, two calls bitwise
+    equal."""
+    q, kp, vp, table, kv_len = [tt(a).to(cuda) for a in paged_case(
+        Kp + G, [300, 5, 0, 17], 16, 32, Kp, G, dh, BF16)]
+    case = (q[:, :K * G].contiguous(), kp, vp, table, kv_len, kv0, K)
+    got = pa.paged_attention_cuda(*case)
+    want = ref.paged_attention_ref(*case).float()
+    spread = ref.paged_attention_ref(case[0], kp, vp.abs(),
+                                     *case[3:]).float()
+    bound = 2.0 ** -7 * (spread * (1 + 2.0 ** -7) + want.abs()) + 1e-6
+    assert bool(((got.float() - want).abs() <= bound).all())
+    assert torch.equal(got, pa.paged_attention_cuda(*case))
 
 
 @pytest.mark.cuda

@@ -1,40 +1,49 @@
 """The port's serving on a mesh: 8 CPU ranks over gloo against one
 process.
 
-One spawn of 8 ranks on ``local:cpu-mesh8`` ((2, 4) over ``("data",
-"model")``) runs every check that needs ranks; the ranks write what they
-saw and the tests hold it against the same work in this process on
-``local:cpu`` (one device, run while the ranks run), from the same
-weights (the engines' own draw from seed 0, the same on every rank and
-here):
+One spawn of 8 ranks runs every check that needs ranks; the ranks write
+what they saw and the tests hold it against the same work in this
+process on ``local:cpu`` (one device, run while the ranks run), from the
+same weights (the engines' own draw from seed 0, the same on every rank
+and here):
 
-(a) ``deepseek-7b-smoke`` through ``ServeEngine`` on ``BENCH_serving.
-    json``'s trace (12 Zipf requests, max prompt 48, 32 new tokens,
-    seed 0; 8 slots x 128), chunked prefill (the tuner's grain):
+(a) ``deepseek-7b-smoke`` through ``ServeEngine`` on a data-only mesh of
+    the 8 ranks (``DP_TARGET``: (8, 1) over ``("data", "model")``, where
+    no product is split, so every bit must match one device's) on
+    ``BENCH_serving.json``'s trace (12 Zipf requests, max prompt 48, 32
+    new tokens, seed 0; 8 slots x 128), chunked prefill (the tuner's
+    grain):
     paged with the prefix cache on (8-token pages, 24 pages, so
     preemptions happen), contiguous, and paged sampled (temperature 0.8,
     top-k 16; 8 Zipf requests of up to 32 + 16) with ``spec_k=2`` (the
     verify step on the mesh); and a shared-prefix trace (8 requests)
     through the paged engine with the cache on, so cached pages are
     shared by slots that different ranks compute;
-(b) ``xlstm-1.3b-smoke`` through ``_legacy_serve_main`` (4 x 16 + 6);
+(b) ``xlstm-1.3b-smoke`` through ``_legacy_serve_main`` (4 x 16 + 6) on
+    ``local:cpu-mesh8`` ((2, 4)), its whole-weight step;
 (c) one call of the build's decode step (the whole-batch legacy step at
-    ``decode_32k`` cut to 4 x 16) and of its train step (4 x 32), the
-    collectives ``Collectives`` counted on the live mesh against those
-    that ``analysis/cost.mesh_collectives`` reckons from the specs (the
-    dry run's reckoning, ``launch/dryrun.collectives_of``);
-(d) the weights each mesh step of (a) and (b) gathers whole, watched
-    through weak references: alive for their step alone; and the
-    contiguous pool's chunk step, which gathers its slot's row, not the
-    pool.
+    ``decode_32k`` cut to 4 x 16), of its prefill step (``prefill_32k``
+    cut to 4 x 16) and of its train step (4 x 32) on (2, 4), all three
+    split along ``model``, the collectives ``Collectives`` counted on
+    the live mesh against the dry run's reckoning of the same cell
+    (``launch/dryrun.collectives_of``: the rank step traced on its
+    shards);
+(d) the weights each mesh step of (a) and (b) gathers, watched through
+    weak references: (a)'s split steps gather each layer's shards along
+    ``data`` alone, at most one layer's alive at once and none after the
+    run, and no weight whole; (b)'s whole-weight step gathers whole
+    weights alive for their step alone; and the contiguous pool's chunk
+    step, which gathers its slot's row, not the pool.
 
 Every rank's streams and ``ServeStats`` counts equal one process's, and
 so do its pools after each run: a paged pool bit for bit on every rank
 (every rank keeps the whole pool; each step's writes are all-gathered
 in the one device's order), a contiguous pool's shards, each of the
-shape its spec gives, gathered bit for bit.  The split over ranks
-changes no bit of a row's arithmetic here: each rank runs the same
-operations on fewer rows.
+shape its spec gives, gathered bit for bit.  The split over data ranks
+changes no bit of a row's arithmetic: each rank runs the same operations
+on fewer rows.  The split along ``model`` (row-parallel products summed
+in another order) is held to tolerances in
+``tests/test_torch_spmd_serve_split.py``.
 
 Run alone: ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_spmd_serve.py``; the file is also each rank's program:
@@ -56,6 +65,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 TARGET = "local:cpu-mesh8"
+DP_TARGET = "local:cpu-dp8"
 WORLD = 8
 ARCH = "deepseek-7b-smoke"
 LEGACY = ("xlstm-1.3b-smoke", 4, 16, 6)
@@ -98,6 +108,71 @@ def _whole(x):
     return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
+def register_targets() -> None:
+    """The meshes of the 8 ranks this file and the split serve tests use
+    beside ``local:cpu-mesh8``: data-only (8, 1) and the degraded (1, 4)
+    (registered in the ranks' processes only)."""
+    from repro_torch.core.target import TARGETS, get_target, register
+    base = get_target(TARGET)
+    for name, shape in ((DP_TARGET, (8, 1)), ("local:cpu-mesh1x4", (1, 4))):
+        if name not in TARGETS:
+            register(dataclasses.replace(base, name=name, mesh_shape=shape))
+
+
+class _SplitWatch:
+    """Weak references to every weight shard a split serve step gathers
+    along ``data`` (``sharding.split.serve_gather``): the most bytes
+    alive at once, how many are alive now, and each gathered weight's
+    shape."""
+
+    def __init__(self):
+        from repro_torch.sharding import split
+        self.split, self.orig = split, split.serve_gather
+        self.refs, self.most, self.shapes, self.n = [], 0, set(), 0
+        split.serve_gather = self
+
+    def __call__(self, shard, split, gather):
+        out = self.orig(shard, split, gather)
+        self.refs = [(r, n) for r, n in self.refs if r() is not None]
+        self.refs.append((weakref.ref(out), out.numel() * out.element_size()))
+        self.most = max(self.most, sum(n for _, n in self.refs))
+        self.shapes.add(tuple(out.shape))
+        self.n += 1
+        return out
+
+    def read(self) -> dict:
+        gc.collect()
+        return {"gathered": self.n, "most": self.most,
+                "alive_after": sum(r() is not None for r, _ in self.refs),
+                "shapes": sorted(self.shapes)}
+
+    def close(self) -> None:
+        self.split.serve_gather = self.orig
+
+
+def serve_reckoning(arch: str, target: str) -> tuple:
+    """(the dry run's reckoning of the weights a split serve step holds
+    gathered along ``data`` at once, the shapes a weight has whole along
+    a dimension its spec splits over ``model``) for ``arch``'s params on
+    ``target``'s mesh."""
+    from repro_torch.core.appspec import AppSpec
+    from repro_torch.core.build import BuildService
+    from repro_torch.launch.dryrun import gathered_at_once
+    from repro_torch.models.params import leaf_items
+    from repro_torch.sharding.rules import placements
+    res = BuildService().build(AppSpec(arch=arch, shape="decode_32k"),
+                               target, lower=False)
+    table, specs = res.tables["params"], res.specs["params"]
+    model = res.mesh.axis_names.index("model")
+    whole = set()
+    for (path, d), (_, spec) in zip(leaf_items(table), leaf_items(specs)):
+        if placements(spec, res.mesh)[model].is_shard() and \
+                res.mesh.shape[model] > 1:
+            whole.add(tuple(d.shape[1:] if path[0] == "blocks"
+                            else d.shape))
+    return gathered_at_once(table, specs, res.mesh, None), whole
+
+
 class _GatherWatch:
     """Weak references to every weight a mesh step gathers whole
     (``training.steps._gather`` of a DTensor leaf that needed a
@@ -138,10 +213,12 @@ class _GatherWatch:
         self.steps._gather = self.gather
 
 
-def _serve_runs(target: str, out: Path, tag: str) -> dict:
-    """(a) and (b) on ``target``: streams, counts and sizes, and the
-    gathered weights' lifetimes (``_GatherWatch``); the pools after each
-    run go to ``out`` as ``<tag>_<run>.pt``."""
+def _serve_runs(target: str, legacy_target: str, out: Path,
+                tag: str) -> dict:
+    """(a) on ``target`` and (b) on ``legacy_target``: streams, counts and
+    sizes, and the gathered weights' lifetimes (``_SplitWatch``,
+    ``_GatherWatch``); the pools after each run go to ``out`` as
+    ``<tag>_<run>.pt``."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.serving import ServeEngine
     from repro_torch.sharding.rules import local_slices
@@ -155,11 +232,12 @@ def _serve_runs(target: str, out: Path, tag: str) -> dict:
         pools = []
         make = eng.make_pool
         eng.make_pool = lambda **kw: pools.append(make(**kw)) or pools[-1]
-        watch = _GatherWatch()
+        watch, split = _GatherWatch(), _SplitWatch()
         try:
             stats = eng.run(_trace(trace))
         finally:
             watch.close()
+            split.close()
         cache = pools[0].cache
         got[run] = {
             "sizes": [eng.num_slots, eng.num_pages, eng.page_size,
@@ -171,7 +249,7 @@ def _serve_runs(target: str, out: Path, tag: str) -> dict:
                 stats.results, key=lambda r: r.rid)],
             "counts": _stats_counts(stats),
             "mesh": None if eng.mesh is None else list(eng.mesh.shape),
-            "gathers": watch.read(),
+            "gathers": watch.read(), "split_gathers": split.read(),
             "chunk_gather_bytes": getattr(eng._chunk, "collectives", {
                 "all_gather": {"bytes": 0}})["all_gather"]["bytes"]}
         if hasattr(cache["k"], "to_local"):
@@ -197,7 +275,8 @@ def _serve_runs(target: str, out: Path, tag: str) -> dict:
     watch = _GatherWatch()
     try:
         arch, b, s, n = LEGACY
-        sample = serve_mod._legacy_serve_main(arch, b, s, n, target, 0, quiet,
+        sample = serve_mod._legacy_serve_main(arch, b, s, n, legacy_target,
+                                              0, quiet,
                                               torch.device("cpu"))["sample"]
     finally:
         serve_mod.legacy_generate = generate
@@ -223,6 +302,7 @@ def _counted_vs_reckoned() -> dict:
     from repro_torch.training.steps import init_train_state
     out = {}
     for shape, over in (("decode_32k", {"seq_len": 16, "global_batch": 4}),
+                        ("prefill_32k", {"seq_len": 16, "global_batch": 4}),
                         ("train_4k", {"seq_len": 32, "global_batch": 4})):
         app = AppSpec(arch=ARCH, shape=shape, shape_overrides=over)
         res = BuildService().build(app, TARGET, lower=False)
@@ -238,6 +318,13 @@ def _counted_vs_reckoned() -> dict:
                                  device="cpu").batch_at(0)
             _, metrics = res.step_fn(state, batch)
             counted = metrics["collectives"]
+        elif shape == "prefill_32k":
+            batch = {"tokens": torch.arange(
+                over["global_batch"] * over["seq_len"], dtype=torch.int32
+            ).reshape(over["global_batch"], -1) % 256}
+            res.step_fn(reshard_state(params, res.tables["params"],
+                                      res.mesh), batch)
+            counted = res.step_fn.collectives
         else:
             cache = {}
             for path, d in leaf_items(res.tables["cache"]):
@@ -254,7 +341,7 @@ def _counted_vs_reckoned() -> dict:
             counted = res.step_fn.collectives
         step, args, _ = cell_step(res)
         traced, _ = trace(step, *args)
-        reckoned = collectives_of(res, traced)
+        reckoned = collectives_of(res, traced, step)
         out[shape] = {"counted": counted, "reckoned": reckoned.counts,
                       "wire_bytes": reckoned.wire_bytes}
     return out
@@ -269,8 +356,11 @@ def _rank_main(rank: int, out: Path) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{out / 'store'}",
                             rank=rank, world_size=WORLD)
-    got = {"rank": rank, "serve": _serve_runs(TARGET, out, f"rank{rank}"),
-           "collectives": _counted_vs_reckoned()}
+    register_targets()
+    got = {"rank": rank,
+           "serve": _serve_runs(DP_TARGET, TARGET, out, f"rank{rank}"),
+           "collectives": _counted_vs_reckoned(),
+           "reckoning": serve_reckoning(ARCH, DP_TARGET)[0]}
     (out / f"rank{rank}.json").write_text(json.dumps(got))
     dist.destroy_process_group()
 
@@ -295,7 +385,8 @@ def both(tmp_path_factory):
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        one = {"out": out, "serve": _serve_runs("local:cpu", out, "one")}
+        one = {"out": out, "serve": _serve_runs("local:cpu", "local:cpu",
+                                                out, "one")}
         for p in procs:
             left = SPAWN_TIMEOUT_S - (time.perf_counter() - t0)
             logs.append(p.communicate(timeout=max(left, 1))[0])
@@ -329,7 +420,7 @@ def test_engine_on_the_mesh_matches_one_process(spawn, one, run):
     assert want["mesh"] is None
     for r in spawn["ranks"]:
         got = r["serve"][run]
-        assert got["mesh"] == [2, 4]
+        assert got["mesh"] == [8, 1]
         assert got["sizes"] == want["sizes"], (r["rank"], run)
         assert got["streams"] == want["streams"], (r["rank"], run)
         assert got["preempted"] == want["preempted"], (r["rank"], run)
@@ -373,9 +464,9 @@ def test_every_rank_pool_equals_one_process_bit_for_bit(spawn, one, run):
 
 def test_contiguous_chunk_moves_the_slot_row_alone(spawn):
     """A prompt chunk on the mesh gathers its slot's row of the
-    contiguous pool, not the pool: beside the paged chunk's gathers (the
-    weights alone; that pool is whole on every rank) it moves at most
-    two whole rows of K and of V."""
+    contiguous pool along ``data``, not the pool: beside the paged
+    chunk's gathers (each layer's weights alone; that pool is whole along
+    ``data``) it moves at most two whole rows of K and of V."""
     from repro_torch.configs import get_config
     cfg = get_config(ARCH)
     row = cfg.num_layers * 128 * cfg.num_kv_heads * cfg.head_dim * 2
@@ -387,18 +478,30 @@ def test_contiguous_chunk_moves_the_slot_row_alone(spawn):
 
 @pytest.mark.parametrize("run", sorted(RUNS) + ["legacy"])
 def test_no_gathered_weight_outlives_its_step(spawn, one, run):
-    """On the mesh every step gathers the weights whole; at a gather at
-    most one step's tree is alive, and none once the run is done (the
-    engine still alive).  One process gathers nothing."""
+    """The engine's split steps gather no weight whole: each layer's
+    shards along ``data`` alone, at most the dry run's reckoning of one
+    layer's (or the embedding's, or the head's) bytes alive at once, and
+    none once the run is done (the engine still alive).  The legacy
+    xLSTM step gathers the weights whole: at a gather at most one step's
+    tree is alive, and none after the run.  One process gathers
+    nothing."""
     for r in spawn["ranks"]:
-        g = r["serve"]["legacy_gathers"] if run == "legacy" else \
-            r["serve"][run]["gathers"]
-        assert g["gathered"] > g["per_step"] > 0, (r["rank"], run)
-        assert g["most_alive"] <= g["per_step"], (r["rank"], run, g)
+        if run == "legacy":
+            g = r["serve"]["legacy_gathers"]
+            assert g["gathered"] > g["per_step"] > 0, (r["rank"], run)
+            assert g["most_alive"] <= g["per_step"], (r["rank"], run, g)
+            assert g["alive_after"] == 0, (r["rank"], run, g)
+            continue
+        assert r["serve"][run]["gathers"]["gathered"] == 0, (r["rank"], run)
+        g = r["serve"][run]["split_gathers"]
+        assert g["gathered"] > 0 and 0 < g["most"] <= r["reckoning"], \
+            (r["rank"], run, g, r["reckoning"])
         assert g["alive_after"] == 0, (r["rank"], run, g)
-    g = one["serve"]["legacy_gathers"] if run == "legacy" else \
-        one["serve"][run]["gathers"]
-    assert g["gathered"] == 0
+    if run == "legacy":
+        assert one["serve"]["legacy_gathers"]["gathered"] == 0
+    else:
+        assert one["serve"][run]["gathers"]["gathered"] == 0
+        assert one["serve"][run]["split_gathers"]["gathered"] == 0
 
 
 def test_legacy_path_on_the_mesh_matches_one_process(spawn, one):
@@ -409,18 +512,18 @@ def test_legacy_path_on_the_mesh_matches_one_process(spawn, one):
         assert r["serve"]["legacy"] == want, r["rank"]
 
 
-@pytest.mark.parametrize("shape", ["decode_32k", "train_4k"])
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k", "train_4k"])
 def test_reckoned_collectives_equal_the_counted(spawn, shape):
+    """Each of the build's steps split over (2, 4) sends the collectives
+    the dry run counts for its cell: the layers' ``data`` gathers, the
+    row-parallel products' all-reduces over ``model``, the logits'
+    gathers (serving) or the gradients' reduce-scatters (training)."""
     for r in spawn["ranks"]:
         c = r["collectives"][shape]
         assert c["counted"] == c["reckoned"], (r["rank"], shape)
         assert c["counted"]["all_gather"]["calls"] > 0
-        assert c["wire_bytes"] > 0
-    c = spawn["ranks"][0]["collectives"][shape]
-    if shape == "train_4k":
         assert c["counted"]["all_reduce"]["calls"] > 0
-    else:
-        assert c["counted"]["all_reduce"]["calls"] == 0
+        assert c["wire_bytes"] > 0
 
 
 if __name__ == "__main__":
