@@ -235,11 +235,11 @@ Phases, each of which raises on failure:
    (``_vlm_full``): with the memory the earlier phases left at most
    VLM_BASELINE_GB, ``run_easey`` deploys a ``llava-next-34b`` serving
    Appfile (``RUN serve --arch llava-next-34b --batch 4 --prefill 1088
-   --decode 32``: 60 layers of 7,168, 34.39 B parameters, random
+   --decode 16``: 60 layers of 7,168, 34.39 B parameters, random
    weights from the seed, 576 patches + 512 text tokens a request) to
    ``nvidia:h100``: the build compiles K2 (and no paged-decode kernel),
    the job ends ``finished``, K2 runs on every norm of the prefill and of
-   the 31 decode steps (32 + 3,840 launches, counted); a direct
+   the 15 decode steps (16 + 1,920 launches, counted); a direct
    ``serve_main`` repeats the job's tokens; a free-running run with the
    plain norm in K2's place is printed beside them, with where each row
    parts (not gated); then the model step by step, teacher-forced on the
@@ -251,7 +251,7 @@ Phases, each of which raises on failure:
    events and the profiler: busy ms, launches, idle share), tokens/s,
    peak memory and the data-sheet bounds printed, not gated;
 17. the xLSTM family at full width (``_ssm_full``): ``run_easey`` deploys
-   ``RUN serve --arch xlstm-1.3b --batch 4 --prefill 1024 --decode 32``
+   ``RUN serve --arch xlstm-1.3b --batch 4 --prefill 1024 --decode 16``
    (48 blocks of 2,048, 1.85 B parameters, random weights from the seed)
    to ``nvidia:h100``: the build compiles no kernel (LayerNorm), the job
    ends ``finished`` with no kernel launched, a direct ``serve_main``
@@ -259,17 +259,17 @@ Phases, each of which raises on failure:
    at full-width shapes (dk 512, dv 1,024, 1,024 positions, chunk 256,
    f32) within MLSTM_TOL; the prefill of 1,025 tokens against the
    prefill of 1,024 and one decode step within the reference's decode
-   test's bound; SSM_TRAIN's steps (4 x 128 tokens) of ``train_main``,
+   test's bound; SSM_TRAIN's steps (4 x 64 tokens) of ``train_main``,
    every loss and
    grad norm finite and a second run's step 0 bit for bit the first's;
    the decode step and the sLSTM time loop alone profiled, ms per
    training step, tokens/s and peak memory printed, not gated;
 18. the Zamba2 hybrid at full width (``_hybrid_full``): ``run_easey``
    deploys ``RUN serve --arch zamba2-7b --batch 4 --prefill 1024
-   --decode 32`` (81 Mamba2 layers of 3,584 and one shared attention +
+   --decode 16`` (81 Mamba2 layers of 3,584 and one shared attention +
    MLP block applied 13 times, 6.75 B parameters) to ``nvidia:h100``:
    the build compiles K2 alone, the job ends ``finished``, K2 runs on
-   every norm of the prefill and the 31 decode steps (5,632 + 416
+   every norm of the prefill and the 15 decode steps (2,816 + 208
    launches, counted), a direct ``serve_main`` repeats its tokens; the
    model teacher-forced on the job's tokens as phase 16 does it (every
    norm call held, logits within LOGITS_VS_CONTROL x the control); one
@@ -324,7 +324,8 @@ Phases, each of which raises on failure:
    off-mesh run's; then the legacy path's ``zamba2-7b`` job
    (SERVE_NCCL_LEGACY, shorter than phase 18's) through
    ``legacy_generate``, off the mesh and with the prefill and decode
-   steps built on it: its tokens and K2 launches equal.  The wall times
+   steps built on it (the hybrid's split steps, checked by name): its
+   tokens and K2 launches equal.  The wall times
    are printed; the group is destroyed before the phase ends.
    The 8-rank serving path itself runs on the CPU over gloo
    (``tests/test_torch_spmd_serve.py``).
@@ -370,8 +371,8 @@ Phases, each of which raises on failure:
    full width, TRAIN_NCCL_DENSE's depth, 2 steps under phase 15's plan
    through the mesh step beside the off-mesh step from the same state:
    every loss, every leaf and K2's launches bit for bit equal; (b)
-   ``granite-moe-3b-a800m`` at full width (32 layers, 40 experts top-8)
-   at TRAIN_NCCL_MOE's 4 x 512: step 0 under the mesh step's split on
+   ``granite-moe-3b-a800m`` at full width (40 experts top-8) and
+   TRAIN_NCCL_MOE's depth (16 of 32 layers) at its 4 x 512: step 0 under the mesh step's split on
    the kernel path held to phase 15's gates against the plain path and
    the control (``_hold_grads``, ``_hold_bias``; the block weights drawn
    at their layers' fan-in, an expert's at its own), K2 counted, then 2
@@ -381,7 +382,16 @@ Phases, each of which raises on failure:
    after), an injected failure, the archive restored onto the mesh into
    a fresh state, and one more step taken by the unbroken and the
    restored state: every leaf bit for bit equal; the save, restore and
-   phase seconds are printed.
+   phase seconds are printed; (d) ``zamba2-7b`` at full width and depth
+   (81 Mamba2 layers, 13 applications of the shared block) at
+   TRAIN_NCCL_HYBRID's 4 x 256: step 0 under the mesh step's split held
+   to phase 15's gates against the plain path and the control, its
+   stacked matrices drawn at their layers' fan-in
+   (``_fan_in_recurrent``), K2 counted against the prediction
+   (``_k2_per_step_hybrid``); then 2 steps off the mesh and 2 through
+   the split step on the mesh from the same state, one state on the
+   card at a time: the losses, K2 per step and every leaf's bits
+   (``_fingerprint``) equal.
 25. one rank of a (16, 16) mesh serving, split (``_serve_rank``): (i)
    rank 0 of ``nvidia:h100x256`` at ``decode_32k`` through the split
    decode step (``steps.described_serve_step``: its collectives send
@@ -389,10 +399,13 @@ Phases, each of which raises on failure:
    and cache shards drawn on the card from seed 0: ``deepseek-7b`` (8
    rows, 2 of 32 heads, an 8.05 GB cache shard) and ``nemotron-4-340b``
    (8 rows, 6 of 96 heads, its cache split along the sequence, the one
-   kv head its heads read gathered a layer at a time): the logits
-   finite and whole, the arguments within DRYRUN_ARGS_RTOL of the dry
-   run's, the peak within DRYRUN_PEAK_RATIO of its GB a card, K2
-   counted, the step's time beside its one-card bound; (ii) K1 at each
+   kv head its heads read gathered a layer at a time), then (iii)
+   ``xlstm-1.3b`` (its 4 heads whole, its ``mlp`` split) and
+   ``zamba2-7b`` (7 of 112 SSM heads, 2 of 32 attention heads, the
+   recurrent states' and the shared K/V's shards): the logits finite
+   and whole, the arguments within DRYRUN_ARGS_RTOL of the dry run's,
+   the peak within DRYRUN_PEAK_RATIO of its GB a card, K2 counted (the
+   hybrid's every norm), the step's time beside its one-card bound; (ii) K1 at each
    split arch's per-rank shape (``RANK_K1``: deepseek-7b's 2 kv heads,
    nemotron-4-340b's and mistral-large-123b's 6 heads and dbrx-132b's 3
    on one kv head of a pool that keeps all 8, read from its offset) and
@@ -551,8 +564,15 @@ SERVE_NCCL_LEGACY = dict(arch="zamba2-7b", batch=2, prefill_len=512,
 # and full-width granite-moe-3b-a800m at its plan with 8-bit moments
 TRAIN_NCCL_DENSE = dict(arch="deepseek-7b", layers=8, seq_len=1024,
                         global_batch=4, steps=2)
-TRAIN_NCCL_MOE = dict(arch="granite-moe-3b-a800m", seq_len=512,
+TRAIN_NCCL_MOE = dict(arch="granite-moe-3b-a800m", layers=16, seq_len=512,
                       global_batch=4, steps=2, optimizer="adamw8bit")
+# phase 24 (d): full-width, full-depth zamba2-7b (81 Mamba2 layers, 13
+# applications of the shared block) through the split train step, at the
+# tuner's plan for 4 x 256 (8-bit moments, remat dots, one microbatch:
+# at 4 x 512 it takes two, and their f32 accumulator would not fit
+# beside the state)
+TRAIN_NCCL_HYBRID = dict(arch="zamba2-7b", seq_len=256, global_batch=4,
+                         steps=2)
 CKPT_SMOKE = Path(__file__).resolve().parent / ".ckpt_smoke"
 # phase 22: deepseek-7b's two serve cells cut to a batch one card holds
 DRYRUN_CELLS = (("prefill_32k", {"global_batch": 1, "seq_len": 8192}),
@@ -574,11 +594,13 @@ DRYRUN_PEAK_RATIO = (0.8, 1.25)
 # path's, the control's 0.35 (mean differences 3.40e-4 and 7.9e-5)
 BIAS_SE_MAX = 4.0
 # phase 16: full-width llava-next-34b through the legacy fixed-batch
-# path, 576 patches + 512 text tokens a request, 1 prefill + 31 decode
-# steps; it holds ~70 GiB, so the memory left allocated by the phases
-# before it must be at most VLM_BASELINE_GB
+# path, 576 patches + 512 text tokens a request, 1 prefill + 15 decode
+# steps (cut from 31, with phases 17-18's decodes and phase 24's granite
+# depth, to keep the script inside its limit on a slow host); it holds
+# ~70 GiB, so the memory left allocated by the phases before it must be
+# at most VLM_BASELINE_GB
 VLM_FULL = dict(arch="llava-next-34b", batch=4, prefill_len=1088,
-                decode_tokens=32)
+                decode_tokens=16)
 VLM_SMOKE = dict(arch="llava-next-34b-smoke", batch=4, prefill_len=48,
                  decode_tokens=12)
 VLM_BASELINE_GB = 4.0
@@ -591,13 +613,14 @@ HYBRID_SMOKE = dict(arch="zamba2-7b-smoke", batch=4, prefill_len=48,
 # microbatch, under the three remat policies
 TRAIN_SMOKE_NEW = ("xlstm-1.3b-smoke", "zamba2-7b-smoke")
 SSM_FULL = dict(arch="xlstm-1.3b", batch=4, prefill_len=1024,
-                decode_tokens=32)
-# 4 x 128 tokens a step: the sLSTM time loop runs through autograd a
-# launch at a time (34-44 s a step at 4 x 1,024 on an NVIDIA H100 80GB
-# HBM3, 9.5-11 s at 4 x 256)
-SSM_TRAIN = dict(arch="xlstm-1.3b", seq_len=128, global_batch=4, steps=2)
+                decode_tokens=16)
+# 4 x 64 tokens a step (cut from 4 x 128): the sLSTM time loop runs
+# through autograd a launch at a time (34-44 s a step at 4 x 1,024 on an
+# NVIDIA H100 80GB HBM3, 9.5-11 s at 4 x 256, ~10 s at 4 x 128 on a slow
+# host)
+SSM_TRAIN = dict(arch="xlstm-1.3b", seq_len=64, global_batch=4, steps=2)
 HYBRID_FULL = dict(arch="zamba2-7b", batch=4, prefill_len=1024,
-                   decode_tokens=32)
+                   decode_tokens=16)
 # one request twice the shared attention's window, through prefill
 HYBRID_LONG = 8192
 # the windowed shared attention against dense attention under the same
@@ -2355,8 +2378,9 @@ def _serve_nccl(torch, m, card, counts, reset_counts, quiet, reqs,
     through the engine's ``_bind``: the weights at rest as DTensors,
     every step the mesh step); its streams, counts and K1/K2 launches
     equal phase 4's off-mesh run's (``p4``); then the legacy path's
-    SERVE_NCCL_LEGACY job off and on the mesh, tokens and launches
-    equal.  Returns the mesh runs' launches."""
+    SERVE_NCCL_LEGACY job off and on the mesh (the split prefill and
+    decode steps), tokens and launches equal.  Returns the mesh runs'
+    launches."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
     t21 = time.perf_counter()
@@ -2407,6 +2431,10 @@ def _serve_nccl(torch, m, card, counts, reset_counts, quiet, reqs,
             steps = (m.build_prefill_step(model), m.build_decode_step(
                 model)) if mesh_ is None else (m.build_prefill_step(
                     model, mesh_), m.build_decode_step(model, mesh_))
+            if mesh_ is not None and not all(
+                    "_split_" in f.__qualname__ for f in steps):
+                raise AssertionError(f"{kw['arch']} on the mesh: not the "
+                                     f"split steps ({steps})")
             reset_counts()
             legacy.append(m.legacy_generate(
                 *steps, params if mesh_ is None else on_params, req,
@@ -2434,8 +2462,9 @@ def _serve_nccl(torch, m, card, counts, reset_counts, quiet, reqs,
           f"warm-ups); the last decode tick's collectives {comm} (one rank "
           f"sends nothing)")
     print(f"[mesh] {card} {kw['arch']} legacy path {kw['batch']} x "
-          f"{kw['prefill_len']} + {kw['decode_tokens']} off and on the "
-          f"mesh: every row's tokens equal, K2 launches {l_on}; prefill "
+          f"{kw['prefill_len']} + {kw['decode_tokens']} off the mesh and "
+          f"through the split steps on it: every row's tokens equal, K2 "
+          f"launches {l_on}; prefill "
           f"{pre_off:.3f} / {pre_on:.3f} s, decode {dec_off:.3f} / "
           f"{dec_on:.3f} s (off, the first run / on); phase 21 took "
           f"{t21:.1f} s")
@@ -3446,8 +3475,8 @@ def _hybrid_full(torch, m, card, counts, reset_counts, quiet) -> dict:
 
     _, segs, _ = model._layout()
 
-    def recording(q, k, v, window):
-        out = windowed(q, k, v, window)
+    def recording(q, k, v, window, *rest):
+        out = windowed(q, k, v, window, *rest)
         seen.append((q, k, v, out) if len(seen) in (0, segs - 1) else None)
         return out
     m.layers._windowed_attention = recording
@@ -4021,13 +4050,17 @@ def _moe_nccl(torch, m, mesh, card, counts, reset_counts) -> dict:
     mesh step's split, held to phase 15's gates; then its steps and the
     restart from disk."""
     import shutil
-    cfg = m.get_config(TRAIN_NCCL_MOE["arch"])
+    full = m.get_config(TRAIN_NCCL_MOE["arch"])
+    # full width, TRAIN_NCCL_MOE's depth (cut from its 32 layers: the
+    # restart's archive and step halved to keep the script inside its
+    # limit on a slow host)
+    cfg = full.replace(num_layers=TRAIN_NCCL_MOE["layers"])
     shape = dataclasses.replace(
         m.SHAPES["train_4k"], seq_len=TRAIN_NCCL_MOE["seq_len"],
         global_batch=TRAIN_NCCL_MOE["global_batch"])
-    # the tuner's plan with 8-bit moments: its f32 moments would make the
-    # restart's archive 33.7 GB, three states 101 GB beside the template
-    plan = dataclasses.replace(m.tune(cfg, shape, m.get_target(
+    # the tuner's plan for the full config with 8-bit moments: its f32
+    # moments would make the restart's archive 33.7 GB at full depth
+    plan = dataclasses.replace(m.tune(full, shape, m.get_target(
         "nvidia:h100")), optimizer=TRAIN_NCCL_MOE["optimizer"])
     model = m.model_for(cfg, remat=plan.remat_policy)
     opt = m.make_optimizer(plan.optimizer)
@@ -4061,8 +4094,8 @@ def _moe_nccl(torch, m, mesh, card, counts, reset_counts) -> dict:
     bias = (_bias_se(torch, tok_k, tok_p), _bias_se(torch, tok_c, tok_p))
     per_step = _k2_per_step(plan, cfg.num_layers)
     got0 = {k: fwd.get(k, 0) + rec.get(k, 0) for k in per_step}
-    print(f"[train-mesh] {card} granite-moe-3b-a800m ({cfg.num_layers} "
-          f"layers, {cfg.num_experts} experts top-{cfg.experts_per_token}, "
+    print(f"[train-mesh] {card} granite-moe-3b-a800m ({cfg.num_layers} of "
+          f"{full.num_layers} layers, {cfg.num_experts} experts top-{cfg.experts_per_token}, "
           f"d {cfg.d_model}, {m.param_count_estimate(cfg) / 1e9:.3f} B "
           f"parameters, block weights at their layers' fan-in) step 0 at "
           f"{shape.global_batch} x {shape.seq_len} under the mesh step's "
@@ -4160,6 +4193,182 @@ def _moe_nccl(torch, m, mesh, card, counts, reset_counts) -> dict:
     return per_step
 
 
+def _fan_in_recurrent(m, model, params) -> None:
+    """``_fan_in_draw`` for a recurrent model's stacks (their one or two
+    layer axes: ``sharding.split.layer_axes``): every stacked matrix drawn
+    by ``init_params``' law at its own layer's fan-in, the axis its
+    product contracts (an mLSTM's per-head projections contract their
+    second axis, the rest their first)."""
+    from repro_torch.sharding.split import layer_axes
+    for (path, d), (_, w) in zip(m.leaf_items(model.param_table()),
+                                 m.leaf_items(params)):
+        lead = layer_axes(path)
+        if not lead or d.init != "normal" or d.scale is not None or \
+                w.dim() - lead < 2:
+            continue
+        fan_in = w.shape[lead + (1 if path[0] == "mlstm" and path[-1] in
+                                 ("wq", "wk", "wv") else 0)]
+        w.mul_(math.sqrt(w.shape[0] / fan_in))
+
+
+def _k2_per_step_hybrid(plan, cfg) -> dict:
+    """K2's launches in one training step of a Zamba2 hybrid: each Mamba2
+    layer's input norm and gated norm, each shared application's first
+    norm, ``ln_f`` and each shared application's fused add + norm in the
+    forward; the Mamba2 layers' again in the remat recompute (the shared
+    block runs outside it)."""
+    apps = cfg.num_layers // cfg.shared_attn_period
+    rec = int(plan.remat_policy != "none")
+    return {"rmsnorm": plan.microbatches * (
+        2 * cfg.num_layers * (1 + rec) + apps + 1),
+            "add_rmsnorm": plan.microbatches * apps}
+
+
+def _fingerprint(torch, state) -> list:
+    """Each leaf's bits summed as integers, plain and weighted by position
+    (two exact integer sums: equal bits give equal sums; the state's
+    other copy need not stay on the card)."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    out = []
+    for t in (state if isinstance(state, list) else [state]):
+        v = t.contiguous().view(-1).view(ints[t.element_size()])
+        plain = weighted = 0
+        for a in range(0, v.numel(), 1 << 26):     # 512 MB of int64 a piece
+            piece = v[a:a + (1 << 26)].long()
+            w = torch.arange(a, a + piece.numel(), device=v.device) \
+                % 65521 + 1
+            plain += int(piece.sum())
+            weighted += int((piece * w).sum())
+        out.append((plain, weighted))
+    return out
+
+
+def _hybrid_nccl(torch, m, mesh, card, counts, reset_counts) -> dict:
+    """Phase 24 (d): full-width zamba2-7b through the split train step on
+    a one-rank NCCL mesh: step 0 under the mesh step's split held to
+    phase 15's gates against the plain path and the control (block
+    weights at their layers' fan-in); then TRAIN_NCCL_HYBRID's steps off
+    the mesh and on it from the same state, bit for bit (losses, K2
+    launches, every leaf's bits), K2 counted per step.  Returns K2's
+    launches per step."""
+    t24d = time.perf_counter()
+    kw = TRAIN_NCCL_HYBRID
+    cfg = m.get_config(kw["arch"])
+    shape = dataclasses.replace(m.SHAPES["train_4k"], seq_len=kw["seq_len"],
+                                global_batch=kw["global_batch"])
+    plan = m.tune(cfg, shape, m.get_target("nvidia:h100"))
+    model = m.model_for(cfg, remat=plan.remat_policy)
+    opt = m.make_optimizer(plan.optimizer)
+
+    def draw():
+        params = m.init_params(model.param_table(), torch.Generator(
+            device="cuda").manual_seed(0), "cuda")
+        _fan_in_recurrent(m, model, params)
+        return params
+    params = draw()
+    pipe = m.DataPipeline(model, shape, seed=0, device="cuda")
+    batch = pipe.batch_at(0)
+
+    def counted():
+        got = counts()
+        reset_counts()
+        return got
+    t0 = time.perf_counter()
+    model.tp = m.steps.split_for(mesh, params)
+    try:
+        loss_k, tok_k, g_k, (fwd, rec) = _step0(torch, m, model, params,
+                                                batch, counted=counted)
+    finally:
+        model.tp = None
+    loss_p, tok_p, g_p, _ = _step0(torch, m, model, params, batch,
+                                   plain=True)
+    err_k = _grad_errs(torch, g_k, g_p)
+    del g_k
+    loss_c, tok_c, g_c, _ = _step0(torch, m, model, params, batch,
+                                   plain=True, rounded=True)
+    err_c = _grad_errs(torch, g_c, g_p)
+    del g_c, g_p
+    gates_s = time.perf_counter() - t0
+    tok = (_rel_l2(torch, tok_k, tok_p), _rel_l2(torch, tok_c, tok_p))
+    bias = (_bias_se(torch, tok_k, tok_p), _bias_se(torch, tok_c, tok_p))
+    per_step = _k2_per_step_hybrid(plan, cfg)
+    got0 = {k: fwd.get(k, 0) + rec.get(k, 0) for k in per_step}
+    worst_k = max(err_k, key=err_k.get)
+    worst_c = max(err_c, key=err_c.get)
+    print(f"[train-mesh] {card} zamba2-7b ({cfg.num_layers} Mamba2 layers, "
+          f"{cfg.num_layers // cfg.shared_attn_period} shared applications, "
+          f"d {cfg.d_model}, {m.param_count_estimate(cfg) / 1e9:.3f} B "
+          f"parameters, stacked weights at their layers' fan-in) step 0 "
+          f"at {shape.global_batch} x {shape.seq_len} under the mesh step's "
+          f"split: K2 {got0} (predicted {per_step}); loss kernel "
+          f"{loss_k:.6f}, plain {loss_p:.6f}, control {loss_c:.6f}; "
+          f"per-token losses rel L2 vs plain, kernel {tok[0]:.4g}, control "
+          f"{tok[1]:.4g}; mean difference kernel {bias[0]['mean']:.4g} "
+          f"({bias[0]['z']:.3f} standard errors), control "
+          f"{bias[1]['mean']:.4g} ({bias[1]['z']:.3f}); per-leaf gradient "
+          f"rel L2 vs plain, kernel worst {worst_k} {err_k[worst_k]:.4g}, "
+          f"control worst {worst_c} {err_c[worst_c]:.4g} (all "
+          f"{ {k: (round(err_k[k], 5), round(err_c[k], 5)) for k in err_k} }"
+          f"); the three step-0 passes {gates_s:.1f} s")
+    if got0 != per_step:
+        raise AssertionError(f"phase 24 zamba2-7b step 0: K2 {got0}, not "
+                             f"{per_step}")
+    _hold_grads("zamba2-7b step 0", *tok, err_k, err_c)
+    _hold_bias("zamba2-7b step 0", *bias)
+
+    # the steps off the mesh, then on it from the same state: one state on
+    # the card at a time, each run's losses, launches and bits kept
+    table = m.train_state_table(model, opt, plan)
+    runs = []
+    for on in (False, True):
+        if params is None:
+            params = draw()
+        state = m.init_train_state(model, opt, params, plan)
+        params = None
+        if on:
+            state = m.reshard_state(state, table, mesh)
+        step = m.build_train_step(model, opt, plan, mesh if on else None)
+        losses, k2, comm = [], [], []
+        t0 = time.perf_counter()
+        for i in range(kw["steps"]):
+            reset_counts()
+            state, metrics = step(state, pipe.batch_at(i))
+            torch.cuda.synchronize()
+            k2.append({k: v for k, v in counts().items() if v})
+            losses.append(float(metrics["loss"]))
+            comm.append(sum(c["calls"] for c in
+                            metrics["collectives"].values()))
+        secs = time.perf_counter() - t0
+        local = m.tree_map(lambda t: t.to_local() if on else t, state)
+        bits = [(p, _fingerprint(torch, t)) for p, t in m.leaf_items(local)]
+        runs.append({"losses": losses, "k2": k2, "bits": bits, "s": secs,
+                     "comm": comm})
+        del state, local, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    off, on = runs
+    want = {k: v for k, v in per_step.items() if v}
+    if off["losses"] != on["losses"] or off["k2"] != on["k2"] or \
+            any(k != want for k in on["k2"]) or off["bits"] != on["bits"] \
+            or any(on["comm"]) or not all(map(math.isfinite,
+                                              on["losses"])):
+        raise AssertionError(f"phase 24 zamba2-7b: off the mesh losses "
+                             f"{off['losses']}, K2 {off['k2']}; on it "
+                             f"{on['losses']}, K2 {on['k2']} (predicted "
+                             f"{want}), collectives {on['comm']}, every "
+                             f"leaf's bits equal: {off['bits'] == on['bits']}")
+    print(f"[train-mesh] {card} zamba2-7b: {kw['steps']} steps of "
+          f"{shape.global_batch} x {shape.seq_len} (plan {plan.optimizer}, "
+          f"remat {plan.remat_policy}, {plan.microbatches} microbatch) off "
+          f"the mesh and through the split step on a one-rank NCCL mesh "
+          f"from the same state: losses {on['losses']} equal, all "
+          f"{len(on['bits'])} leaves equal bit for bit, K2 per step {want} "
+          f"on both, no collective sent; {off['s']:.2f} / {on['s']:.2f} s "
+          f"for the steps (off / on, host clock); phase 24 (d) took "
+          f"{time.perf_counter() - t24d:.1f} s")
+    return per_step
+
+
 def _train_nccl(torch, m, card, counts, reset_counts) -> dict:
     """Phase 24: the split train step on a one-rank NCCL mesh (see the
     module's docstring); returns K2's launches per step of each run."""
@@ -4173,12 +4382,16 @@ def _train_nccl(torch, m, card, counts, reset_counts) -> dict:
         mark24("deepseek-7b on and off the mesh")
         moe_k2 = _moe_nccl(torch, m, mesh, card, counts, reset_counts)
         mark24("granite-moe-3b-a800m, its steps and its restart")
+        gc.collect()
+        torch.cuda.empty_cache()
+        hybrid_k2 = _hybrid_nccl(torch, m, mesh, card, counts, reset_counts)
+        mark24("zamba2-7b, step 0's gates and its steps off and on")
     finally:
         dist.destroy_process_group()
     print(f"[train-mesh] {card} phase 24 took "
           f"{time.perf_counter() - t24:.1f} s; memory (GB allocated after, "
           f"peak during) {mem24}")
-    return {"dense": dense, "moe": moe_k2}
+    return {"dense": dense, "moe": moe_k2, "hybrid": hybrid_k2}
 
 
 # phase 14: tokens each granite-moe-3b-a800m request generates (cut from
@@ -4186,8 +4399,10 @@ def _train_nccl(torch, m, card, counts, reset_counts) -> dict:
 # tick is host-bound, ~180-195 ms on a slow one)
 MOE_DECODE = 16
 # phase 25: one rank of nvidia:h100x256's (16, 16) mesh at decode_32k
-# through the split serve step, at full width and depth on the card
-SERVE_RANK_ARCHS = ("deepseek-7b", "nemotron-4-340b")
+# through the split serve step, at full width and depth on the card: the
+# dense archs (i) and the recurrent ones (iii)
+SERVE_RANK_ARCHS = ("deepseek-7b", "nemotron-4-340b", "xlstm-1.3b",
+                    "zamba2-7b")
 SERVE_RANK_TARGET = "nvidia:h100x256"
 # K1 at a rank's shapes: 8 rows (128 over 16 data ranks) at lengths up to
 # decode_32k's 32,768 positions, 16-token pages
@@ -4206,13 +4421,14 @@ def _rank_shards(torch, m, table, specs, mesh, gen):
 
 
 def _serve_rank(torch, m, card, counts, reset_counts, quiet, flush) -> dict:
-    """Phase 25: (i) one rank of SERVE_RANK_TARGET's mesh runs its split
-    decode step (``steps.described_serve_step``, collectives sent nowhere)
-    at decode_32k for each of SERVE_RANK_ARCHS at full width and depth,
-    its shards drawn on the card from seed 0: the logits finite and
-    whole, the peak within DRYRUN_PEAK_RATIO of the dry run's GB a card,
-    the arguments within DRYRUN_ARGS_RTOL, the step's time beside its
-    bound; (ii) K1 at each split arch's per-rank shape (``RANK_K1``) and
+    """Phase 25: (i, iii) one rank of SERVE_RANK_TARGET's mesh runs its
+    split decode step (``steps.described_serve_step``, collectives sent
+    nowhere) at decode_32k for each of SERVE_RANK_ARCHS at full width and
+    depth (the dense archs, then xLSTM and the Zamba2 hybrid, its cache
+    the recurrent states' shards), its shards drawn on the card from seed
+    0: the logits finite and whole, the peak within DRYRUN_PEAK_RATIO of
+    the dry run's GB a card, the arguments within DRYRUN_ARGS_RTOL, the
+    step's time beside its bound, K2 counted (the hybrid's norms); (ii) K1 at each split arch's per-rank shape (``RANK_K1``) and
     at the whole-head archs' (SERVE_WHOLE_HEADS) at SERVE_RANK_LENS, held
     as phase 2 holds it and timed; then one attention layer of each
     through ``layers.attention`` in the paged decode mode under a rank's
@@ -4222,6 +4438,7 @@ def _serve_rank(torch, m, card, counts, reset_counts, quiet, flush) -> dict:
     numbers."""
     import numpy as np
     from repro_torch.launch import dryrun
+    from repro_torch.sharding.rules import data_parallel_dims
     t25 = time.perf_counter()
     out = {"steps": {}, "k1": {}}
     reset_counts()
@@ -4251,12 +4468,22 @@ def _serve_rank(torch, m, card, counts, reset_counts, quiet, flush) -> dict:
                                   specs["params"], mesh, gen)
             shards = m.cost.shard_table(tables["cache"], specs["cache"],
                                         mesh)
-            cache = {k: torch.randn(d.shape, generator=gen, device="cuda",
-                                    dtype=d.dtype)
-                     for (k,), d in m.leaf_items(shards) if k != "index"}
+            cache = {}
+            for path, d in m.leaf_items(shards):
+                if path == ("index",):
+                    continue
+                at = cache
+                for k in path[:-1]:
+                    at = at.setdefault(k, {})
+                at[path[-1]] = torch.randn(d.shape, generator=gen,
+                                           device="cuda", dtype=d.dtype)
             cache["index"] = torch.tensor(shape.seq_len - 1,
                                           dtype=torch.int32)
-            rows = next(iter(cache.values())).shape[1]
+            rows = shape.global_batch // math.prod(
+                mesh.shape[d] for d in data_parallel_dims(
+                    shape.global_batch, mesh))
+            cache_gb = sum(t.numel() * t.element_size() for _, t in
+                           m.leaf_items(cache) if t.dim()) / 1e9
             tokens = torch.randint(0, cfg.vocab_size, (rows, 1),
                                    dtype=torch.int32, device="cuda",
                                    generator=gen)
@@ -4270,9 +4497,14 @@ def _serve_rank(torch, m, card, counts, reset_counts, quiet, flush) -> dict:
                     f"{mem['argument_size_in_bytes']:.6g}, the inputs "
                     f"allocate {inputs:.6g}")
             torch.cuda.reset_peak_memory_stats()
+            before = counts()
             logits, _ = step(params, cache, tokens)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() - base0
+            k2 = {k: counts()[k] - before[k] for k in ("rmsnorm",
+                                                       "add_rmsnorm")}
+            if cfg.norm == "rmsnorm" and not k2["rmsnorm"]:
+                raise AssertionError(f"{arch}'s rank step launched no K2")
             if tuple(logits.shape) != (shape.global_batch, 1,
                                        cfg.vocab_size) or \
                     not bool(torch.isfinite(logits).all()):
@@ -4294,14 +4526,16 @@ def _serve_rank(torch, m, card, counts, reset_counts, quiet, flush) -> dict:
             calls = {k: v["calls"] for k, v in step.collectives.items()}
             out["steps"][arch] = {"ms": ms, "bound_ms": bound,
                                   "card_gb": peak / 1e9,
-                                  "dryrun_gb": mem["per_chip_total_gb"]}
+                                  "dryrun_gb": mem["per_chip_total_gb"],
+                                  "k2": k2}
             print(f"[rank] {card} {arch} x decode_32k, rank 0 of "
                   f"{SERVE_RANK_TARGET}'s {tuple(mesh.shape)} mesh on the "
                   f"card through the split decode step ({rows} rows, "
                   f"{model.cfg.num_heads // mesh.shape[-1] if model.cfg.num_heads % mesh.shape[-1] == 0 else model.cfg.num_heads} "
                   f"of {model.cfg.num_heads} heads, cache shard "
-                  f"{sum(t.numel() * t.element_size() for t in cache.values() if t.dim()) / 1e9:.2f} GB"
-                  f"{', split along its sequence' if 'I1' in ' '.join(res.plan.notes) else ''}): "
+                  f"{cache_gb:.2f} GB"
+                  f"{', split along its sequence' if 'I1' in ' '.join(res.plan.notes) and 'k' in cache else ''}"
+                  f"; K2 {k2} a step): "
                   f"arguments {mem['argument_size_in_bytes'] / 1e9:.4f} GB, "
                   f"the inputs allocate {inputs / 1e9:.4f} GB; peak "
                   f"{peak / 1e9:.4f} GB on the card, {mem['per_chip_total_gb']:.4f} "

@@ -40,7 +40,7 @@ ranks, with each call's ring wire bytes.  The whole-weight steps' (the
 families outside ``SPLIT_FAMILIES``) come from the build's specs alone:
 the weight (and, training, the state) gathers, the gradient all-reduce,
 the logits gathers and a cache's gathers.  The split steps (dense, VLM,
-MoE) send their collectives where their layers run: each layer's
+MoE, xLSTM, Zamba2) send their collectives where their layers run: each layer's
 ``data`` gathers, the model axis's all-reduces of each row-parallel
 output, the vocabulary's gathers (serving) or max and sums (training),
 a sequence-split cache's heads (an all-to-all), and in training the
@@ -401,8 +401,9 @@ def mesh_collectives(kind: str, tables: dict, specs: dict, mesh,
 
     ``rows`` is the batch's row count (the data-parallel dimensions are
     those ``act_batch`` splits them over).  ``calls``: a split step's
-    log of its traced collectives (the dense, VLM and MoE train and
-    serve steps; see the module's docstring), which is its reckoning."""
+    log of its traced collectives (the dense, VLM, MoE, xLSTM and Zamba2
+    train and serve steps; see the module's docstring), which is its
+    reckoning."""
     if calls is not None:
         return Reckoning.of_calls(calls)
     from repro_torch.models.params import leaf_items

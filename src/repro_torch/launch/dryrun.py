@@ -9,15 +9,15 @@ The port builds each cell on the H100 counterparts of those pods,
 described targets with no ranks behind them, and traces the step on the
 ``meta`` device (``analysis/cost.trace``): the step that one rank of the
 port's mesh step computes.  A cell of a family outside
-``steps.SPLIT_FAMILIES`` traces the one-device step on rank 0's rows of
-the batch and of the cache with the weights whole, its collectives
-reckoned from the specs (``cost.mesh_collectives``).  A dense, VLM or
-MoE cell traces the split step itself (``steps.described_rank_step``
-for training, ``steps.described_serve_step`` for the prefill and the
-decode) on rank 0's shards of the state, the weights or the cache and
-its rows, its collectives sending nothing and counted as they are
-issued.  It needs no device and no process group, and sets no
-environment.
+``steps.SPLIT_FAMILIES`` (the enc-dec family) traces the one-device step
+on rank 0's rows of the batch and of the cache with the weights whole,
+its collectives reckoned from the specs (``cost.mesh_collectives``).  A
+dense, VLM, MoE, xLSTM or Zamba2 cell traces the split step itself
+(``steps.described_rank_step`` for training,
+``steps.described_serve_step`` for the prefill and the decode) on rank
+0's shards of the state, the weights or the cache and its rows, its
+collectives sending nothing and counted as they are issued.  It needs
+no device and no process group, and sets no environment.
 
 For each cell it prints the memory per card, the FLOPs, the three
 roofline terms and the plan, and writes one JSON record under
@@ -49,7 +49,7 @@ A split step holds its shards of the state (training: and of the
 gradients; serving: of the weights and the cache), and one layer's
 weights gathered along ``data`` at a time (``gathered_at_once``: the
 reckoning the live step's gather records are held to), so its memory
-per card shrinks with both mesh axes.  The other families' steps
+per card shrinks with both mesh axes.  The enc-dec family's steps
 compute with whole weights (each rank gathers every weight for each
 step), which the records show.
 A failing cell records ``"status": "error"`` and its traceback, and the
@@ -205,17 +205,22 @@ def _gathered_bytes(table, specs, mesh) -> int:
 def gathered_at_once(table, specs, mesh, remat: str | None) -> int:
     """The most bytes of weights a rank of a split step holds gathered
     along ``data`` at once (a weight split only along ``model`` is not
-    gathered): the largest of the embedding's, one block's and the
+    gathered): the largest of the embedding's, one layer's and the
     head's (``ln_f`` and the unembedding, or a tied embedding), each
-    freed before the next is gathered; in a train step under
-    ``remat="none"`` autograd keeps every block's for its backward, so
-    all blocks' and the head's.  A serve step's ``remat`` is None."""
+    freed before the next is gathered, a layer's being the largest of a
+    stack's (an xLSTM's mLSTM and sLSTM layers differ); a Zamba2 hybrid's
+    shared block, gathered once a step for its every application, is
+    held beside each layer and the head.  In a train step under
+    ``remat="none"`` autograd keeps every layer's for its backward, so
+    all layers' (and the shared block's) and the head's.  A serve step's
+    ``remat`` is None."""
     from repro_torch.models.params import leaf_items
     from repro_torch.sharding.rules import placements
+    from repro_torch.sharding.split import layer_axes
     model = list(mesh.axis_names).index("model") \
         if "model" in mesh.axis_names else None
     tied = "unembed" not in table["embed"]
-    groups, layers = {}, 0
+    groups, stacks = {}, {}
     for (path, d), (_, spec) in zip(leaf_items(table), leaf_items(specs)):
         n, gathered = [1] * len(d.shape), False
         for m, pl in enumerate(placements(spec, mesh)):
@@ -225,20 +230,25 @@ def gathered_at_once(table, specs, mesh, remat: str | None) -> int:
                 gathered = True
         if not gathered:
             continue
-        lead = 1 if path[0] == "blocks" else 0
-        layers = d.shape[0] if lead else layers
+        lead = layer_axes(path)
         nbytes = math.prod(k // f for k, f in zip(d.shape[lead:], n[lead:])) \
             * d.dtype.itemsize
-        keys = ["block"] if lead else \
+        if lead:
+            layers, one = stacks.get(path[0], (0, 0))
+            stacks[path[0]] = (math.prod(d.shape[:lead]), one + nbytes)
+            continue
+        keys = ["shared"] if path[0] == "shared" else \
             ["embed"] + (["head"] if tied and path[-1] == "embedding"
                          else []) \
             if path[-1] in ("embedding", "pos_embedding") else ["head"]
         for k in keys:
             groups[k] = groups.get(k, 0) + nbytes
+    shared, head = groups.get("shared", 0), groups.get("head", 0)
     if remat == "none":
-        return max(groups.get("embed", 0),
-                   layers * groups.get("block", 0) + groups.get("head", 0))
-    return max(groups.values(), default=0)
+        return max(groups.get("embed", 0), shared + head + sum(
+            n * one for n, one in stacks.values()))
+    layer = max((one for _, one in stacks.values()), default=0)
+    return max(groups.get("embed", 0), shared + layer, shared + head)
 
 
 def memory_per_chip(result, cost, out, split: int) -> dict:

@@ -477,7 +477,7 @@ def _legacy_serve_main(arch: str, batch: int, prefill_len: int,
     initialized process group (and raises where the process holds no
     rank), the weights and the cache at rest under their specs, each
     rank prefilling and decoding its rows of the batch (split along
-    ``model`` for the dense, VLM and MoE families: its heads, MLP
+    ``model`` for every family but the enc-dec one: its heads, MLP
     columns or experts and vocabulary, its shard of the cache) and every
     rank holding the whole batch's logits and tokens.  Returns the
     reference's keys."""

@@ -377,7 +377,9 @@ def _batch_decode(q, k, v, cache, window=None, read=None, tp=None):
     cache's length, the cache is a ring buffer of the last t positions:
     the write lands at ``index mod t`` and every valid position is
     attended (keys carry their RoPE phase from write time, so order in
-    the ring does not matter), the reference's branch.  A write past the
+    the ring does not matter), the reference's branch; a ring split
+    along its sequence is written by the rank that holds ``index mod
+    t``.  A write past the
     cache's end raises: the reference's ``dynamic_update_slice`` would
     clamp it onto the last positions, overwriting them silently (the
     legacy path grows the cache by the tokens it decodes).  On a split
@@ -388,9 +390,6 @@ def _batch_decode(q, k, v, cache, window=None, read=None, tp=None):
     tl = ck.shape[1]
     s, t = q.shape[1], tl * (tp.tp if seq else 1)
     ring = window is not None and t <= window
-    if ring and seq:
-        raise NotImplementedError("a ring-buffer cache split along its "
-                                  "sequence")
     start = at % t if ring else at
     if start + s > t:
         raise ValueError(f"decode write at {start}..{start + s - 1} falls "
@@ -447,12 +446,14 @@ def _chunk(q, k, v, cache, read=None, tp=None):
     return dot_attention(q, kg, vg, causal=True, q_offset=off, kv_len=off + s)
 
 
-def _windowed_attention(q, k, v, window: int) -> torch.Tensor:
+def _windowed_attention(q, k, v, window: int, dtype=None) -> torch.Tensor:
     """Sliding-window causal attention by q-chunks: each chunk of
     ``min(_Q_CHUNK, s)`` queries attends only the kv slice [chunk start -
     window, chunk end), query i the keys j with i - window < j <= i.
     Under grad a chunk's scores are recomputed in the backward, as
-    ``dot_attention`` does."""
+    ``dot_attention`` does.  ``dtype`` rounds the probabilities and the
+    output, as ``dot_attention``'s (a split step's KV heads kept whole
+    come as f32 K/V of bf16 values)."""
     b, s, H, dh = q.shape
     K = k.shape[2]
     G = H // K
@@ -472,7 +473,8 @@ def _windowed_attention(q, k, v, window: int) -> torch.Tensor:
         m = (kv_pos <= q_pos) & (kv_pos > q_pos - window) & (kv_pos >= 0)
         return _attn_one_chunk(qg[:, :, :, start:start + qc],
                                k_pad[:, start:start + span],
-                               v_pad[:, start:start + span], m[None], scale)
+                               v_pad[:, start:start + span], m[None], scale,
+                               dtype)
 
     if torch.is_grad_enabled():
         outs = [checkpoint(one, start, use_reentrant=False)
@@ -542,10 +544,18 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                        theta=cfg.rope_theta)
     new_cache = None
     if mode in ("decode", "chunk"):
+        # a cache that keeps every KV head (its rules keep them whole, as
+        # the sequence-parallel rules do) beside this rank's own KV heads:
+        # the new K/V gathered along the model axis, each rank writing
+        # every head of the positions it holds
+        keep_all = split and not shared_kv and \
+            cache["k"].shape[-2] == cfg.num_kv_heads > k.shape[2]
+        if keep_all:
+            k, v = tp.gather_out(k, 2), tp.gather_out(v, 2)
         # the KV heads read: this rank's and every model rank's range
         read = tp.kv_range(cfg, q.shape[2]) + (
             [tp.kv_range(cfg, q.shape[2], j) for j in range(tp.tp)],) \
-            if shared_kv else None
+            if shared_kv or keep_all else None
         if split and cache["k"].shape[-2] != k.shape[2]:
             raise NotImplementedError(
                 f"a cache of {cache['k'].shape[-2]} KV heads a rank beside "
@@ -564,7 +574,7 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         if shared_kv:
             k, v = (tp.kv_for_heads(t, cfg, q.shape[2]) for t in (k, v))
         if window is not None and q.shape[1] > window and cfg.causal:
-            out = _windowed_attention(q, k, v, window)
+            out = _windowed_attention(q, k, v, window, dt)
         else:
             out = dot_attention(q, k, v, causal=cfg.causal, dtype=dt)
     else:
@@ -572,9 +582,7 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     if split:
         # the f32 partial sums over this rank's heads, summed over the
         # model axis and rounded once
-        y = tp.reduce_out(torch.einsum("bshd,hde->bse", out.float(),
-                                       p["wo"].float())).to(dt)
-        return y, new_cache
+        return split_rows(tp, "bshd,hde->bse", out, p["wo"], dt), new_cache
     y = torch.einsum("bshd,hde->bse", out, p["wo"])
     return y, new_cache
 
@@ -601,6 +609,15 @@ def split_product(tp, eq: str, x: torch.Tensor, w: torch.Tensor,
     products'."""
     return torch.einsum(eq, split_input(tp, x), w.float()).to(
         dtype or x.dtype)
+
+
+def split_rows(tp, eq: str, x: torch.Tensor, w: torch.Tensor,
+               dtype) -> torch.Tensor:
+    """A row-parallel ``einsum(eq, x, w)`` on a split step: the f32
+    partial sums over this rank's shard of the contracted axis, summed
+    over the model axis and rounded once to ``dtype`` (one device's
+    product rounds once)."""
+    return tp.reduce_out(torch.einsum(eq, x.float(), w.float())).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -705,8 +722,7 @@ def mlp(p: dict, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     else:
         raise ValueError(f"activation {cfg.activation!r}")
     if split:
-        return tp.reduce_out(torch.einsum("bsf,fe->bse", h.float(),
-                                          p["wo"].float())).to(dt)
+        return split_rows(tp, "bsf,fe->bse", h, p["wo"], dt)
     return torch.einsum("bsf,fe->bse", h, p["wo"])
 
 

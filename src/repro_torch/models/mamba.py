@@ -16,6 +16,22 @@ block's input norm and its gated norm over d_inner, the shared block's
 two and ``ln_f`` — runs on the hand-written kernel on the card; the SSD
 scans are plain PyTorch on every device, as the reference computes them
 outside any Pallas kernel.
+
+A train or serve step split over a mesh sets ``tp`` (``sharding.split``)
+on the model.  A Mamba2 rank computes ``w_in`` on its columns of ``[z |
+x | B | C | dt]`` (its contiguous shard is not its heads' columns),
+gathers them along ``model`` and cuts its heads' ``z``, ``x`` and ``dt``
+and the whole ``B`` and ``C``; the conv runs on its contiguous shard of
+``[x | B | C]``'s channels (the conv state rests under ``act_mlp`` as the
+same shard), its output gathered and cut the same way; the SSD scan runs
+on its heads (``A_log``, ``D``, ``dt_bias`` and the state split by
+heads).  The gated RMSNorm spans all of d_inner: the rank's gated rows
+are gathered along ``model``, the kernel normalizes whole rows (at a
+unit scale: ``gn`` stays split), and the rank keeps its channels, scaled
+by its shard of ``gn``, for ``w_out``, row-parallel.  The shared block
+runs split as the dense block does; its weights are gathered along
+``data`` once a step and kept for every application, so autograd sums
+their gradient over the applications and reduces it once.
 """
 
 from __future__ import annotations
@@ -27,7 +43,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDef, tree_map
 from repro_torch.models.ssm import (RecurrentLM, causal_conv, per_layer,
-                                    softplus, zeros_from)
+                                    softplus)
 from repro_torch.models.transformer import remat_wrap, stack_defs
 
 # ---------------------------------------------------------------------------
@@ -131,12 +147,15 @@ def mamba_block_defs(cfg) -> dict:
     }
 
 
-def mamba_block_apply(p, x, cfg, mode, cache, chunk):
+def mamba_block_apply(p, x, cfg, mode, cache, chunk, tp=None):
     """One Mamba2 block on x (b, s, d): (x + block(x), new cache).
     ``cache``: {"ssm", "conv"} of this layer, or None (zeros); a one-token
     decode steps the recurrence, anything else runs the chunkwise form.
     The gated RMSNorm, ``norm(y * silu(z))`` over d_inner, is the kernel
-    on the card."""
+    on the card.  With ``tp`` and ``mlp`` split over the model axis, this
+    rank's part (see the module's docstring)."""
+    if tp is not None and p["gn"].shape[0] < cfg.ssm_expand * x.shape[-1]:
+        return _mamba_split(p, x, cfg, mode, cache, chunk, tp)
     b, s, d = x.shape
     di = cfg.ssm_expand * d
     h, n = cfg.ssm_heads, cfg.ssm_state
@@ -151,17 +170,92 @@ def mamba_block_apply(p, x, cfg, mode, cache, chunk):
     xs = xs.reshape(b, s, h, hp)
     dt = softplus(dt_pre.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    ssm_state = cache["ssm"] if cache else None
-    if mode == "decode" and s == 1:
-        y, new_state = ssd_decode(xs.float(), dt, A, B.float(), C.float(),
-                                  p["D"], ssm_state)
-    else:
-        y, new_state = ssd_chunkwise(xs.float(), dt, A, B.float(), C.float(),
-                                     p["D"], ssm_state, min(chunk, s))
+    y, new_state = _ssd(xs.float(), dt, A, B.float(), C.float(), p["D"],
+                        cache["ssm"] if cache else None, mode, chunk)
     y = y.reshape(b, s, di)
     # gated RMSNorm (Mamba2): norm(y * silu(z))
     y = L.rmsnorm((y * L.silu(z.float())).to(x.dtype), p["gn"])
     out = torch.einsum("bse,ed->bsd", y, p["w_out"])
+    return x + out, {"ssm": new_state, "conv": new_conv}
+
+
+def _ssd(xs, dt, A, B, C, D, state, mode, chunk):
+    """The SSD scan of a block's heads: one decode step or chunkwise."""
+    if mode == "decode" and xs.shape[1] == 1:
+        return ssd_decode(xs, dt, A, B, C, D, state)
+    return ssd_chunkwise(xs, dt, A, B, C, D, state, min(chunk, xs.shape[1]))
+
+
+def _mamba_split(p, x, cfg, mode, cache, chunk, tp):
+    """``mamba_block_apply`` on a split step (the module's docstring):
+    ``w_in`` on the rank's shard (column-parallel where it is split),
+    gathered and cut; the conv on the rank's channels, gathered and cut;
+    the scan on its heads (every head where ``ssm_heads`` does not divide
+    the model axis); the gated norm on whole rows; ``w_out``
+    row-parallel.  A piece every rank computes alike is sliced; a piece
+    only this rank computes with is ``cut`` (its gradient summed over the
+    model axis)."""
+    b, s, d = x.shape
+    dt_ = x.dtype
+    di = cfg.ssm_expand * d
+    h, n = cfg.ssm_heads, cfg.ssm_state
+    hp, cd, E = di // h, di + 2 * n, 2 * di + 2 * n + h
+    h0, h1 = tp.own(p["A_log"].shape[0], h)            # the rank's heads
+    c0, c1 = tp.own(p["conv_w"].shape[-1], cd)         # its conv channels
+    m0, m1 = tp.own(p["gn"].shape[0], di)              # its d_inner columns
+    heads = h1 - h0 < h
+    xin = L.apply_norm(p["ln"], x, cfg.norm)
+    if p["w_in"].shape[-1] < E:
+        zx = tp.gather_out(L.split_product(tp, "bsd,de->bse", xin,
+                                           p["w_in"]), -1)
+    else:
+        zx = torch.einsum("bsd,de->bse", xin, p["w_in"])
+    z = (h0 * hp, h1 * hp)
+    dts = (2 * di + 2 * n + h0, 2 * di + 2 * n + h1)
+    conv = (di + c0, di + c1)
+    if heads and c1 - c0 < cd:
+        z, xbc, dt_pre = tp.cut(zx, -1, [z, conv, dts])
+    elif heads:
+        (z, dt_pre), xbc = tp.cut(zx, -1, [z, dts]), zx.narrow(-1, *conv)
+    elif c1 - c0 < cd:
+        xbc = tp.cut(zx, -1, [conv])[0]
+        z, dt_pre = zx[..., :di], zx[..., 2 * di + 2 * n:]
+    else:
+        raise NotImplementedError("a Mamba2 block whose mlp products split "
+                                  "but not its conv or heads")
+    xbc, new_conv = causal_conv(xbc, p["conv_w"],
+                                cache["conv"] if cache else None)
+    xbc = L.silu(xbc)
+    if c1 - c0 < cd:
+        xbc = tp.gather_out(xbc, -1)
+    # in f32, as the scan reads them: the ranks' partial gradients of the
+    # shared B and C are summed in f32 and rounded once, as one device
+    # sums its heads'
+    xbc = xbc.float()
+    if heads:
+        xs, bc = tp.cut(xbc, -1, [(h0 * hp, h1 * hp), (di, cd)])
+    else:
+        xs, bc = xbc[..., :di], xbc[..., di:]
+    B, C = bc.split(n, dim=-1)
+    dt = softplus(dt_pre.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    state = cache["ssm"] if cache else None
+    # a state that keeps every head (its rules keep them whole, as the
+    # sequence-parallel rules do) beside the rank's heads: it reads its
+    # heads' and hands back every head's, gathered along the model axis
+    whole = heads and state is not None and state.shape[1] == h
+    y, new_state = _ssd(xs.reshape(b, s, h1 - h0, hp), dt, A, B, C, p["D"],
+                        state[:, h0:h1] if whole else state, mode, chunk)
+    if whole:
+        new_state = tp.gather_out(new_state.contiguous(), 1)
+    y = (y.reshape(b, s, (h1 - h0) * hp) * L.silu(z.float())).to(dt_)
+    if heads:
+        y = tp.gather_out(y, -1)
+    # the kernel normalizes whole rows at a unit scale; the rank keeps its
+    # columns and scales them by its shard of gn
+    unit = torch.ones(di, dtype=p["gn"].dtype, device=y.device)
+    y = tp.cut(L.rmsnorm(y, unit), -1, [(m0, m1)])[0] * p["gn"]
+    out = L.split_rows(tp, "bse,ed->bsd", y, p["w_out"], dt_)
     return x + out, {"ssm": new_state, "conv": new_conv}
 
 
@@ -280,49 +374,70 @@ class ZambaHybrid(RecurrentLM):
         attn_out, new_kv = L.attention(p["attn"], h, cfg,
                                        positions=positions, mode=mode,
                                        cache=kv_cache,
-                                       window=cfg.window or None)
+                                       window=cfg.window or None,
+                                       tp=self.tp)
         # XLA hands the norm the unrounded f32 sum of the residual add,
         # as in the dense block
         x, h = L.add_norm(p["ln2"], x, attn_out, cfg.norm,
                           norm_of_rounded=False)
-        return x + L.mlp(p["mlp"], h, cfg), new_kv
+        return x + L.mlp(p["mlp"], h, cfg, self.tp), new_kv
+
+    def _zero_mamba(self, p, lead: tuple, b: int, device) -> dict:
+        """Zeros of a Mamba layer's state (a ``lead`` of stacked layers):
+        the heads and conv channels the layer's weights ``p`` hold (a
+        split rank's shard of them)."""
+        cfg = self.cfg
+        hp = cfg.ssm_expand * cfg.d_model // cfg.ssm_heads
+        return {"ssm": torch.zeros(lead + (b, p["A_log"].shape[0], hp,
+                                           cfg.ssm_state),
+                                   dtype=torch.float32, device=device),
+                "conv": torch.zeros(lead + (b, cfg.conv_width - 1,
+                                            p["conv_w"].shape[-1]),
+                                    dtype=cfg.activation_dtype,
+                                    device=device)}
 
     def backbone(self, lp, x, positions, mode, cache=None):
         """The blocks over x.  Prefill (``cache=None``) returns a fresh
-        cache: the Mamba states in the table's zeros, filled in place, and
-        each shared application's K/V of the prompt, (segs, b, s, K, dh).
-        Decode writes ``cache`` in place.  The training forward (mode
-        ``full``) keeps no cache and runs each Mamba block under the remat
-        policy."""
-        cfg = self.cfg
+        cache: the Mamba states in zeros, filled in place, and each shared
+        application's K/V of the prompt, (segs, b, s, K, dh).  Decode
+        writes ``cache`` in place.  The training forward (mode ``full``)
+        keeps no cache and runs each Mamba block under the remat policy.
+        On a split step each Mamba layer's weights are gathered along
+        ``data`` for the layer, the shared block's once for every
+        application."""
+        cfg, tp = self.cfg, self.tp
         per, segs, rem = self._layout()
         chunk = cfg.ssm_chunk
+        shared = self._used(lp["shared"], "shared")
         if mode == "full":
-            zero = zeros_from(self.cache_table(x.shape[0], 0)["mamba"],
-                              x.device)
-            zero = {k: v[0, 0] for k, v in zero.items()}
-
-            def m_fn(p_, y_):
-                return mamba_block_apply(p_, y_, cfg, mode, zero, chunk)[0]
+            def m_fn(p_, y_, path):
+                p_ = self._used(p_, path)
+                zero = self._zero_mamba(p_, (), y_.shape[0], y_.device)
+                return mamba_block_apply(p_, y_, cfg, mode, zero, chunk,
+                                         tp)[0]
             m_fn = remat_wrap(m_fn, self.remat)
             for s_ in range(segs):
                 for j in range(per):
-                    x = m_fn(lp["mamba"][s_ * per + j], x)
-                x, _ = self.shared_block_apply(lp["shared"], x, positions,
-                                               mode, None)
-            for tp in lp["tail"]:
-                x = m_fn(tp, x)
+                    x = m_fn(lp["mamba"][s_ * per + j], x, "mamba")
+                x, _ = self.shared_block_apply(shared, x, positions, mode,
+                                               None)
+            for p_ in lp["tail"]:
+                x = m_fn(p_, x, "mamba_tail")
             return x, None
         fresh = cache is None
         if fresh:
-            tbl = self.cache_table(x.shape[0], 0)
-            tbl.pop("shared_kv")
-            cache = zeros_from(tbl, x.device)
-            cache["index"] = torch.tensor(0, dtype=torch.int32)
+            b = x.shape[0]
+            cache = {"mamba": self._zero_mamba(lp["mamba"][0], (segs, per),
+                                               b, x.device),
+                     "index": torch.tensor(0, dtype=torch.int32)}
+            if rem:
+                cache["mamba_tail"] = self._zero_mamba(lp["tail"][0], (rem,),
+                                                       b, x.device)
             ks, vs = [], []
 
-        def mamba(p_, x, c):
-            x, nc = mamba_block_apply(p_, x, cfg, mode, c, chunk)
+        def mamba(p_, path, x, c):
+            x, nc = mamba_block_apply(self._used(p_, path), x, cfg, mode, c,
+                                      chunk, tp)
             for k, v in nc.items():
                 c[k].copy_(v)
             return x
@@ -330,19 +445,21 @@ class ZambaHybrid(RecurrentLM):
         mc = cache["mamba"]
         for s_ in range(segs):
             for j in range(per):
-                x = mamba(lp["mamba"][s_ * per + j], x,
+                x = mamba(lp["mamba"][s_ * per + j], "mamba", x,
                           {k: v[s_, j] for k, v in mc.items()})
             kv = None if fresh else {
                 "k": cache["shared_kv"]["k"][s_],
                 "v": cache["shared_kv"]["v"][s_],
-                "index": cache["index"], "layout": "contiguous"}
-            x, new_kv = self.shared_block_apply(lp["shared"], x, positions,
-                                                mode, kv)
+                "index": cache["index"], "layout": "contiguous",
+                "seq_split": cache.get("seq_split")}
+            x, new_kv = self.shared_block_apply(shared, x, positions, mode,
+                                                kv)
             if fresh:
                 ks.append(new_kv["k"])
                 vs.append(new_kv["v"])
-        for i, tp in enumerate(lp["tail"]):
-            x = mamba(tp, x, {k: v[i] for k, v in cache["mamba_tail"].items()})
+        for i, p_ in enumerate(lp["tail"]):
+            x = mamba(p_, "mamba_tail", x,
+                      {k: v[i] for k, v in cache["mamba_tail"].items()})
         if fresh:
             cache["shared_kv"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
         cache["index"] = cache["index"] + x.shape[1]
@@ -354,7 +471,7 @@ class ZambaHybrid(RecurrentLM):
         tokens = batch["tokens"]
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-        x = L.embed(leaves["embed"], tokens, self.cfg)
+        x = self._embed(leaves, tokens)
         lp = dict(leaves, tail=leaves.get("mamba_tail", []))
         x, _ = self.backbone(lp, x, positions, "full")
         return self._logits(leaves, x), None
@@ -365,7 +482,7 @@ class ZambaHybrid(RecurrentLM):
         tokens = batch["tokens"]
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-        x = L.embed(params["embed"], tokens, self.cfg)
+        x = self._embed(params, tokens)
         x, cache = self.backbone(self.layer_params(params), x, positions,
                                  "prefill")
         return self._logits(params, x[:, -1:].contiguous()), cache
@@ -377,7 +494,7 @@ class ZambaHybrid(RecurrentLM):
         at = int(cache["index"])
         positions = torch.arange(at, at + s,
                                  device=tokens.device).expand(b, s)
-        x = L.embed(params["embed"], tokens, self.cfg)
+        x = self._embed(params, tokens)
         x, cache = self.backbone(self.layer_params(params), x, positions,
                                  "decode", dict(cache))
         return self._logits(params, x), cache

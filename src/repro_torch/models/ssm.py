@@ -19,6 +19,25 @@ paths compute different first steps, as in the reference.
 The group norm, the scans and the time loop are plain PyTorch on every
 device: the reference computes them outside any Pallas kernel.  An
 xLSTM config is a LayerNorm one, so no hand-written kernel runs on it.
+
+A train or serve step split over a mesh sets ``tp`` (``sharding.split``)
+on the model, as on ``DenseLM``: each layer's weight shards gathered
+along ``data`` where the layer runs, the embedding, ``ln_f`` and the
+unembedding as the dense model splits them, and each block split along
+the model axis where its weights are.  An mLSTM rank computes ``w_up``
+on its columns of ``[xb | z]`` (column-parallel), gathers them along
+``model`` and cuts what it computes with: its conv channels (the conv
+state rests under ``act_mlp`` as the same shard), its heads' ``xb`` and
+its ``z`` channels.  Where ``ssm_heads`` divides the model axis a rank's
+heads are its conv channels, and it runs the recurrence, the group norm
+and the gate on them; where it does not (``xlstm-1.3b``'s 4 heads on
+16 ranks) it gathers the conv output and every rank computes every head
+(the rules' fallback), the gated hidden state cut to its channels.
+``w_if`` and ``w_down`` are row-parallel over ``mlp`` (f32 partials
+summed over ``model``, cast once).  An sLSTM rank projects its heads
+(``wx`` column-parallel), runs the time loop on them (``r`` is
+block-diagonal by head: no collective inside the loop), gathers the
+heads' output and runs the gated FFN column-, then row-parallel.
 """
 
 from __future__ import annotations
@@ -258,11 +277,15 @@ def _groupnorm(x, scale):
     return (xf - mu) * torch.rsqrt(var + 1e-6) * scale.float()
 
 
-def mlstm_block_apply(p, x, cfg, mode, cache, chunk):
+def mlstm_block_apply(p, x, cfg, mode, cache, chunk, tp=None):
     """One mLSTM block on x (b, s, d): (x + block(x), new cache).
     ``cache``: {"C", "n", "m", "conv"} of this layer, or None (the zero
     state, m = -1e30); ``mode="decode"`` steps the recurrence, any other
-    mode runs the chunkwise form."""
+    mode runs the chunkwise form.  With ``tp`` and ``mlp`` split over the
+    model axis, this rank's part (see the module's docstring)."""
+    if tp is not None and \
+            p["w_up"].shape[-1] < 2 * cfg.ssm_expand * x.shape[-1]:
+        return _mlstm_split(p, x, cfg, mode, cache, chunk, tp)
     b, s, d = x.shape
     h = cfg.ssm_heads
     di = cfg.ssm_expand * d
@@ -273,49 +296,115 @@ def mlstm_block_apply(p, x, cfg, mode, cache, chunk):
     xc, new_conv = causal_conv(xb, p["conv_w"],
                                cache["conv"] if cache else None)
     xc = L.silu(xc)
+    gates = torch.einsum("bsd,dgh->bsgh", xc, p["w_if"]) + p["b_if"].float()
+    hidden, state = _mlstm_heads(p, xc, xb, gates, cfg, mode, cache, chunk)
+    out = (hidden * L.silu(z.float())).to(x.dtype)
+    y = torch.einsum("bse,ed->bsd", out, p["w_down"])
+    return x + y, dict(state, conv=new_conv)
+
+
+def _mlstm_heads(p, xc, xb, gates, cfg, mode, cache, chunk):
+    """The mLSTM cell over the heads of ``p`` (every head, or a rank's):
+    xc, xb (b, s, heads * dv) their channels, ``gates`` (b, s, 2, heads)
+    f32.  Returns (the group-normed hidden state (b, s, heads * dv) f32,
+    {"C", "n", "m"})."""
+    b, s = xc.shape[:2]
+    h, dv = p["wq"].shape[0], p["wq"].shape[1]
     xch = xc.reshape(b, s, h, dv)   # per-head slices (block-diagonal proj)
     xbh = xb.reshape(b, s, h, dv)
     q = torch.einsum("bshc,hck->bhsk", xch, p["wq"])
     k = torch.einsum("bshc,hck->bhsk", xch, p["wk"])
     v = torch.einsum("bshc,hck->bhsk", xbh, p["wv"])
-    gates = torch.einsum("bsd,dgh->bsgh", xc, p["w_if"]) + p["b_if"].float()
     li = gates[:, :, 0].transpose(1, 2).float()                  # (b,h,s)
     lf = -softplus(-gates[:, :, 1]).transpose(1, 2).float()
     if cache is not None:
         state = (cache["C"], cache["n"], cache["m"])
     else:
-        state = mlstm_zero_state(b, h, cfg.ssm_head_dim, dv, x.device)
+        state = mlstm_zero_state(b, h, cfg.ssm_head_dim, dv, xc.device)
     if mode == "decode":
         hidden, state = mlstm_recurrent(q, k, v, li, lf, state)
     else:
         hidden, state = mlstm_chunkwise(q, k, v, li, lf, state,
                                         min(chunk, s))
-    hidden = _groupnorm(hidden.transpose(1, 2), p["gn"]).reshape(b, s, di)
-    out = (hidden * L.silu(z.float())).to(x.dtype)
-    y = torch.einsum("bse,ed->bsd", out, p["w_down"])
-    new_cache = {"C": state[0], "n": state[1], "m": state[2],
-                 "conv": new_conv}
-    return x + y, new_cache
+    hidden = _groupnorm(hidden.transpose(1, 2), p["gn"]).reshape(
+        b, s, h * dv)
+    return hidden, {"C": state[0], "n": state[1], "m": state[2]}
 
 
-def slstm_block_apply(p, x, cfg, mode, cache):
+def _mlstm_split(p, x, cfg, mode, cache, chunk, tp):
+    """``mlstm_block_apply`` on a split step: ``w_up`` column-parallel,
+    its columns gathered along ``model`` and cut to the rank's conv
+    channels, heads and ``z`` channels; the conv on its channels; the
+    cell on its heads (every head where ``ssm_heads`` does not divide the
+    model axis: the conv output gathered, the hidden state cut to the
+    rank's channels); ``w_if`` and ``w_down`` row-parallel."""
+    dt = x.dtype
+    d = x.shape[-1]
+    h = cfg.ssm_heads
+    di = cfg.ssm_expand * d
+    dv = di // h
+    m0, m1 = tp.own(p["conv_w"].shape[-1], di)        # the rank's channels
+    if p["w_if"].shape[0] != m1 - m0 or p["w_down"].shape[0] != m1 - m0:
+        raise NotImplementedError("an mLSTM whose mlp products split "
+                                  "unlike its conv")
+    h0, h1 = tp.own(p["wq"].shape[0], h)              # the rank's heads
+    heads = h1 - h0 < h
+    if heads and (h0 * dv, h1 * dv) != (m0, m1):
+        raise NotImplementedError("an mLSTM rank's heads off its channels")
+    xin = L.apply_norm(p["ln"], x, cfg.norm)
+    up = tp.gather_out(L.split_product(tp, "bsd,de->bse", xin, p["w_up"]),
+                       -1)
+    xb_own, z = tp.cut(up, -1, [(m0, m1), (di + m0, di + m1)])
+    xc, new_conv = causal_conv(xb_own, p["conv_w"],
+                               cache["conv"] if cache else None)
+    xc = L.silu(xc)
+    gates = L.split_rows(tp, "bsd,dgh->bsgh", xc, p["w_if"], dt)
+    if heads:
+        gates = tp.cut(gates, -1, [(h0, h1)])[0]
+        hidden, state = _mlstm_heads(p, xc, xb_own, gates +
+                                     p["b_if"].float(), cfg, mode, cache,
+                                     chunk)
+    else:
+        hidden, state = _mlstm_heads(p, tp.gather_out(xc, -1), up[..., :di],
+                                     gates + p["b_if"].float(), cfg, mode,
+                                     cache, chunk)
+        hidden = tp.cut(hidden, -1, [(m0, m1)])[0]
+    out = (hidden * L.silu(z.float())).to(dt)
+    y = L.split_rows(tp, "bse,ed->bsd", out, p["w_down"], dt)
+    return x + y, dict(state, conv=new_conv)
+
+
+def slstm_block_apply(p, x, cfg, mode, cache, tp=None):
     """One sLSTM block (the recurrence, then a gated FFN) on x (b, s, d):
     (x out, new cache).  ``cache``: {"c", "n", "h", "m"} of this layer, or
-    None (the zero state, m = -1e30)."""
+    None (the zero state, m = -1e30).  With ``tp``, the rank's heads
+    (where ``ssm_heads`` divides the model axis; every head otherwise)
+    and FFN columns."""
     b, s, d = x.shape
-    h = cfg.ssm_heads
-    dh = d // h
+    dt = x.dtype
+    h, dh = p["wx"].shape[2], d // cfg.ssm_heads       # heads held
+    heads = tp is not None and h < cfg.ssm_heads
     xin = L.apply_norm(p["ln"], x, cfg.norm)
-    gx = torch.einsum("bsd,dghe->bsghe", xin, p["wx"])           # (b,s,4,h,dh)
+    eq = "bsd,dghe->bsghe"
+    gx = L.split_product(tp, eq, xin, p["wx"]) if heads \
+        else torch.einsum(eq, xin, p["wx"])                      # (b,s,4,h,dh)
     state = (cache["c"], cache["n"], cache["h"], cache["m"]) if cache \
         else slstm_zero_state(b, h, dh, x.device)
     hs, state = slstm_scan(gx, p["r"], state)
-    hs = _groupnorm(hs, p["gn"]).reshape(b, s, d).to(x.dtype)
+    hs = _groupnorm(hs, p["gn"]).reshape(b, s, h * dh).to(dt)
+    if heads:
+        hs = tp.gather_out(hs, -1)
     # XLA hands the FFN's norm the unrounded f32 sum of the residual add
     x, hin = L.add_norm(p["ln_ffn"], x, hs, cfg.norm, norm_of_rounded=False)
-    f = L.silu(torch.einsum("bsd,df->bsf", hin, p["ffn_wg"])) * \
-        torch.einsum("bsd,df->bsf", hin, p["ffn_wi"])
-    y = torch.einsum("bsf,fd->bsd", f, p["ffn_wo"])
+    ff = int(d * 4 / 3 / 64 + 1) * 64
+    if tp is not None and p["ffn_wi"].shape[-1] < ff:
+        f = L.silu(L.split_product(tp, "bsd,df->bsf", hin, p["ffn_wg"])) * \
+            L.split_product(tp, "bsd,df->bsf", hin, p["ffn_wi"])
+        y = L.split_rows(tp, "bsf,fd->bsd", f, p["ffn_wo"], dt)
+    else:
+        f = L.silu(torch.einsum("bsd,df->bsf", hin, p["ffn_wg"])) * \
+            torch.einsum("bsd,df->bsf", hin, p["ffn_wi"])
+        y = torch.einsum("bsf,fd->bsd", f, p["ffn_wo"])
     new_cache = {"c": state[0], "n": state[1], "h": state[2], "m": state[3]}
     return x + y, new_cache
 
@@ -333,6 +422,8 @@ class RecurrentLM:
         self.cfg = cfg
         self.remat = remat
         self._views = (None, None)   # (params, their per-layer views)
+        # the split of a mesh train or serve step while it runs, else None
+        self.tp = None
 
     def drop_views(self) -> None:
         """Forget the views ``layer_params`` keeps of the last weights (a
@@ -342,15 +433,37 @@ class RecurrentLM:
     def batch_table(self, shape: ShapeConfig) -> dict:
         return token_batch_table(shape)
 
-    def _logits(self, params, x):
-        h = L.apply_norm(params["ln_f"], x, self.cfg.norm)
-        return L.unembed(params["embed"], h, self.cfg)
+    def _used(self, tree, *path):
+        """Weights at params ``path`` as a layer uses them: as they are,
+        or in a split step gathered along ``data`` (``Split.use``)."""
+        return tree if self.tp is None else self.tp.use(tree, path)
 
-    def loss(self, leaves, batch):
-        """Mean next-token cross entropy over ``train_leaves``."""
+    def _table(self, params, *names) -> dict:
+        e = params["embed"]
+        return {k: self._used(e[k], "embed", k) for k in names if k in e}
+
+    def _embed(self, params, tokens):
+        return L.embed(self._table(params, "embedding", "pos_embedding"),
+                       tokens, self.cfg, tp=self.tp)
+
+    def _logits(self, params, x):
+        h = L.apply_norm(self._used(params["ln_f"], "ln_f"), x,
+                         self.cfg.norm)
+        return L.unembed(self._table(params, "embedding" if
+                                     self.cfg.tie_embeddings else "unembed"),
+                         h, self.cfg, tp=self.tp)
+
+    def loss(self, leaves, batch, weight=None):
+        """Mean next-token cross entropy over ``train_leaves``; a split
+        step's ``weight`` (this rank's share of the tokens) scales it."""
         logits, _ = self.full_forward(leaves, batch)
+        split = self.tp is not None and \
+            logits.shape[-1] < self.cfg.vocab_size
         loss = L.softmax_xent(logits, batch["labels"],
-                              batch.get("loss_mask"))
+                              batch.get("loss_mask"),
+                              tp=self.tp if split else None)
+        if weight is not None:
+            loss = loss * weight
         return loss, {"loss": loss}
 
 
@@ -448,19 +561,21 @@ class XLSTM(RecurrentLM):
         place, layer by layer; without one (the training forward) each
         mLSTM starts from zeros and each sLSTM from its zero state
         (m = -1e30), each block under the remat policy."""
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         groups, m_per = self._layout()
         chunk = cfg.ssm_chunk
         if cache is None:
             b = x.shape[0]
-            zero = zeros_from(self.cache_table(b, 0)["mlstm"], x.device)
-            zero = {k: v[0, 0] for k, v in zero.items()}
 
             def m_fn(p_, y_):
-                return mlstm_block_apply(p_, y_, cfg, mode, zero, chunk)[0]
+                p_ = self._used(p_, "mlstm")
+                zero = self._zero_mlstm(p_, b, y_.device)
+                return mlstm_block_apply(p_, y_, cfg, mode, zero, chunk,
+                                         tp)[0]
 
             def s_fn(p_, y_):
-                return slstm_block_apply(p_, y_, cfg, mode, None)[0]
+                return slstm_block_apply(self._used(p_, "slstm"), y_, cfg,
+                                         mode, None, tp)[0]
             m_fn, s_fn = remat_wrap(m_fn, self.remat), \
                 remat_wrap(s_fn, self.remat)
             for g in range(groups):
@@ -472,39 +587,65 @@ class XLSTM(RecurrentLM):
         for g in range(groups):
             for j in range(m_per):
                 c = {k: v[g, j] for k, v in mc.items()}
-                x, nc = mlstm_block_apply(mlstm_p[g * m_per + j], x, cfg,
-                                          mode, c, chunk)
+                x, nc = mlstm_block_apply(
+                    self._used(mlstm_p[g * m_per + j], "mlstm"), x, cfg,
+                    mode, c, chunk, tp)
                 for k, v in nc.items():
                     c[k].copy_(v)
             c = {k: v[g] for k, v in sc.items()}
-            x, nc = slstm_block_apply(slstm_p[g], x, cfg, mode, c)
+            x, nc = slstm_block_apply(self._used(slstm_p[g], "slstm"), x,
+                                      cfg, mode, c, tp)
             for k, v in nc.items():
                 c[k].copy_(v)
         return x
 
+    def _zero_mlstm(self, p, b: int, device) -> dict:
+        """One mLSTM layer's zero state, of the heads and conv channels
+        the layer's weights ``p`` hold (a split rank's shard of them)."""
+        h, dv = p["wq"].shape[0], p["wq"].shape[1]
+        f32 = torch.float32
+        return {"C": torch.zeros((b, h, dv, self.cfg.ssm_head_dim),
+                                 dtype=f32, device=device),
+                "n": torch.zeros((b, h, self.cfg.ssm_head_dim), dtype=f32,
+                                 device=device),
+                "m": torch.zeros((b, h), dtype=f32, device=device),
+                "conv": torch.zeros((b, self.cfg.conv_width - 1,
+                                     p["conv_w"].shape[-1]),
+                                    dtype=self.cfg.activation_dtype,
+                                    device=device)}
+
     # ---- entry points ----
     def full_forward(self, leaves, batch):
         """The training forward over ``train_leaves``: (logits, None)."""
-        x = L.embed(leaves["embed"], batch["tokens"], self.cfg)
+        x = self._embed(leaves, batch["tokens"])
         x = self.backbone(leaves["mlstm"], leaves["slstm"], x, "full")
         return self._logits(leaves, x), None
 
     def prefill(self, params, batch):
         """Whole-prompt forward: last-position logits and a fresh cache
-        (the cache table's zeros, filled in place), its 0-d index on the
-        host."""
+        (zeros of the layers' shapes, a split rank's shard of the heads
+        and conv channels, filled in place), its 0-d index on the host."""
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = L.embed(params["embed"], tokens, self.cfg)
-        cache = zeros_from(self.cache_table(b, 0), x.device)
+        x = self._embed(params, tokens)
+        mlstm, slstm = self.layer_params(params)
+        groups, m_per = self._layout()
+        lead = {"mlstm": (groups, m_per), "slstm": (groups,)}
+        zero = {"mlstm": self._zero_mlstm(mlstm[0], b, x.device),
+                "slstm": dict(zip("cnhm", slstm_zero_state(
+                    b, slstm[0]["wx"].shape[2],
+                    self.cfg.d_model // self.cfg.ssm_heads, x.device)))}
+        cache = {k: {n: torch.zeros(lead[k] + tuple(t.shape), dtype=t.dtype,
+                                    device=x.device)
+                     for n, t in v.items()} for k, v in zero.items()}
         cache["index"] = torch.tensor(s, dtype=torch.int32)
-        x = self.backbone(*self.layer_params(params), x, "prefill", cache)
+        x = self.backbone(mlstm, slstm, x, "prefill", cache)
         return self._logits(params, x[:, -1:].contiguous()), cache
 
     def decode_step(self, params, cache, tokens):
         """One token a row over ``cache`` (written in place): the logits
         and the cache, its index advanced."""
-        x = L.embed(params["embed"], tokens, self.cfg)
+        x = self._embed(params, tokens)
         x = self.backbone(*self.layer_params(params), x, "decode", cache)
         return self._logits(params, x), dict(cache,
                                              index=cache["index"] +

@@ -33,6 +33,15 @@ query heads read of a pool that keeps them all, or, for a cache split
 along its sequence, those heads' sequence shards gathered for one layer
 (``gather_seq``).
 
+The recurrent blocks (xLSTM's mLSTM and sLSTM, Mamba2) hold projections
+whose output columns are not the parts a rank computes with (``w_up``'s
+``[xb | z]``, ``w_in``'s ``[z | x | B | C | dt]`` and the conv over
+``[x | B | C]`` are cut into equal contiguous shards): the rank's shard
+of the product is gathered along ``model`` (``gather_out``: an
+activation, never a weight) and each rank cuts the parts it computes
+with (``cut``: the backward sums the pieces' gradients over ``model``,
+so every rank holds the whole gradient of what the ranks hold alike).
+
 On a mesh dimension of one rank nothing is gathered or sent and every
 function is the identity, so on a one-rank mesh the step is the
 one-device step, bit for bit.  A ``Split`` whose groups are None stands
@@ -217,6 +226,31 @@ class _GatherOut(torch.autograd.Function):
         return g.chunk(s.tp, ctx.dim)[s.tp_rank].contiguous(), None, None
 
 
+class _Cut(torch.autograd.Function):
+    """Pieces ``[a, b)`` along ``dim`` of an activation the model ranks
+    hold alike, each rank cutting the ranges its own computation reads;
+    the backward lays the pieces' gradients into zeros of the whole, sums
+    them over the model axis in f32 and hands every rank the whole
+    gradient (as the ranks computing alike from it must hold it), in the
+    activation's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, split, dim, ranges):
+        ctx.split, ctx.dim, ctx.ranges = split, dim, ranges
+        ctx.shape, ctx.dtype = x.shape, x.dtype
+        return tuple(x.narrow(dim, a, b - a) for a, b in ranges)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        s = ctx.split
+        t = torch.zeros(ctx.shape, dtype=torch.float32, device=gs[0].device)
+        for (a, b), g in zip(ctx.ranges, gs):
+            if g is not None:
+                t.narrow(ctx.dim, a, b - a).add_(g.float())
+        s.comm.all_reduce(t, s.groups[s.tp_dim], s.tp)
+        return t.to(ctx.dtype), None, None, None
+
+
 class _VocabNLL(torch.autograd.Function):
     """Per-token ``logsumexp(logits) - logits[label]`` of f32 logits
     whose vocabulary is split over the model axis (this rank's columns
@@ -327,6 +361,26 @@ class Split:
     def gather_out(self, x, dim: int):
         return x if self.tp == 1 else _GatherOut.apply(x, self, dim)
 
+    def cut(self, x, dim: int, ranges) -> tuple:
+        """The pieces ``[a, b)`` of ``ranges`` along ``dim`` of ``x``, an
+        activation every model rank holds alike, that this rank's own
+        computation reads (``_Cut``; plain slices on one model rank)."""
+        ranges = tuple((int(a), int(b)) for a, b in ranges)
+        if self.tp == 1:
+            return tuple(x.narrow(dim, a, b - a) for a, b in ranges)
+        return _Cut.apply(x, self, dim, ranges)
+
+    def own(self, n: int, whole: int) -> tuple[int, int]:
+        """``[lo, hi)`` of this model rank's shard of an axis of ``whole``
+        entries that it holds ``n`` of (the whole axis where ``n`` is
+        ``whole``: the rules keep it whole)."""
+        if n == whole:
+            return 0, whole
+        if n * self.tp != whole:
+            raise NotImplementedError(f"{n} of {whole} entries a rank on a "
+                                      f"{self.tp}-way model axis")
+        return self.tp_rank * n, (self.tp_rank + 1) * n
+
     def vocab_nll(self, logits, labels):
         return _VocabNLL.apply(logits, labels, self)
 
@@ -435,6 +489,10 @@ class ServeSplit(Split):
         return self.comm.all_gather(x, dim, self.groups[self.tp_dim],
                                     self.tp)
 
+    def cut(self, x, dim: int, ranges) -> tuple:
+        return tuple(x.narrow(dim, int(a), int(b) - int(a))
+                     for a, b in ranges)
+
     def gather_seq(self, x, read=None):
         """A (b, t, K, dh) cache block split along its sequence (axis 1)
         over the model axis, every KV head in each rank's shard ``x`` ->
@@ -481,16 +539,27 @@ def gather_leaf(shard, split: Split, gather: tuple):
     return _Use.apply(shard, split, gather)
 
 
-def layer_placements(pls: list) -> list:
-    """A stacked weight's placements with its leading layer axis dropped
-    (the rules never split ``layers``)."""
+# the stacked weights, by their params key: how many leading layer axes
+# they carry (the dense blocks one; the mLSTM's (groups, m_per) and the
+# Mamba2's (segs, per) two)
+STACKED = {"blocks": 1, "mlstm": 2, "slstm": 1, "mamba": 2, "mamba_tail": 1}
+
+
+def layer_axes(path) -> int:
+    """The leading layer axes of the weight at params ``path``."""
+    return STACKED.get(path[0], 0) if path else 0
+
+
+def layer_placements(pls: list, lead: int = 1) -> list:
+    """A stacked weight's placements with its ``lead`` leading layer axes
+    dropped (the rules never split ``layers``)."""
     from torch.distributed.tensor import Shard
     out = []
     for pl in pls:
         if pl.is_shard():
-            if pl.dim == 0:
+            if pl.dim < lead:
                 raise ValueError("a stacked weight split along its layers")
-            out.append(Shard(pl.dim - 1))
+            out.append(Shard(pl.dim - lead))
         else:
             out.append(pl)
     return out
@@ -500,8 +569,8 @@ def weight_placements(items) -> dict:
     """params path -> (placements, tensor rank), as ``Split`` reads them,
     from each weight's (path, placements, tensor rank): a stacked block
     weight's of one layer."""
-    return {path: (layer_placements(pls), n - 1) if path[0] == "blocks"
-            else (list(pls), n) for path, pls, n in items}
+    return {path: (layer_placements(pls, layer_axes(path)),
+                   n - layer_axes(path)) for path, pls, n in items}
 
 
 def params_placements(spec_tree, mesh_names, mesh_shape) -> dict:

@@ -6,8 +6,8 @@ verify (port of ``repro/training/steps.py``).
 over the model's per-layer leaves (``DenseLM.train_leaves``) and updates
 the state in place: parameters, moments, error feedback and step.  On a
 mesh of ranks it computes what one device computes, the state sharded at
-rest and, for the dense, VLM and MoE families, during the step too
-(``sharding.split``); ``Collectives`` counts what it sends.
+rest and, for ``SPLIT_FAMILIES`` (all but the enc-dec family), during the
+step too (``sharding.split``); ``Collectives`` counts what it sends.
 
 The serve builders close over the model and return a plain function of
 ``params`` and the step's inputs that runs without autograd.  The decode,
@@ -46,8 +46,9 @@ from repro_torch.sharding.rules import (DEFAULT_RULES, contiguous_stride,
 from repro_torch.sharding.split import Collectives, Split
 
 # the families whose train and serve steps on a mesh run split
-# (``sharding.split``); the others gather every leaf whole for the step
-SPLIT_FAMILIES = ("dense", "vlm", "moe")
+# (``sharding.split``); the others (the enc-dec family) gather every leaf
+# whole for the step
+SPLIT_FAMILIES = ("dense", "vlm", "moe", "ssm_xlstm", "hybrid_mamba")
 
 
 def _accum_dtype(plan: DeploymentPlan) -> torch.dtype:
@@ -335,8 +336,9 @@ def _split_step(model, plan: DeploymentPlan, mesh, update):
 
 
 def _mesh_step(model, opt, plan: DeploymentPlan, mesh, update):
-    """The whole-weight train step on a mesh of ranks (the families
-    outside ``SPLIT_FAMILIES``; see ``build_train_step``)."""
+    """The whole-weight train step on a mesh of ranks, for the families
+    outside ``SPLIT_FAMILIES`` (the enc-dec family alone; see
+    ``build_train_step``)."""
     from torch.distributed.tensor import DTensor
     M = plan.microbatches
     acc_dt = _accum_dtype(plan)
@@ -417,16 +419,17 @@ def build_train_step(model, opt, plan: DeploymentPlan, mesh=None,
       tokens, so each rank's loss is weighted by its share of each
       microbatch's tokens (an MoE router's aux loss is summed over the
       ranks instead: ``models.moe``);
-    * the dense, VLM and MoE families (``SPLIT_FAMILIES``) run split
-      (``sharding.split``): each leaf stays the rank's shard, gathered
-      along ``data`` only for the layer that uses it, the products split
-      along ``model``, every gradient the rank's shard summed over the
-      data-parallel ranks, and the update on the shards, its global norm,
-      8-bit row scales and error-feedback amax reduced across ranks
+    * the dense, VLM, MoE, xLSTM and Zamba2 families (``SPLIT_FAMILIES``)
+      run split (``sharding.split``): each leaf stays the rank's shard,
+      gathered along ``data`` only for the layer that uses it (Zamba2's
+      shared block once a step, for all its applications), the products
+      split along ``model``, every gradient the rank's shard summed over
+      the data-parallel ranks, and the update on the shards, its global
+      norm, 8-bit row scales and error-feedback amax reduced across ranks
       (``optim.adamw``);
-    * the other families gather every leaf whole, compute the gradients
-      of their rows, sum them in one f32 all-reduce over the
-      data-parallel dimensions, update whole leaves and keep their slice.
+    * the enc-dec family gathers every leaf whole, computes the gradients
+      of its rows, sums them in one f32 all-reduce over the data-parallel
+      dimensions, updates whole leaves and keeps its slice.
 
     On a mesh whose dimensions are all of one rank nothing is sent and
     the step is the one-device step, bit for bit.  The reference's
@@ -543,28 +546,31 @@ def _of_layout(cache: dict, layout: str) -> dict:
 # not divide, such as one slot's prompt chunk, is replicated and every
 # rank computes it) and every rank ends with the whole batch's logits.
 #
-# The dense, VLM and MoE families (``SPLIT_FAMILIES``) serve split, as the
-# reference's GSPMD serve steps do (``sharding.split.ServeSplit``): the
-# weights stay the rank's shards, each layer's gathered along ``data`` for
-# that layer alone; the rank computes its heads, its MLP columns (or its
-# experts) and its vocabulary columns, whose logits the step gathers along
-# ``model``, then the rows along ``data``; and it reads its shard of the
-# KV cache where it rests (``models.layers``): its own KV heads, of a
-# cache that keeps every KV head (``kv_heads`` does not divide the model
-# axis) the heads its query heads read, of a cache split along its
-# sequence (``DECODE_SEQ_CACHE_RULES``) those heads' shards gathered one
-# layer at a time.  A contiguous cache's rows rest split along ``data`` as
-# the batch's are; a prompt chunk (one row) gathers its slot's row along
-# ``data`` alone, and the ranks holding it write it back.  A paged pool is
+# The dense, VLM, MoE, xLSTM and Zamba2 families (``SPLIT_FAMILIES``)
+# serve split, as the reference's GSPMD serve steps do
+# (``sharding.split.ServeSplit``): the weights stay the rank's shards,
+# each layer's gathered along ``data`` for that layer alone (Zamba2's
+# shared block once a step); the rank computes its heads, its MLP columns
+# (or its experts, or a recurrent block's heads and channels) and its
+# vocabulary columns, whose logits the step gathers along ``model``, then
+# the rows along ``data``; and it reads its shard of the cache where it
+# rests (``models.layers``): its own KV heads, of a cache that keeps
+# every KV head (``kv_heads`` does not divide the model axis) the heads
+# its query heads read, of a cache split along its sequence
+# (``DECODE_SEQ_CACHE_RULES``) those heads' shards gathered one layer at
+# a time; a recurrent state its heads' and conv channels' shard.  A
+# contiguous cache's rows rest split along ``data`` as the batch's are; a
+# prompt chunk (one row) gathers its slot's row along ``data`` alone, and
+# the ranks holding it write it back.  A paged pool is
 # whole along ``data`` (split by KV heads along ``model`` where they
 # divide it): after a decode or verify step the K/V entries each rank
 # wrote are all-gathered along ``data`` into every rank's pool, in the
 # one device's write order, so each pool equals one device's.
 #
-# The other families (the legacy path's xLSTM, Zamba2 and Whisper) gather
-# every weight whole for each step and run the one-device step on their
-# rows; a contiguous cache rests as DTensors under its specs, each rank
-# gathering its rows whole and keeping its shard of what it wrote.
+# The enc-dec family (Whisper, on the legacy path) gathers every weight
+# whole for each step and runs the one-device step on its rows; a
+# contiguous cache rests as DTensors under its specs, each rank gathering
+# its rows whole and keeping its shard of what it wrote.
 # ``step.collectives`` holds the counts of the last call (``Collectives``).
 
 
@@ -697,14 +703,60 @@ def _cache_split(x, split, paged: bool) -> tuple[list, bool]:
     return rows, seq
 
 
-def _local_cache(cache, share: _Share, split, paged: bool = False) -> dict:
+# the cache axes a split step's model axis may split besides a K/V's
+# sequence: a rank's heads, KV heads or conv channels
+_MODEL_CACHE_AXES = ("act_heads", "act_kv_heads", "act_mlp")
+
+
+def _local_leaf(x, d: ParamDef, share: _Share, split) -> tuple:
+    """A recurrent cache leaf at rest (its table entry ``d``) -> (the
+    rank's part, in place, whether the model axis splits its sequence): a
+    DTensor's local shard (its rows split as the batch is, the model axis
+    splitting its heads or channels, or a K/V's sequence), a plain
+    tensor's rows."""
+    axes = d.logical_axes
+    row = axes.index("act_batch") if "act_batch" in axes else None
+    if not hasattr(x, "to_local"):
+        return (x if row is None else share.take(x, row)), False
+    rows, seq = [], False
+    for m, pl in enumerate(x.placements):
+        if not pl.is_shard() or split.shape[m] == 1:
+            continue
+        if pl.dim == row and m != split.tp_dim:
+            rows.append(m)
+        elif m == split.tp_dim and axes[pl.dim] == "act_seq":
+            seq = True
+        elif m != split.tp_dim or axes[pl.dim] not in _MODEL_CACHE_AXES:
+            raise NotImplementedError(f"a cache leaf split as "
+                                      f"{x.placements} over {axes}")
+    if rows != share.dp:
+        raise NotImplementedError(
+            f"a cache split over {x.placements} along its rows, the batch "
+            f"over mesh dimensions {share.dp}")
+    return x.to_local(), seq
+
+
+def _local_cache(cache, share: _Share, split, paged: bool = False,
+                 table: dict | None = None) -> dict:
     """A cache at rest -> the rank's part as the split step reads it, in
     place: each K/V leaf's local shard (a plain tensor is whole on every
     rank: its rows taken), split along the rows as the batch is, along
     the KV heads or the sequence (``seq_split``) by the model axis; the
-    rank's rows of a per-slot index."""
+    rank's rows of a per-slot index; a recurrent model's nested leaves
+    (its states, a hybrid's shared K/V) each by its entry in the cache's
+    ``table`` (``_local_leaf``)."""
     out = dict(cache)
+    for key, sub in cache.items():
+        if isinstance(sub, dict):
+            seq = []
+            out[key] = _cache_map(sub, lambda p, x: seq.append(
+                _local_leaf(x, table[(key,) + p], share, split)) or
+                seq[-1][0])
+            if any(s for _, s in seq):
+                out["seq_split"] = True
     for key in ("k", "v"):
+        if key not in cache:
+            continue
         x = cache[key]
         rows, seq = _cache_split(x, split, paged)
         if not hasattr(x, "to_local"):
@@ -730,6 +782,7 @@ def _split_cache_step(model, mesh, inner, row_extras: int = 0):
     cache, read and written in place where they rest (``_local_cache``);
     the whole logits and the index of every row back."""
     serve = _SplitServe(model, mesh)
+    table = dict(leaf_items(model.cache_table(1, 1)))
 
     @torch.no_grad()
     def step(params, cache, tokens, *extras):
@@ -739,7 +792,7 @@ def _split_cache_step(model, mesh, inner, row_extras: int = 0):
             list(extras[row_extras:])
         with serve(params, comm) as (local, split):
             rows = _local_cache(cache, share, split,
-                                cache.get("layout") == "paged")
+                                cache.get("layout") == "paged", table)
             logits, new = inner(local, rows, share.take(tokens), *ex)
             logits = _whole_logits(model, split, logits, share.dp)
             idx = new["index"]
@@ -845,7 +898,8 @@ def _split_prefill_step(model, mesh, inner, rules):
     ranks: the rank's rows of every batch leaf, the whole logits, and the
     fresh cache at rest under the specs its table's axes give on the
     whole batch under ``rules``: what the rank computed (its rows, its KV
-    heads or every KV head) is its shard, nothing is sent."""
+    heads or every KV head, a recurrent state's heads and conv channels)
+    is its shard, nothing is sent."""
     from torch.distributed.tensor import DTensor
     table = dict(leaf_items(model.cache_table(1, 1)))
     serve = _SplitServe(model, mesh)
@@ -857,8 +911,10 @@ def _split_prefill_step(model, mesh, inner, rules):
         shape = list(x.shape)
         for m in share.dp:
             shape[axes.index("act_batch")] *= mesh.shape[m]
-        if "act_kv_heads" in axes:
-            shape[axes.index("act_kv_heads")] = model.cfg.num_kv_heads
+        # a split axis's whole size is the config's (the table's)
+        for i, ax in enumerate(axes):
+            if ax in _MODEL_CACHE_AXES:
+                shape[i] = table[path].shape[i]
         pls = placements(logical_to_spec(axes, shape, mesh, rules), mesh)
         dm = mesh.device_mesh
         idx = shard_index(shape, pls, tuple(dm.shape), dm.get_coordinate())
@@ -902,11 +958,15 @@ def described_serve_step(model, mesh, params_specs, kind: str, rows: int,
     pls = params_placements(params_specs, mesh.axis_names, mesh.shape)
     dp = data_parallel_dims(rows, mesh)
     seq = False
-    if kind == "decode":
+    # a K/V cache leaf (a hybrid's shared block's K/V nests), whose
+    # sequence may be split along the model axis
+    kv = cache_specs.get("k", cache_specs.get("shared_kv", {}).get("k")) \
+        if kind == "decode" else None
+    if kv is not None:
         model_dim = list(mesh.axis_names).index("model") \
             if "model" in mesh.axis_names else None
         seq = any(m == model_dim and mesh.shape[m] > 1 for m, pl in
-                  enumerate(placements(cache_specs["k"], mesh))
+                  enumerate(placements(kv, mesh))
                   if pl.is_shard() and pl.dim == _SEQ)
 
     @torch.no_grad()
@@ -1053,7 +1113,7 @@ def _placements_of(x):
 
 def _mesh_cache_step(model, mesh, inner, row_extras: int = 0):
     """``inner(params, cache, tokens, *extras)`` -> (logits, cache) on a
-    mesh of ranks, whole weights (the families outside
+    mesh of ranks, whole weights (the enc-dec family alone, outside
     ``SPLIT_FAMILIES``): the weights gathered whole, this rank's rows of
     the tokens, of the first ``row_extras`` extras and of every cache
     leaf (along its table's ``act_batch`` axis), the one-device step, the
@@ -1084,10 +1144,11 @@ def _mesh_cache_step(model, mesh, inner, row_extras: int = 0):
 
 def _mesh_prefill_step(model, mesh, inner, rules):
     """``inner(params, batch)`` -> (logits, cache) on a mesh of ranks,
-    whole weights (the families outside ``SPLIT_FAMILIES``): the weights
-    gathered whole, this rank's rows of every batch leaf, the one-device
-    prefill, the logits all-gathered, and the fresh cache at rest under
-    the specs its table's axes give on the whole batch under ``rules``."""
+    whole weights (the enc-dec family alone, outside ``SPLIT_FAMILIES``):
+    the weights gathered whole, this rank's rows of every batch leaf, the
+    one-device prefill, the logits all-gathered, and the fresh cache at
+    rest under the specs its table's axes give on the whole batch under
+    ``rules``."""
     axes = _row_axes(model)
     table = dict(leaf_items(model.cache_table(1, 1)))
 

@@ -26,9 +26,9 @@ reference's build of the same cells, on the CPU, without a device.
   meshes) ends ``ok``, traced as one rank's split step, its arguments a
   card the sum of the specs' shard bytes, worked out here;
   ``nemotron-4-340b`` x ``decode_32k`` on ``nvidia:h100x256``, split
-  (its cache along the sequence), fits a card's 80 GB, while a family
-  outside ``SPLIT_FAMILIES`` still gathers every weight whole, which the
-  records show.  ``granite-moe-3b-a800m`` x ``train_4k``, once the
+  (its cache along the sequence), fits a card's 80 GB, while the family
+  outside ``SPLIT_FAMILIES`` (enc-dec) still gathers every weight whole,
+  which the records show.  ``granite-moe-3b-a800m`` x ``train_4k``, once the
   refusal of MoE training on a data-parallel mesh, runs split: its
   shards at rest and one layer's gathers, worked out here.
 * The smoke prefill and decode cells on ``local:cpu-mesh8`` ((2, 4),
@@ -37,7 +37,10 @@ reference's build of the same cells, on the CPU, without a device.
   takes per device (a subprocess, as ``tests/test_torch_spmd_train.py``
   runs the reference's mesh), the heads split (``deepseek-7b-smoke``) or
   the decode cache split along its sequence
-  (``granite-moe-3b-a800m-smoke``'s 2 KV heads on a 4-way model axis).
+  (``granite-moe-3b-a800m-smoke``'s 2 KV heads on a 4-way model axis);
+  and the train and decode cells of ``xlstm-1.3b-smoke`` (its heads
+  whole, its ``mlp`` split) and ``zamba2-7b-smoke`` (heads, ``mlp`` and
+  the shared block split), each traced as one rank's split step.
 * The trace on ``meta`` counts what ``cost.measure`` counts running the
   same step on CPU tensors: FLOPs, bytes and the peak of the step's own
   allocations.
@@ -241,8 +244,9 @@ def test_whole_weights_on_a_mesh_show_in_memory_per_card(tmp_path):
     GB of bf16 weights rest a 256th to a card on nvidia:h100x256 and stay
     so in its decode step (a 9.66 GB cache shard along the sequence,
     each layer's weights gathered along ``data`` alone), under a card's
-    80 GB.  A family outside ``SPLIT_FAMILIES`` gathers every weight
-    whole: xlstm-1.3b's sit whole in each card's temporaries."""
+    80 GB.  The family outside ``SPLIT_FAMILIES`` (enc-dec) gathers
+    every weight whole: whisper-tiny's sit whole in each card's
+    temporaries."""
     rec = dryrun.run_cell("nemotron-4-340b", "decode_32k", "single",
                           out_dir=tmp_path, log=quiet)
     assert rec["status"] == "ok", rec.get("traceback")
@@ -251,10 +255,10 @@ def test_whole_weights_on_a_mesh_show_in_memory_per_card(tmp_path):
     assert mem["temp_size_in_bytes"] < 2 * n_params / 16
     assert 12 < mem["per_chip_total_gb"] < 80
     assert 0 < rec["gathered_at_once_bytes"] < mem["temp_size_in_bytes"]
-    rec = dryrun.run_cell("xlstm-1.3b", "decode_32k", "single",
+    rec = dryrun.run_cell("whisper-tiny", "decode_32k", "single",
                           out_dir=tmp_path, log=quiet)
     assert rec["status"] == "ok", rec.get("traceback")
-    res = BuildService().build(AppSpec(arch="xlstm-1.3b",
+    res = BuildService().build(AppSpec(arch="whisper-tiny",
                                        shape="decode_32k"),
                                dryrun.MESHES["single"], lower=False)
     whole = sum(int(np.prod(d.shape)) * d.dtype.itemsize
@@ -316,7 +320,11 @@ print("RESULT:" + json.dumps(got))
 """
 MESH_CELLS = [("deepseek-7b-smoke", "prefill_32k"),
               ("deepseek-7b-smoke", "decode_32k"),
-              ("granite-moe-3b-a800m-smoke", "decode_32k")]
+              ("granite-moe-3b-a800m-smoke", "decode_32k"),
+              ("xlstm-1.3b-smoke", "train_4k"),
+              ("xlstm-1.3b-smoke", "decode_32k"),
+              ("zamba2-7b-smoke", "train_4k"),
+              ("zamba2-7b-smoke", "decode_32k")]
 MESH_SMOKE = {"seq_len": 32, "global_batch": 4}
 
 
@@ -345,8 +353,10 @@ def test_split_rank_step_takes_the_reference_meshs_arguments(tmp_path):
                                    "local:cpu-mesh8", lower=False)
         assert not res.mesh.live and dryrun.split_cell(res)
         step, args, split = dryrun.cell_step(res)
+        # every meta argument (a train state's 0-d counters among them)
         traced = sum(t.numel() * t.element_size()
-                     for t in cost._tensors(list(args)) if t.dim())
+                     for t in cost._tensors(list(args))
+                     if t.device.type == "meta")
         index = 4 if shape == "decode_32k" else 0     # the host's 0-d index
         assert traced + index == want[f"{arch} {shape}"], (arch, shape)
         rec = dryrun.run_cell(arch, shape, "mesh8", overrides=MESH_SMOKE,

@@ -19,8 +19,10 @@ and here):
     verify step on the mesh); and a shared-prefix trace (8 requests)
     through the paged engine with the cache on, so cached pages are
     shared by slots that different ranks compute;
-(b) ``xlstm-1.3b-smoke`` through ``_legacy_serve_main`` (4 x 16 + 6) on
-    ``local:cpu-mesh8`` ((2, 4)), its whole-weight step;
+(b) ``whisper-tiny-smoke`` through ``_legacy_serve_main`` (4 x 16 + 6)
+    on ``local:cpu-mesh8`` ((2, 4)), the whole-weight step (the enc-dec
+    family, the one outside ``SPLIT_FAMILIES``; the recurrent families'
+    split legacy steps are ``tests/test_torch_spmd_recurrent.py``'s);
 (c) one call of the build's decode step (the whole-batch legacy step at
     ``decode_32k`` cut to 4 x 16), of its prefill step (``prefill_32k``
     cut to 4 x 16) and of its train step (4 x 32) on (2, 4), all three
@@ -68,7 +70,7 @@ TARGET = "local:cpu-mesh8"
 DP_TARGET = "local:cpu-dp8"
 WORLD = 8
 ARCH = "deepseek-7b-smoke"
-LEGACY = ("xlstm-1.3b-smoke", 4, 16, 6)
+LEGACY = ("whisper-tiny-smoke", 4, 16, 6)
 SPAWN_TIMEOUT_S = 240
 quiet = lambda *a, **k: None  # noqa: E731
 
@@ -160,6 +162,7 @@ def serve_reckoning(arch: str, target: str) -> tuple:
     from repro_torch.launch.dryrun import gathered_at_once
     from repro_torch.models.params import leaf_items
     from repro_torch.sharding.rules import placements
+    from repro_torch.sharding.split import layer_axes
     res = BuildService().build(AppSpec(arch=arch, shape="decode_32k"),
                                target, lower=False)
     table, specs = res.tables["params"], res.specs["params"]
@@ -168,8 +171,7 @@ def serve_reckoning(arch: str, target: str) -> tuple:
     for (path, d), (_, spec) in zip(leaf_items(table), leaf_items(specs)):
         if placements(spec, res.mesh)[model].is_shard() and \
                 res.mesh.shape[model] > 1:
-            whole.add(tuple(d.shape[1:] if path[0] == "blocks"
-                            else d.shape))
+            whole.add(tuple(d.shape[layer_axes(path):]))
     return gathered_at_once(table, specs, res.mesh, None), whole
 
 
@@ -286,9 +288,10 @@ def _serve_runs(target: str, legacy_target: str, out: Path,
     return got
 
 
-def _counted_vs_reckoned() -> dict:
-    """(c): the build's decode and train steps on the live mesh, their
-    counted collectives beside the dry run's reckoning."""
+def _counted_vs_reckoned(arch: str = ARCH, reckon: bool = True) -> dict:
+    """(c): the build's decode, prefill and train steps of ``arch`` on the
+    live mesh, their counted collectives beside the dry run's reckoning
+    (traced only where ``reckon``: every rank must run the steps)."""
     from repro_torch.analysis.cost import trace
     from repro_torch.core.appspec import AppSpec
     from repro_torch.core.build import BuildService
@@ -304,7 +307,7 @@ def _counted_vs_reckoned() -> dict:
     for shape, over in (("decode_32k", {"seq_len": 16, "global_batch": 4}),
                         ("prefill_32k", {"seq_len": 16, "global_batch": 4}),
                         ("train_4k", {"seq_len": 32, "global_batch": 4})):
-        app = AppSpec(arch=ARCH, shape=shape, shape_overrides=over)
+        app = AppSpec(arch=arch, shape=shape, shape_overrides=over)
         res = BuildService().build(app, TARGET, lower=False)
         model = model_for(app.model_config, remat=res.plan.remat_policy)
         params = init_params(res.tables["params"],
@@ -327,23 +330,26 @@ def _counted_vs_reckoned() -> dict:
             counted = res.step_fn.collectives
         else:
             cache = {}
+            specs = dict(leaf_items(res.specs["cache"]))
             for path, d in leaf_items(res.tables["cache"]):
-                if path == ("index",):
-                    cache["index"] = torch.tensor(over["seq_len"] - 1,
-                                                  dtype=d.dtype)
-                else:
-                    cache[path[0]] = distribute(
-                        torch.randn(d.shape).to(d.dtype),
-                        res.specs["cache"][path[0]], res.mesh)
+                at = cache
+                for k in path[:-1]:
+                    at = at.setdefault(k, {})
+                at[path[-1]] = torch.tensor(
+                    over["seq_len"] - 1, dtype=d.dtype) if path == (
+                    "index",) else distribute(torch.randn(d.shape).to(
+                        d.dtype), specs[path], res.mesh)
             tokens = torch.ones((over["global_batch"], 1), dtype=torch.int32)
             res.step_fn(reshard_state(params, res.tables["params"],
                                       res.mesh), cache, tokens)
             counted = res.step_fn.collectives
-        step, args, _ = cell_step(res)
-        traced, _ = trace(step, *args)
-        reckoned = collectives_of(res, traced, step)
-        out[shape] = {"counted": counted, "reckoned": reckoned.counts,
-                      "wire_bytes": reckoned.wire_bytes}
+        out[shape] = {"counted": counted}
+        if reckon:
+            step, args, _ = cell_step(res)
+            traced, _ = trace(step, *args)
+            reckoned = collectives_of(res, traced, step)
+            out[shape].update(reckoned=reckoned.counts,
+                              wire_bytes=reckoned.wire_bytes)
     return out
 
 
@@ -482,7 +488,7 @@ def test_no_gathered_weight_outlives_its_step(spawn, one, run):
     shards along ``data`` alone, at most the dry run's reckoning of one
     layer's (or the embedding's, or the head's) bytes alive at once, and
     none once the run is done (the engine still alive).  The legacy
-    xLSTM step gathers the weights whole: at a gather at most one step's
+    Whisper step gathers the weights whole: at a gather at most one step's
     tree is alive, and none after the run.  One process gathers
     nothing."""
     for r in spawn["ranks"]:

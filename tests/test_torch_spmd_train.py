@@ -28,7 +28,10 @@ the reference on 8 forced host devices from the same initial weights:
     references to every ``sharding.split.gather_leaf`` output): at most
     the dry run's reckoning (``launch.dryrun.gathered_at_once``), reached,
     and no gathered weight whole along a dimension its spec splits over
-    ``model``.
+    ``model``; for the dense and MoE models and for the recurrent ones
+    (``xlstm-1.3b-smoke``: its mLSTM and sLSTM layers differ;
+    ``zamba2-7b-smoke``: the shared block's weights, gathered once a
+    step, held beside each layer's), each from ``init_params``' draw.
 
 The tolerances are ``tests/test_torch_spmd.py``'s: against one process
 the first loss within LOSS1_RTOL, every loss within LOSS_RTOL and the
@@ -77,6 +80,7 @@ REPO = Path(__file__).resolve().parents[1]
 TARGET = "local:cpu-mesh8"
 WORLD = 8
 DENSE, MOE = "deepseek-7b-smoke", "granite-moe-3b-a800m-smoke"
+RECURRENT = ("xlstm-1.3b-smoke", "zamba2-7b-smoke")
 SEQ, BATCH, STEPS = 32, 4, 3
 # (i): tokens each row's mask keeps
 KEPT = (32, 6, 20, 3)
@@ -157,7 +161,10 @@ def _steps(res, params, mesh=None, lr=LR, n=STEPS):
 class _GatheredWatch:
     """Weak references to every weight a split step gathers along
     ``data`` (``sharding.split.gather_leaf``): the most bytes alive at
-    once, and each gathered weight's shape."""
+    once, and each gathered weight's shape.  A leaf with no ``data``
+    split passes through ``gather_leaf`` too (its gradient is summed
+    over the data-parallel ranks) as its shard's own storage, which
+    counts nothing."""
 
     def __init__(self):
         from repro_torch.sharding import split
@@ -167,6 +174,9 @@ class _GatheredWatch:
 
     def __call__(self, shard, split, gather):
         out = self.orig(shard, split, gather)
+        if out.untyped_storage().data_ptr() == \
+                shard.untyped_storage().data_ptr():
+            return out
         self.refs = [(r, n) for r, n in self.refs if r() is not None]
         self.refs.append((weakref.ref(out), out.numel() * out.element_size()))
         self.most = max(self.most, sum(n for _, n in self.refs))
@@ -204,7 +214,12 @@ def _rank_main(rank: int, out: Path) -> None:
 
     # (vi) one step of each model under watch
     watches = {}
-    for arch, params in ((DENSE, dense), (MOE, moe)):
+    from repro_torch.models.params import init_params
+    recurrent = [(a, init_params(model_for(_build(a).appspec.model_config)
+                                 .param_table(), torch.Generator()
+                                 .manual_seed(0), "cpu"))
+                 for a in RECURRENT]
+    for arch, params in [(DENSE, dense), (MOE, moe)] + recurrent:
         r = _build(arch)
         model, opt, state = _state(r, params, r.mesh)
         step = build_train_step(model, opt, r.plan, r.mesh, **LR)
@@ -633,13 +648,14 @@ def test_train_main_restarts_on_the_mesh(spawn):
                                    rtol=LOSS_RTOL)
 
 
-@pytest.mark.parametrize("arch", [DENSE, MOE])
+@pytest.mark.parametrize("arch", [DENSE, MOE] + list(RECURRENT))
 def test_gathered_weights_are_one_layer_at_a_time(spawn, arch):
     """(vi): the bytes of weights a rank holds gathered along ``data`` at
     once equal the dry run's reckoning, and no gathered weight is whole
     along a dimension its spec splits over ``model``."""
     from repro_torch.launch.dryrun import gathered_at_once
     from repro_torch.sharding.rules import placements
+    from repro_torch.sharding.split import layer_axes
     res = _build(arch)
     table, specs = res.tables["state"]["params"], res.specs["state"]["params"]
     want = gathered_at_once(table, specs, res.mesh, res.plan.remat_policy)
@@ -648,8 +664,7 @@ def test_gathered_weights_are_one_layer_at_a_time(spawn, arch):
     for (path, d), (_, spec) in zip(leaf_items(table), leaf_items(specs)):
         pls = placements(spec, res.mesh)
         if pls[model].is_shard():
-            whole.add(tuple(d.shape[1:] if path[0] == "blocks"
-                            else d.shape))
+            whole.add(tuple(d.shape[layer_axes(path):]))
     assert whole
     for r in spawn["ranks"]:
         g = r["gathered"][arch]
