@@ -307,7 +307,13 @@ Phases, each of which raises on failure:
    dt's MAX all-reduce through NCCL (over one rank) and the DTensor
    wrapping.  The stencil build's ``step_fn`` for ``nvidia:h100`` (on
    one chip the plain step) is held against K4's step on the same state
-   within STENCIL_TOL_1; the group is destroyed before the phase ends.
+   within STENCIL_TOL_1; then the fused kernel's run on the mesh
+   (``lulesh.run(..., mesh, use_kernel=True)``: the fields gathered
+   whole, K4 stepping the global grid as the reference's kernel does
+   whatever the mesh, the rank's block kept at rest), 20 steps at grid
+   256 bit for bit the same run off the mesh, K4 counted once a step on
+   both (the kernels line's ``mesh_launches``); the group is destroyed
+   before the phase ends.
    The multi-rank path itself (8 ranks, the halo exchanges, the sharded
    train step) runs only on the CPU over gloo
    (``tests/test_torch_spmd.py``): NCCL puts one rank on one card.
@@ -391,7 +397,12 @@ Phases, each of which raises on failure:
    (``_k2_per_step_hybrid``); then 2 steps off the mesh and 2 through
    the split step on the mesh from the same state, one state on the
    card at a time: the losses, K2 per step and every leaf's bits
-   (``_fingerprint``) equal.
+   (``_fingerprint``) equal; (e) ``whisper-tiny`` at full width
+   (WHISPER_NCCL) through the split train step, 2 steps of 8 x 1,024
+   off the mesh and on it from the same state (losses and every leaf's
+   bits equal), then the legacy path's split prefill and decode steps,
+   8 x 512 + 16 tokens, off and on (every row's tokens equal); no kernel
+   launches on this LayerNorm model.
 25. one rank of a (16, 16) mesh serving, split (``_serve_rank``): (i)
    rank 0 of ``nvidia:h100x256`` at ``decode_32k`` through the split
    decode step (``steps.described_serve_step``: its collectives send
@@ -402,7 +413,9 @@ Phases, each of which raises on failure:
    kv head its heads read gathered a layer at a time), then (iii)
    ``xlstm-1.3b`` (its 4 heads whole, its ``mlp`` split) and
    ``zamba2-7b`` (7 of 112 SSM heads, 2 of 32 attention heads, the
-   recurrent states' and the shared K/V's shards): the logits finite
+   recurrent states' and the shared K/V's shards) and ``whisper-tiny``
+   (its 6 heads whole, its self and cross K/V split along the sequence,
+   each layer's cross K/V gathered): the logits finite
    and whole, the arguments within DRYRUN_ARGS_RTOL of the dry run's,
    the peak within DRYRUN_PEAK_RATIO of its GB a card, K2 counted (the
    hybrid's every norm), the step's time beside its one-card bound; (ii) K1 at each
@@ -414,7 +427,12 @@ Phases, each of which raises on failure:
    timed beside its bound, the plain version and SDPA; then one
    attention layer of each through ``layers.attention`` under a rank's
    ``ServeSplit``, K1 launched once a call, within the kernel tolerance
-   of the gather path; the phase's seconds printed.
+   of the gather path; (iv) rank 0 of the same mesh through
+   ``whisper-tiny``'s split train step at ``train_4k``
+   (``steps.described_rank_step``, 16 rows of 4,096 frames and tokens,
+   its state shards drawn on the card): the arguments within
+   DRYRUN_ARGS_RTOL of the dry run's, the peak within DRYRUN_PEAK_RATIO
+   of its GB a card, the loss finite; the phase's seconds printed.
 
 The second-to-last line of output is the card's ``name, power.limit``;
 before it a JSON line lists every kernel with its launches on its path's
@@ -552,8 +570,9 @@ GRAD_CONTROL_MAX = 0.25
 # phase 15's restart: steps past train_main's, taken unbroken and again
 # from the host copy restored through reshard_state
 RESTART_STEPS = 1
-# phase 20: LULESH's mesh step over a one-rank NCCL mesh
-LULESH_NCCL = dict(grid=256, steps=20)
+# phase 20: LULESH's mesh step over a one-rank NCCL mesh, then the fused
+# kernel's run on it (``lulesh.run(..., mesh, use_kernel=True)``)
+LULESH_NCCL = dict(grid=256, steps=20, kernel_steps=20)
 # phase 21: after phase 4's requests through the engine on a one-rank
 # NCCL mesh, the legacy path's zamba2-7b job on it, shorter than phase 18's
 SERVE_NCCL_LEGACY = dict(arch="zamba2-7b", batch=2, prefill_len=512,
@@ -573,6 +592,12 @@ TRAIN_NCCL_MOE = dict(arch="granite-moe-3b-a800m", layers=16, seq_len=512,
 # beside the state)
 TRAIN_NCCL_HYBRID = dict(arch="zamba2-7b", seq_len=256, global_batch=4,
                          steps=2)
+# phase 24 (e): full-width whisper-tiny through the split train step (2
+# steps at phase 19's 8 x 1,024) and the legacy path's split prefill and
+# decode steps (8 x 512 frames and tokens, 16 tokens) on a one-rank NCCL
+# mesh, each against the same work off the mesh
+WHISPER_NCCL = dict(arch="whisper-tiny", seq_len=1024, global_batch=8,
+                    steps=2, batch=8, prefill_len=512, decode_tokens=16)
 CKPT_SMOKE = Path(__file__).resolve().parent / ".ckpt_smoke"
 # phase 22: deepseek-7b's two serve cells cut to a batch one card holds
 DRYRUN_CELLS = (("prefill_32k", {"global_batch": 1, "seq_len": 8192}),
@@ -2637,15 +2662,20 @@ def _dryrun_card(torch, m, card, quiet, dry: _DryRun) -> dict:
     return out
 
 
-def _lulesh_nccl(torch, m, card) -> None:
+def _lulesh_nccl(torch, m, card, counts, reset_counts) -> int:
     """Phase 20: LULESH's mesh step over a one-rank NCCL process group, a
     (1, 1) ("data", "model") DeviceMesh on the card: LULESH_NCCL's steps
     at its grid through ``lulesh.step(state, cfg, mesh)`` equal to the
     plain step's bit for bit.  One rank has no neighbour, so no halo is
     exchanged: NCCL carries dt's MAX all-reduce alone.  The stencil
     build's ``step_fn`` for ``nvidia:h100``, the plain step on one chip,
-    is held against K4's step (another code) within STENCIL_TOL_1.  The
-    group is destroyed before the phase returns."""
+    is held against K4's step (another code) within STENCIL_TOL_1.  Then
+    the fused kernel's run on the mesh (``lulesh.run(..., mesh,
+    use_kernel=True)``: the fields gathered whole, K4 stepping the global
+    grid, the rank's block kept at rest): LULESH_NCCL's kernel steps
+    equal to the same run off the mesh bit for bit, K4 launched once a
+    step on both.  The group is destroyed before the phase returns.
+    Returns K4's launches on the mesh."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     lulesh = m.lulesh
@@ -2692,6 +2722,31 @@ def _lulesh_nccl(torch, m, card) -> None:
             raise AssertionError(f"the stencil build's step_fn against K4's "
                                  f"step: scale-relative error {k4} > "
                                  f"{STENCIL_TOL_1}")
+        del plain, meshed, once
+        # the fused kernel's run on the mesh against the run off it
+        t_k = time.perf_counter()
+        nk = LULESH_NCCL["kernel_steps"]
+        k4_runs = []
+        for mesh_ in (None, mesh):
+            reset_counts()
+            t0 = time.perf_counter()
+            got = lulesh.run(lulesh.init_state(cfg, "cuda"), cfg, nk,
+                             mesh=mesh_, use_kernel=True)
+            torch.cuda.synchronize()
+            k4_runs.append((got, counts()["sedov_stencil"],
+                            time.perf_counter() - t0))
+        (off, k4_off, off_s), (on, k4_on, on_s) = k4_runs
+        for k in ("rho", "e", "v", "t"):
+            if on[k].device_mesh is not dm or \
+                    not torch.equal(on[k].to_local(), off[k]):
+                raise AssertionError(f"K4's run on the NCCL mesh: {k} "
+                                     f"differs from the run off it")
+        if k4_on != nk or k4_off != nk:
+            raise AssertionError(f"K4's run on the NCCL mesh launched "
+                                 f"{k4_on} times, {k4_off} off it, not "
+                                 f"{nk}")
+        del off, on, k4_runs
+        kernel_s = time.perf_counter() - t_k
     finally:
         dist.destroy_process_group()
     t20 = time.perf_counter() - t20
@@ -2703,7 +2758,14 @@ def _lulesh_nccl(torch, m, card) -> None:
           f"communicators, {warm_s:.2f} s; one rank exchanges no halo); "
           f"the stencil build's step_fn for nvidia:h100 within "
           f"{max(k4.values()):.3g} of K4's step (scale-relative, limit "
-          f"{STENCIL_TOL_1}); phase 20 took {t20:.1f} s")
+          f"{STENCIL_TOL_1}); {nk} fused kernel steps through "
+          f"lulesh.run(..., mesh, use_kernel=True) (the fields gathered "
+          f"whole, K4 on the global grid, the rank's block kept): bit for "
+          f"bit the run off the mesh, K4 launched {k4_on} times on it and "
+          f"{k4_off} off it ({on_s:.3f} / {off_s:.3f} s on / off, host "
+          f"clock, device drained; {kernel_s:.1f} s for both); phase 20 "
+          f"took {t20:.1f} s")
+    return k4_on
 
 
 class _StreamLog:
@@ -4369,6 +4431,107 @@ def _hybrid_nccl(torch, m, mesh, card, counts, reset_counts) -> dict:
     return per_step
 
 
+def _whisper_nccl(torch, m, mesh, card, counts, reset_counts) -> None:
+    """Phase 24 (e): full-width whisper-tiny through the split steps on a
+    one-rank NCCL mesh (``training/steps.py``, checked by name), each
+    against the same work off the mesh: WHISPER_NCCL's train steps from
+    the same state (the losses and every leaf's bits equal), then the
+    legacy path's prefill and decode steps through ``legacy_generate``
+    (every row's tokens equal).  No kernel runs: a LayerNorm model."""
+    t24e = time.perf_counter()
+    kw = WHISPER_NCCL
+    cfg = m.get_config(kw["arch"])
+    shape = dataclasses.replace(m.SHAPES["train_4k"], seq_len=kw["seq_len"],
+                                global_batch=kw["global_batch"])
+    plan = m.tune(cfg, shape, m.get_target("nvidia:h100"))
+    model = m.model_for(cfg, remat=plan.remat_policy)
+    opt = m.make_optimizer(plan.optimizer)
+    pipe = m.DataPipeline(model, shape, seed=0, device="cuda")
+    table = m.train_state_table(model, opt, plan)
+
+    def draw():
+        return m.init_params(model.param_table(), torch.Generator(
+            device="cuda").manual_seed(0), "cuda")
+    runs = []
+    for on in (False, True):
+        state = m.init_train_state(model, opt, draw(), plan)
+        if on:
+            state = m.reshard_state(state, table, mesh)
+        step = m.build_train_step(model, opt, plan, mesh if on else None)
+        if on and "_split_step" not in step.__qualname__:
+            raise AssertionError(f"whisper-tiny's train step on the mesh is "
+                                 f"not the split step ({step.__qualname__})")
+        losses = []
+        reset_counts()
+        t0 = time.perf_counter()
+        for i in range(kw["steps"]):
+            state, metrics = step(state, pipe.batch_at(i))
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        local = m.tree_map(lambda t: t.to_local() if on else t, state)
+        bits = [(p, _fingerprint(torch, t)) for p, t in m.leaf_items(local)]
+        runs.append({"losses": losses, "bits": bits, "s": secs,
+                     "launches": {k: v for k, v in counts().items() if v}})
+        del state, local, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    off, on = runs
+    if off["losses"] != on["losses"] or off["bits"] != on["bits"] or \
+            on["launches"] or not all(map(math.isfinite, on["losses"])):
+        raise AssertionError(f"phase 24 whisper-tiny: off the mesh losses "
+                             f"{off['losses']}, on it {on['losses']}, every "
+                             f"leaf's bits equal: {off['bits'] == on['bits']}"
+                             f", launches {on['launches']}")
+    train_s = time.perf_counter() - t24e
+
+    # the legacy path's split prefill and decode steps
+    model = m.model_for(cfg, remat="none")
+    params = draw()
+    pshape = dataclasses.replace(m.SHAPES["prefill_32k"],
+                                 seq_len=kw["prefill_len"],
+                                 global_batch=kw["batch"])
+    req = m.to_device(m.SyntheticSource(cfg.vocab_size, 0).batch(
+        model.batch_table(pshape), 0), "cuda")
+    on_params = m.reshard_state(params, model.param_table(), mesh)
+    dev = torch.device("cuda")
+    legacy = []
+    for mesh_ in (None, mesh):
+        steps = (m.build_prefill_step(model, mesh_),
+                 m.build_decode_step(model, mesh_))
+        if mesh_ is not None and not all(
+                "_split_" in f.__qualname__ for f in steps):
+            raise AssertionError(f"whisper-tiny on the mesh: not the split "
+                                 f"steps ({steps})")
+        legacy.append(m.legacy_generate(
+            *steps, params if mesh_ is None else on_params, req,
+            kw["decode_tokens"], dev))
+    (toks_off, pre_off, dec_off), (toks_on, pre_on, dec_on) = legacy
+    if toks_on.tolist() != toks_off.tolist():
+        raise AssertionError(f"whisper-tiny's legacy path on the one-rank "
+                             f"mesh: tokens {toks_on.tolist()} vs "
+                             f"{toks_off.tolist()}")
+    del params, on_params, req, model, legacy
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train-mesh] {card} whisper-tiny ({cfg.num_encoder_layers} + "
+          f"{cfg.num_layers} layers of {cfg.d_model}, "
+          f"{m.param_count_estimate(cfg) / 1e6:.1f} M parameters): "
+          f"{kw['steps']} steps of {shape.global_batch} x {shape.seq_len} "
+          f"frames + tokens (plan {plan.optimizer}, remat "
+          f"{plan.remat_policy}, {plan.microbatches} microbatch) off the "
+          f"mesh and through the split step on a one-rank NCCL mesh from "
+          f"the same state: losses {on['losses']} equal, all "
+          f"{len(on['bits'])} leaves equal bit for bit, no kernel launched; "
+          f"{off['s']:.2f} / {on['s']:.2f} s for the steps (off / on, host "
+          f"clock); the legacy path {kw['batch']} x {kw['prefill_len']} + "
+          f"{kw['decode_tokens']} off the mesh and through the split "
+          f"prefill and decode steps on it: every row's tokens equal; "
+          f"prefill {pre_off:.3f} / {pre_on:.3f} s, decode {dec_off:.3f} / "
+          f"{dec_on:.3f} s (off / on); training {train_s:.1f} s, phase 24 "
+          f"(e) took {time.perf_counter() - t24e:.1f} s")
+
+
 def _train_nccl(torch, m, card, counts, reset_counts) -> dict:
     """Phase 24: the split train step on a one-rank NCCL mesh (see the
     module's docstring); returns K2's launches per step of each run."""
@@ -4386,6 +4549,8 @@ def _train_nccl(torch, m, card, counts, reset_counts) -> dict:
         torch.cuda.empty_cache()
         hybrid_k2 = _hybrid_nccl(torch, m, mesh, card, counts, reset_counts)
         mark24("zamba2-7b, step 0's gates and its steps off and on")
+        _whisper_nccl(torch, m, mesh, card, counts, reset_counts)
+        mark24("whisper-tiny, its steps and its legacy path off and on")
     finally:
         dist.destroy_process_group()
     print(f"[train-mesh] {card} phase 24 took "
@@ -4402,7 +4567,10 @@ MOE_DECODE = 16
 # through the split serve step, at full width and depth on the card: the
 # dense archs (i) and the recurrent ones (iii)
 SERVE_RANK_ARCHS = ("deepseek-7b", "nemotron-4-340b", "xlstm-1.3b",
-                    "zamba2-7b")
+                    "zamba2-7b", "whisper-tiny")
+# phase 25 (iv): the split train step of rank 0 of the same mesh at
+# train_4k
+TRAIN_RANK_ARCH = "whisper-tiny"
 SERVE_RANK_TARGET = "nvidia:h100x256"
 # K1 at a rank's shapes: 8 rows (128 over 16 data ranks) at lengths up to
 # decode_32k's 32,768 positions, 16-token pages
@@ -4584,6 +4752,89 @@ def _serve_rank(torch, m, card, counts, reset_counts, quiet, flush) -> dict:
           f"{layer}; K1 launched {out['layer_launches']['paged_attention']}"
           f" times; phase 25 took {time.perf_counter() - t25:.1f} s")
     return out
+
+
+def _train_rank(torch, m, card, quiet) -> dict:
+    """Phase 25 (iv): rank 0 of SERVE_RANK_TARGET's mesh runs
+    TRAIN_RANK_ARCH's split train step at train_4k
+    (``steps.described_rank_step``, collectives sent nowhere) for real on
+    the card, its state shards drawn on the card from seed 0 and its
+    rows of the batch from the synthetic source: the arguments within
+    DRYRUN_ARGS_RTOL of the dry run's, the peak within DRYRUN_PEAK_RATIO
+    of its GB a card, the loss finite.  Returns the numbers."""
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding.rules import data_parallel_dims
+    t = time.perf_counter()
+    arch = TRAIN_RANK_ARCH
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rank_") as tdir:
+        rec = dryrun.run_cell(arch, "train_4k", "single", out_dir=Path(tdir),
+                              log=quiet)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry run of {arch} x train_4k: {rec['error']}"
+                             f"\n{rec['traceback']}")
+    res = m.BuildService().build(m.AppSpec(arch=arch, shape="train_4k"),
+                                 SERVE_RANK_TARGET, lower=False)
+    mesh, tables, specs, plan = res.mesh, res.tables, res.specs, res.plan
+    shape, cfg = res.appspec.shape_config, res.appspec.model_config
+    model = m.model_for(cfg, remat=plan.remat_policy)
+    opt = m.make_optimizer(plan.optimizer)
+    step = m.steps.described_rank_step(model, opt, plan, mesh,
+                                       specs["state"]["params"],
+                                       shape.global_batch)
+    rows = shape.global_batch // math.prod(
+        mesh.shape[d] for d in data_parallel_dims(shape.global_batch, mesh))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base0 = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = _rank_shards(torch, m, tables["state"], specs["state"], mesh,
+                         gen)
+    batch = m.to_device(m.SyntheticSource(cfg.vocab_size, 0).batch(
+        model.batch_table(dataclasses.replace(shape, global_batch=rows)),
+        0), "cuda")
+    torch.cuda.synchronize()
+    inputs = torch.cuda.memory_allocated() - base0
+    mem = rec["memory_analysis"]
+    if abs(inputs - mem["argument_size_in_bytes"]) > \
+            DRYRUN_ARGS_RTOL * mem["argument_size_in_bytes"]:
+        raise AssertionError(f"{arch}'s rank train step: argument bytes "
+                             f"{mem['argument_size_in_bytes']:.6g}, the "
+                             f"inputs allocate {inputs:.6g}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base0
+    loss = float(metrics["loss"])
+    calls = {k: v["calls"] for k, v in metrics["collectives"].items()}
+    del state, batch, metrics, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not math.isfinite(loss):
+        raise AssertionError(f"{arch}'s rank train step: loss {loss}")
+    ratio = mem["per_chip_total_gb"] * 1e9 / peak
+    if not DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1]:
+        raise AssertionError(
+            f"{arch}'s rank train step: the dry run's "
+            f"{mem['per_chip_total_gb']:.4f} GB a card, the card's peak "
+            f"{peak / 1e9:.4f} GB (ratio {ratio:.4f} outside "
+            f"{DRYRUN_PEAK_RATIO})")
+    print(f"[rank] {card} {arch} x train_4k, rank 0 of {SERVE_RANK_TARGET}'s "
+          f"{tuple(mesh.shape)} mesh on the card through the split train "
+          f"step ({rows} rows of {shape.seq_len} frames + tokens; plan "
+          f"{plan.optimizer}, remat {plan.remat_policy}, "
+          f"{plan.microbatches} microbatch): arguments "
+          f"{mem['argument_size_in_bytes'] / 1e9:.4f} GB, the inputs "
+          f"allocate {inputs / 1e9:.4f} GB; peak {peak / 1e9:.4f} GB on the "
+          f"card, {mem['per_chip_total_gb']:.4f} GB the dry run (ratio "
+          f"{ratio:.4f}); loss {loss:.6f} finite; the step {step_s:.3f} s "
+          f"(host clock, device drained; the first, with its warm-ups), "
+          f"collectives {calls} calls sent nowhere; phase 25 (iv) took "
+          f"{time.perf_counter() - t:.1f} s")
+    return {"card_gb": peak / 1e9, "dryrun_gb": mem["per_chip_total_gb"],
+            "step_s": step_s}
 
 
 def _rank_attention(torch, m, arch, rng, counts) -> str:
@@ -6137,7 +6388,7 @@ def _main(dry: _DryRun) -> int:
 
     # ---- 20. LULESH over a one-rank NCCL mesh -------------------------
     dry.mark(20)
-    _lulesh_nccl(torch, mt, card)
+    k4_mesh = _lulesh_nccl(torch, mt, card, counts, reset_counts)
     print(f"[smoke] {card} phases 1-20 took "
           f"{time.perf_counter() - t_main:.1f} s")
 
@@ -6178,6 +6429,7 @@ def _main(dry: _DryRun) -> int:
     # ---- 25. one rank of a (16, 16) mesh serving, split ----------------
     dry.mark(25)
     rank = _serve_rank(torch, mt, card, counts, reset_counts, quiet, flush)
+    _train_rank(torch, mt, card, quiet)
     print(f"[smoke] {card} phases 1-25 took "
           f"{time.perf_counter() - t_main:.1f} s")
 
@@ -6284,6 +6536,9 @@ def _main(dry: _DryRun) -> int:
          "replaces": "src/repro/kernels/sedov_stencil.py:143",
          "launches": launches["sedov_stencil"],
          "examples_launches": {n: c["sedov_stencil"] for n, c in ex.items()},
+         # phase 20: lulesh.run(..., mesh, use_kernel=True) on a one-rank
+         # NCCL mesh, one launch a step
+         "mesh_launches": k4_mesh,
          "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound,
          "bound_by": "bytes" if k4_bytes / HBM_BYTES_PER_S >=

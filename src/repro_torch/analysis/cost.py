@@ -34,13 +34,10 @@ row, at most the table's.  The hand-written kernels cannot run on
 the same arithmetic.  The host values a step reads (a whole-batch
 cache's 0-d index, a prompt's last position) stay on the host.
 
-``mesh_collectives`` reckons the collectives of the port's mesh steps
+``Reckoning`` reckons the collectives of the port's mesh steps
 (``training/steps.py``), per call as ``Collectives`` counts them on live
-ranks, with each call's ring wire bytes.  The whole-weight steps' (the
-families outside ``SPLIT_FAMILIES``) come from the build's specs alone:
-the weight (and, training, the state) gathers, the gradient all-reduce,
-the logits gathers and a cache's gathers.  The split steps (dense, VLM,
-MoE, xLSTM, Zamba2) send their collectives where their layers run: each layer's
+ranks, with each call's ring wire bytes.  The split steps (every
+family's) send their collectives where their layers run: each layer's
 ``data`` gathers, the model axis's all-reduces of each row-parallel
 output, the vocabulary's gathers (serving) or max and sums (training),
 a sequence-split cache's heads (an all-to-all), and in training the
@@ -324,16 +321,6 @@ class Reckoning:
         d["count"] += 1
         d["wire_bytes"] += wire
 
-    def gather(self, local_bytes: int, pls, mesh_shape, skip=()) -> None:
-        """``_gather``'s calls for a leaf of ``local_bytes`` a rank under
-        placements ``pls``, the minor mesh dimensions first, none over
-        the dimensions in ``skip``."""
-        n = local_bytes
-        for m in reversed(range(len(mesh_shape))):
-            if pls[m].is_shard() and mesh_shape[m] > 1 and m not in skip:
-                self.call("all_gather", n, mesh_shape[m])
-                n *= mesh_shape[m]
-
 
 def _local_bytes(shape, dtype, pls, mesh_shape) -> int:
     n = [1] * len(shape)
@@ -381,78 +368,3 @@ def meta_shards(table, specs, mesh):
     """Meta tensors of one rank's shards of a declarative table at rest
     under its specs (``shard_table``)."""
     return meta_tree(shard_table(table, specs, mesh))
-
-
-def mesh_collectives(kind: str, tables: dict, specs: dict, mesh,
-                     logits_bytes: int = 0, microbatches: int = 1,
-                     rows: int = 0, calls=None) -> Reckoning:
-    """The collectives one rank issues in one call of the port's mesh
-    step of a build (``kind``: ``train``, ``prefill`` or ``decode``, the
-    build's ``step_fn``) over the build's ``tables`` and ``specs``:
-
-    * every leaf of the weights (training: of the whole state) gathered
-      whole;
-    * training: the microbatches' token counts all-reduced (``(M,)``
-      f32), then one f32 buffer of the loss and every gradient, each over
-      every data-parallel mesh dimension;
-    * serving: a decode's cache leaves gathered to this rank's rows over
-      their other sharded dimensions; the logits (``logits_bytes`` a
-      rank) all-gathered over the data-parallel dimensions.
-
-    ``rows`` is the batch's row count (the data-parallel dimensions are
-    those ``act_batch`` splits them over).  ``calls``: a split step's
-    log of its traced collectives (the dense, VLM, MoE, xLSTM and Zamba2
-    train and serve steps; see the module's docstring), which is its
-    reckoning."""
-    if calls is not None:
-        return Reckoning.of_calls(calls)
-    from repro_torch.models.params import leaf_items
-    from repro_torch.sharding.rules import data_parallel_dims, placements
-    r = Reckoning()
-    shape = tuple(mesh.shape)
-    dp = data_parallel_dims(rows, mesh)
-
-    def gather_all(table, spec_tree, skip_rows=False):
-        for (_, d), (_, spec) in zip(leaf_items(table),
-                                     leaf_items(spec_tree)):
-            pls = placements(spec, mesh)
-            row_axis = d.logical_axes.index("act_batch") \
-                if "act_batch" in d.logical_axes else None
-            skip = [m for m in dp if pls[m].is_shard() and
-                    pls[m].dim == row_axis] if skip_rows else ()
-            r.gather(_local_bytes(d.shape, d.dtype, pls, shape), pls,
-                     shape, skip)
-
-    def rest_gathers(table, spec_tree):
-        # a leaf whose rows rest unsplit: this rank's rows gathered whole
-        for (_, d), (_, spec) in zip(leaf_items(table),
-                                     leaf_items(spec_tree)):
-            pls = placements(spec, mesh)
-            if "act_batch" not in d.logical_axes or not dp or any(
-                    pls[m].is_shard() and pls[m].dim ==
-                    d.logical_axes.index("act_batch") for m in dp):
-                continue
-            n = math.prod(d.shape) * d.dtype.itemsize // math.prod(
-                shape[m] for m in dp)
-            for m in reversed(dp):
-                r.call("all_gather", n, shape[m])
-                n *= shape[m]
-
-    if kind == "train":
-        gather_all(tables["state"], specs["state"])
-        grads = sum(math.prod(d.shape) for _, d in
-                    leaf_items(tables["state"]["params"]))
-        for m in dp:
-            r.call("all_reduce", microbatches * 4, shape[m])
-        for m in dp:
-            r.call("all_reduce", (1 + grads) * 4, shape[m])
-        return r
-    gather_all(tables["params"], specs["params"])
-    if kind == "decode":
-        gather_all(tables["cache"], specs["cache"], skip_rows=True)
-    rest_gathers(tables["cache"], specs["cache"])
-    n = logits_bytes
-    for m in reversed(dp):
-        r.call("all_gather", n, shape[m])
-        n *= shape[m]
-    return r

@@ -21,9 +21,9 @@ legacy fixed-batch path's, the RMSNorm kernel alone on an rmsnorm
 config and no kernel on a LayerNorm one.  As in the reference, a serve
 shape's ``step_fn`` is ``build_prefill_step`` (prefill) or the
 whole-batch ``build_decode_step`` (decode) on the target's mesh: on a
-live mesh of ranks the step split along ``model`` for every family but
-the enc-dec one (``training.steps``), which the dry run traces as one
-rank's step on a described mesh (``steps.described_serve_step``).
+live mesh of ranks the step split along ``model`` (``training.steps``),
+which the dry run traces as one rank's step on a described mesh
+(``steps.described_serve_step``).
 The ``train`` shape's step is ``training.steps.
 build_train_step`` under the plan (optimizer, microbatches, remat,
 accumulation dtype), returned as ``step_fn`` with its state and batch

@@ -8,11 +8,7 @@ The port builds each cell on the H100 counterparts of those pods,
 ``nvidia:h100x512`` (2 x 16 x 16 over ``pod``, ``data``, ``model``),
 described targets with no ranks behind them, and traces the step on the
 ``meta`` device (``analysis/cost.trace``): the step that one rank of the
-port's mesh step computes.  A cell of a family outside
-``steps.SPLIT_FAMILIES`` (the enc-dec family) traces the one-device step
-on rank 0's rows of the batch and of the cache with the weights whole,
-its collectives reckoned from the specs (``cost.mesh_collectives``).  A
-dense, VLM, MoE, xLSTM or Zamba2 cell traces the split step itself
+port's mesh step computes, the split step itself, every family's
 (``steps.described_rank_step`` for training,
 ``steps.described_serve_step`` for the prefill and the decode) on rank
 0's shards of the state, the weights or the cache and its rows, its
@@ -26,11 +22,9 @@ roofline terms and the plan, and writes one JSON record under
 * ``memory_analysis``: ``argument_size_in_bytes`` (the inputs' bytes a
   card holds at rest, each leaf's shard under its spec),
   ``temp_size_in_bytes`` (the trace's peak of the step's own
-  allocations, plus what a whole-weight step gathers: the whole
-  weights, in a train step the whole state, a decode's cache rows; a
-  split step's gathers, one layer's weights along ``data`` at a time
-  and a sequence-split cache's heads one layer at a time, are
-  allocations of its trace already), ``output_size_in_bytes`` (the
+  allocations: the split step's gathers, one layer's weights along
+  ``data`` at a time and a sequence-split cache's heads one layer at a
+  time, are allocations of its trace), ``output_size_in_bytes`` (the
   logits gathered whole, the cache or state at rest),
   ``alias_size_in_bytes`` (the outputs written in place into inputs:
   a decode's cache, the train state), ``per_chip_total_gb`` (arguments
@@ -49,9 +43,7 @@ A split step holds its shards of the state (training: and of the
 gradients; serving: of the weights and the cache), and one layer's
 weights gathered along ``data`` at a time (``gathered_at_once``: the
 reckoning the live step's gather records are held to), so its memory
-per card shrinks with both mesh axes.  The enc-dec family's steps
-compute with whole weights (each rank gathers every weight for each
-step), which the records show.
+per card shrinks with both mesh axes.
 A failing cell records ``"status": "error"`` and its traceback, and the
 run returns 1.
 
@@ -107,8 +99,8 @@ def split_overrides(overrides: dict | None) -> tuple[dict, dict]:
 
 
 def split_cell(result) -> bool:
-    """Whether a build's cell runs split on its mesh
-    (``steps.SPLIT_FAMILIES`` on a mesh of several chips)."""
+    """Whether a build's cell runs split on its mesh (a mesh of several
+    chips: every family's steps split there, ``steps.SPLIT_FAMILIES``)."""
     from repro_torch.training import steps
     return result.target.num_chips > 1 and \
         result.appspec.model_config.family in steps.SPLIT_FAMILIES
@@ -117,9 +109,7 @@ def split_cell(result) -> bool:
 def cell_step(result):
     """(the step one rank runs, its meta arguments, the ranks splitting
     the rows) of a build: the build's step on a single card; on a mesh
-    the split step of rank 0 on its shards (``split_cell``), or the
-    one-device step each rank of the port's mesh step computes (rank 0's
-    rows, the weights whole)."""
+    the split step of rank 0 on its shards (``split_cell``)."""
     from repro_torch.models.transformer import model_for
     from repro_torch.training import steps
     plan, tables = result.plan, result.tables
@@ -168,38 +158,16 @@ def cell_step(result):
 
 def collectives_of(result, out, step=None) -> cost_mod.Reckoning:
     """The collectives one rank of the port's mesh step issues in one
-    call of the build's step (none on one card): a split step's as its
-    trace logged them (``out``'s metrics in training, the traced
-    ``step``'s log in serving), a whole-weight step's reckoned from its
-    specs; ``out`` is the traced one-rank step's result (its logits'
-    bytes)."""
-    if result.target.num_chips == 1:
+    call of the build's step (none on one card), as the split step's
+    trace logged them: ``out``'s metrics in training (``out`` is the
+    traced one-rank step's result), the traced ``step``'s log in
+    serving."""
+    if not split_cell(result):
         return cost_mod.Reckoning()
-    shape = result.appspec.shape_config
-    calls = None
-    if split_cell(result):
-        calls = out[1]["collective_calls"] if shape.kind == "train" \
-            else step.collective_calls
-    logits = 0 if shape.kind == "train" else \
-        out[0].numel() * out[0].element_size()
-    return cost_mod.mesh_collectives(
-        shape.kind, result.tables, result.specs, result.mesh,
-        logits_bytes=logits, microbatches=result.plan.microbatches,
-        rows=shape.global_batch, calls=calls)
-
-
-def _gathered_bytes(table, specs, mesh) -> int:
-    """The bytes the mesh step's gathers leave whole on a card (a leaf
-    it holds whole already counts nothing)."""
-    from repro_torch.models.params import leaf_items
-    from repro_torch.sharding.rules import placements
-    total = 0
-    for (_, d), (_, spec) in zip(leaf_items(table), leaf_items(specs)):
-        pls = placements(spec, mesh)
-        if any(pl.is_shard() and mesh.shape[m] > 1
-               for m, pl in enumerate(pls)):
-            total += math.prod(d.shape) * d.dtype.itemsize
-    return total
+    calls = out[1]["collective_calls"] \
+        if result.appspec.shape_config.kind == "train" \
+        else step.collective_calls
+    return cost_mod.Reckoning.of_calls(calls)
 
 
 def gathered_at_once(table, specs, mesh, remat: str | None) -> int:
@@ -251,7 +219,7 @@ def gathered_at_once(table, specs, mesh, remat: str | None) -> int:
     return max(groups.get("embed", 0), shared + layer, shared + head)
 
 
-def memory_per_chip(result, cost, out, split: int) -> dict:
+def memory_per_chip(result, cost, out) -> dict:
     """The reference's ``memory_analysis`` keys for one card (see the
     module's docstring)."""
     tables, specs, mesh = result.tables, result.specs, result.mesh
@@ -264,31 +232,22 @@ def memory_per_chip(result, cost, out, split: int) -> dict:
         metrics = sum(t.numel() * t.element_size()
                       for t in cost_mod._tensors(out[1]))
         output = alias + metrics
-        gathered = 0 if split_cell(result) else \
-            _gathered_bytes(tables["state"], specs["state"], mesh)
     else:
         weights = at_rest(tables["params"], specs["params"], mesh)
         batch = at_rest(tables["batch"], specs["batch"], mesh)
         cache = at_rest(tables["cache"], specs["cache"], mesh)
-        # a split step's logits come out whole already
-        whole = split_cell(result)
-        logits = out[0].numel() * out[0].element_size() * (
-            1 if whole else split)
-        gathered = 0 if whole else \
-            _gathered_bytes(tables["params"], specs["params"], mesh)
+        # the step's logits come out whole
+        logits = out[0].numel() * out[0].element_size()
         if kind == "decode":
             args = weights + cache + batch
             alias = cache
-            if not whole:
-                gathered += _gathered_bytes(tables["cache"], specs["cache"],
-                                            mesh) // split
         else:
             args = weights + batch
             alias = 0
         output = logits + cache
     mem = {"argument_size_in_bytes": float(args),
            "output_size_in_bytes": float(output),
-           "temp_size_in_bytes": float(cost.peak_bytes + gathered),
+           "temp_size_in_bytes": float(cost.peak_bytes),
            "alias_size_in_bytes": float(alias),
            "generated_code_size_in_bytes": None}
     mem["per_chip_total_gb"] = (mem["argument_size_in_bytes"] +
@@ -334,11 +293,11 @@ def _cell(rec: dict, app: AppSpec, target, plan_over: dict, name: str,
         rec["hlo_parse_s"] = None
         rec["plan"] = json.loads(result.plan.to_json())
         rec["fallbacks"] = result.plan.sharding_fallbacks
-        step, args, split = cell_step(result)
+        step, args, _ = cell_step(result)
         (out, cost), rec["trace_s"] = _timed(cost_mod.trace, step, *args)
         log(f"{name} traced on meta in {rec['trace_s']:.1f}s "
             f"({cost.dot_count} products)")
-        mem = memory_per_chip(result, cost, out, split)
+        mem = memory_per_chip(result, cost, out)
         rec["memory_analysis"] = mem
         if split_cell(result):
             train = result.appspec.shape_config.kind == "train"

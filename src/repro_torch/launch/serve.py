@@ -407,7 +407,10 @@ def grow_kv(cache: dict, n: int) -> dict:
     keep the encoder's length: its decode steps read them whole.  A K/V
     at rest on a mesh (a DTensor, its rows along ``data``, its KV heads
     along ``model`` or whole) grows its local shard, which holds the
-    whole sequence axis; a K/V split along its sequence is refused."""
+    whole sequence axis; a K/V split along its sequence
+    (``DECODE_SEQ_CACHE_RULES``) gathers its sequence shards, grows, and
+    rests again under the same placements over the new length
+    (``_grow_dtensor``)."""
     out = {}
     for key, v in cache.items():
         if isinstance(v, dict):
@@ -423,16 +426,35 @@ def grow_kv(cache: dict, n: int) -> dict:
 
 
 def _grow_dtensor(v, axis: int, n: int):
-    from torch.distributed.tensor import DTensor
-    if any(pl.is_shard() and pl.dim == axis for pl in v.placements):
-        raise NotImplementedError(
-            f"growing a cache sharded along its sequence axis "
-            f"({v.placements})")
-    from repro_torch.sharding.rules import contiguous_stride
+    """A K/V at rest grown by ``n`` zero positions along ``axis``: the
+    local shard grown where the sequence rests whole on the rank; where
+    mesh dimensions split the sequence, its shards all-gathered over
+    them (minor first), grown, and the rank's block of the new length
+    kept under the same placements (a split that does not divide the new
+    length falls back to whole, as the sharding rules fall back)."""
+    import math
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.sharding.rules import contiguous_stride, shard_index
+    from repro_torch.sharding.split import Collectives
+    dm, pls = v.device_mesh, list(v.placements)
+    seq = [m for m, pl in enumerate(pls)
+           if pl.is_shard() and pl.dim == axis and dm.size(m) > 1]
+    local = v.to_local()
+    comm = Collectives()
+    for m in reversed(seq):
+        local = comm.all_gather(local, axis, dm.get_group(m), dm.size(m))
+    local = _grow(local, axis, n)
     shape = list(v.shape)
     shape[axis] += n
-    return DTensor.from_local(_grow(v.to_local(), axis, n), v.device_mesh,
-                              v.placements, run_check=False,
+    if seq and shape[axis] % math.prod(dm.size(m) for m in seq):
+        pls = [Replicate() if m in seq else pl for m, pl in enumerate(pls)]
+        seq = []
+    if seq:
+        idx = shard_index(local.shape, [pl if m in seq else Replicate()
+                                        for m, pl in enumerate(pls)],
+                          tuple(dm.shape), dm.get_coordinate())
+        local = local[idx].contiguous()
+    return DTensor.from_local(local, dm, pls, run_check=False,
                               shape=tuple(shape),
                               stride=contiguous_stride(shape))
 
@@ -477,10 +499,9 @@ def _legacy_serve_main(arch: str, batch: int, prefill_len: int,
     initialized process group (and raises where the process holds no
     rank), the weights and the cache at rest under their specs, each
     rank prefilling and decoding its rows of the batch (split along
-    ``model`` for every family but the enc-dec one: its heads, MLP
-    columns or experts and vocabulary, its shard of the cache) and every
-    rank holding the whole batch's logits and tokens.  Returns the
-    reference's keys."""
+    ``model``: its heads, MLP columns or experts and vocabulary, its
+    shard of the cache) and every rank holding the whole batch's logits
+    and tokens.  Returns the reference's keys."""
     from repro_torch.core.appspec import AppSpec
     from repro_torch.core.build import BuildService
     from repro_torch.data.pipeline import SyntheticSource, to_device

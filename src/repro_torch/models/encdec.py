@@ -27,6 +27,17 @@ The weights carry a leading ``layers`` axis per stack (``enc_blocks``,
 end (the scan's carry), and a norm that reads a residual sum inside a
 block reads the unrounded f32 sum where XLA hands it so (``add_norm``).
 A LayerNorm config: no hand-written kernel runs on it.
+
+A train or serve step split over a mesh sets ``tp`` (``sharding.split``)
+on the model, as on ``DenseLM``: each block's weight shards gathered
+along ``data`` inside the block (the remat recompute gathers them
+again), the encoder's and the decoder's self-attention and the
+cross-attention by heads, the MLP by ``mlp``, the tied embedding and
+unembedding by vocabulary, the loss reduced over the model axis where
+the logits are split; a decode reads its shard of the self and cross
+K/V where they rest (a cache split along its sequence says so by its
+``seq_split`` flag: the cross K/V's shards are gathered a layer at a
+time).
 """
 
 from __future__ import annotations
@@ -47,11 +58,17 @@ class EncDecLM:
         self.remat = remat
         self._enc_cfg = cfg.replace(causal=False)    # non-causal encoder
         self._views = (None, None)   # (params, their per-layer views)
+        # the split of a mesh train or serve step while it runs, else None
+        self.tp = None
 
-    def drop_views(self) -> None:
-        """Forget the views ``layer_params`` keeps of the last weights (a
-        mesh step's gathered weights must not outlive the step)."""
-        self._views = (None, None)
+    def _used(self, tree, *path):
+        """Weights at params ``path`` as a layer uses them: as they are,
+        or in a split step gathered along ``data`` (``Split.use``)."""
+        return tree if self.tp is None else self.tp.use(tree, path)
+
+    def _table(self, params, *names) -> dict:
+        e = params["embed"]
+        return {k: self._used(e[k], "embed", k) for k in names if k in e}
 
     # ---- tables ----
     def enc_block_defs(self) -> dict:
@@ -140,17 +157,18 @@ class EncDecLM:
 
     # ---- encoder ----
     def enc_block_apply(self, p, y):
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
+        p = self._used(p, "enc_blocks")
         b, s = y.shape[:2]
         h = L.apply_norm(p["ln1"], y, cfg.norm)
         attn_out, _ = L.attention(
             p["attn"], h, self._enc_cfg,
             positions=torch.zeros((b, s), dtype=torch.int32,
-                                  device=y.device), mode="full")
+                                  device=y.device), mode="full", tp=tp)
         # XLA hands the norm the unrounded f32 residual sum
         y, h = L.add_norm(p["ln2"], y, attn_out, cfg.norm,
                           norm_of_rounded=False)
-        return y + L.mlp(p["mlp"], h, cfg)
+        return y + L.mlp(p["mlp"], h, cfg, tp)
 
     def encode(self, layers, ln_f, frames, block=None):
         """The encoder's output over ``frames`` (b, s, d): the frames plus
@@ -163,38 +181,54 @@ class EncDecLM:
         block = block or self.enc_block_apply
         for lp in layers:
             x = block(lp, x)
-        return L.apply_norm(ln_f, x, cfg.norm)
+        return L.apply_norm(self._used(ln_f, "enc_ln_f"), x, cfg.norm)
 
     # ---- decoder ----
     def dec_block_apply(self, p, x, enc_out, positions, mode, cache):
         """One decoder block: causal self-attention (``mode`` full, prefill
         or decode over ``cache``'s self K/V), cross-attention onto
         ``enc_out`` (decode: onto ``cache``'s cross K/V), the MLP.
-        Returns (x, the prefill's fresh {"k", "v", "xk", "xv"} or None)."""
-        cfg = self.cfg
+        Returns (x, the prefill's fresh {"k", "v", "xk", "xv"} or None).
+        A cache split along its sequence (``seq_split``) gathers each
+        cross K/V's shards for the layer."""
+        cfg, tp = self.cfg, self.tp
+        p = self._used(p, "dec_blocks")
         h = L.apply_norm(p["ln1"], x, cfg.norm)
         self_cache = None if cache is None else {
-            k: cache[k] for k in ("k", "v", "index", "layout")}
+            k: cache.get(k) for k in ("k", "v", "index", "layout",
+                                      "seq_split")}
         attn_out, new_self = L.attention(p["attn"], h, cfg,
                                          positions=positions, mode=mode,
-                                         cache=self_cache)
+                                         cache=self_cache, tp=tp)
         x, h = L.add_norm(p["ln_x"], x, attn_out, cfg.norm,
                           norm_of_rounded=False)
-        source = (cache["xk"], cache["xv"]) if mode == "decode" else enc_out
+        source = enc_out
+        if mode == "decode":
+            source = (cache["xk"], cache["xv"])
+            if cache.get("seq_split"):
+                source = tuple(tp.gather_seq(t) for t in source)
         xo, new_cross = L.attention(
             p["xattn"], h, cfg, positions=positions,
             mode="prefill" if mode == "prefill" else "full",
-            kv_source=source)
+            kv_source=source, tp=tp)
         x, h = L.add_norm(p["ln2"], x, xo, cfg.norm, norm_of_rounded=False)
-        x = x + L.mlp(p["mlp"], h, cfg)
+        x = x + L.mlp(p["mlp"], h, cfg, tp)
         if mode != "prefill":
             return x, None
         return x, {"k": new_self["k"], "v": new_self["v"],
                    "xk": new_cross["k"], "xv": new_cross["v"]}
 
+    def _embed(self, params, tokens, positions):
+        return L.embed(self._table(params, "embedding", "pos_embedding"),
+                       tokens, self.cfg, positions, tp=self.tp)
+
     def _logits(self, params, x):
-        h = L.apply_norm(params["ln_f"], x, self.cfg.norm)
-        return L.unembed(params["embed"], h, self.cfg)
+        """The logits of the stream (on a split step this rank's
+        vocabulary columns, where the tied table is split by them)."""
+        h = L.apply_norm(self._used(params["ln_f"], "ln_f"), x,
+                         self.cfg.norm)
+        return L.unembed(self._table(params, "embedding"), h, self.cfg,
+                         tp=self.tp)
 
     def _positions(self, tokens, start: int = 0):
         b, s = tokens.shape
@@ -211,7 +245,7 @@ class EncDecLM:
                               batch["frames"],
                               remat_wrap(self.enc_block_apply, self.remat))
         positions = self._positions(tokens)
-        x = L.embed(leaves["embed"], tokens, self.cfg, positions)
+        x = self._embed(leaves, tokens, positions)
 
         def dec(p, y, e):
             return self.dec_block_apply(p, y, e, positions, "full", None)[0]
@@ -220,11 +254,17 @@ class EncDecLM:
             x = dec(lp, x, enc_out)
         return self._logits(leaves, x), None
 
-    def loss(self, leaves, batch):
-        """Mean next-token cross entropy over ``train_leaves``."""
+    def loss(self, leaves, batch, weight=None):
+        """Mean next-token cross entropy over ``train_leaves``; a split
+        step's ``weight`` (this rank's share of the tokens) scales it."""
         logits, _ = self.full_forward(leaves, batch)
+        split = self.tp is not None and \
+            logits.shape[-1] < self.cfg.vocab_size
         loss = L.softmax_xent(logits, batch["labels"],
-                              batch.get("loss_mask"))
+                              batch.get("loss_mask"),
+                              tp=self.tp if split else None)
+        if weight is not None:
+            loss = loss * weight
         return loss, {"loss": loss}
 
     def prefill(self, params, batch):
@@ -236,7 +276,7 @@ class EncDecLM:
         enc_out = self.encode(enc_layers, params["enc_ln_f"],
                               batch["frames"])
         positions = self._positions(tokens)
-        x = L.embed(params["embed"], tokens, self.cfg, positions)
+        x = self._embed(params, tokens, positions)
         fresh = []
         for lp in dec_layers:
             x, nc = self.dec_block_apply(lp, x, enc_out, positions,
@@ -258,10 +298,11 @@ class EncDecLM:
                              "one length (a 0-d index)")
         at = int(cache["index"])
         positions = self._positions(tokens, at)
-        x = L.embed(params["embed"], tokens, self.cfg, positions)
+        x = self._embed(params, tokens, positions)
         for i, lp in enumerate(self.layer_params(params)[1]):
             layer_cache = {k: cache[k][i] for k in ("k", "v", "xk", "xv")}
-            layer_cache.update(index=cache["index"], layout=cache["layout"])
+            layer_cache.update(index=cache["index"], layout=cache["layout"],
+                               seq_split=cache.get("seq_split"))
             x, _ = self.dec_block_apply(lp, x, None, positions, "decode",
                                         layer_cache)
         return self._logits(params, x), dict(

@@ -27,8 +27,8 @@ sums a repeated token's gradients in a fixed order on the card.
 
 A step split over a mesh passes ``tp`` (a ``sharding.split.Split``, or
 a serve step's ``ServeSplit``) to its layers, with weights split along
-the model axis: attention by heads, the MLP by ``mlp``, the embedding
-and the unembedding by vocabulary.  A layer whose weight is whole (one
+the model axis: attention (cross-attention too) by heads, the MLP by
+``mlp``, the embedding and the unembedding by vocabulary.  A layer whose weight is whole (one
 model rank, or a dimension the axis does not divide) computes as on one
 device.  A split decode or chunk step reads the KV cache where it
 rests: the rank's own KV heads; of a cache that keeps every KV head
@@ -509,11 +509,13 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     heads: the K/V heads they read, ``wo`` row-parallel; a prefill's
     fresh K/V are the heads the rank computed (every KV head where they
     are kept whole), a decode or chunk reads the cache where it rests
-    (see the module's docstring).  Returns (out, fresh_cache or None)."""
+    (see the module's docstring).  Cross-attention splits the same way:
+    the rank's query heads over the K/V heads they read, projected from
+    the source on the rank's KV heads (every KV head where they are kept
+    whole) or read from a cached pair that holds those heads, or every
+    KV head.  Returns (out, fresh_cache or None)."""
     dt = x.dtype
     split = tp is not None and p["wq"].shape[1] < cfg.num_heads
-    if split and kv_source is not None:
-        raise NotImplementedError("cross-attention split by heads")
     # the K/V heads whole where ``kv_heads`` does not divide the model
     # axis: every model rank computes them all, as one device does
     shared_kv = split and p["wk"].shape[1] == cfg.num_kv_heads
@@ -533,16 +535,25 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         if "bk" in p:
             k = k + p["bk"]
             v = v + p["bv"]
+    new_cache = None
     if kv_source is not None:
-        out = dot_attention(q, k, v, causal=False)
-        y = torch.einsum("bshd,hde->bse", out, p["wo"])
-        return y, ({"k": k, "v": v} if mode == "prefill" else None)
+        if mode == "prefill":
+            new_cache = {"k": k, "v": v}
+        # the KV heads the rank's queries read of every KV head: of a
+        # cached pair, its range; of the fresh projections, as training
+        # reads them (``kv_for_heads``)
+        if shared_kv and isinstance(kv_source, tuple):
+            read = tp.kv_range(cfg, q.shape[2])
+            k, v = _heads(k, read), _heads(v, read)
+        elif shared_kv:
+            k, v = (tp.kv_for_heads(t, cfg, q.shape[2]) for t in (k, v))
+        out = dot_attention(q, k, v, causal=False, dtype=dt)
+        return _out(p, out, dt, tp, split), new_cache
     if cfg.pos == "rope":
         q = apply_rope(q, positions, fraction=cfg.rope_fraction,
                        theta=cfg.rope_theta)
         k = apply_rope(k, positions, fraction=cfg.rope_fraction,
                        theta=cfg.rope_theta)
-    new_cache = None
     if mode in ("decode", "chunk"):
         # a cache that keeps every KV head (its rules keep them whole, as
         # the sequence-parallel rules do) beside this rank's own KV heads:
@@ -579,12 +590,16 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
             out = dot_attention(q, k, v, causal=cfg.causal, dtype=dt)
     else:
         raise ValueError(f"attention mode {mode!r}")
+    return _out(p, out, dt, tp, split), new_cache
+
+
+def _out(p: dict, out: torch.Tensor, dt, tp, split: bool) -> torch.Tensor:
+    """The heads' outputs through ``wo``: on a split step the f32 partial
+    sums over this rank's heads, summed over the model axis and rounded
+    once."""
     if split:
-        # the f32 partial sums over this rank's heads, summed over the
-        # model axis and rounded once
-        return split_rows(tp, "bshd,hde->bse", out, p["wo"], dt), new_cache
-    y = torch.einsum("bshd,hde->bse", out, p["wo"])
-    return y, new_cache
+        return split_rows(tp, "bshd,hde->bse", out, p["wo"], dt)
+    return torch.einsum("bshd,hde->bse", out, p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,10 @@ axis it reads the neighbour's face plane, sent by a halo exchange (the
 ``p + q`` and the new ``v``), a block on the domain's edge keeps the
 clamp to its own edge plane, and ``dt``'s max is all-reduced over the
 mesh.  Every zone sees the operations of one device in the same order,
-so the result is one device's bit for bit.  The fused kernel stays on
-one device, as in the reference.
+so the result is one device's bit for bit.  The fused kernel steps the
+global grid, as in the reference: on a mesh of ranks each rank gathers
+the fields whole, steps the whole grid with the kernel and keeps its
+block (``run``).
 
 Physics (simplified staggered-free Sedov proxy, 6-point stencil):
   p   = (gamma-1)·rho·e                       ideal-gas EOS
@@ -293,23 +295,41 @@ def run(state: dict, cfg: LuleshConfig, iters: int, mesh=None,
         use_kernel: bool = False) -> dict:
     """``iters`` steps (the '-i' flag of the paper's Listing 1.5): the
     fused kernel step (``kernels.ops.sedov_step_kernel``) or the plain
-    oracle step, on ``mesh``'s ranks where it has several."""
+    oracle step, on ``mesh``'s ranks where it has several.  The kernel
+    steps the global grid, as the reference's does whatever the mesh: on
+    a mesh of ranks each rank gathers the fields whole, runs the
+    kernel's steps on the whole grid (``cfl_dt``'s global max,
+    then the fused step) and keeps its own block at rest, so every rank
+    holds one device's kernel run, bit for bit."""
     if use_kernel:
         from repro_torch.kernels.ops import sedov_step_kernel
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                "the fused stencil kernel runs on one device, as the "
-                "reference's does (it has no halo exchange): run the plain "
-                "step on a mesh of several ranks")
-
-        def step_fn(s):
-            return sedov_step_kernel(s, cfg)
-    else:
-        def step_fn(s):
-            return step(s, cfg, mesh)
+        if _on_mesh(mesh):
+            return _kernel_on_mesh(state, cfg, iters, mesh)
+        for _ in range(iters):
+            state = sedov_step_kernel(state, cfg)
+        return state
     for _ in range(iters):
-        state = step_fn(state)
+        state = step(state, cfg, mesh)
     return state
+
+
+def _kernel_on_mesh(state: dict, cfg: LuleshConfig, iters: int,
+                    mesh) -> dict:
+    """``run``'s kernel steps on a mesh of ranks: the fields gathered
+    whole once, ``iters`` kernel steps on the whole grid (every rank
+    computes the same), each rank's block kept at rest under the fields'
+    specs (``t`` replicated)."""
+    from repro_torch.kernels.ops import sedov_step_kernel
+    blocks = _Blocks(mesh, state["rho"].shape[0])
+    # each rank's block all-gathered (a plain tensor is whole already)
+    whole = {k: x.full_tensor() if hasattr(x, "full_tensor") else x
+             for k, x in state.items()}
+    for _ in range(iters):
+        whole = sedov_step_kernel(whole, cfg)
+    return {k: blocks.wrap(x if k == "t" else
+                           blocks.local(x, extra=int(k == "v")).contiguous(),
+                           extra=int(k == "v"))
+            for k, x in whole.items()}
 
 
 def fom(zones: int, iters: int, seconds: float) -> float:

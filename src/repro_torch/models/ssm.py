@@ -425,11 +425,6 @@ class RecurrentLM:
         # the split of a mesh train or serve step while it runs, else None
         self.tp = None
 
-    def drop_views(self) -> None:
-        """Forget the views ``layer_params`` keeps of the last weights (a
-        mesh step's gathered weights must not outlive the step)."""
-        self._views = (None, None)
-
     def batch_table(self, shape: ShapeConfig) -> dict:
         return token_batch_table(shape)
 

@@ -177,11 +177,6 @@ class DenseLM:
                                     for i in range(self.cfg.num_layers)])
         return self._views[1]
 
-    def drop_views(self) -> None:
-        """Forget the views ``layer_params`` keeps of the last weights (a
-        mesh step's gathered weights must not outlive the step)."""
-        self._views = (None, [])
-
     def train_leaves(self, params) -> dict:
         """The weights as autograd leaves: each tensor detached (sharing its
         storage) and set to require grad, the stacked block weights as a

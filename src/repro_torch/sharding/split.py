@@ -540,9 +540,10 @@ def gather_leaf(shard, split: Split, gather: tuple):
 
 
 # the stacked weights, by their params key: how many leading layer axes
-# they carry (the dense blocks one; the mLSTM's (groups, m_per) and the
-# Mamba2's (segs, per) two)
-STACKED = {"blocks": 1, "mlstm": 2, "slstm": 1, "mamba": 2, "mamba_tail": 1}
+# they carry (the dense blocks and the enc-dec's two stacks one; the
+# mLSTM's (groups, m_per) and the Mamba2's (segs, per) two)
+STACKED = {"blocks": 1, "mlstm": 2, "slstm": 1, "mamba": 2, "mamba_tail": 1,
+           "enc_blocks": 1, "dec_blocks": 1}
 
 
 def layer_axes(path) -> int:

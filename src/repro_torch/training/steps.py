@@ -6,8 +6,8 @@ verify (port of ``repro/training/steps.py``).
 over the model's per-layer leaves (``DenseLM.train_leaves``) and updates
 the state in place: parameters, moments, error feedback and step.  On a
 mesh of ranks it computes what one device computes, the state sharded at
-rest and, for ``SPLIT_FAMILIES`` (all but the enc-dec family), during the
-step too (``sharding.split``); ``Collectives`` counts what it sends.
+rest and during the step (``sharding.split``); ``Collectives`` counts
+what it sends.
 
 The serve builders close over the model and return a plain function of
 ``params`` and the step's inputs that runs without autograd.  The decode,
@@ -19,8 +19,8 @@ layout's cache raises.  ``build_decode_step`` is the legacy fixed-batch
 path's: the whole batch at one length, over a prefill's cache.  Every
 serve builder takes ``mesh=None``, as the reference's do: off a mesh or
 on a one-device mesh it returns the one-device step; on a mesh of ranks
-the step each rank runs on its rows, split along ``model`` for
-``SPLIT_FAMILIES`` (see "serving on a mesh" below); on a description of
+the step each rank runs on its rows, split along ``model`` (see
+"serving on a mesh" below); on a description of
 several devices a step that refuses to run.  ``described_serve_step`` is
 the split prefill or whole-batch decode that one rank of a described
 mesh runs on its shards (the dry run's).
@@ -46,9 +46,9 @@ from repro_torch.sharding.rules import (DEFAULT_RULES, contiguous_stride,
 from repro_torch.sharding.split import Collectives, Split
 
 # the families whose train and serve steps on a mesh run split
-# (``sharding.split``); the others (the enc-dec family) gather every leaf
-# whole for the step
-SPLIT_FAMILIES = ("dense", "vlm", "moe", "ssm_xlstm", "hybrid_mamba")
+# (``sharding.split``): every family the port has
+SPLIT_FAMILIES = ("dense", "vlm", "moe", "ssm_xlstm", "hybrid_mamba",
+                  "encdec")
 
 
 def _accum_dtype(plan: DeploymentPlan) -> torch.dtype:
@@ -335,62 +335,6 @@ def _split_step(model, plan: DeploymentPlan, mesh, update):
     return train_step
 
 
-def _mesh_step(model, opt, plan: DeploymentPlan, mesh, update):
-    """The whole-weight train step on a mesh of ranks, for the families
-    outside ``SPLIT_FAMILIES`` (the enc-dec family alone; see
-    ``build_train_step``)."""
-    from torch.distributed.tensor import DTensor
-    M = plan.microbatches
-    acc_dt = _accum_dtype(plan)
-
-    def train_step(state, batch):
-        if mesh.coordinate() is None:
-            raise ValueError("this rank is not on the mesh: it sits the "
-                             "step out")
-        comm = Collectives()
-        dm = mesh.device_mesh
-        full = tree_map(lambda x: _gather(x, comm), state)
-        mbs, dp = _rank_microbatches(batch, mesh, M, comm)
-        groups = [dm.get_group(m) for m in dp]
-
-        def total_of(t):
-            t = t.clone()
-            for g in groups:
-                comm.all_reduce(t, g)
-            return t
-        weights = _token_weights(mbs, total_of)
-        params = full["params"]
-        loss, metrics, grads = _batch_grads(model, params, mbs, acc_dt,
-                                            weights)
-        # one f32 buffer: the loss, then every gradient; summed over the
-        # data-parallel ranks, then cast once to the dtype the one-device
-        # step hands the update (the parameter's; f32 past one microbatch)
-        parts = []
-        tree_map(parts.append, grads)
-        buf = torch.cat([loss.reshape(1)] + [t.reshape(-1) for t in parts])
-        for g in groups:
-            comm.all_reduce(buf, g)
-        chunks = iter(torch.split(buf[1:], [t.numel() for t in parts]))
-        grads = tree_map(lambda t, p: next(chunks).view(t.shape).to(
-            p.dtype if M == 1 else torch.float32), grads, params)
-        loss = buf[0]
-        metrics = dict(metrics, loss=loss)
-        metrics = update(full, params, grads, metrics)
-
-        def back(x, f):
-            if not isinstance(x, DTensor):
-                return f
-            idx = shard_index(f.shape, x.placements, tuple(dm.shape),
-                              dm.get_coordinate())
-            return DTensor.from_local(f[idx].contiguous(), dm, x.placements,
-                                      run_check=False, shape=x.shape,
-                                      stride=x.stride())
-        return tree_map(back, state, full), dict(metrics,
-                                                 collectives=comm.counts)
-
-    return train_step
-
-
 def build_train_step(model, opt, plan: DeploymentPlan, mesh=None,
                      peak_lr: float = 3e-4, warmup_steps: int = 100,
                      total_steps: int = 10_000):
@@ -419,17 +363,13 @@ def build_train_step(model, opt, plan: DeploymentPlan, mesh=None,
       tokens, so each rank's loss is weighted by its share of each
       microbatch's tokens (an MoE router's aux loss is summed over the
       ranks instead: ``models.moe``);
-    * the dense, VLM, MoE, xLSTM and Zamba2 families (``SPLIT_FAMILIES``)
-      run split (``sharding.split``): each leaf stays the rank's shard,
-      gathered along ``data`` only for the layer that uses it (Zamba2's
-      shared block once a step, for all its applications), the products
-      split along ``model``, every gradient the rank's shard summed over
-      the data-parallel ranks, and the update on the shards, its global
-      norm, 8-bit row scales and error-feedback amax reduced across ranks
-      (``optim.adamw``);
-    * the enc-dec family gathers every leaf whole, computes the gradients
-      of its rows, sums them in one f32 all-reduce over the data-parallel
-      dimensions, updates whole leaves and keeps its slice.
+    * every family runs split (``sharding.split``): each leaf stays the
+      rank's shard, gathered along ``data`` only for the layer that uses
+      it (Zamba2's shared block once a step, for all its applications),
+      the products split along ``model``, every gradient the rank's shard
+      summed over the data-parallel ranks, and the update on the shards,
+      its global norm, 8-bit row scales and error-feedback amax reduced
+      across ranks (``optim.adamw``).
 
     On a mesh whose dimensions are all of one rank nothing is sent and
     the step is the one-device step, bit for bit.  The reference's
@@ -439,9 +379,7 @@ def build_train_step(model, opt, plan: DeploymentPlan, mesh=None,
     acc_dt = _accum_dtype(plan)
     update = _updater(opt, plan, peak_lr, warmup_steps, total_steps)
     if mesh is not None and mesh.device_mesh is not None:
-        if model.cfg.family in SPLIT_FAMILIES:
-            return _split_step(model, plan, mesh, update)
-        return _mesh_step(model, opt, plan, mesh, update)
+        return _split_step(model, plan, mesh, update)
     if mesh is not None and mesh.size > 1:
         def refuse(state, batch):
             raise no_ranks(mesh)
@@ -546,8 +484,8 @@ def _of_layout(cache: dict, layout: str) -> dict:
 # not divide, such as one slot's prompt chunk, is replicated and every
 # rank computes it) and every rank ends with the whole batch's logits.
 #
-# The dense, VLM, MoE, xLSTM and Zamba2 families (``SPLIT_FAMILIES``)
-# serve split, as the reference's GSPMD serve steps do
+# Every family (``SPLIT_FAMILIES``) serves split, as the reference's GSPMD
+# serve steps do
 # (``sharding.split.ServeSplit``): the weights stay the rank's shards,
 # each layer's gathered along ``data`` for that layer alone (Zamba2's
 # shared block once a step); the rank computes its heads, its MLP columns
@@ -558,7 +496,8 @@ def _of_layout(cache: dict, layout: str) -> dict:
 # every KV head (``kv_heads`` does not divide the model axis) the heads
 # its query heads read, of a cache split along its sequence
 # (``DECODE_SEQ_CACHE_RULES``) those heads' shards gathered one layer at
-# a time; a recurrent state its heads' and conv channels' shard.  A
+# a time; a recurrent state its heads' and conv channels' shard; an
+# enc-dec's cross K/V as its self K/V.  A
 # contiguous cache's rows rest split along ``data`` as the batch's are; a
 # prompt chunk (one row) gathers its slot's row along ``data`` alone, and
 # the ranks holding it write it back.  A paged pool is
@@ -566,11 +505,6 @@ def _of_layout(cache: dict, layout: str) -> dict:
 # divide it): after a decode or verify step the K/V entries each rank
 # wrote are all-gathered along ``data`` into every rank's pool, in the
 # one device's write order, so each pool equals one device's.
-#
-# The enc-dec family (Whisper, on the legacy path) gathers every weight
-# whole for each step and runs the one-device step on its rows; a
-# contiguous cache rests as DTensors under its specs, each rank gathering
-# its rows whole and keeping its shard of what it wrote.
 # ``step.collectives`` holds the counts of the last call (``Collectives``).
 
 
@@ -615,15 +549,6 @@ class _Share:
         if not self.dp:
             return x
         return x[(slice(None),) * axis + (self.rows,)]
-
-    def gather(self, x, axis: int, comm: Collectives):
-        """Every rank's rows, all-gathered along ``axis`` (minor mesh
-        dimensions first, so rows split over several come back major
-        first)."""
-        dm = self.mesh.device_mesh
-        for m in reversed(self.dp):
-            x = comm.all_gather(x, axis, dm.get_group(m), dm.size(m))
-        return x
 
 
 @contextlib.contextmanager
@@ -680,6 +605,8 @@ class _SplitServe:
 # the axes of a (layers, rows, seq, kv heads, dh) K/V cache leaf, a paged
 # pool's (layers, pages, page_size, kv heads, dh)
 _ROWS, _SEQ, _HEADS = 1, 2, 3
+# the K/V leaves of a cache: the self K/V, and an enc-dec's cross K/V
+_KV = ("k", "v", "xk", "xv")
 
 
 def _cache_split(x, split, paged: bool) -> tuple[list, bool]:
@@ -739,9 +666,10 @@ def _local_leaf(x, d: ParamDef, share: _Share, split) -> tuple:
 def _local_cache(cache, share: _Share, split, paged: bool = False,
                  table: dict | None = None) -> dict:
     """A cache at rest -> the rank's part as the split step reads it, in
-    place: each K/V leaf's local shard (a plain tensor is whole on every
-    rank: its rows taken), split along the rows as the batch is, along
-    the KV heads or the sequence (``seq_split``) by the model axis; the
+    place: each K/V leaf's local shard (an enc-dec's cross K/V as its
+    self K/V; a plain tensor is whole on every rank: its rows taken),
+    split along the rows as the batch is, along the KV heads or the
+    sequence (``seq_split``) by the model axis; the
     rank's rows of a per-slot index; a recurrent model's nested leaves
     (its states, a hybrid's shared K/V) each by its entry in the cache's
     ``table`` (``_local_leaf``)."""
@@ -754,7 +682,7 @@ def _local_cache(cache, share: _Share, split, paged: bool = False,
                 seq[-1][0])
             if any(s for _, s in seq):
                 out["seq_split"] = True
-    for key in ("k", "v"):
+    for key in _KV:
         if key not in cache:
             continue
         x = cache[key]
@@ -899,7 +827,8 @@ def _split_prefill_step(model, mesh, inner, rules):
     fresh cache at rest under the specs its table's axes give on the
     whole batch under ``rules``: what the rank computed (its rows, its KV
     heads or every KV head, a recurrent state's heads and conv channels)
-    is its shard, nothing is sent."""
+    is its shard, or holds it (the whole sequence, of a cache the rules
+    split along it: the rank keeps its block), nothing is sent."""
     from torch.distributed.tensor import DTensor
     table = dict(leaf_items(model.cache_table(1, 1)))
     serve = _SplitServe(model, mesh)
@@ -918,10 +847,15 @@ def _split_prefill_step(model, mesh, inner, rules):
         pls = placements(logical_to_spec(axes, shape, mesh, rules), mesh)
         dm = mesh.device_mesh
         idx = shard_index(shape, pls, tuple(dm.shape), dm.get_coordinate())
-        if tuple(s.stop - s.start for s in idx) != tuple(x.shape):
-            raise NotImplementedError(
-                f"a fresh cache leaf of {tuple(x.shape)} a rank under "
-                f"{pls}")
+        for i, (s, n) in enumerate(zip(idx, x.shape)):
+            if s.stop - s.start == n:
+                continue
+            # an axis the rank computed whole, which the rules split
+            if n != shape[i]:
+                raise NotImplementedError(
+                    f"a fresh cache leaf of {tuple(x.shape)} a rank under "
+                    f"{pls}")
+            x = x.narrow(i, s.start, s.stop - s.start)
         return DTensor.from_local(x.contiguous(), dm, pls, run_check=False,
                                   shape=tuple(shape),
                                   stride=contiguous_stride(shape))
@@ -989,48 +923,6 @@ def described_serve_step(model, mesh, params_specs, kind: str, rows: int,
     return step
 
 
-class _Weights:
-    """The weights gathered whole for a whole-weight serve step on a mesh,
-    held for the step alone (``with weights(params, comm) as full``).
-    Where no leaf needed a collective (one rank: each leaf is its local
-    tensor) the tree is the last call's, so the model keeps its per-layer
-    views of it instead of rebuilding them every step.  Where a leaf was
-    gathered, nothing keeps the gathered tree past its step: the model's
-    views of it are dropped as the step ends."""
-
-    def __init__(self, model):
-        self.model = model
-        self.last = ([], None)
-
-    @contextlib.contextmanager
-    def __call__(self, params, comm: Collectives):
-        calls = comm.counts["all_gather"]["calls"]
-        full = tree_map(lambda x: _gather(x, comm), params)
-        if comm.counts["all_gather"]["calls"] != calls:
-            self.last = ([], None)
-            try:
-                yield full
-            finally:
-                del full
-                self.model.drop_views()
-            return
-        leaves = [t for _, t in leaf_items(full, lambda x: not isinstance(
-            x, (dict, list)))]
-        old, tree = self.last
-        if tree is None or len(old) != len(leaves) or \
-                not all(a is b for a, b in zip(old, leaves)):
-            self.last = (leaves, full)
-        yield self.last[1]
-
-
-def _row_axes(model) -> dict:
-    """Cache leaf path -> the axis of its batch rows (``act_batch`` in the
-    cache table), None for a leaf with none."""
-    return {path: (d.logical_axes.index("act_batch")
-                   if "act_batch" in d.logical_axes else None)
-            for path, d in leaf_items(model.cache_table(1, 1))}
-
-
 def _cache_map(cache, fn, path=()):
     """``fn(path, tensor)`` over the tensors of a (nested) cache dict;
     other entries (the layout, flags) pass through."""
@@ -1041,167 +933,15 @@ def _cache_map(cache, fn, path=()):
     return cache
 
 
-def _row_axis(axes: dict, path, x) -> int | None:
-    """A cache leaf's row axis; a pool's per-slot index (which the
-    whole-batch table declares 0-d) has its rows on axis 0."""
-    if path[-1] == "index":
-        return 0 if x.dim() == 1 else None
-    if path not in axes:
-        raise ValueError(f"cache leaf {'/'.join(path)} is not in the "
-                         f"model's cache table")
-    return axes[path]
-
-
-def _rows_of(x, axis, share: _Share, comm: Collectives):
-    """A cache leaf at rest -> this rank's rows of it, whole along its
-    other axes (a DTensor's other sharded axes all-gathered)."""
-    from torch.distributed.tensor import DTensor
-    if axis is None:
-        return _gather(x, comm)
-    if not isinstance(x, DTensor):
-        return share.take(x, axis)
-    dm, out, kept = x.device_mesh, x.to_local(), []
-    for m in reversed(range(dm.ndim)):
-        pl = x.placements[m]
-        if not pl.is_shard() or dm.size(m) == 1:
-            continue
-        if pl.dim == axis and m in share.dp:
-            kept.append(m)
-            continue
-        out = comm.all_gather(out, pl.dim, dm.get_group(m), dm.size(m))
-    if sorted(kept) == share.dp:
-        return out
-    if kept:
-        raise NotImplementedError(
-            f"a cache split over {x.placements} along its rows, the batch "
-            f"over mesh dimensions {share.dp}")
-    return share.take(out, axis)
-
-
-def _at_rest(rows, pls, axis, share: _Share, comm: Collectives):
-    """This rank's rows of a cache leaf (the whole leaf where it has no
-    rows, ``axis`` None) -> at rest: a DTensor under placements ``pls``
-    holding this rank's shard, or (``pls`` None) the whole leaf on every
-    rank."""
-    from torch.distributed.tensor import DTensor, Replicate
-    if pls is None:
-        return rows if axis is None else share.gather(rows, axis, comm)
-    dm = share.mesh.device_mesh
-    kept = [] if axis is None else [
-        m for m in share.dp if pls[m].is_shard() and pls[m].dim == axis]
-    if kept and kept != share.dp:
-        raise NotImplementedError(
-            f"a cache split over {pls} along its rows, the batch over mesh "
-            f"dimensions {share.dp}")
-    if axis is not None and not kept:
-        rows = share.gather(rows, axis, comm)
-    shape = list(rows.shape)
-    for m in kept:
-        shape[axis] *= dm.size(m)
-    local_pls = [Replicate() if m in kept else pl
-                 for m, pl in enumerate(pls)]
-    idx = shard_index(rows.shape, local_pls, tuple(dm.shape),
-                      dm.get_coordinate())
-    return DTensor.from_local(rows[idx].contiguous(), dm, pls,
-                              run_check=False, shape=tuple(shape),
-                              stride=contiguous_stride(shape))
-
-
-def _placements_of(x):
-    return list(x.placements) if hasattr(x, "placements") else None
-
-
-def _mesh_cache_step(model, mesh, inner, row_extras: int = 0):
-    """``inner(params, cache, tokens, *extras)`` -> (logits, cache) on a
-    mesh of ranks, whole weights (the enc-dec family alone, outside
-    ``SPLIT_FAMILIES``): the weights gathered whole, this rank's rows of
-    the tokens, of the first ``row_extras`` extras and of every cache
-    leaf (along its table's ``act_batch`` axis), the one-device step, the
-    logits all-gathered and each cache leaf back at rest with the
-    placements it came with."""
-    axes = _row_axes(model)
-    weights = _Weights(model)
-
-    @torch.no_grad()
-    def step(params, cache, tokens, *extras):
-        comm = Collectives()
-        share = _Share(tokens.shape[0], mesh)
-        local = _cache_map(cache, lambda p, x: _rows_of(
-            x, _row_axis(axes, p, x), share, comm))
-        ex = [share.take(e) for e in extras[:row_extras]] + \
-            list(extras[row_extras:])
-        with weights(params, comm) as full:
-            logits, new = inner(full, local, share.take(tokens), *ex)
-        out = _cache_map(new, lambda p, x: _at_rest(
-            x, _placements_of(_leaf_at(cache, p)), _row_axis(axes, p, x),
-            share, comm))
-        step.collectives = comm.counts
-        return share.gather(logits, 0, comm), out
-
-    step.collectives = Collectives().counts
-    return step
-
-
-def _mesh_prefill_step(model, mesh, inner, rules):
-    """``inner(params, batch)`` -> (logits, cache) on a mesh of ranks,
-    whole weights (the enc-dec family alone, outside ``SPLIT_FAMILIES``):
-    the weights gathered whole, this rank's rows of every batch leaf, the
-    one-device prefill, the logits all-gathered, and the fresh cache at
-    rest under the specs its table's axes give on the whole batch under
-    ``rules``."""
-    axes = _row_axes(model)
-    table = dict(leaf_items(model.cache_table(1, 1)))
-
-    def fresh(path, rows, axis, share):
-        if axis is None or path not in table:
-            return None
-        shape = list(rows.shape)
-        for m in share.dp:
-            shape[axis] *= mesh.shape[m]
-        return placements(logical_to_spec(table[path].logical_axes, shape,
-                                          mesh, rules), mesh)
-
-    weights = _Weights(model)
-
-    @torch.no_grad()
-    def step(params, batch):
-        comm = Collectives()
-        share = _Share(batch["tokens"].shape[0], mesh)
-        with weights(params, comm) as full:
-            logits, new = inner(full, {k: share.take(v) if
-                                       isinstance(v, torch.Tensor) else v
-                                       for k, v in batch.items()})
-
-        def rest(path, x):
-            axis = _row_axis(axes, path, x)
-            return _at_rest(x, fresh(path, x, axis, share), axis, share,
-                            comm)
-        out = _cache_map(new, rest)
-        step.collectives = comm.counts
-        return share.gather(logits, 0, comm), out
-
-    step.collectives = Collectives().counts
-    return step
-
-
-def _leaf_at(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
-
-
 def build_prefill_step(model, mesh=None, cache_rules=None):
     """Whole-prompt prefill: (params, {"tokens", "last"?}) -> (logits,
-    cache).  On a mesh of ranks each rank prefills its rows (split along
-    ``model`` for ``SPLIT_FAMILIES``) and its cache rests under the specs
-    ``cache_rules`` (DEFAULT_RULES by default) give the cache table's
-    axes."""
+    cache).  On a mesh of ranks each rank prefills its rows, split along
+    ``model``, and its cache rests under the specs ``cache_rules``
+    (DEFAULT_RULES by default) give the cache table's axes."""
     @torch.no_grad()
     def prefill_step(params, batch):
         return model.prefill(params, batch)
-    mesh_step = _split_prefill_step if model.cfg.family in SPLIT_FAMILIES \
-        else _mesh_prefill_step
-    return _on_mesh(mesh, prefill_step, lambda: mesh_step(
+    return _on_mesh(mesh, prefill_step, lambda: _split_prefill_step(
         model, mesh, prefill_step, cache_rules or DEFAULT_RULES))
 
 
@@ -1250,8 +990,8 @@ def build_decode_step(model, mesh=None):
     for the tokens to come and its 0-d index the whole batch's length;
     each row's token is written at that index in place.  Returns the
     logits and the cache with the index advanced.  On a mesh each rank
-    decodes its rows of the cache, which rests sharded (split along
-    ``model`` for ``SPLIT_FAMILIES``)."""
+    decodes its rows of the cache where it rests, split along
+    ``model``."""
     @torch.no_grad()
     def decode_step(params, cache, tokens):
         if cache["index"].dim() != 0:
@@ -1260,9 +1000,7 @@ def build_decode_step(model, mesh=None):
                              "build_decode_step_slots")
         return model.decode_step(params, _of_layout(cache, "contiguous"),
                                  tokens)
-    mesh_step = _split_cache_step if model.cfg.family in SPLIT_FAMILIES \
-        else _mesh_cache_step
-    return _on_mesh(mesh, decode_step, lambda: mesh_step(
+    return _on_mesh(mesh, decode_step, lambda: _split_cache_step(
         model, mesh, decode_step))
 
 

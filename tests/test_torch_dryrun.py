@@ -26,9 +26,10 @@ reference's build of the same cells, on the CPU, without a device.
   meshes) ends ``ok``, traced as one rank's split step, its arguments a
   card the sum of the specs' shard bytes, worked out here;
   ``nemotron-4-340b`` x ``decode_32k`` on ``nvidia:h100x256``, split
-  (its cache along the sequence), fits a card's 80 GB, while the family
-  outside ``SPLIT_FAMILIES`` (enc-dec) still gathers every weight whole,
-  which the records show.  ``granite-moe-3b-a800m`` x ``train_4k``, once the
+  (its cache along the sequence), fits a card's 80 GB, and so does the
+  enc-dec family's, split too since every family is: ``whisper-tiny``'s
+  shards at rest and one layer's gathers, worked out here.
+  ``granite-moe-3b-a800m`` x ``train_4k``, once the
   refusal of MoE training on a data-parallel mesh, runs split: its
   shards at rest and one layer's gathers, worked out here.
 * The smoke prefill and decode cells on ``local:cpu-mesh8`` ((2, 4),
@@ -244,9 +245,12 @@ def test_whole_weights_on_a_mesh_show_in_memory_per_card(tmp_path):
     GB of bf16 weights rest a 256th to a card on nvidia:h100x256 and stay
     so in its decode step (a 9.66 GB cache shard along the sequence,
     each layer's weights gathered along ``data`` alone), under a card's
-    80 GB.  The family outside ``SPLIT_FAMILIES`` (enc-dec) gathers
-    every weight whole: whisper-tiny's sit whole in each card's
-    temporaries."""
+    80 GB.  The enc-dec family, which once gathered every weight whole
+    for each step, splits too: whisper-tiny's arguments a card are its
+    weights' and its cache's shards (the self and cross K/V split along
+    the sequence), and the weights it holds gathered at once, the
+    reckoning of the embedding and the learned position table it reads
+    together, fall short of the whole weights."""
     rec = dryrun.run_cell("nemotron-4-340b", "decode_32k", "single",
                           out_dir=tmp_path, log=quiet)
     assert rec["status"] == "ok", rec.get("traceback")
@@ -261,10 +265,20 @@ def test_whole_weights_on_a_mesh_show_in_memory_per_card(tmp_path):
     res = BuildService().build(AppSpec(arch="whisper-tiny",
                                        shape="decode_32k"),
                                dryrun.MESHES["single"], lower=False)
+    tgt = res.target
     whole = sum(int(np.prod(d.shape)) * d.dtype.itemsize
                 for _, d in leaf_items(res.tables["params"]))
-    assert rec["memory_analysis"]["temp_size_in_bytes"] > whole
-    assert "gathered_at_once_bytes" not in rec
+    mem = rec["memory_analysis"]
+    assert mem["argument_size_in_bytes"] == sum(
+        _shard_bytes(res.tables[k], res.specs[k], tgt.mesh_shape,
+                     tgt.mesh_axes) for k in ("params", "cache", "batch"))
+    cfg = get_config("whisper-tiny")
+    at_once = 2 * cfg.d_model * (cfg.vocab_size + cfg.max_position)
+    assert rec["gathered_at_once_bytes"] == at_once == \
+        dryrun.gathered_at_once(res.tables["params"], res.specs["params"],
+                                res.mesh, None)
+    assert 0 < at_once < whole and at_once < mem["temp_size_in_bytes"]
+    assert any("I1" in n for n in rec["plan"]["notes"])
 
 
 def test_moe_training_on_a_data_parallel_mesh_records_the_refusal(tmp_path):

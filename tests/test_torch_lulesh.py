@@ -190,21 +190,25 @@ def test_blast_wave_propagates():
 
 def test_step_refuses_a_mesh():
     """A mesh of several devices with no ranks behind it (a description)
-    refuses the step, and the fused kernel refuses a mesh of several
-    ranks: neither falls back to one device.  The 8-rank mesh path is
-    tests/test_torch_spmd.py's."""
+    refuses the step and the fused kernel's run: neither falls back to
+    one device.  The 8-rank mesh paths are tests/test_torch_spmd.py's
+    (the plain step) and tests/test_torch_spmd_encdec.py's (the kernel,
+    stepping the global grid on every rank)."""
     from repro_torch.launch.mesh import describe
     cfg = lulesh.LuleshConfig(grid=4)
     mesh = describe((2, 4), ("data", "model"))
     with pytest.raises(RuntimeError, match="no ranks"):
         lulesh.step(lulesh.init_state(cfg, "cpu"), cfg, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(RuntimeError, match="no ranks"):
         lulesh.run(lulesh.init_state(cfg, "cpu"), cfg, 1, mesh=mesh,
                    use_kernel=True)
-    # a one-device mesh is the plain step
+    # a one-device mesh is the plain step, and the kernel's one-device run
     one = describe((1, 1), ("data", "model"))
     st = lulesh.init_state(cfg, "cpu")
     got, want = lulesh.step(st, cfg, one), lulesh.step(st, cfg)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    got = lulesh.run(st, cfg, 2, mesh=one, use_kernel=True)
+    want = lulesh.run(st, cfg, 2, use_kernel=True)
     assert all(torch.equal(got[k], want[k]) for k in want)
 
 

@@ -63,6 +63,17 @@ def tight_target():
             module.register(_tight_spec(module))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread while this module runs: the smoke model's steps
+    are thousands of tiny ops, and with the suite's workers sharing the
+    cores, OpenMP's barriers across threads cost more than the ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _engines(**kw):
     """(reference engine, port gather engine, port kernel-dispatch engine)
     sharing the reference's weights."""

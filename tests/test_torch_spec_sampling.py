@@ -87,6 +87,17 @@ def tight_target():
             module.register(_tight_spec(module))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread while this module runs: the smoke model's steps
+    are thousands of tiny ops, and with the suite's workers sharing the
+    cores, OpenMP's barriers across threads cost more than the ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(partitionable=PARTITIONABLE, **kw):
     """(reference engine, port engine) on the reference's weights, drawn
     with the given threefry counter layout."""

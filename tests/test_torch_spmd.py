@@ -79,6 +79,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_spmd_serve import SPAWN_TIMEOUT_S
+
 from repro_torch.core.appspec import AppSpec
 from repro_torch.core.build import BuildService
 from repro_torch.core.target import get_target
@@ -106,7 +108,6 @@ LR = {"peak_lr": 1e-3, "warmup_steps": 0, "total_steps": 10}
 REF_LOSS_RTOL, REF_LATER_RTOL = 1e-3, 1e-2
 REF_GRAD_L2, REF_GRAD_L2_HEAD = 1e-1, 2e-2
 REF_UPDATE_COS = 0.5
-SPAWN_TIMEOUT_S = 240
 _quiet = lambda *a, **k: None  # noqa: E731
 
 
@@ -701,8 +702,11 @@ def test_train_main_on_the_mesh(spmd):
 
 
 def test_mesh_without_ranks_and_kernel_on_a_mesh_refuse():
-    """A step on a mesh description, and the fused stencil kernel on a
-    mesh of several ranks, raise: nothing falls back to one device."""
+    """A step on a mesh description raises: the build's train step, and
+    LULESH's plain step and its fused stencil kernel's run (which on a
+    mesh of ranks steps the global grid on every rank,
+    ``tests/test_torch_spmd_encdec.py``); nothing falls back to one
+    device."""
     res = _build()
     assert not res.mesh.live
     model, opt = _parts(res)
@@ -714,7 +718,7 @@ def test_mesh_without_ranks_and_kernel_on_a_mesh_refuse():
         res.step_fn(state, batch)
     cfg = lulesh.LuleshConfig(grid=8)
     mesh = describe((2, 4), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(RuntimeError, match="no ranks"):
         lulesh.run(lulesh.init_state(cfg, "cpu"), cfg, 1, mesh=mesh,
                    use_kernel=True)
     with pytest.raises(RuntimeError, match="no ranks"):

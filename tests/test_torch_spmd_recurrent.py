@@ -96,8 +96,9 @@ import torch
 
 from test_torch_spmd import (GRAD_L2, LOSS1_RTOL, LOSS_RTOL, LR,
                              UPDATE_L2, _Capture)
-from test_torch_spmd_serve import (_SplitWatch, _counted_vs_reckoned,
-                                   register_targets, serve_reckoning)
+from test_torch_spmd_serve import (SPAWN_TIMEOUT_S, _SplitWatch,
+                                   _counted_vs_reckoned, register_targets,
+                                   serve_reckoning)
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core.appspec import AppSpec
@@ -155,7 +156,6 @@ CONTROL_FLIPS, CONTROL_X = 0.01, 2.0
 FIXED_ONLY = {XLSTM: ("loss0", "loss", "grads"), ZAMBA: ()}
 # (g): the shared attention's window
 WINDOW = 8
-SPAWN_TIMEOUT_S = 300
 quiet = lambda *a, **k: None  # noqa: E731
 
 

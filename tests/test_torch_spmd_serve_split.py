@@ -60,8 +60,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from test_torch_spmd_serve import (_SplitWatch, _stats_counts,
-                                   register_targets, serve_reckoning)
+from test_torch_spmd_serve import (SPAWN_TIMEOUT_S, _SplitWatch,
+                                   _stats_counts, register_targets,
+                                   serve_reckoning)
 
 REPO = Path(__file__).resolve().parents[1]
 WORLD = 8
@@ -96,7 +97,6 @@ LOGITS_STEP_L2 = 2.0 ** -4
 # the scale of one head's row they reach 3.3 steps (deepseek-7b-smoke's
 # V), printed beside the gate
 POOL_STEPS = 2
-SPAWN_TIMEOUT_S = 300
 quiet = lambda *a, **k: None  # noqa: E731
 
 

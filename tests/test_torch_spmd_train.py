@@ -65,6 +65,7 @@ from test_torch_spmd import (GRAD_L2, LOSS1_RTOL, LOSS_RTOL, LR,
                              REF_LOSS_RTOL, REF_UPDATE_COS, _Capture,
                              _flat_grads, _hold_state, _leaf, _rel,
                              _whole_grads)
+from test_torch_spmd_serve import SPAWN_TIMEOUT_S
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core.appspec import AppSpec
@@ -94,7 +95,6 @@ MOE_LR = {}
 CLOCK = 1234.5
 TRAIN_MAIN = dict(arch=DENSE, steps=5, seq_len=SEQ, global_batch=BATCH)
 CKPT_EVERY, FAIL_AT = 2, 3
-SPAWN_TIMEOUT_S = 300
 _quiet = lambda *a, **k: None  # noqa: E731
 
 
